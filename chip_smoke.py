@@ -16,6 +16,19 @@ the final result line:
    65,536 rows. Inputs are seeded and include adversarial rows. Prints
    the kernel time (CUDA events, L2 flushed before each launch), its
    bound and the plain version's time.
+   3d. the fused row filter: K2 (`filter_pack`) and the compaction
+   epilogue (`compact_packed`) against their plain versions, bit for bit,
+   alone and chained (`decode_pack_filtered` against
+   `parse_and_pack_plain(pred=…)`): (i) the pgbench specs under
+   `bid <= 5` at 262,144 rows, (ii) every comparable kind raw under a
+   compound AND/OR/NOT/IS NULL filter, (iii) the integer and temporal
+   kinds nibble-packed; (ii) and (iii) at 65,499 rows, not a multiple of
+   the block; (iv) `bid <= 5` on two tables whose `bid` sits at another
+   position, with the same dense specs, one after the other (each must
+   get its own predicate descriptor). Inputs are seeded and hold NULLs, rows that fail to parse,
+   dead and force-kept rows, literals that fold to constants and edge
+   values. Prints each kernel's time, bound and plain time, and for the
+   epilogue the time of `words[:, keep]`.
 4. main path: pgbench insert CDC payloads → framing → stage_wal_batch →
    DeviceDecoder(device="cuda") with two batches in flight, 262,144 rows
    a batch. The decoder must launch the kernel; the first batch must equal
@@ -23,6 +36,14 @@ the final result line:
    digest, and a row sample must equal the CPU oracle. Prints records/s,
    the stage split (framing + staging, pack, H2D, kernel, D2H, assemble)
    and the device's busy share (copies + kernel over the batch's wall).
+5. filtered main path: the same stream under the publication filter
+   `bid <= 5` (about half the rows survive). The decoder must launch K2
+   and the epilogue for every batch; the first batch and its
+   `source_rows` must equal the CPU decoder's, the survivors must be the
+   payloads' rows with bid <= 5, a row sample must equal the CPU oracle,
+   and each batch must fetch at most (keep + 0.11) of the unfiltered
+   bytes. Prints records/s (staged records), the stage split with the
+   second D2H and the busy share.
 
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
@@ -124,10 +145,105 @@ def kernel_case(name, specs, nibble, rows, pool, seed):
     return rec
 
 
+def _words_err(got, want) -> tuple[int, int]:
+    """(max |difference| of the uint32 values, differing columns) of two
+    32-bit tensors of one shape."""
+    import torch
+
+    check(got.shape == want.shape, f"shapes {got.shape} != {want.shape}")
+    diff = (got.view(torch.int32).long() & 0xFFFFFFFF) \
+        - (want.view(torch.int32).long() & 0xFFFFFFFF)
+    if diff.dim() == 1:
+        diff = diff[None, :]
+    if not diff.numel():
+        return 0, 0
+    return int(diff.abs().max().item()), \
+        int((diff != 0).any(dim=0).sum().item())
+
+
+def filter_case(name, specs, nibble, rows, pool, seed, pred):
+    """Phase 3d case: K2 and the epilogue against their plain versions on
+    the card; returns (K2 record, epilogue record)."""
+    import numpy as np
+    import torch
+
+    from etl_tpu_torch.ops import decode_kernel as dk
+    from etl_tpu_torch.ops.bitpack import (compact_packed_plain,
+                                           filter_pack_plain,
+                                           layout_for_specs,
+                                           parse_and_pack_plain)
+    from etl_tpu_torch.testing import filter_case as inputs
+
+    bm, ln, fl = inputs(specs, pool, np.random.default_rng(seed), nibble)
+    reps = -(-rows // pool)
+    bm = np.ascontiguousarray(np.tile(bm, (reps, 1))[:rows])
+    ln = np.ascontiguousarray(np.tile(ln, (reps, 1))[:rows])
+    fl = np.ascontiguousarray(np.tile(fl, reps)[:rows])
+    bm_d, ln_d, fl_d = (torch.from_numpy(a).cuda() for a in (bm, ln, fl))
+    args = (bm_d, ln_d, fl_d, specs, nibble, pred)
+    k2 = dk.filter_pack(*args)
+    k2_want = filter_pack_plain(*args, dk.FILTER_BLOCK)
+    epi = dk.compact_packed(*k2)
+    keep = k2_want[0].new_zeros(rows, dtype=torch.bool)
+    keep_np = np.unpackbits(k2_want[1].cpu().numpy().view(np.uint8),
+                            bitorder="little")[:rows].astype(bool)
+    keep[torch.from_numpy(keep_np).cuda()] = True
+    epi_want = compact_packed_plain(k2_want[0], keep)
+    full = dk.decode_pack_filtered(*args)
+    full_want = parse_and_pack_plain(bm_d, ln_d, specs, nibble, pred=pred,
+                                     row_flags=fl_d)
+    torch.cuda.synchronize()
+    k2_err = [_words_err(a, b) for a, b in zip(k2, k2_want)]
+    epi_err = [_words_err(epi[0], epi_want[0]),
+               _words_err(epi[1], epi_want[2])]
+    full_err = [_words_err(a, b) for a, b in zip(full, full_want)]
+    for what, errs in (("K2", k2_err), ("epilogue", epi_err),
+                       ("K2 + epilogue", full_err)):
+        check(all(e == 0 for e, _ in errs),
+              f"{name}: {what} differs from its plain version "
+              f"(max err, columns) = {errs}")
+    S = int(full_want[2][0])
+    n_words = layout_for_specs(specs).n_words
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    k2_ms = time_ms(lambda: dk.filter_pack(*args), 50, flush=scratch.zero_)
+    k2_plain = time_ms(lambda: filter_pack_plain(*args, dk.FILTER_BLOCK), 3)
+    epi_ms = time_ms(lambda: dk.compact_packed(*k2), 50, flush=scratch.zero_)
+    epi_plain = time_ms(lambda: compact_packed_plain(k2_want[0], keep), 3)
+    words_i32 = k2_want[0].view(torch.int32)
+    lib_ms = time_ms(lambda: words_i32[:, keep], 50, flush=scratch.zero_)
+    n_mask, n_blocks = -(-rows // 32), -(-rows // dk.FILTER_BLOCK)
+    k2_bytes = bm.nbytes + ln.nbytes + fl.nbytes + n_words * 4 * rows \
+        + 4 * n_mask + 4 * n_blocks
+    k2_ops = OPS_PER_TEXT_BYTE * sum(w for _, _, w, _ in specs) * rows
+    epi_bytes = n_words * 4 * S + 4 * n_mask + 4 * n_blocks \
+        + n_words * 4 * rows + 4
+    recs = []
+    for kname, ms, plain, nbytes, ops, err, lib in (
+            ("decode_pack_filtered", k2_ms, k2_plain, k2_bytes, k2_ops,
+             k2_err + full_err, None),
+            ("compact_packed", epi_ms, epi_plain, epi_bytes, 0,
+             epi_err + full_err, lib_ms)):
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / SCALAR_OPS_PER_S * 1e3
+        recs.append({
+            "kernel": kname, "case": name, "rows": rows, "nibble": nibble,
+            "row_filter": pred.filter.sql, "survivors": S,
+            "max_abs_err": max(e for e, _ in err), "ms": ms,
+            "plain_ms": plain, "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "library_ms": lib})
+        print(f"  {name} {kname}: rows={rows} survivors={S} "
+              f"bit-identical=yes ms={ms:.5f} plain_ms={plain:.3f} "
+              f"bound_ms={recs[-1]['bound_ms']:.5f} "
+              f"({recs[-1]['bound_by']}, {nbytes} B) library_ms="
+              + ("null" if lib is None else f"{lib:.5f}"), flush=True)
+    return recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--seed", type=int, default=7)
-    ap.add_argument("--batches", type=int, default=8)
+    ap.add_argument("--batches", type=int, default=6)
     args = ap.parse_args()
 
     import torch
@@ -139,11 +255,13 @@ def main() -> int:
         return 1
     import numpy as np
 
-    from etl_tpu_torch import bench
+    from etl_tpu_torch import bench, convert
     from etl_tpu_torch.models.pgtypes import CellKind as K
     from etl_tpu_torch.ops import decode_kernel
     from etl_tpu_torch.ops.bitpack import saturation_width
     from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.predicate import (compile_row_filter,
+                                             parse_row_filter)
     from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch
 
     kind = torch.cuda.get_device_name(0)
@@ -197,6 +315,66 @@ def main() -> int:
     records = [kernel_case(name, specs, nib, n, pool, args.seed + i)
                for i, (name, specs, nib, n, pool) in enumerate(cases)]
 
+    print("[3d] fused row filter vs plain versions", flush=True)
+    filter_sql = "bid <= 5"
+    fschema = schema.with_row_predicate(parse_row_filter(filter_sql))
+
+    def kind_schema(kinds):
+        from etl_tpu_torch.models import (ColumnSchema, Oid,
+                                          ReplicatedTableSchema, TableName,
+                                          TableSchema)
+
+        oid = {K.BOOL: Oid.BOOL, K.I16: Oid.INT2, K.I32: Oid.INT4,
+               K.U32: Oid.OID, K.I64: Oid.INT8, K.DATE: Oid.DATE,
+               K.TIME: Oid.TIME, K.TIMESTAMP: Oid.TIMESTAMP,
+               K.TIMESTAMPTZ: Oid.TIMESTAMPTZ}
+        return ReplicatedTableSchema.with_all_columns(TableSchema(
+            1, TableName("public", "kinds"),
+            tuple(ColumnSchema(f"c{i}", oid[k])
+                  for i, (k, _) in enumerate(kinds))))
+
+    cmp_kinds = [(K.BOOL, 4), (K.I16, 8), (K.I32, 12), (K.U32, 12),
+                 (K.I64, 20), (K.DATE, 16), (K.TIME, 16), (K.TIMESTAMP, 32),
+                 (K.TIMESTAMPTZ, 32)]
+    raw_sql = ("((c0 = TRUE OR c1 < 100) AND (c2 >= -5000000 OR "
+               "c3 > 3000000000) AND NOT (c4 = -0 OR c5 IS NULL)) OR "
+               "(c6 < '12:00:00' AND c7 > '2000-01-01 00:00:00') OR "
+               "c8 <= '2024-06-15 00:00:00+00' OR c3 < -1 OR "
+               "(c2 > 10000000000000 AND c4 <> 1000000000000000000)")
+    nib_sql = ("((c0 >= 100 AND c1 <> -2147483648) OR c2 <= 2147483648 "
+               "OR c3 IS NULL) AND NOT (c4 > '2000-01-01' AND "
+               "c5 >= '12:00:00.000001') AND (c6 < '2000-01-01 00:00:00' "
+               "OR c7 = '2024-06-15 00:00:00+00' OR c3 > -1 OR "
+               "c1 < 99999999999)")
+    nib_cmp = cmp_kinds[1:]
+    fcases = [
+        ("3d(i) pgbench bid<=5", main_specs, True, rows, 16_384,
+         compile_row_filter(fschema.row_predicate, fschema)),
+        ("3d(ii) all comparable kinds raw",
+         tuple((i, k, w, bw(k, w)) for i, (k, w) in enumerate(cmp_kinds)),
+         False, 65_499, 4_096,
+         compile_row_filter(raw_sql, kind_schema(cmp_kinds))),
+        ("3d(iii) nibble int+temporal",
+         tuple((i, k, w, bw(k, w)) for i, (k, w) in enumerate(nib_cmp)),
+         True, 65_499, 4_096,
+         compile_row_filter(nib_sql, kind_schema(nib_cmp))),
+    ]
+    # one filter text on two tables whose filter column sits at another
+    # position, with the same dense specs: each must keep its own rows
+    i32_specs = tuple((i, K.I32, 12, bw(K.I32, 12)) for i in range(3))
+    for tag, names in (("a", ("aid", "bid", "abalance")),
+                       ("b", ("bid", "aid", "abalance"))):
+        fcases.append((
+            f"3d(iv{tag}) bid<=5 on ({', '.join(names)})", i32_specs, True,
+            16_411, 4_096,
+            compile_row_filter(filter_sql, convert.schema_from_plain(
+                1, "public", "pgbench_accounts",
+                [(n, 23, -1, False, None) for n in names], [True] * 3,
+                [False] * 3))))
+    frecords = [filter_case(name, specs, nib, n, pool, args.seed + 10 + i,
+                            pred)
+                for i, (name, specs, nib, n, pool, pred) in enumerate(fcases)]
+
     # -- 4. main path --------------------------------------------------------
     print("[4] main path", flush=True)
     check(args.batches >= 6, "--batches must be at least 6")
@@ -236,7 +414,7 @@ def main() -> int:
     rps = args.batches * rows / wall
     split = {"stage_ms": float(np.mean(stage_s)) * 1e3}
     split.update({k: float(np.mean([p.timings[k] for p in done]))
-                  for k in done[0].timings})
+                  for k in done[0].timings if k.endswith("_ms")})
     # device busy share: copies + kernel over the wall time of a batch
     busy = (split["h2d_ms"] + split["kernel_ms"] + split["d2h_ms"]) \
         / (wall / args.batches * 1e3)
@@ -246,24 +424,105 @@ def main() -> int:
           f"{busy:.4f} per-batch ms: "
           + " ".join(f"{k}={v:.4f}" for k, v in split.items()), flush=True)
 
+    unfiltered_fetched = done[0].timings["fetched_bytes"]
+
+    # -- 5. filtered main path -----------------------------------------------
+    print(f"[5] filtered main path ({filter_sql})", flush=True)
+    fdecoder = DeviceDecoder(fschema, device="cuda")
+    fwarm = fdecoder.decode(staged0)  # descriptors, pinned buffers
+    check(0 < fwarm.num_rows < rows, "filtered warm-up kept no or all rows")
+    stage_s.clear()
+    decode_kernel.launches = 0
+    decode_kernel.filter_launches = 0
+    decode_kernel.compact_launches = 0
+    fdone: list = []
+    fwall = bench.decode_stream(fdecoder, timed_stage, args.batches,
+                                fdone.append)
+    f_launches = decode_kernel.filter_launches
+    c_launches = decode_kernel.compact_launches
+    print(f"  batches={args.batches} rows/batch={rows} in_flight="
+          f"{bench.IN_FLIGHT} launches: filter={f_launches} "
+          f"compact={c_launches} unfiltered={decode_kernel.launches}",
+          flush=True)
+    check(f_launches >= args.batches and c_launches >= args.batches,
+          "the filtered path did not launch K2 and the epilogue for every "
+          "batch")
+    fbatches = [p.result() for p in fdone]
+    truth = np.asarray([i for i, (_, bid, _) in
+                        enumerate(bench.pgbench_rows(rows)) if bid <= 5],
+                       dtype=np.int64)
+    fcpu = DeviceDecoder(fschema, device="cpu").decode(stage().staged)
+    check(bench.filtered_batches_identical(fbatches[0], fcpu),
+          "first filtered batch (or its source_rows) differs from the CPU "
+          "decoder's")
+    check(all(np.array_equal(b.source_rows, truth) for b in fbatches),
+          "survivors differ from the payloads' rows with bid <= 5")
+    fdigest = bench.batch_digest(fbatches[0])
+    check(all(bench.batch_digest(b) == fdigest for b in fbatches[1:]),
+          "a later filtered batch differs from the first")
+    check(bench.oracle_sample_ok(fbatches[0], payloads, schema, 512,
+                                 seed=args.seed),
+          "a sampled filtered row differs from the CPU oracle decode_insert")
+    keep = len(truth) / rows
+    ratios = [p.timings["fetched_bytes"] / unfiltered_fetched for p in fdone]
+    check(max(ratios) <= keep + 0.11,
+          f"filtered fetch ratio {max(ratios):.4f} above keep {keep:.4f} "
+          f"+ 0.11")
+    frps = args.batches * rows / fwall
+    fsplit = {"stage_ms": float(np.mean(stage_s)) * 1e3}
+    fsplit.update({k: float(np.mean([p.timings[k] for p in fdone]))
+                   for k in fdone[0].timings if k.endswith("_ms")})
+    fetched = float(np.mean([p.timings["fetched_bytes"] for p in fdone]))
+    fbusy = (fsplit["h2d_ms"] + fsplit["kernel_ms"] + fsplit["d2h_ms"]
+             + fsplit["d2h_words_ms"]) / (fwall / args.batches * 1e3)
+    print(f"  parity: first batch + source_rows == CPU decoder, survivors "
+          f"== payload truth ({len(truth)} of {rows}, keep {keep:.4f}), "
+          f"{args.batches} digests equal, 512 oracle rows equal; fetched "
+          f"{fetched:.0f} B vs {unfiltered_fetched} B "
+          f"unfiltered (ratio {max(ratios):.4f})", flush=True)
+    print(f"  records/s={frps:.0f} wall_s={fwall:.4f} device_busy_share="
+          f"{fbusy:.4f} per-batch ms: "
+          + " ".join(f"{k}={v:.4f}" for k, v in fsplit.items()), flush=True)
+
     main_rec = records[0]
-    kernels = [{
-        "name": "decode_pack",
-        "route": "cuda",
-        "source": "etl_tpu_torch/csrc/decode_pack.cu",
-        "replaces": "etl_tpu/ops/pallas_kernel.py:114",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in records),
-        "ms": main_rec["ms"],
-        "plain_ms": main_rec["plain_ms"],
-        "bound_ms": main_rec["bound_ms"],
-        "bound_by": main_rec["bound_by"],
-        "library_ms": None,
-        "cases": records,
-        "main_path": {"records_per_s": rps, "batches": args.batches,
-                      "rows_per_batch": rows, "split_ms": split,
-                      "device_busy_share": busy},
-    }]
+    k2_recs = [r for recs in frecords for r in recs
+               if r["kernel"] == "decode_pack_filtered"]
+    epi_recs = [r for recs in frecords for r in recs
+                if r["kernel"] == "compact_packed"]
+    filtered_main = {"records_per_s": frps, "batches": args.batches,
+                     "rows_per_batch": rows, "row_filter": filter_sql,
+                     "keep": keep, "split_ms": fsplit,
+                     "fetched_bytes": fetched,
+                     "unfiltered_fetched_bytes": unfiltered_fetched,
+                     "fetched_ratio": max(ratios),
+                     "device_busy_share": fbusy}
+
+    def record(name, replaces, n_launches, recs, main):
+        main_case = recs[0]
+        return {
+            "name": name, "route": "cuda",
+            "source": "etl_tpu_torch/csrc/decode_pack.cu",
+            "replaces": replaces, "launches": n_launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
+            "bound_ms": main_case["bound_ms"],
+            "bound_by": main_case["bound_by"],
+            "library_ms": main_case["library_ms"],
+            "cases": recs, "main_path": main}
+
+    kernels = [
+        record("decode_pack", "etl_tpu/ops/pallas_kernel.py:114", launches,
+               records,
+               {"records_per_s": rps, "batches": args.batches,
+                "rows_per_batch": rows, "split_ms": split,
+                "device_busy_share": busy}),
+        record("decode_pack_filtered", "etl_tpu/ops/pallas_kernel.py:118",
+               f_launches, k2_recs, filtered_main),
+        record("compact_packed", "etl_tpu/ops/bitpack.py:212", c_launches,
+               epi_recs, filtered_main),
+    ]
+    kernels[1]["library_ms_note"] = (
+        "null: no PyTorch call parses, filters and packs the fields")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -33,6 +33,35 @@
 // far below the integer rate. This first version reads its bytes one at
 // a time through L1 and does not stage through shared memory.
 //
+// Fused row filter (K2). Replaces `kernel_filtered`
+// (etl_tpu/ops/pallas_kernel.py:118) and the XLA compaction epilogue
+// `bitpack.compact_packed` (etl_tpu/ops/bitpack.py:212) with one shard:
+//
+// - filter_pack_kernel, one thread per row as above: it evaluates the
+//   publication row filter, given as the flat postfix program of
+//   ops/predicate.py (PRED_* below), parsing each leaf's column on demand
+//   from the row's bytes; SQL's three-valued logic runs on two 32-bit
+//   registers used as stacks of (is_true, is_false) bits. keep = live &
+//   (true | force-keep | a referenced field that failed to parse). A kept
+//   row packs its words as decode_row does; a dropped row writes zeros.
+//   Blocks are FILTER_BLOCK rows, so each warp covers one aligned group of
+//   32 rows: its __ballot_sync of keep IS that group's keep-mask word in
+//   the reference's little bit order, and __syncthreads_count gives the
+//   block's survivor count.
+// - compact_kernel: each block sums the survivor counts of the blocks
+//   before it (and of all blocks, the total) with a block reduction, so
+//   no separate scan launch is needed. A kept row moves to its block's
+//   offset plus the popcounts of the mask words before it in the block
+//   plus __popc(mask & lanemask_lt); positions at or after the total are
+//   zeroed, as compact_packed's zeros_like leaves them.
+//
+// Bound of the two, bytes: on the pgbench main path K2 reads 16 B a row
+// (12 nibble bytes, 3 lengths, 1 flag) and writes 8 B of words plus 1/8 B
+// of mask; the epilogue reads the survivors' words and the mask and
+// writes 8 B a row. This first version keeps the unfiltered kernel's
+// one-byte-at-a-time reads and re-parses a referenced column for each
+// leaf that reads it.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC  (ops/decode_kernel.py)
 
@@ -384,6 +413,13 @@ __device__ bool parse_column(int kind, const Field &f, int len, uint32_t *c) {
     }
 }
 
+// Length of field j of row r (u8 or int32 lengths [R, n_cols]).
+__device__ __forceinline__ int field_len(const void *lengths, int lengths_u8,
+                                         int n_cols, int64_t r, int j) {
+    return lengths_u8 ? (int)((const uint8_t *)lengths)[r * n_cols + j]
+                      : ((const int32_t *)lengths)[r * n_cols + j];
+}
+
 // Parse and pack row r: its column r of every output word.
 __device__ void decode_row(const uint8_t *__restrict__ bmat, int64_t row_bytes,
                            const void *__restrict__ lengths, int lengths_u8,
@@ -397,9 +433,7 @@ __device__ void decode_row(const uint8_t *__restrict__ bmat, int64_t row_bytes,
     for (int j = 0; j < n_cols; ++j) {
         const int32_t *d = desc + j * DESC_STRIDE;
         Field f{row + d[DESC_OFF], d[DESC_WIDTH], nibble != 0};
-        int len = lengths_u8
-                      ? (int)((const uint8_t *)lengths)[r * n_cols + j]
-                      : ((const int32_t *)lengths)[r * n_cols + j];
+        int len = field_len(lengths, lengths_u8, n_cols, r, j);
         uint32_t comps[5];
         bool ok = parse_column(d[DESC_KIND], f, len, comps);
         int n_slots = d[DESC_NSLOTS];
@@ -428,7 +462,266 @@ __device__ void decode_row(const uint8_t *__restrict__ bmat, int64_t row_bytes,
     }
 }
 
+// ---------------------------------------------------------------------------
+// fused row filter (K2) and its compaction epilogue
+// ---------------------------------------------------------------------------
+
+// predicate descriptor: [n_instr, n_ref, n_ref referenced column slots,
+// then n_instr instructions of PRED_STRIDE int32 each:
+// (opcode, slot, cmp, negate, a, b, c, d)] — ops/predicate.py P_* / CMP_*
+constexpr int PRED_CMP = 0, PRED_NULLTEST = 1, PRED_AND = 2, PRED_OR = 3,
+              PRED_NOT = 4;
+constexpr int CMP_EQ = 0, CMP_LT = 1, CMP_GT = 2, CMP_CONST = 3;
+constexpr int PRED_STRIDE = 8;
+constexpr int FILTER_BLOCK = 256;  // rows per block: whole 32-row warps
+
 #ifdef __CUDACC__
+#define POPC(x) __popc(x)
+#else
+#define POPC(x) __builtin_popcount(x)
+#endif
+
+__device__ __forceinline__ bool cmp3(int64_t v, int64_t lit, int cmp) {
+    return cmp == CMP_EQ ? v == lit : (cmp == CMP_LT ? v < lit : v > lit);
+}
+
+// predicate._device_cmp on one row, against the host-folded literal words
+// of instruction `ins`. Components are the reference's int32 bit patterns.
+__device__ bool cmp_leaf(int kind, const uint32_t *c, const int32_t *ins) {
+    int cmp = ins[2];
+    bool res;
+    if (cmp == CMP_CONST) {
+        res = ins[4] != 0;
+    } else if (kind == K_U32) {
+        // sign-flipped int32 space orders as uint32 (literal pre-biased)
+        res = cmp3((int32_t)(c[0] ^ 0x80000000u), ins[4], cmp);
+    } else if (kind == K_I64) {
+        bool neg = (int32_t)c[0] > 0;
+        int32_t l0 = (int32_t)c[1], l1 = (int32_t)c[2], l2 = (int32_t)c[3];
+        bool sign_neg = neg && (l0 > 0 || l1 > 0 || l2 > 0);  // "-0" is 0
+        bool lneg = ins[7] != 0;
+        bool mag_eq = l0 == ins[4] && l1 == ins[5] && l2 == ins[6];
+        bool mag_gt = l2 > ins[6] ||
+                      (l2 == ins[6] && (l1 > ins[5] ||
+                                        (l1 == ins[5] && l0 > ins[4])));
+        if (cmp == CMP_EQ)
+            res = mag_eq && sign_neg == lneg;
+        else if (cmp == CMP_GT)
+            res = lneg ? (!sign_neg || (!mag_gt && !mag_eq))
+                       : (!sign_neg && mag_gt);
+        else
+            res = lneg ? (sign_neg && mag_gt)
+                       : (sign_neg || (!mag_gt && !mag_eq));
+    } else if (kind == K_TIME) {
+        int32_t ms = (int32_t)c[0], us = (int32_t)c[1];
+        bool eq = ms == ins[4] && us == ins[5];
+        bool gt = ms > ins[4] || (ms == ins[4] && us > ins[5]);
+        res = cmp == CMP_EQ ? eq : (cmp == CMP_GT ? gt : !gt && !eq);
+    } else if (kind == K_TIMESTAMP || kind == K_TIMESTAMPTZ) {
+        // the tz fold can push ms out of [0, 86_400_000): one borrow or
+        // carry renormalises (|tz| < 1 day); int64 keeps garbage rows of
+        // unparsed fields free of overflow
+        const int64_t day_ms = 86400000;
+        int64_t days = (int32_t)c[0], ms = (int32_t)c[1], us = (int32_t)c[2];
+        if (ms < 0) {
+            days -= 1;
+            ms += day_ms;
+        } else if (ms >= day_ms) {
+            days += 1;
+            ms -= day_ms;
+        }
+        bool eq = days == ins[4] && ms == ins[5] && us == ins[6];
+        bool gt = days > ins[4] ||
+                  (days == ins[4] && (ms > ins[5] ||
+                                      (ms == ins[5] && us > ins[6])));
+        res = cmp == CMP_EQ ? eq : (cmp == CMP_GT ? gt : !gt && !eq);
+    } else {  // K_BOOL, K_I16, K_I32, K_DATE: one int32 component
+        res = cmp3((int32_t)c[0], ins[4], cmp);
+    }
+    return ins[3] ? !res : res;
+}
+
+// predicate.CompiledRowFilter.device_keep for row r. `flag`: 0 dead,
+// 1 live, 2 live + force-keep.
+__device__ bool row_keep(const uint8_t *row, const void *lengths,
+                         int lengths_u8, int n_cols, const int32_t *desc,
+                         int nibble, const int32_t *pred, int flag,
+                         int64_t r) {
+    if (flag == 0) return false;
+    int n_instr = pred[0], n_ref = pred[1];
+    const int32_t *prog = pred + 2 + n_ref;
+    uint32_t ts = 0, fs = 0;  // Kleene stacks, bit 0 = top
+    for (int i = 0; i < n_instr; ++i) {
+        const int32_t *ins = prog + i * PRED_STRIDE;
+        int op = ins[0];
+        bool t, f;
+        if (op == PRED_CMP || op == PRED_NULLTEST) {
+            int j = ins[1];
+            bool is_null = field_len(lengths, lengths_u8, n_cols, r, j) == 0;
+            if (op == PRED_NULLTEST) {
+                t = ins[3] ? !is_null : is_null;
+                f = !t;
+            } else {
+                const int32_t *d = desc + j * DESC_STRIDE;
+                Field fl{row + d[DESC_OFF], d[DESC_WIDTH], nibble != 0};
+                uint32_t comps[5];
+                parse_column(d[DESC_KIND], fl,
+                             field_len(lengths, lengths_u8, n_cols, r, j),
+                             comps);
+                bool res = cmp_leaf(d[DESC_KIND], comps, ins);
+                t = !is_null && res;
+                f = !is_null && !res;
+            }
+        } else if (op == PRED_NOT) {
+            t = fs & 1u;
+            f = ts & 1u;
+            ts >>= 1;
+            fs >>= 1;
+        } else {  // PRED_AND / PRED_OR over the top n entries
+            int n = ins[4];
+            uint32_t m = n >= 32 ? 0xFFFFFFFFu : (1u << n) - 1u;
+            uint32_t tt = ts & m, ff = fs & m;
+            ts = n >= 32 ? 0u : ts >> n;
+            fs = n >= 32 ? 0u : fs >> n;
+            bool is_or = op == PRED_OR;
+            t = is_or ? tt != 0u : tt == m;
+            f = is_or ? ff == m : ff != 0u;
+        }
+        ts = (ts << 1) | (uint32_t)t;
+        fs = (fs << 1) | (uint32_t)f;
+    }
+    // a referenced field that is present but failed its device parse
+    // cannot be judged here: keep it, the host re-checks after fixup
+    bool unevaluable = false;
+    for (int k = 0; k < n_ref && !unevaluable; ++k) {
+        int j = pred[2 + k];
+        int len = field_len(lengths, lengths_u8, n_cols, r, j);
+        const int32_t *d = desc + j * DESC_STRIDE;
+        Field fl{row + d[DESC_OFF], d[DESC_WIDTH], nibble != 0};
+        uint32_t comps[5];
+        unevaluable = len != 0 && !parse_column(d[DESC_KIND], fl, len, comps);
+    }
+    return (ts & 1u) || flag > 1 || unevaluable;
+}
+
+// K2's body for one row: keep verdict, then the packed words (zeros for a
+// dropped row, as the reference's words * keep).
+__device__ bool filter_pack_row(const uint8_t *__restrict__ bmat,
+                                int64_t row_bytes,
+                                const void *__restrict__ lengths,
+                                int lengths_u8, int n_cols,
+                                const int32_t *__restrict__ desc, int nibble,
+                                const uint8_t *__restrict__ flags,
+                                const int32_t *__restrict__ pred,
+                                uint32_t *__restrict__ words, int64_t n_rows,
+                                int n_words, int64_t r) {
+    bool keep = row_keep(bmat + r * row_bytes, lengths, lengths_u8, n_cols,
+                         desc, nibble, pred, flags[r], r);
+    if (keep) {
+        decode_row(bmat, row_bytes, lengths, lengths_u8, n_cols, desc, nibble,
+                   words, n_rows, n_words, r);
+    } else {
+        for (int w = 0; w < n_words; ++w) words[(int64_t)w * n_rows + r] = 0;
+    }
+    return keep;
+}
+
+// Survivor counts of the blocks before `b` (*pre) and of all blocks
+// (*tot), over the indices start, start + step, ...: each thread of a
+// compaction block sums its share, the block reduces.
+__device__ void count_sums(const int32_t *counts, int64_t n_blocks,
+                           int64_t b, int start, int step, int64_t *pre,
+                           int64_t *tot) {
+    int64_t p = 0, t = 0;
+    for (int64_t i = start; i < n_blocks; i += step) {
+        int32_t c = counts[i];
+        t += c;
+        if (i < b) p += c;
+    }
+    *pre = p;
+    *tot = t;
+}
+
+// The compaction of row r of block offset `off`: a kept row moves to
+// off + its rank among the kept rows of its block; rows at or after the
+// total are zero.
+__device__ void compact_row(const uint32_t *__restrict__ words,
+                            const uint32_t *__restrict__ mask,
+                            uint32_t *__restrict__ out, int64_t n_rows,
+                            int n_words, int64_t off, int64_t total,
+                            int64_t r) {
+    int64_t wr = r >> 5;
+    uint32_t m = mask[wr];
+    if ((m >> (r & 31)) & 1u) {
+        int64_t rank = POPC(m & ((1u << (r & 31)) - 1u));
+        for (int64_t w = (r / FILTER_BLOCK) * (FILTER_BLOCK / 32); w < wr; ++w)
+            rank += POPC(mask[w]);
+        int64_t dest = off + rank;
+        for (int w = 0; w < n_words; ++w)
+            out[(int64_t)w * n_rows + dest] = words[(int64_t)w * n_rows + r];
+    }
+    if (r >= total)
+        for (int w = 0; w < n_words; ++w) out[(int64_t)w * n_rows + r] = 0;
+}
+
+#ifdef __CUDACC__
+__global__ void filter_pack_kernel(const uint8_t *__restrict__ bmat,
+                                   int64_t row_bytes,
+                                   const void *__restrict__ lengths,
+                                   int lengths_u8, int n_cols,
+                                   const int32_t *__restrict__ desc,
+                                   int nibble,
+                                   const uint8_t *__restrict__ flags,
+                                   const int32_t *__restrict__ pred,
+                                   uint32_t *__restrict__ words,
+                                   uint32_t *__restrict__ mask,
+                                   int32_t *__restrict__ block_counts,
+                                   int64_t n_rows, int n_words) {
+    int64_t r = (int64_t)blockIdx.x * FILTER_BLOCK + threadIdx.x;
+    bool keep = r < n_rows &&
+                filter_pack_row(bmat, row_bytes, lengths, lengths_u8, n_cols,
+                                desc, nibble, flags, pred, words, n_rows,
+                                n_words, r);
+    uint32_t ballot = __ballot_sync(0xFFFFFFFFu, keep);
+    if ((threadIdx.x & 31) == 0 && r < n_rows) mask[r >> 5] = ballot;
+    int count = __syncthreads_count(keep);
+    if (threadIdx.x == 0) block_counts[blockIdx.x] = count;
+}
+
+__device__ __forceinline__ int64_t warp_sum(int64_t v) {
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
+    return v;
+}
+
+__global__ void compact_kernel(const uint32_t *__restrict__ words,
+                               const uint32_t *__restrict__ mask,
+                               const int32_t *__restrict__ block_counts,
+                               int64_t n_blocks, uint32_t *__restrict__ out,
+                               int32_t *__restrict__ counts, int64_t n_rows,
+                               int n_words) {
+    __shared__ int64_t s_pre[FILTER_BLOCK / 32], s_tot[FILTER_BLOCK / 32];
+    int64_t pre, tot;
+    count_sums(block_counts, n_blocks, blockIdx.x, threadIdx.x, FILTER_BLOCK,
+               &pre, &tot);
+    pre = warp_sum(pre);
+    tot = warp_sum(tot);
+    int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+        s_pre[warp] = pre;
+        s_tot[warp] = tot;
+    }
+    __syncthreads();
+    pre = tot = 0;
+    for (int w = 0; w < FILTER_BLOCK / 32; ++w) {
+        pre += s_pre[w];
+        tot += s_tot[w];
+    }
+    if (blockIdx.x == 0 && threadIdx.x == 0) counts[0] = (int32_t)tot;
+    int64_t r = (int64_t)blockIdx.x * FILTER_BLOCK + threadIdx.x;
+    if (r < n_rows)
+        compact_row(words, mask, out, n_rows, n_words, pre, tot, r);
+}
+
 __global__ void decode_pack_kernel(const uint8_t *__restrict__ bmat,
                                    int64_t row_bytes,
                                    const void *__restrict__ lengths,
@@ -462,6 +755,51 @@ int etl_decode_pack(const void *bmat, int64_t row_bytes, const void *lengths,
     return (int)cudaGetLastError();
 }
 
+// K2 on `stream`: words uint32[n_words, R] (zeros on dropped rows),
+// mask uint32[ceil(R / 32)], block_counts int32[ceil(R / FILTER_BLOCK)].
+int etl_filter_pack(const void *bmat, int64_t row_bytes, const void *lengths,
+                    int lengths_u8, int n_cols, const void *desc, int nibble,
+                    const void *flags, const void *pred, void *words,
+                    void *mask, void *block_counts, int64_t n_rows,
+                    int n_words, void *stream) {
+    if (n_rows <= 0) return 0;
+    int64_t blocks = (n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
+    filter_pack_kernel<<<(unsigned)blocks, FILTER_BLOCK, 0,
+                         (cudaStream_t)stream>>>(
+        (const uint8_t *)bmat, row_bytes, lengths, lengths_u8, n_cols,
+        (const int32_t *)desc, nibble, (const uint8_t *)flags,
+        (const int32_t *)pred, (uint32_t *)words, (uint32_t *)mask,
+        (int32_t *)block_counts, n_rows, n_words);
+    return (int)cudaGetLastError();
+}
+
+// The compaction epilogue on `stream`: out uint32[n_words, R] (survivors
+// first, zeros behind), counts int32[1].
+int etl_compact_packed(const void *words, const void *mask,
+                       const void *block_counts, void *out, void *counts,
+                       int64_t n_rows, int n_words, void *stream) {
+    if (n_rows <= 0) return 0;
+    int64_t blocks = (n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
+    compact_kernel<<<(unsigned)blocks, FILTER_BLOCK, 0,
+                     (cudaStream_t)stream>>>(
+        (const uint32_t *)words, (const uint32_t *)mask,
+        (const int32_t *)block_counts, blocks, (uint32_t *)out,
+        (int32_t *)counts, n_rows, n_words);
+    return (int)cudaGetLastError();
+}
+
+// Asynchronous strided copy (cudaMemcpy2DAsync, any direction): `height`
+// rows of `width` bytes, `spitch` apart in `src`, `dpitch` in `dst`.
+int etl_copy_2d(void *dst, int64_t dpitch, const void *src, int64_t spitch,
+                int64_t width, int64_t height, void *stream) {
+    if (width <= 0 || height <= 0) return 0;
+    return (int)cudaMemcpy2DAsync(dst, (size_t)dpitch, src, (size_t)spitch,
+                                  (size_t)width, (size_t)height,
+                                  cudaMemcpyDefault, (cudaStream_t)stream);
+}
+
+int etl_filter_block_rows() { return FILTER_BLOCK; }
+
 const char *etl_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
@@ -474,6 +812,55 @@ void etl_decode_pack_host(const void *bmat, int64_t row_bytes,
         decode_row((const uint8_t *)bmat, row_bytes, lengths, lengths_u8,
                    n_cols, (const int32_t *)desc, nibble, (uint32_t *)out,
                    n_rows, n_words, r);
+}
+
+// K2 on the host: the same per-row body, with each warp's ballot and each
+// block's count formed by loops.
+void etl_filter_pack_host(const void *bmat, int64_t row_bytes,
+                          const void *lengths, int lengths_u8, int n_cols,
+                          const void *desc, int nibble, const void *flags,
+                          const void *pred, void *words, void *mask,
+                          void *block_counts, int64_t n_rows, int n_words) {
+    int64_t blocks = (n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
+    for (int64_t b = 0; b < blocks; ++b) {
+        int32_t count = 0;
+        for (int64_t g = b * FILTER_BLOCK; g < (b + 1) * FILTER_BLOCK;
+             g += 32) {
+            uint32_t ballot = 0;
+            for (int lane = 0; lane < 32; ++lane) {
+                int64_t r = g + lane;
+                bool keep = r < n_rows &&
+                            filter_pack_row(
+                                (const uint8_t *)bmat, row_bytes, lengths,
+                                lengths_u8, n_cols, (const int32_t *)desc,
+                                nibble, (const uint8_t *)flags,
+                                (const int32_t *)pred, (uint32_t *)words,
+                                n_rows, n_words, r);
+                ballot |= (uint32_t)keep << lane;
+            }
+            if (g < n_rows) ((uint32_t *)mask)[g >> 5] = ballot;
+            count += POPC(ballot);
+        }
+        ((int32_t *)block_counts)[b] = count;
+    }
+}
+
+// The compaction epilogue on the host: one "thread" per block does the
+// block's count sums.
+void etl_compact_packed_host(const void *words, const void *mask,
+                             const void *block_counts, void *out,
+                             void *counts, int64_t n_rows, int n_words) {
+    int64_t blocks = (n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
+    for (int64_t b = 0; b < blocks; ++b) {
+        int64_t pre, tot;
+        count_sums((const int32_t *)block_counts, blocks, b, 0, 1, &pre,
+                   &tot);
+        if (b == 0) ((int32_t *)counts)[0] = (int32_t)tot;
+        for (int64_t r = b * FILTER_BLOCK;
+             r < (b + 1) * FILTER_BLOCK && r < n_rows; ++r)
+            compact_row((const uint32_t *)words, (const uint32_t *)mask,
+                        (uint32_t *)out, n_rows, n_words, pre, tot, r);
+    }
 }
 #endif
 

@@ -285,14 +285,15 @@ class ReplicatedTableSchema:
         n = len(schema.columns)
         repl = set(d["replicated"])
         ident = set(d["identity"])
+        pred = None
         if d.get("row_filter") is not None:
-            # the publication row filter has no port yet: refuse rather
-            # than decode rows the publication excludes
-            raise NotImplementedError(
-                "publication row filters are not ported to etl_tpu_torch")
+            from ..ops.predicate import RowFilter  # late: models←ops cycle
+
+            pred = RowFilter.from_json(d["row_filter"])
         return cls(schema,
                    ColumnMask(i in repl for i in range(n)),
-                   ColumnMask(i in ident for i in range(n)))
+                   ColumnMask(i in ident for i in range(n)),
+                   row_predicate=pred)
 
     def __repr__(self) -> str:
         return (f"ReplicatedTableSchema({self.table_schema.name}, "

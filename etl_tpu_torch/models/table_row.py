@@ -160,6 +160,18 @@ class TextArray:
     def to_pylist(self) -> list:
         return [self[i] for i in range(len(self))]
 
+    def take(self, rows: np.ndarray) -> "TextArray":
+        """Row-gather by index array, in Arrow layout (no Python
+        objects): the values of each taken row, concatenated in order."""
+        rows = np.asarray(rows, dtype=np.int64)
+        lens = (self.offsets[1:] - self.offsets[:-1])[rows]
+        offsets = np.zeros(len(rows) + 1, dtype=np.int32)
+        np.cumsum(lens, out=offsets[1:])
+        total = int(offsets[-1])
+        src = np.repeat(self.offsets[rows].astype(np.int64)
+                        - offsets[:-1], lens) + np.arange(total)
+        return TextArray(offsets, self.values[src], self.validity[rows])
+
     def to_arrow(self):
         import pyarrow as pa
 
@@ -197,6 +209,21 @@ class Column:
     def is_text(self) -> bool:
         return isinstance(self.data, TextArray)
 
+    def take(self, rows: np.ndarray) -> "Column":
+        """Row-gather of this column by index array (the host half of
+        publication row-filter compaction): dense data gathers as numpy,
+        text as a TextArray gather (no Python objects), object lists by
+        comprehension."""
+        if self.is_dense or self.is_text:
+            data: Any = self.data[rows] if self.is_dense \
+                else self.data.take(rows)
+        else:
+            data = [self.data[int(i)] for i in rows]
+        toast = self.toast_unchanged[rows] \
+            if self.toast_unchanged is not None else None
+        return Column(self.schema, data, self.validity[rows], toast,
+                      lazy_text_oid=self.lazy_text_oid)
+
     def value(self, i: int) -> Any:
         """Python value at row i regardless of storage form."""
         if self.is_toast_unchanged(i):
@@ -220,17 +247,31 @@ class Column:
 
 class ColumnarBatch:
     """Typed columnar rows for one table — the unit the decode engine
-    emits and Arrow-native destinations consume."""
+    emits and Arrow-native destinations consume.
 
-    __slots__ = ("schema", "columns", "num_rows")
+    `source_rows` (int64[num_rows] | None) is set by filtered decodes
+    only: the staged-batch row index each surviving row came from, so
+    consumers holding per-source-row side arrays can compact them to
+    match."""
+
+    __slots__ = ("schema", "columns", "num_rows", "source_rows")
 
     def __init__(self, schema: ReplicatedTableSchema, columns: list[Column]):
         self.schema = schema
         self.columns = columns
         self.num_rows = len(columns[0]) if columns else 0
+        self.source_rows: np.ndarray | None = None
         for c in columns:
             if len(c) != self.num_rows:
                 raise ValueError("ragged columnar batch")
+
+    def take(self, rows: np.ndarray) -> "ColumnarBatch":
+        """Row-gather into a new batch (column-at-a-time, no row
+        objects); `source_rows` composes through the gather when set."""
+        out = ColumnarBatch(self.schema, [c.take(rows) for c in self.columns])
+        if self.source_rows is not None:
+            out.source_rows = self.source_rows[rows]
+        return out
 
     @classmethod
     def from_rows(cls, schema: ReplicatedTableSchema, rows: Sequence[TableRow]) -> "ColumnarBatch":

@@ -2,8 +2,9 @@
 
 Copy of the host half of the reference's `etl_tpu/ops/bitpack.py` (the
 layout and `unpack_host`, numpy) plus the plain PyTorch version of its
-device half: `pack_plain` and `parse_and_pack_plain`, the plain version
-of the CUDA kernel in `csrc/decode_pack.cu` (ops/decode_kernel.py).
+device half: `pack_plain`, `parse_and_pack_plain`, `filter_pack_plain`
+and `compact_packed_plain`, the plain versions of the CUDA kernels in
+`csrc/decode_pack.cu` (ops/decode_kernel.py), and `unpack_keep_mask`.
 
 Layout (per row): for each dense column in spec order — 1 ok bit, then
 each nonzero-width component (parsers.COLUMN_COMPONENTS order), signed
@@ -194,26 +195,109 @@ def pack_plain(layout: BitLayout, columns) -> torch.Tensor:
         .view(torch.uint32)
 
 
-def parse_and_pack_plain(bmat: torch.Tensor, lengths: torch.Tensor,
-                         specs: tuple, nibble: bool) -> torch.Tensor:
-    """The plain version of the decode kernel: per-column parse
-    (parsers.parse_column) + bit-pack (pack_plain) of the packed field
-    bytes `bmat` u8[R, ΣW] (u8[R, ΣW/2] planar nibble pairs when
-    `nibble`) and `lengths` [R, n_dense] → uint32[n_words, R], the words
-    of the reference's `bitpack.parse_and_pack`, bit for bit."""
+def _keep_mask(keep: torch.Tensor) -> torch.Tensor:
+    """keep bool[R] → uint32[⌈R/32⌉]: 32 keep bits to a word, little bit
+    order, padding bits zero."""
+    R = keep.shape[0]
+    bits = torch.zeros(-(-R // 32) * 32, dtype=torch.int64,
+                       device=keep.device)
+    bits[:R] = keep.long()
+    shifts = torch.arange(32, dtype=torch.int64, device=keep.device)
+    mask = (bits.view(-1, 32) << shifts).sum(dim=1)
+    return parsers.wrap32(mask).to(torch.int32).view(torch.uint32)
+
+
+def compact_packed_plain(words: torch.Tensor, keep: torch.Tensor):
+    """Row compaction (the reference's `bitpack.compact_packed` with one
+    shard): the kept rows of `words` uint32[n_words, R] move, in order,
+    to the front; every position at or after the survivor count is zero.
+
+    Returns (words_compacted uint32[n_words, R], keep_mask
+    uint32[⌈R/32⌉], counts int32[1]). The plain version of the
+    compaction epilogue in `csrc/decode_pack.cu`."""
+    w = words.view(torch.int32)
+    count = int(keep.sum())
+    out = torch.zeros_like(w)
+    out[:, :count] = w[:, keep]
+    counts = torch.tensor([count], dtype=torch.int32, device=keep.device)
+    return out.view(torch.uint32), _keep_mask(keep), counts
+
+
+def unpack_keep_mask(mask: np.ndarray, n_rows: int) -> np.ndarray:
+    """Host half of the keep-mask transport: set-bit positions →
+    survivor row indices, ascending (== compaction order)."""
+    bits = np.unpackbits(np.ascontiguousarray(mask).view(np.uint8),
+                         bitorder="little")[:n_rows]
+    return np.flatnonzero(bits).astype(np.int64)
+
+
+def _parse_pack(bmat: torch.Tensor, lengths: torch.Tensor, specs: tuple,
+                nibble: bool, ref_cols: frozenset):
+    """Parse and pack every dense column → (words uint32[n_words, R],
+    colmap: replicated index → (comps, ok, is_null) of `ref_cols`)."""
     layout = layout_for_specs(specs)
     columns = []
+    colmap: dict = {}
     w_off = 0
-    for j, (_col, kind, width, _bw) in enumerate(specs):
+    for j, (col_idx, kind, width, _bw) in enumerate(specs):
         if nibble:
             b = parsers.unpack_nibbles(
                 bmat[:, w_off // 2 : (w_off + width) // 2], width)
         else:
             b = bmat[:, w_off : w_off + width].long()
         w_off += width
-        comps, ok = parsers.parse_column(kind, b, lengths[:, j].long())
+        lens = lengths[:, j].long()
+        comps, ok = parsers.parse_column(kind, b, lens)
         columns.append((ok, comps))
-    return pack_plain(layout, columns)
+        if col_idx in ref_cols:
+            colmap[col_idx] = (comps, ok, lens == 0)
+    return pack_plain(layout, columns), colmap
+
+
+def parse_and_pack_plain(bmat: torch.Tensor, lengths: torch.Tensor,
+                         specs: tuple, nibble: bool, pred=None,
+                         row_flags: torch.Tensor | None = None):
+    """The plain version of the decode kernels: per-column parse
+    (parsers.parse_column) + bit-pack (pack_plain) of the packed field
+    bytes `bmat` u8[R, ΣW] (u8[R, ΣW/2] planar nibble pairs when
+    `nibble`) and `lengths` [R, n_dense] → uint32[n_words, R], the words
+    of the reference's `bitpack.parse_and_pack`, bit for bit.
+
+    With `pred` (a predicate.CompiledRowFilter — the fused publication
+    row filter) and `row_flags` [R] (0 dead / 1 live / 2 live +
+    force-keep), the filter evaluates over the parsed components and the
+    survivors compact to the front: returns (words_compacted, keep_mask,
+    counts) as the reference's `parse_and_pack(pred=…)` does."""
+    if pred is None:
+        return _parse_pack(bmat, lengths, specs, nibble, frozenset())[0]
+    return compact_packed_plain(*_filter_words(bmat, lengths, row_flags,
+                                               specs, nibble, pred))
+
+
+def _filter_words(bmat: torch.Tensor, lengths: torch.Tensor,
+                  row_flags: torch.Tensor, specs: tuple, nibble: bool, pred):
+    """(words × keep uint32[n_words, R], keep bool[R]): the parse, the
+    filter and the zeroing of dropped rows that K2 does."""
+    words, colmap = _parse_pack(bmat, lengths, specs, nibble,
+                                frozenset(pred.referenced_indices))
+    keep = pred.device_keep(colmap, row_flags.long())
+    words = torch.where(keep[None, :], words.view(torch.int32), 0)
+    return words.view(torch.uint32), keep
+
+
+def filter_pack_plain(bmat: torch.Tensor, lengths: torch.Tensor,
+                      row_flags: torch.Tensor, specs: tuple, nibble: bool,
+                      pred, block_rows: int):
+    """The plain version of the filter kernel (K2) alone: (words × keep
+    uint32[n_words, R], keep_mask uint32[⌈R/32⌉], survivor counts
+    int32[⌈R/block_rows⌉] per block of `block_rows` rows)."""
+    words, keep = _filter_words(bmat, lengths, row_flags, specs, nibble, pred)
+    R = keep.shape[0]
+    padded = torch.zeros(-(-R // block_rows) * block_rows, dtype=torch.int32,
+                         device=keep.device)
+    padded[:R] = keep.to(torch.int32)
+    return (words, _keep_mask(keep),
+            padded.view(-1, block_rows).sum(dim=1, dtype=torch.int32))
 
 
 def unpack_host(layout: BitLayout, words: np.ndarray, col: int,

@@ -1,16 +1,25 @@
-"""The parse-and-pack decode kernel (`csrc/decode_pack.cu`): build, binding
-and wrapper. Counterpart of the reference's `etl_tpu/ops/pallas_kernel.py`.
+"""The decode kernels (`csrc/decode_pack.cu`): build, binding and
+wrappers. Counterpart of the reference's `etl_tpu/ops/pallas_kernel.py`.
 
-`decode_pack(bmat, lengths, specs, nibble)` computes the reference's
-`bitpack.parse_and_pack` words: a CPU tensor goes to the plain version
-(`bitpack.parse_and_pack_plain`), a CUDA tensor to the kernel, and any
-other device raises. There is no fallback: a kernel that fails to build
-or to launch raises.
+- `decode_pack(bmat, lengths, specs, nibble)`: the reference's
+  `bitpack.parse_and_pack` words (K1).
+- `decode_pack_filtered(bmat, lengths, row_flags, specs, nibble, pred)`:
+  the fused row filter, `parse_and_pack(pred=…)` → (words_compacted,
+  keep_mask, counts). On CUDA it is two launches: `filter_pack` (K2:
+  filter, words × keep, keep mask, per-block survivor counts) and
+  `compact_packed` (the compaction epilogue).
 
-The kernel is compiled with nvcc at first use into `etl_tpu_torch/_build/`
-(ignored by git), as a shared library with a plain C interface that this
-module loads with ctypes: a source that includes no PyTorch header builds
-in seconds. `launches` counts the kernel launches of this process.
+Each wrapper sends a CPU tensor to its plain version (`bitpack.
+parse_and_pack_plain`, `filter_pack_plain`, `compact_packed_plain`), a
+CUDA tensor to its kernel, and raises for any other device. There is no
+fallback: a kernel that fails to build or to launch raises.
+
+The kernels are compiled with nvcc at first use into
+`etl_tpu_torch/_build/` (ignored by git), as a shared library with a
+plain C interface that this module loads with ctypes: a source that
+includes no PyTorch header builds in seconds. `launches`,
+`filter_launches` and `compact_launches` count the launches of K1, K2 and
+the epilogue in this process.
 """
 
 from __future__ import annotations
@@ -29,7 +38,10 @@ import torch
 
 from ..models.pgtypes import CellKind
 from . import parsers
-from .bitpack import layout_for_specs, parse_and_pack_plain
+from .bitpack import (compact_packed_plain, filter_pack_plain,
+                      layout_for_specs, parse_and_pack_plain,
+                      unpack_keep_mask)
+from .predicate import P_CMP, P_NULLTEST
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "decode_pack.cu"
@@ -57,13 +69,19 @@ MIN_WIDTH = {
     CellKind.TIMESTAMPTZ: 19, CellKind.F32: 9, CellKind.F64: 9,
 }
 
+# rows per block of the filter kernels (FILTER_BLOCK in the source)
+FILTER_BLOCK = 256
+
 launches = 0
+filter_launches = 0
+compact_launches = 0
 build_seconds: float | None = None
 build_log = ""
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 _desc_cache: dict = {}  # (specs, nibble, device) → descriptor on device
+_pred_cache: dict = {}  # (program, referenced columns, spec columns, device)
 _DESC_CACHE_MAX = 64
 
 
@@ -113,6 +131,23 @@ def load() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,  # out, R, words
             ctypes.c_void_p,  # stream
         ]
+        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.etl_filter_pack.restype = i32
+        lib.etl_filter_pack.argtypes = [
+            vp, i64, vp, i32, i32, vp, i32,  # bmat … nibble (as above)
+            vp, vp,  # flags, pred
+            vp, vp, vp,  # words, mask, block_counts
+            i64, i32, vp]  # R, words, stream
+        lib.etl_compact_packed.restype = i32
+        lib.etl_compact_packed.argtypes = [
+            vp, vp, vp, vp, vp,  # words, mask, block_counts, out, counts
+            i64, i32, vp]  # R, words, stream
+        lib.etl_copy_2d.restype = i32
+        lib.etl_copy_2d.argtypes = [vp, i64, vp, i64, i64, i64, vp]
+        lib.etl_filter_block_rows.restype = i32
+        lib.etl_filter_block_rows.argtypes = []
+        if lib.etl_filter_block_rows() != FILTER_BLOCK:
+            raise RuntimeError("FILTER_BLOCK disagrees with the source")
         lib.etl_cuda_error_string.restype = ctypes.c_char_p
         lib.etl_cuda_error_string.argtypes = [ctypes.c_int]
         _lib = lib
@@ -178,15 +213,7 @@ def decode_pack(bmat: torch.Tensor, lengths: torch.Tensor, specs: tuple,
     dev = bmat.device
     bmat = bmat.contiguous()
     lengths = lengths.contiguous()
-    key = (specs, nibble, dev)
-    with _lock:
-        desc = _desc_cache.get(key)
-        if desc is None:
-            if len(_desc_cache) >= _DESC_CACHE_MAX:
-                _desc_cache.pop(next(iter(_desc_cache)))
-            desc = torch.tensor(descriptor(specs, nibble), dtype=torch.int32,
-                                device=dev)
-            _desc_cache[key] = desc
+    desc = _device_desc(specs, nibble, dev)
     R = bmat.shape[0]
     n_words = layout_for_specs(specs).n_words
     if out is None:
@@ -200,9 +227,178 @@ def decode_pack(bmat: torch.Tensor, lengths: torch.Tensor, specs: tuple,
         bmat.data_ptr(), bmat.shape[1], lengths.data_ptr(),
         int(lengths.dtype == torch.uint8), len(specs), desc.data_ptr(),
         int(nibble), out.data_ptr(), R, n_words, stream)
-    if rc != 0:
-        raise RuntimeError("decode kernel launch failed: "
-                           + lib.etl_cuda_error_string(rc).decode())
+    _raise_on(lib, rc, "decode kernel")
     with _lock:
         launches += 1
     return out.view(torch.uint32)
+
+
+def pred_descriptor(pred, specs: tuple) -> list[int]:
+    """The kernel's predicate descriptor for one filter on one spec set:
+    [n_instr, n_ref, the referenced columns' spec slots, then the postfix
+    program (`pred.program`) with columns mapped to spec slots]."""
+    if not pred.kernel_supported:
+        raise ValueError(f"row filter {pred.filter!r} is outside the "
+                         f"kernel's envelope")
+    slot_of = {col: (j, kind) for j, (col, kind, _, _) in enumerate(specs)}
+    kinds = {b.index: b.kind for b in pred.cols.values()}
+    for col, kind in kinds.items():
+        if col not in slot_of or slot_of[col][1] is not kind:
+            raise ValueError(f"referenced column {col} ({kind.name}) is "
+                             f"not a dense column of the specs")
+    table = [len(pred.program), len(kinds)]
+    table += [slot_of[c][0] for c in pred.referenced_indices]
+    for ins in pred.program:
+        col = slot_of[ins[1]][0] if ins[0] in (P_CMP, P_NULLTEST) else 0
+        table += [ins[0], col, *ins[2:]]
+    return table
+
+
+def _device_desc(specs: tuple, nibble: bool, dev) -> torch.Tensor:
+    key = (specs, nibble, dev)
+    with _lock:
+        desc = _desc_cache.get(key)
+        if desc is None:
+            if len(_desc_cache) >= _DESC_CACHE_MAX:
+                _desc_cache.pop(next(iter(_desc_cache)))
+            desc = torch.tensor(descriptor(specs, nibble), dtype=torch.int32,
+                                device=dev)
+            _desc_cache[key] = desc
+    return desc
+
+
+def _device_pred(pred, specs: tuple, dev) -> torch.Tensor:
+    # keyed on what the descriptor is made of: the bound program names
+    # replicated column indices, so one filter text on two tables whose
+    # filter column sits at different positions gives two descriptors
+    key = (pred.program, pred.referenced_indices,
+           tuple((c, k) for c, k, _, _ in specs), dev)
+    with _lock:
+        desc = _pred_cache.get(key)
+        if desc is None:
+            if len(_pred_cache) >= _DESC_CACHE_MAX:
+                _pred_cache.pop(next(iter(_pred_cache)))
+            desc = torch.tensor(pred_descriptor(pred, specs),
+                                dtype=torch.int32, device=dev)
+            _pred_cache[key] = desc
+    return desc
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           + lib.etl_cuda_error_string(rc).decode())
+
+
+def filter_pack(bmat: torch.Tensor, lengths: torch.Tensor,
+                row_flags: torch.Tensor, specs: tuple, nibble: bool, pred):
+    """K2: evaluate the row filter `pred` (a predicate.CompiledRowFilter)
+    and pack the words of the kept rows → (words uint32[n_words, R], zero
+    on dropped rows; keep_mask uint32[⌈R/32⌉]; block_counts
+    int32[⌈R/FILTER_BLOCK⌉]). `row_flags` u8[R]: 0 dead, 1 live, 2 live +
+    force-keep."""
+    global filter_launches
+    _check(bmat, lengths, specs, nibble)
+    R = bmat.shape[0]
+    if row_flags.shape != (R,) or row_flags.dtype != torch.uint8:
+        raise ValueError("row_flags must be uint8[R]")
+    devs = {bmat.device, lengths.device, row_flags.device}
+    if devs == {torch.device("cpu")}:
+        return filter_pack_plain(bmat, lengths, row_flags, specs, nibble,
+                                 pred, FILTER_BLOCK)
+    if len(devs) != 1 or bmat.device.type != "cuda":
+        raise ValueError(f"filter_pack: unsupported devices {devs}")
+    lib = load()
+    dev = bmat.device
+    bmat, lengths = bmat.contiguous(), lengths.contiguous()
+    row_flags = row_flags.contiguous()
+    desc = _device_desc(specs, nibble, dev)
+    pdesc = _device_pred(pred, specs, dev)
+    n_words = layout_for_specs(specs).n_words
+    words = torch.empty((n_words, R), dtype=torch.int32, device=dev)
+    mask = torch.empty(-(-R // 32), dtype=torch.int32, device=dev)
+    counts = torch.empty(-(-R // FILTER_BLOCK), dtype=torch.int32,
+                         device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib, lib.etl_filter_pack(
+        bmat.data_ptr(), bmat.shape[1], lengths.data_ptr(),
+        int(lengths.dtype == torch.uint8), len(specs), desc.data_ptr(),
+        int(nibble), row_flags.data_ptr(), pdesc.data_ptr(),
+        words.data_ptr(), mask.data_ptr(), counts.data_ptr(), R, n_words,
+        stream), "filter kernel")
+    with _lock:
+        filter_launches += 1
+    return words.view(torch.uint32), mask.view(torch.uint32), counts
+
+
+def compact_packed(words: torch.Tensor, keep_mask: torch.Tensor,
+                   block_counts: torch.Tensor):
+    """The compaction epilogue: the kept rows of `words` uint32[n_words, R]
+    (the set bits of `keep_mask`) move in order to the front, zeros
+    behind → (words_compacted uint32[n_words, R], counts int32[1]).
+    `block_counts` holds the survivors of each FILTER_BLOCK rows, as
+    `filter_pack` leaves them."""
+    global compact_launches
+    n_words, R = words.shape
+    if keep_mask.shape != (-(-R // 32),) \
+            or block_counts.shape != (-(-R // FILTER_BLOCK),):
+        raise ValueError("compact_packed: mask or counts do not fit words")
+    devs = {words.device, keep_mask.device, block_counts.device}
+    if devs == {torch.device("cpu")}:
+        keep = torch.zeros(R, dtype=torch.bool)
+        keep[torch.from_numpy(unpack_keep_mask(keep_mask.numpy(), R))] = True
+        out, _, counts = compact_packed_plain(words, keep)
+        return out, counts
+    if len(devs) != 1 or words.device.type != "cuda":
+        raise ValueError(f"compact_packed: unsupported devices {devs}")
+    lib = load()
+    dev = words.device
+    words, keep_mask = words.contiguous(), keep_mask.contiguous()
+    block_counts = block_counts.contiguous()
+    out = torch.empty((n_words, R), dtype=torch.int32, device=dev)
+    counts = torch.empty(1, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _raise_on(lib, lib.etl_compact_packed(
+        words.data_ptr(), keep_mask.data_ptr(), block_counts.data_ptr(),
+        out.data_ptr(), counts.data_ptr(), R, n_words, stream),
+        "compaction kernel")
+    with _lock:
+        compact_launches += 1
+    return out.view(torch.uint32), counts
+
+
+def decode_pack_filtered(bmat: torch.Tensor, lengths: torch.Tensor,
+                         row_flags: torch.Tensor, specs: tuple, nibble: bool,
+                         pred):
+    """The fused publication row filter: parse, filter by `pred`, pack and
+    compact → (words_compacted uint32[n_words, R], keep_mask
+    uint32[⌈R/32⌉], counts int32[1]), the reference's
+    `parse_and_pack(pred=…)` bit for bit. On CUDA: `filter_pack` then
+    `compact_packed` on the current stream, without synchronising."""
+    if {bmat.device, lengths.device, row_flags.device} \
+            == {torch.device("cpu")}:
+        _check(bmat, lengths, specs, nibble)
+        return parse_and_pack_plain(bmat, lengths, specs, nibble, pred=pred,
+                                    row_flags=row_flags)
+    words, mask, block_counts = filter_pack(bmat, lengths, row_flags, specs,
+                                            nibble, pred)
+    out, counts = compact_packed(words, mask, block_counts)
+    return out, mask, counts
+
+
+def copy_columns(dst: torch.Tensor, src: torch.Tensor, n_cols: int) -> None:
+    """Asynchronous copy of the first `n_cols` columns of every row of the
+    CUDA matrix `src` [n, R] into `dst` [n, ≥ n_cols] (pinned host memory
+    for a non-blocking fetch) on the current stream: one strided
+    cudaMemcpy2DAsync, no kernel."""
+    if src.device.type != "cuda" or not src.is_contiguous() \
+            or not dst.is_contiguous() or dst.shape[0] != src.shape[0] \
+            or dst.shape[1] < n_cols or dst.element_size() \
+            != src.element_size():
+        raise ValueError("copy_columns: bad buffers")
+    lib = load()
+    es = src.element_size()
+    _raise_on(lib, lib.etl_copy_2d(
+        dst.data_ptr(), dst.shape[1] * es, src.data_ptr(), src.shape[1] * es,
+        n_cols * es, src.shape[0],
+        torch.cuda.current_stream(src.device).cuda_stream), "strided copy")

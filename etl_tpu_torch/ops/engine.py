@@ -1,8 +1,7 @@
 """DeviceDecoder: the GPU decode engine, on one device.
 
-Port of the reference's `etl_tpu/ops/engine.py` without the publication
-row filter, device egress, the mesh, the program store or autotune.
-Pipeline per batch:
+Port of the reference's `etl_tpu/ops/engine.py` without device egress,
+the mesh, the program store or autotune. Pipeline per batch:
 
   StagedBatch (host, ops/staging.py)
     → host pack: the C packers gather every dense-column field into ONE
@@ -18,6 +17,18 @@ Pipeline per batch:
       floats, oversized fields, nibble-alphabet violations)
     → ColumnarBatch (typed columnar + validity + TOAST masks; text
       columns as Arrow-layout TextArrays)
+
+With a publication row filter (`schema.row_predicate`) the device step is
+the fused filter (`decode_kernel.decode_pack_filtered`: K2 + the
+compaction epilogue) over a per-row disposition vector (`_row_flags`);
+only the survivor count and the 1-bit-per-row keep mask come back with
+the dispatch, then a count-sized slice of the compacted words
+(`staging.slice_rows`), and the batch assembles over the survivors only
+(`StagedBatch.gather_rows`). Its `source_rows` holds each survivor's
+staged-row index. A filter the kernel cannot evaluate (text, NUMERIC or
+float columns; a postfix program deeper than its stack) applies host-side
+after an unfiltered decode (`CompiledRowFilter.host_keep`), with the same
+result.
 
 The packing uses the EXACT specs of each batch: the reference's canonical
 layouts (program_store.canonical_plan) only share compiled programs, and
@@ -38,6 +49,8 @@ from typing import Any
 import numpy as np
 import torch
 
+import logging
+
 from ..models.errors import ErrorKind, EtlError
 from ..models.pgtypes import CellKind
 from ..models.schema import ReplicatedTableSchema
@@ -46,8 +59,10 @@ from ..models.table_row import (Column, ColumnarBatch, TextArray, _to_dense,
 from ..postgres.codec.copy_text import unescape_copy_field
 from ..postgres.codec.text import parse_cell_text
 from . import decode_kernel
-from .bitpack import layout_for_specs, saturation_width, unpack_host
-from .staging import StagedBatch, bucket_width
+from .bitpack import (layout_for_specs, saturation_width, unpack_host,
+                      unpack_keep_mask)
+from .predicate import RowFilterError, compile_row_filter
+from .staging import StagedBatch, bucket_width, slice_rows
 
 # kinds parsed on device; everything else is host-object
 DEVICE_KINDS = frozenset({
@@ -170,20 +185,39 @@ class _Packed:
     pinned: tuple = ()
 
 
+@dataclasses.dataclass
+class _Filtered:
+    """The in-flight half of a fused-filter dispatch: the compiled filter,
+    the row disposition vector it ran over, the compacted words (left on
+    the device on CUDA) and the keep mask and survivor count (host
+    tensors; on CUDA pinned, landing behind the dispatch's last event)."""
+
+    pred: Any
+    row_flags: np.ndarray
+    words: torch.Tensor
+    mask: torch.Tensor
+    counts: torch.Tensor
+
+
 class _PendingDecode:
     """Handle for an in-flight decode; `result()` completes it. On CUDA
     the words land in pinned memory behind `event` (the counterpart of
     the reference's `copy_to_host_async`), so the host stages and packs
-    the next batches while the copy runs. After `result()`, `timings`
-    holds the batch's stage times in ms: pack and assemble on the host
-    clock, and on CUDA h2d, kernel and d2h from the stream's events."""
+    the next batches while the copy runs; a filtered decode brings back
+    only its keep mask and survivor count that way, and fetches a
+    count-sized slice of its words at `result()`. After `result()`,
+    `timings` holds the batch's stage times in ms — pack and assemble on
+    the host clock, and on CUDA h2d, kernel and d2h (plus d2h_words for a
+    filtered decode) from the stream's events — and `fetched_bytes`, the
+    bytes of results brought from the device."""
 
     __slots__ = ("_decoder", "_staged", "_specs", "_packed", "_words",
-                 "_events", "_pack_s", "_done", "timings")
+                 "_events", "_pack_s", "_filtered", "_done", "timings")
 
     def __init__(self, decoder: "DeviceDecoder", staged: StagedBatch,
                  specs: tuple, packed: _Packed | None, words,
-                 pack_s: float = 0.0, events: tuple = ()):
+                 pack_s: float = 0.0, events: tuple = (),
+                 filtered: _Filtered | None = None):
         self._decoder = decoder
         self._staged = staged
         self._specs = specs
@@ -191,6 +225,7 @@ class _PendingDecode:
         self._words = words
         self._pack_s = pack_s
         self._events = events  # CUDA: before H2D, after H2D, kernel, D2H
+        self._filtered = filtered
         self._done: ColumnarBatch | None = None
         self.timings: dict | None = None
 
@@ -219,9 +254,6 @@ class DeviceDecoder:
                  device: str | torch.device = "cuda",
                  numeric_mode: str = "text",
                  device_min_rows: int | None = None):
-        if getattr(schema, "row_predicate", None) is not None:
-            raise NotImplementedError(
-                "publication row filters are not ported to etl_tpu_torch")
         self.schema = schema
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -249,6 +281,21 @@ class DeviceDecoder:
             # host-object path
             self._object.extend(self._dense[250:])
             self._dense = self._dense[:250]
+        # publication row filter: compiled ONCE here, never per batch. An
+        # unparseable/unbindable filter degrades to None with a warning:
+        # the batch then decodes unfiltered, which is only correct when
+        # the server still filters
+        self._row_filter = None
+        rf = getattr(schema, "row_predicate", None)
+        if rf is not None:
+            try:
+                self._row_filter = compile_row_filter(rf, schema)
+            except RowFilterError:
+                logging.getLogger("etl_tpu_torch.ops").warning(
+                    "row filter %r on %s is outside the client-side "
+                    "envelope; decoding UNFILTERED (server-side filtering "
+                    "must cover this table)", getattr(rf, "sql", rf),
+                    schema.name, exc_info=True)
 
     # -- internals ----------------------------------------------------------
 
@@ -334,36 +381,120 @@ class DeviceDecoder:
             w_off += w
         return _Packed(bmat, lengths, False, None, tuple(pinned))
 
+    def _device_filter_for(self, staged: StagedBatch):
+        """The CompiledRowFilter to FUSE into this batch's device step, or
+        None. Requires: a filter, a batch the caller allows filtering on
+        (insert/COPY streams only), a predicate the kernel can evaluate
+        (every referenced column device-parsed with an exact comparison,
+        a postfix program that fits the kernel's stack) over dense
+        columns. Anything else falls back to `_host_filter_for`'s
+        post-decode mask — correct, just without the fetch-bytes win."""
+        rf = self._row_filter
+        if rf is None or not staged.allow_row_filter \
+                or not rf.kernel_supported:
+            return None
+        dense_idx = frozenset(s.index for s in self._dense)
+        if not frozenset(rf.referenced_indices) <= dense_idx:
+            return None
+        return rf
+
+    def _host_filter_for(self, staged: StagedBatch):
+        """The filter to apply host-side AFTER an unfiltered decode (the
+        oracle route, and device routes whose predicate is outside the
+        kernel's envelope)."""
+        rf = self._row_filter
+        if rf is None or not staged.allow_row_filter:
+            return None
+        return rf
+
+    def _row_flags(self, staged: StagedBatch, specs: tuple, pred,
+                   bad_rows) -> np.ndarray:
+        """Per-row disposition vector for the fused filter: 0 dead (bucket
+        padding), 1 live, 2 live + force-keep. Force-keep marks rows whose
+        predicate-referenced device values cannot be trusted (COPY
+        escapes, nibble-alphabet violations, oversized or TOASTed
+        referenced fields): the device keeps them unconditionally and the
+        host re-evaluates after oracle fixup, so the compacted output
+        equals the host oracle's."""
+        n = staged.n_rows
+        flags = np.zeros(staged.row_capacity, dtype=np.uint8)
+        flags[:n] = 1
+        force = np.zeros(n, dtype=bool)
+        fb = staged.cpu_fallback_rows
+        if len(fb):
+            force[fb[fb < n]] = True
+        if bad_rows is not None:
+            force |= bad_rows[:n].astype(bool)
+        widths = {i: w for i, _, w, _ in specs}
+        for j in pred.referenced_indices:
+            if staged.max_field_len(j) > widths[j]:
+                force |= staged.lengths[:n, j] > widths[j]
+            toast_col = staged.toast[:n, j]
+            if toast_col.any():
+                force |= toast_col
+        flags[:n][force] = 2
+        return flags
+
     def _dispatch(self, staged: StagedBatch, specs: tuple) -> _PendingDecode:
         """Pack, then start the device work and return the in-flight
         handle. CUDA: non-blocking H2D from pinned buffers, the kernel on
         the current stream, non-blocking D2H into a pinned buffer, and an
-        event for `_PendingDecode.result()` to wait on."""
+        event for `_PendingDecode.result()` to wait on. A fused-filter
+        dispatch uploads its row flags too and fetches only the keep mask
+        and the survivor count here."""
+        pred = self._device_filter_for(staged)
         t0 = time.perf_counter()
         widths = tuple(w for _, _, w, _ in specs)
         packed = self._pack_host(staged, widths)
+        flags = None if pred is None \
+            else self._row_flags(staged, specs, pred, packed.bad_rows)
         pack_s = time.perf_counter() - t0
         bmat_h = torch.from_numpy(packed.bmat)
         lengths_h = torch.from_numpy(packed.lengths)
         if self.device.type == "cpu":
-            words = decode_kernel.decode_pack(bmat_h, lengths_h, specs,
-                                              packed.nibble)
-            return _PendingDecode(self, staged, specs, packed, words, pack_s)
+            if pred is None:
+                words = decode_kernel.decode_pack(bmat_h, lengths_h, specs,
+                                                  packed.nibble)
+                return _PendingDecode(self, staged, specs, packed, words,
+                                      pack_s)
+            out = decode_kernel.decode_pack_filtered(
+                bmat_h, lengths_h, torch.from_numpy(flags), specs,
+                packed.nibble, pred)
+            return _PendingDecode(self, staged, specs, packed, None, pack_s,
+                                  filtered=_Filtered(pred, flags, *out))
         stream = torch.cuda.current_stream(self.device)
         ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(4))
         ev[0].record(stream)
         bmat_d = bmat_h.to(self.device, non_blocking=True)
         lengths_d = lengths_h.to(self.device, non_blocking=True)
+        if pred is not None:
+            flags_h = self._pinned.take(flags.shape, torch.uint8)
+            flags_h.numpy()[:] = flags
+            packed.pinned = packed.pinned + (flags_h,)
+            flags_d = flags_h.to(self.device, non_blocking=True)
         ev[1].record(stream)
-        words_d = decode_kernel.decode_pack(bmat_d, lengths_d, specs,
-                                            packed.nibble)
+        if pred is None:
+            words_d = decode_kernel.decode_pack(bmat_d, lengths_d, specs,
+                                                packed.nibble)
+            ev[2].record(stream)
+            words_h = self._pinned.take(tuple(words_d.shape), torch.int32)
+            words_h.copy_(words_d.view(torch.int32), non_blocking=True)
+            ev[3].record(stream)
+            packed.pinned = packed.pinned + (words_h,)
+            return _PendingDecode(self, staged, specs, packed, words_h,
+                                  pack_s, ev)
+        words_d, mask_d, counts_d = decode_kernel.decode_pack_filtered(
+            bmat_d, lengths_d, flags_d, specs, packed.nibble, pred)
         ev[2].record(stream)
-        words_h = self._pinned.take(tuple(words_d.shape), torch.int32)
-        words_h.copy_(words_d.view(torch.int32), non_blocking=True)
+        mask_h = self._pinned.take(tuple(mask_d.shape), torch.int32)
+        counts_h = self._pinned.take((1,), torch.int32)
+        mask_h.copy_(mask_d.view(torch.int32), non_blocking=True)
+        counts_h.copy_(counts_d, non_blocking=True)
         ev[3].record(stream)
-        packed.pinned = packed.pinned + (words_h,)
-        return _PendingDecode(self, staged, specs, packed, words_h, pack_s,
-                              ev)
+        packed.pinned = packed.pinned + (mask_h, counts_h)
+        return _PendingDecode(self, staged, specs, packed, None, pack_s, ev,
+                              _Filtered(pred, flags, words_d, mask_h,
+                                        counts_h))
 
     def _gather_text(self, staged: StagedBatch, spec: _ColSpec,
                      valid: np.ndarray) -> TextArray:
@@ -445,9 +576,12 @@ class DeviceDecoder:
 
     def _assemble(self, staged: StagedBatch, specs: tuple,
                   packed_np: np.ndarray | None,
-                  bad_rows=None) -> ColumnarBatch:
+                  bad_rows=None) -> tuple[ColumnarBatch, np.ndarray]:
         """Fetched packed words (+ the staged bookkeeping they index) →
-        typed columns + CPU fixup."""
+        typed columns + CPU fixup; also returns the fixed-up rows. For a
+        fused-filter decode `staged` is the COMPACTED view
+        (`StagedBatch.gather_rows`) and `packed_np` the survivors' words,
+        so every index here lives in the compacted space."""
         n = staged.n_rows
         cols = self.schema.replicated_columns
         valid_full = ~staged.nulls & ~staged.toast
@@ -498,36 +632,115 @@ class DeviceDecoder:
                 toast_col if toast_col.any() else None,
                 lazy_text_oid=lazy_oid)
 
+        rows = np.zeros(0, dtype=np.int64)
         if fallback:
             rows = np.asarray(sorted(r for r in fallback if r < n),
                               dtype=np.int64)
             self._cpu_fixup(staged, rows, columns)
-        return ColumnarBatch(self.schema, columns)
+        return ColumnarBatch(self.schema, columns), rows
 
     def _complete(self, p: _PendingDecode) -> ColumnarBatch:
         """Wait for the words of an in-flight decode, assemble the batch,
         record the stage times and return the pinned buffers."""
-        words = p._words
         if p._events:
             p._events[-1].synchronize()
-        if isinstance(words, torch.Tensor):
-            words = words.numpy().view(np.uint32)
-        t0 = time.perf_counter()
-        batch = self._assemble(
-            p._staged, p._specs, words,
-            p._packed.bad_rows if p._packed is not None else None)
-        p.timings = {"pack_ms": p._pack_s * 1e3,
-                     "assemble_ms": (time.perf_counter() - t0) * 1e3}
+        p.timings = {"pack_ms": p._pack_s * 1e3}
         if p._events:
             ev = p._events
             p.timings.update(h2d_ms=ev[0].elapsed_time(ev[1]),
                              kernel_ms=ev[1].elapsed_time(ev[2]),
                              d2h_ms=ev[2].elapsed_time(ev[3]))
+        if p._filtered is not None:
+            batch, fetched = self._complete_filtered(p)
+        else:
+            t0 = time.perf_counter()
+            words = p._words
+            fetched = 0
+            if isinstance(words, torch.Tensor):
+                fetched = words.numel() * words.element_size()
+                words = words.numpy().view(np.uint32)
+            batch, _ = self._assemble(
+                p._staged, p._specs, words,
+                p._packed.bad_rows if p._packed is not None else None)
+            host_rf = self._host_filter_for(p._staged)
+            if host_rf is not None:
+                # predicate outside the kernel's envelope (or an oracle-
+                # routed batch): the same filter applies host-side over
+                # the decoded batch — correct, without the fetch win
+                surv = np.flatnonzero(host_rf.host_keep(batch)) \
+                    .astype(np.int64)
+                batch = batch.take(surv)
+                batch.source_rows = surv
+            p.timings["assemble_ms"] = (time.perf_counter() - t0) * 1e3
+        p.timings["fetched_bytes"] = fetched
         if p._packed is not None:
             self._pinned.give_back(p._packed.pinned)
             p._packed = None
-        p._words = None
+        p._words = p._filtered = None
         return batch
+
+    def _complete_filtered(self, p: _PendingDecode
+                           ) -> tuple[ColumnarBatch, int]:
+        """Completion of a fused filter dispatch: read the survivor count
+        and the keep mask, fetch a count-sized slice of the compacted
+        words (fetched bytes scale with selectivity), assemble over the
+        COMPACTED staged view, then re-judge force-kept and fixed-up
+        survivors exactly on their decoded values. Returns the batch and
+        the bytes fetched from the device."""
+        f = p._filtered
+        staged = p._staged
+        R = staged.row_capacity
+        mask_np = f.mask.numpy().view(np.uint32)
+        S = int(f.counts[0])
+        fetched = mask_np.nbytes + f.counts.numel() * 4
+        survivors = unpack_keep_mask(mask_np, R)
+        if len(survivors) != S:
+            raise EtlError(ErrorKind.INVALID_DATA,
+                           f"filtered decode: keep mask holds "
+                           f"{len(survivors)} survivors, count says {S}")
+        Sb = slice_rows(S, R)
+        n_words = f.words.shape[0]
+        if not Sb:
+            words_np = np.zeros((n_words, 0), dtype=np.uint32)
+        elif f.words.device.type == "cpu":
+            words_np = f.words[:, :Sb].numpy()
+        else:
+            # count-sized slice: only the survivors' words (and the
+            # slice's pad slack) cross the link
+            stream = torch.cuda.current_stream(f.words.device)
+            words_h = self._pinned.take((n_words, Sb), torch.int32)
+            p._packed.pinned = p._packed.pinned + (words_h,)
+            ev = tuple(torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+            ev[0].record(stream)
+            decode_kernel.copy_columns(words_h, f.words.view(torch.int32),
+                                       Sb)
+            ev[1].record(stream)
+            ev[1].synchronize()
+            p.timings["d2h_words_ms"] = ev[0].elapsed_time(ev[1])
+            words_np = words_h.numpy().view(np.uint32)
+        fetched += words_np.nbytes
+        words_np = words_np[:, :S]
+        t0 = time.perf_counter()
+        bad_rows = p._packed.bad_rows
+        cstaged = staged.gather_rows(survivors)
+        cbad = bad_rows[survivors] if bad_rows is not None else None
+        batch, fixup_rows = self._assemble(cstaged, p._specs, words_np, cbad)
+        # exact arbitration for rows the device could not judge: force-
+        # kept rows and every fixed-up row re-evaluate on their DECODED
+        # values; rows the re-check rejects compact out host-side
+        suspect = f.row_flags[survivors] > 1
+        if len(fixup_rows):
+            suspect[fixup_rows] = True
+        if suspect.any():
+            final = ~suspect | f.pred.host_keep(batch)
+            if not final.all():
+                sel = np.flatnonzero(final).astype(np.int64)
+                batch = batch.take(sel)
+                survivors = survivors[sel]
+        batch.source_rows = survivors
+        p.timings["assemble_ms"] = (time.perf_counter() - t0) * 1e3
+        return batch, fetched
 
     # -- public -------------------------------------------------------------
 

@@ -1,4 +1,4 @@
-"""Seeded field inputs for parity checks of the decode kernel.
+"""Seeded field inputs for parity checks of the decode kernels.
 
 `field_matrix(specs, n_rows, rng, nibble)` builds the packed byte matrix
 and lengths the engine would hand the kernel, filled with Postgres text of
@@ -6,7 +6,9 @@ each column's kind and with adversarial rows: out-of-range and malformed
 text, lengths past the field width, junk bytes past the length and, for
 nibble packing, random symbol codes. The CPU tests feed the same arrays to
 the reference and to the port; `chip_smoke.py` and the GPU tests feed them
-to the kernel and to its plain version.
+to the kernel and to its plain version. `filter_case` adds what the
+fused row filter (K2) needs: NULL fields, edge values of every comparable
+kind and a row-flags vector with dead and force-kept rows.
 """
 
 from __future__ import annotations
@@ -163,3 +165,53 @@ def text_matrix(specs: tuple, columns: list, nibble: bool = False,
         lens.append(ln)
     return (np.ascontiguousarray(np.concatenate(parts, axis=1)),
             np.ascontiguousarray(np.stack(lens, axis=1).astype(lengths_dtype)))
+
+
+# values at the edges of the filter's comparisons, by kind: U32 above
+# 2^31, I64 "-0" and limb boundaries, TIMESTAMPTZ values whose offset
+# fold borrows from or carries into the next day
+EDGE_TEXTS = {
+    CellKind.BOOL: ["t", "f"],
+    CellKind.I16: ["-32768", "32767", "0", "-0", "100", "99", "101"],
+    CellKind.I32: ["-2147483648", "2147483647", "0", "-0", "-5000000",
+                   "-5000001", "100", "99"],
+    CellKind.U32: ["2147483647", "2147483648", "3000000000", "3000000001",
+                   "4294967295", "0"],
+    CellKind.I64: ["-0", "0", "-1", "1", "-1000000000", "999999999",
+                   "1000000000000000000", "-999999999999999999",
+                   "-9223372036854775808", "9223372036854775807"],
+    CellKind.DATE: ["2000-01-01", "1999-12-31", "2024-06-15", "0001-01-01",
+                    "9999-12-31"],
+    CellKind.TIME: ["12:00:00", "11:59:59.999999", "12:00:00.000001",
+                    "00:00:00", "23:59:59.999999"],
+    CellKind.TIMESTAMP: ["2000-01-01 00:00:00", "1999-12-31 23:59:59.999999",
+                         "2000-01-01 00:00:00.000001",
+                         "2024-06-15 00:00:00"],
+    CellKind.TIMESTAMPTZ: ["2024-06-15 00:00:00+00",
+                           "2024-06-14 23:59:59.999999+00",
+                           "2024-06-15 01:00:00+01", "2024-06-14 19:00:00-05",
+                           "2024-06-15 00:30:00+09:30",
+                           "2024-06-14 23:30:00-00:30",
+                           "2024-06-15 15:59:59+15:59:59",
+                           "2024-06-14 08:00:00.5-15:59:59"],
+}
+
+
+def filter_case(specs: tuple, n_rows: int, rng: np.random.Generator,
+                nibble: bool = False, null_share: float = 0.08
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(bmat, lengths, row_flags) for the fused filter: `field_matrix`
+    rows with a share of every column's fields NULL (zero length), every
+    tenth row an edge value of its column's kind (EDGE_TEXTS), and
+    row_flags u8[R] mostly 1 (live) with some 0 (dead) and 2 (live +
+    force-keep)."""
+    bm, ln = field_matrix(specs, n_rows, rng, nibble)
+    edge_rows = np.arange(0, n_rows, 10)
+    cols = [[str(rng.choice(EDGE_TEXTS.get(kind, ["0"])))
+             for _ in edge_rows] for _, kind, _, _ in specs]
+    ebm, eln = text_matrix(specs, cols, nibble)
+    bm[edge_rows], ln[edge_rows] = ebm, eln
+    ln[rng.random(ln.shape) < null_share] = 0
+    flags = rng.choice(np.array([0, 1, 2], dtype=np.uint8), size=n_rows,
+                       p=[0.05, 0.85, 0.10])
+    return bm, ln, flags

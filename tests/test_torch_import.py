@@ -31,6 +31,7 @@ PORT_MODULES = [
     "etl_tpu_torch.postgres.codec.text", "etl_tpu_torch.ops",
     "etl_tpu_torch.ops.bitpack", "etl_tpu_torch.ops.decode_kernel",
     "etl_tpu_torch.ops.engine", "etl_tpu_torch.ops.parsers",
+    "etl_tpu_torch.ops.predicate",
     "etl_tpu_torch.ops.staging", "etl_tpu_torch.ops.wal", "chip_smoke",
 ]
 
@@ -97,18 +98,88 @@ def test_decode_pack_checks_inputs(bad):
 
 
 def test_row_filter_not_ported():
+    """Checks that a schema's row filter round-trips through JSON and that
+    the decoder binds it; neither step refuses a row filter any more."""
+    from etl_tpu_torch.ops.predicate import parse_row_filter
+
     d = _schema().to_json()
-    PortSchema.from_json(d)  # no filter: fine
-    d["row_filter"] = {"sql": "a > 1"}
-    with pytest.raises(NotImplementedError):
-        PortSchema.from_json(d)
+    assert PortSchema.from_json(d).row_predicate is None
+    d["row_filter"] = parse_row_filter("a > 1").to_json()
+    schema = PortSchema.from_json(d)
+    assert schema.row_predicate == parse_row_filter("a > 1")
+    dec = PortDecoder(schema, device="cpu")
+    assert dec._row_filter.referenced_indices == (0,)
+    assert dec._row_filter.kernel_supported
 
-    class Filtered:
-        row_predicate = object()
-        replicated_columns = ()
 
-    with pytest.raises(NotImplementedError):
-        PortDecoder(Filtered(), device="cpu")
+def test_filter_wrappers_refuse_other_devices_and_bad_inputs():
+    from etl_tpu_torch.ops.predicate import compile_row_filter
+
+    pred = compile_row_filter("a > 1", _schema())
+    specs = ((0, PK.I32, 4, 2),)
+
+    def t(shape, dtype, device="meta"):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    with pytest.raises(ValueError, match="unsupported devices"):
+        decode_kernel.decode_pack_filtered(
+            t((8, 4), torch.uint8), t((8, 1), torch.uint8),
+            t(8, torch.uint8), specs, False, pred)
+    with pytest.raises(ValueError, match="unsupported devices"):
+        decode_kernel.compact_packed(t((1, 8), torch.int32),
+                                     t(1, torch.int32), t(1, torch.int32))
+    with pytest.raises(ValueError, match="row_flags"):
+        decode_kernel.filter_pack(
+            t((8, 4), torch.uint8, "cpu"), t((8, 1), torch.uint8, "cpu"),
+            t(8, torch.int32, "cpu"), specs, False, pred)
+    with pytest.raises(ValueError, match="do not fit"):
+        decode_kernel.compact_packed(t((1, 40), torch.int32, "cpu"),
+                                     t(1, torch.int32, "cpu"),
+                                     t(1, torch.int32, "cpu"))
+
+
+def test_pred_descriptor_checks_the_filter_and_specs():
+    from etl_tpu_torch.ops.predicate import (MAX_PROGRAM_DEPTH,
+                                             compile_row_filter)
+
+    schema = _schema()
+    pred = compile_row_filter("a > 1 AND a IS NOT NULL", schema)
+    specs = ((0, PK.I32, 4, 2),)
+    desc = decode_kernel.pred_descriptor(pred, specs)
+    # n_instr, n_ref, the referenced slot, then 3 instructions of 8
+    assert desc[:3] == [3, 1, 0] and len(desc) == 3 + 3 * 8
+    with pytest.raises(ValueError, match="not a dense column"):
+        decode_kernel.pred_descriptor(pred, ((5, PK.I32, 4, 2),))
+    with pytest.raises(ValueError, match="not a dense column"):
+        decode_kernel.pred_descriptor(pred, ((0, PK.I64, 4, 2),))
+    deep = compile_row_filter(
+        " OR ".join(f"a = {i}" for i in range(MAX_PROGRAM_DEPTH + 1)),
+        schema)
+    with pytest.raises(ValueError, match="envelope"):
+        decode_kernel.pred_descriptor(deep, specs)
+
+
+def test_pred_descriptor_cache_keys_on_column_position():
+    """One filter text on two tables whose filter column sits at another
+    position, with the same dense specs: each wrapper call gets its own
+    table's descriptor, not the one cached for the other table."""
+    from etl_tpu_torch.ops.predicate import compile_row_filter
+
+    def table(names):
+        return convert.schema_from_plain(
+            1, "public", "t", [(n, 23, -1, False, None) for n in names],
+            [True] * len(names), [False] * len(names))
+
+    specs = tuple((i, PK.I32, 12, 12) for i in range(3))
+    preds = [compile_row_filter("bid <= 5", table(names))
+             for names in (("aid", "bid", "abalance"),
+                           ("bid", "aid", "abalance"))]
+    assert preds[0].fingerprint() == preds[1].fingerprint()
+    descs = [decode_kernel._device_pred(p, specs, torch.device("cpu"))
+             for p in preds]
+    for p, d in zip(preds, descs):
+        assert d.tolist() == decode_kernel.pred_descriptor(p, specs)
+    assert descs[0].tolist() != descs[1].tolist()
 
 
 def test_schema_carried_across_gives_reference_layout():
