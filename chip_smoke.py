@@ -14,8 +14,12 @@ the final result line:
    pgbench main-path specs at 262,144 rows, (b) every dense kind raw at
    65,536 rows, (c) the integer and temporal kinds nibble-packed at
    65,536 rows. Inputs are seeded and include adversarial rows. Prints
-   the kernel time (CUDA events, L2 flushed before each launch), its
-   bound and the plain version's time.
+   the walk the launch took (tile, subtile, direct), the kernel time
+   (CUDA events, L2 flushed before each launch, the card held busy while
+   the host enqueues: `bench.device_ms`), its bound, the launch floor (a
+   one-element PyTorch op timed the same way) and the plain version's
+   time; (a) is timed three times (min, median, max), and also without
+   the hold, as the first two slices timed it.
    3d. the fused row filter: K2 (`filter_pack`) and the compaction
    epilogue (`compact_packed`) against their plain versions, bit for bit,
    alone and chained (`decode_pack_filtered` against
@@ -27,8 +31,11 @@ the final result line:
    position, with the same dense specs, one after the other (each must
    get its own predicate descriptor). Inputs are seeded and hold NULLs, rows that fail to parse,
    dead and force-kept rows, literals that fold to constants and edge
-   values. Prints each kernel's time, bound and plain time, and for the
-   epilogue the time of `words[:, keep]`.
+   values. Prints each kernel's time, bound, launch floor and plain time,
+   and for the epilogue the time of `words[:, keep]`; K2 in (i) is timed
+   three times, as K1 in (a).
+   3e. K1 and K2 at the main-path shape in every walk (256-row tiles,
+   sub-tiles of 128, 64 and 32 rows, direct), bit for bit and timed once.
 4. main path: pgbench insert CDC payloads → framing → stage_wal_batch →
    DeviceDecoder(device="cuda") with two batches in flight, 262,144 rows
    a batch. The decoder must launch the kernel; the first batch must equal
@@ -75,28 +82,36 @@ def check(cond: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def time_ms(fn, iters: int, flush=None) -> float:
-    """Mean device ms of `fn()` over `iters` runs after 3 warm-ups; with
-    `flush`, it runs before each timed launch, outside the events."""
+def time_ms(*args, **kw) -> float:
+    """`etl_tpu_torch.bench.device_ms`: the device ms of one launch."""
+    from etl_tpu_torch.bench import device_ms
+
+    return device_ms(*args, **kw)
+
+
+def time_runs(fn, runs: int, flush, hold: bool = True) -> list:
+    """`runs` separate `time_ms(fn, 50, flush, hold)` means, in call
+    order."""
+    return [time_ms(fn, 50, flush=flush, hold=hold) for _ in range(runs)]
+
+
+def launch_floor_ms(flush, hold: bool = True) -> float:
+    """Device ms of a one-element in-place PyTorch op between the same
+    events and after the same L2 flush as a kernel: the floor under any
+    launch's timed ms."""
     import torch
 
-    for _ in range(3):
-        fn()
-    total = 0.0
-    for _ in range(iters):
-        if flush is not None:
-            flush()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        total += a.elapsed_time(b)
-    return total / iters
+    one = torch.zeros(1, dtype=torch.int32, device="cuda")
+    return time_ms(lambda: one.add_(1), 50, flush=flush, hold=hold)
 
 
-def kernel_case(name, specs, nibble, rows, pool, seed):
+def spread(runs: list) -> str:
+    s = sorted(runs)
+    return (f"min={s[0]:.5f} median={s[len(s) // 2]:.5f} max={s[-1]:.5f} "
+            f"(runs {', '.join(f'{x:.5f}' for x in runs)})")
+
+
+def kernel_case(name, specs, nibble, rows, pool, seed, runs=1):
     """Phase 3 case: kernel vs plain version on the card; returns the
     kernel record (times, bound, error)."""
     import numpy as np
@@ -114,8 +129,10 @@ def kernel_case(name, specs, nibble, rows, pool, seed):
     bm_d, ln_d = torch.from_numpy(bm).cuda(), torch.from_numpy(ln).cuda()
     n_words = layout_for_specs(specs).n_words
     out = torch.empty((n_words, rows), dtype=torch.int32, device="cuda")
+    paths = dict(decode_kernel.path_launches)
     got = decode_kernel.decode_pack(bm_d, ln_d, specs, nibble, out=out)
     torch.cuda.synchronize()
+    path = paths_taken(paths)
     want = parse_and_pack_plain(bm_d, ln_d, specs, nibble)
     torch.cuda.synchronize()
     diff = (got.view(torch.int32).long() & 0xFFFFFFFF) \
@@ -125,8 +142,13 @@ def kernel_case(name, specs, nibble, rows, pool, seed):
     check(max_err == 0, f"{name}: kernel differs from plain version on "
           f"{n_bad} of {rows} rows")
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    k_ms = time_ms(lambda: decode_kernel.decode_pack(
-        bm_d, ln_d, specs, nibble, out=out), 50, flush=scratch.zero_)
+    k_runs = time_runs(lambda: decode_kernel.decode_pack(
+        bm_d, ln_d, specs, nibble, out=out), runs, scratch.zero_)
+    k_ms = sorted(k_runs)[len(k_runs) // 2]
+    floor_ms = launch_floor_ms(scratch.zero_)
+    paced = time_runs(lambda: decode_kernel.decode_pack(
+        bm_d, ln_d, specs, nibble, out=out), runs, scratch.zero_, hold=False)
+    paced_floor = launch_floor_ms(scratch.zero_, hold=False)
     p_ms = time_ms(lambda: parse_and_pack_plain(bm_d, ln_d, specs, nibble), 3)
     n_bytes = bm.nbytes + ln.nbytes + n_words * 4 * rows
     n_ops = OPS_PER_TEXT_BYTE * sum(w for _, _, w, _ in specs) * rows
@@ -137,12 +159,75 @@ def kernel_case(name, specs, nibble, rows, pool, seed):
            "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms,
            "bound_ms": max(bytes_ms, ops_ms),
            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-           "bytes": n_bytes, "library_ms": None}
+           "bytes": n_bytes, "library_ms": None, "ms_runs": k_runs,
+           "path": path,
+           "launch_floor_ms": floor_ms, "host_paced_ms_runs": paced,
+           "host_paced_launch_floor_ms": paced_floor}
     print(f"  {name}: rows={rows} nibble={nibble} words={n_words} "
-          f"bit-identical=yes kernel_ms={k_ms:.5f} plain_ms={p_ms:.3f} "
+          f"path={path} bit-identical=yes kernel_ms={k_ms:.5f} "
+          f"plain_ms={p_ms:.3f} "
           f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}, "
-          f"{n_bytes} B) library_ms=null", flush=True)
+          f"{n_bytes} B) launch_floor_ms={floor_ms:.5f} library_ms=null",
+          flush=True)
+    if runs > 1:
+        print(f"    kernel_ms over {runs} timings: {spread(k_runs)}",
+              flush=True)
+        print(f"    host-paced (no hold) kernel_ms: {spread(paced)}; "
+              f"launch_floor_ms={paced_floor:.5f}", flush=True)
     return rec
+
+
+def paths_taken(before: dict) -> str:
+    """The walks (tile, subtile, direct) that K1 and K2 launched in since
+    `before`, a copy of decode_kernel.path_launches."""
+    from etl_tpu_torch.ops import decode_kernel
+
+    return "+".join(f"{k}x{v - before[k]}" if v - before[k] > 1 else k
+                    for k, v in decode_kernel.path_launches.items()
+                    if v != before[k]) or "none"
+
+
+def walk_cases(specs, nibble, rows, pool, seed, pred):
+    """K1 and K2 at the main-path shape in every walk (256-row tiles,
+    sub-tiles of 128, 64 and 32 rows, direct), each bit for bit against
+    its plain version and timed once."""
+    import numpy as np
+    import torch
+
+    from etl_tpu_torch.ops import decode_kernel as dk
+    from etl_tpu_torch.ops.bitpack import (filter_pack_plain,
+                                           parse_and_pack_plain)
+    from etl_tpu_torch.testing import filter_case as inputs
+
+    bm, ln, fl = inputs(specs, pool, np.random.default_rng(seed), nibble)
+    reps = -(-rows // pool)
+    bm, ln, fl = (np.ascontiguousarray(np.tile(a, (reps,) + (1,) *
+                                               (a.ndim - 1))[:rows])
+                  for a in (bm, ln, fl))
+    bm_d, ln_d, fl_d = (torch.from_numpy(a).cuda() for a in (bm, ln, fl))
+    k1_want = parse_and_pack_plain(bm_d, ln_d, specs, nibble)
+    k2_want = filter_pack_plain(bm_d, ln_d, fl_d, specs, nibble, pred,
+                                dk.FILTER_BLOCK)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for walk in (256, 128, 64, 32, 0):
+        k1 = dk.decode_pack(bm_d, ln_d, specs, nibble, walk=walk)
+        k2 = dk.filter_pack(bm_d, ln_d, fl_d, specs, nibble, pred, walk=walk)
+        torch.cuda.synchronize()
+        errs = [_words_err(k1, k1_want)] + [_words_err(a, b)
+                                            for a, b in zip(k2, k2_want)]
+        check(all(e == 0 for e, _ in errs),
+              f"walk {walk}: K1 or K2 differs from its plain version {errs}")
+        k1_ms = time_ms(lambda: dk.decode_pack(bm_d, ln_d, specs, nibble,
+                                               walk=walk), 50, scratch.zero_)
+        k2_ms = time_ms(lambda: dk.filter_pack(bm_d, ln_d, fl_d, specs,
+                                               nibble, pred, walk=walk), 50,
+                        scratch.zero_)
+        out[dk.path_of(walk) + (f"{walk}" if 0 < walk < 256 else "")] = {
+            "k1_ms": k1_ms, "k2_ms": k2_ms}
+        print(f"  walk {walk or 'direct'}: K1 and K2 bit-identical, "
+              f"K1 ms={k1_ms:.5f} K2 ms={k2_ms:.5f}", flush=True)
+    return out
 
 
 def _words_err(got, want) -> tuple[int, int]:
@@ -161,7 +246,7 @@ def _words_err(got, want) -> tuple[int, int]:
         int((diff != 0).any(dim=0).sum().item())
 
 
-def filter_case(name, specs, nibble, rows, pool, seed, pred):
+def filter_case(name, specs, nibble, rows, pool, seed, pred, runs=1):
     """Phase 3d case: K2 and the epilogue against their plain versions on
     the card; returns (K2 record, epilogue record)."""
     import numpy as np
@@ -181,7 +266,9 @@ def filter_case(name, specs, nibble, rows, pool, seed, pred):
     fl = np.ascontiguousarray(np.tile(fl, reps)[:rows])
     bm_d, ln_d, fl_d = (torch.from_numpy(a).cuda() for a in (bm, ln, fl))
     args = (bm_d, ln_d, fl_d, specs, nibble, pred)
+    paths = dict(dk.path_launches)
     k2 = dk.filter_pack(*args)
+    path = paths_taken(paths)
     k2_want = filter_pack_plain(*args, dk.FILTER_BLOCK)
     epi = dk.compact_packed(*k2)
     keep = k2_want[0].new_zeros(rows, dtype=torch.bool)
@@ -205,7 +292,12 @@ def filter_case(name, specs, nibble, rows, pool, seed, pred):
     S = int(full_want[2][0])
     n_words = layout_for_specs(specs).n_words
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    k2_ms = time_ms(lambda: dk.filter_pack(*args), 50, flush=scratch.zero_)
+    k2_runs = time_runs(lambda: dk.filter_pack(*args), runs, scratch.zero_)
+    k2_ms = sorted(k2_runs)[len(k2_runs) // 2]
+    floor_ms = launch_floor_ms(scratch.zero_)
+    paced = time_runs(lambda: dk.filter_pack(*args), runs, scratch.zero_,
+                      hold=False)
+    paced_floor = launch_floor_ms(scratch.zero_, hold=False)
     k2_plain = time_ms(lambda: filter_pack_plain(*args, dk.FILTER_BLOCK), 3)
     epi_ms = time_ms(lambda: dk.compact_packed(*k2), 50, flush=scratch.zero_)
     epi_plain = time_ms(lambda: compact_packed_plain(k2_want[0], keep), 3)
@@ -218,10 +310,10 @@ def filter_case(name, specs, nibble, rows, pool, seed, pred):
     epi_bytes = n_words * 4 * S + 4 * n_mask + 4 * n_blocks \
         + n_words * 4 * rows + 4
     recs = []
-    for kname, ms, plain, nbytes, ops, err, lib in (
-            ("decode_pack_filtered", k2_ms, k2_plain, k2_bytes, k2_ops,
-             k2_err + full_err, None),
-            ("compact_packed", epi_ms, epi_plain, epi_bytes, 0,
+    for kname, ms, ms_runs, plain, nbytes, ops, err, lib in (
+            ("decode_pack_filtered", k2_ms, k2_runs, k2_plain, k2_bytes,
+             k2_ops, k2_err + full_err, None),
+            ("compact_packed", epi_ms, [epi_ms], epi_plain, epi_bytes, 0,
              epi_err + full_err, lib_ms)):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / SCALAR_OPS_PER_S * 1e3
@@ -231,12 +323,23 @@ def filter_case(name, specs, nibble, rows, pool, seed, pred):
             "max_abs_err": max(e for e, _ in err), "ms": ms,
             "plain_ms": plain, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": nbytes, "library_ms": lib})
+            "bytes": nbytes, "library_ms": lib, "ms_runs": ms_runs,
+            "launch_floor_ms": floor_ms})
+        if kname == "decode_pack_filtered":
+            recs[-1]["path"] = path
+            recs[-1].update(host_paced_ms_runs=paced,
+                            host_paced_launch_floor_ms=paced_floor)
         print(f"  {name} {kname}: rows={rows} survivors={S} "
-              f"bit-identical=yes ms={ms:.5f} plain_ms={plain:.3f} "
+              + (f"path={path} " if kname == "decode_pack_filtered" else "")
+              + f"bit-identical=yes ms={ms:.5f} plain_ms={plain:.3f} "
               f"bound_ms={recs[-1]['bound_ms']:.5f} "
-              f"({recs[-1]['bound_by']}, {nbytes} B) library_ms="
+              f"({recs[-1]['bound_by']}, {nbytes} B) launch_floor_ms="
+              f"{floor_ms:.5f} library_ms="
               + ("null" if lib is None else f"{lib:.5f}"), flush=True)
+    if runs > 1:
+        print(f"    K2 ms over {runs} timings: {spread(k2_runs)}", flush=True)
+        print(f"    host-paced (no hold) K2 ms: {spread(paced)}; "
+              f"launch_floor_ms={paced_floor:.5f}", flush=True)
     return recs
 
 
@@ -312,7 +415,9 @@ def main() -> int:
          tuple((i, k, w, bw(k, w)) for i, (k, w) in enumerate(nib_kinds)),
          True, 65_536, 4_096),
     ]
-    records = [kernel_case(name, specs, nib, n, pool, args.seed + i)
+    # the main-path shape (3a) is timed three times, for a spread
+    records = [kernel_case(name, specs, nib, n, pool, args.seed + i,
+                           runs=3 if i == 0 else 1)
                for i, (name, specs, nib, n, pool) in enumerate(cases)]
 
     print("[3d] fused row filter vs plain versions", flush=True)
@@ -372,8 +477,12 @@ def main() -> int:
                 [(n, 23, -1, False, None) for n in names], [True] * 3,
                 [False] * 3))))
     frecords = [filter_case(name, specs, nib, n, pool, args.seed + 10 + i,
-                            pred)
+                            pred, runs=3 if i == 0 else 1)
                 for i, (name, specs, nib, n, pool, pred) in enumerate(fcases)]
+
+    print("[3e] every walk at the main-path shape", flush=True)
+    walks = walk_cases(main_specs, True, rows, 16_384, args.seed + 20,
+                       fcases[0][5])
 
     # -- 4. main path --------------------------------------------------------
     print("[4] main path", flush=True)
@@ -389,12 +498,14 @@ def main() -> int:
         return wal
 
     decode_kernel.launches = 0
+    paths = dict(decode_kernel.path_launches)
     done: list = []
     wall = bench.decode_stream(decoder, timed_stage, args.batches,
                                done.append)
     launches = decode_kernel.launches
     print(f"  batches={args.batches} rows/batch={rows} in_flight="
-          f"{bench.IN_FLIGHT} kernel launches={launches}", flush=True)
+          f"{bench.IN_FLIGHT} kernel launches={launches} "
+          f"path={paths_taken(paths)}", flush=True)
     check(launches > 0, "the main path launched no decode kernel")
     batches = [p.result() for p in done]
     check(all(b.num_rows == rows and len(b.columns) == 4 for b in batches),
@@ -435,6 +546,7 @@ def main() -> int:
     decode_kernel.launches = 0
     decode_kernel.filter_launches = 0
     decode_kernel.compact_launches = 0
+    paths = dict(decode_kernel.path_launches)
     fdone: list = []
     fwall = bench.decode_stream(fdecoder, timed_stage, args.batches,
                                 fdone.append)
@@ -442,8 +554,8 @@ def main() -> int:
     c_launches = decode_kernel.compact_launches
     print(f"  batches={args.batches} rows/batch={rows} in_flight="
           f"{bench.IN_FLIGHT} launches: filter={f_launches} "
-          f"compact={c_launches} unfiltered={decode_kernel.launches}",
-          flush=True)
+          f"compact={c_launches} unfiltered={decode_kernel.launches} "
+          f"path={paths_taken(paths)}", flush=True)
     check(f_launches >= args.batches and c_launches >= args.batches,
           "the filtered path did not launch K2 and the epilogue for every "
           "batch")
@@ -508,6 +620,8 @@ def main() -> int:
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
+            "launch_floor_ms": main_case["launch_floor_ms"],
+            "ms_runs": main_case["ms_runs"],
             "cases": recs, "main_path": main}
 
     kernels = [
@@ -521,6 +635,8 @@ def main() -> int:
         record("compact_packed", "etl_tpu/ops/bitpack.py:212", c_launches,
                epi_recs, filtered_main),
     ]
+    kernels[0]["walks"] = walks
+    kernels[1]["walks"] = walks
     kernels[1]["library_ms_note"] = (
         "null: no PyTorch call parses, filters and packs the fields")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -46,6 +46,11 @@ IN_FLIGHT = 2
 CPU_SAMPLE_ROWS = 16_384  # CPU path timed on a sample, scaled (it's O(n))
 
 
+# ≈ 0.5 ms of card clock before a timed launch: longer than any wrapper's
+# host time, so the events time the card's own work (device_ms)
+HOLD_CYCLES = 1_000_000
+
+
 def pgbench_rows(n_rows: int) -> list[tuple[int, int, int]]:
     """(aid, bid, abalance) of the workload's rows, from its seed: bid
     uniform on 1..10, abalance on [-10^9, 10^9)."""
@@ -111,6 +116,35 @@ def card_info() -> str:
         return res.stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError, IndexError):
         return "nvidia-smi unavailable"
+
+
+def device_ms(fn, iters: int, flush=None, hold: bool = True) -> float:
+    """Mean device ms of `fn()` over `iters` runs after 3 warm-ups; with
+    `flush`, it runs before each timed launch, outside the events. With
+    `hold`, the stream spins HOLD_CYCLES on the card before the start
+    event, so the host has enqueued the start event, `fn` and the end
+    event before the card reaches them: the events then time the card's
+    own work. Without it (the timer of the first two slices), a launch
+    whose host-side wrapper takes longer than the flush runs on the card
+    is timed with the host's enqueue gap in it."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        if flush is not None:
+            flush()
+        if hold:
+            torch.cuda._sleep(HOLD_CYCLES)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        total += a.elapsed_time(b)
+    return total / iters
 
 
 def batch_digest(batch) -> str:

@@ -1,6 +1,6 @@
-// Parse-and-pack decode kernel for Hopper (sm_90a).
+// Parse-and-pack decode kernels for Hopper (sm_90a).
 //
-// Replaces the reference's Pallas kernel body `kernel`
+// decode_pack_kernel replaces the reference's Pallas kernel body `kernel`
 // (etl_tpu/ops/pallas_kernel.py:114, K1) and its XLA twin
 // `bitpack.parse_and_pack` (etl_tpu/ops/bitpack.py:271): for every dense
 // column of a batch, parse the field text into int32 components plus an
@@ -9,16 +9,75 @@
 // (bitpack.pack_device). The words must equal the reference's bit for
 // bit, including the values of rows that fail to parse.
 //
-// Design. The TPU kernel transposed its inputs to [W, R] so that every
-// byte position filled a VPU lane vector. Here one thread owns one row:
-// it reads the engine's row-major [R, ΣW] (or [R, ΣW/2] planar nibble)
-// matrix and [R, C] lengths directly and runs a scalar parse per column,
-// with early exits the lane form could not take. The specs, static under
-// jit in the reference, are a column-descriptor table (see DESC_* below)
-// that the wrapper uploads once per spec set. The output stays the
-// reference's word-major uint32 [n_words, R]: thread r writes column r of
-// each word, so the stores of a warp coalesce, and every word is written
-// exactly once from a register accumulator (no zero fill needed).
+// filter_pack_kernel replaces `kernel_filtered`
+// (etl_tpu/ops/pallas_kernel.py:118, K2): the same parse and pack, plus
+// the publication row filter, given as the flat postfix program of
+// ops/predicate.py (PRED_* below) and evaluated in SQL's three-valued
+// logic on two 32-bit registers used as stacks of (is_true, is_false)
+// bits. keep = live & (true | force-keep | a referenced field that failed
+// to parse). A kept row packs its words as K1 does; a dropped row's words
+// are zeros. compact_kernel replaces the XLA epilogue
+// `bitpack.compact_packed` (etl_tpu/ops/bitpack.py:212).
+//
+// Bound: bytes. Per row K1 reads its field bytes and lengths once and
+// writes n_words * 4 bytes: on the pgbench main path 12 nibble bytes,
+// 3 lengths and 8 bytes of words, 23 B a row, 6.0 MB for 262,144 rows,
+// 1.8 us at 3.35 TB/s; K2 adds a flag byte (24 B a row, 1.9 us). The
+// parse is a few hundred integer instructions a row, about 3-4 us of
+// issue over 132 SMs: close to the byte bound, so neither may waste the
+// other. On the card the time goes to the length of each thread's chain
+// of dependent loads and parse steps more than to either bound (PERF.md).
+//
+// Design.
+// - A block owns FILTER_BLOCK = 256 consecutive rows: one contiguous
+//   range of the row-major [R, row_bytes] byte matrix, of the [R, n_cols]
+//   lengths and of the flags. Its threads stage them into shared memory
+//   with 16-byte cp.async copies, all in flight at once (the ragged end
+//   of the batch bytewise), and then each thread parses its rows from
+//   the tile. Rows whose byte length is a multiple of 8 (an even number
+//   of 32-bit words) are stored one word apart in the tile, so that the
+//   32 rows a warp reads at once fall on 32 different banks.
+// - Where 256 rows do not fit the shared-memory budget (the wrapper's
+//   choice, by shape), the block walks its 256 rows in sub-tiles of 128,
+//   64 or 32 rows (one warp). Where one warp's tile does not fit either,
+//   or a base pointer is not 16-byte aligned, the block reads straight
+//   from global memory through the same row body ("direct").
+// - The column descriptor (DESC_* below) and the predicate program are
+//   staged into shared memory once per block, with the first tile; the
+//   column loop is warp-uniform and reads a column's head and each slot
+//   as one 16-byte load.
+// - The parse keeps everything in registers: components, limbs and
+//   digits are scalars or arrays indexed only by unrolled constants, so
+//   no per-thread array is indexed at run time. An integer field of at
+//   most 16 nibble symbols, the main path's, is parsed without a loop or
+//   a branch: its bytes are read as aligned 32-bit words, split into
+//   4-bit codes with shifts, and the digit check and decimal value are
+//   computed on all symbols at once (parse_int_nibble). Other fields read
+//   their symbols one byte load each from the tile, a nibble's code
+//   mapped to ASCII by arithmetic.
+// - K1 gives each thread two rows where every column takes that
+//   loop-free parse (the wrapper's choice): the two rows' chains are
+//   independent and interleave. Every other layout, and K2, one row.
+// - K2 parses every dense column once, in spec order. As a referenced
+//   column is parsed, each of its comparison leaves is judged on the
+//   components just parsed and its (true, false) bits are set at the
+//   leaf's instruction number in two 64-bit sets; the column's "present
+//   but failed" bit is folded into the unevaluable check. Right after the
+//   last referenced column the postfix program runs on those bits (a leaf
+//   past LEAF_BITS parses its column again from the tile), and a dropped
+//   row stops parsing and writes zeros. Blocks are whole 32-row warps, so
+//   each warp's __ballot_sync of keep IS one keep-mask word in the
+//   reference's little bit order, and __syncthreads_count sums the
+//   block's survivors.
+// - The output stays the reference's word-major uint32 [n_words, R]:
+//   thread r writes column r of each word, so a warp's stores coalesce,
+//   and each word of K1 is written exactly once from a register
+//   accumulator (no zero fill).
+// - compact_kernel: each block sums the survivor counts of the blocks
+//   before it (and of all blocks) itself, so no scan launch is needed. A
+//   kept row moves to its block's offset plus the popcounts of the mask
+//   words before it in the block plus its rank in its own word;
+//   positions at or after the total are zeroed.
 //
 // All packing is in uint32_t and the reference's wrapping int32 products
 // (l1 * 1e9 + l0, ms = sec * 1000 + ...) are computed in uint32_t, where
@@ -26,41 +85,11 @@
 // only to operands that are non-negative, where they equal jnp's floor
 // division.
 //
-// Bound: bytes. Per row the kernel reads its packed field bytes and
-// lengths once and writes n_words * 4 bytes; on the pgbench main path
-// that is 262,144 x (12 + 3 + 8) B = 6.0 MB a batch, 1.8 us at the
-// H100's 3.35 TB/s. The parse is a few hundred integer operations a row,
-// far below the integer rate. This first version reads its bytes one at
-// a time through L1 and does not stage through shared memory.
-//
-// Fused row filter (K2). Replaces `kernel_filtered`
-// (etl_tpu/ops/pallas_kernel.py:118) and the XLA compaction epilogue
-// `bitpack.compact_packed` (etl_tpu/ops/bitpack.py:212) with one shard:
-//
-// - filter_pack_kernel, one thread per row as above: it evaluates the
-//   publication row filter, given as the flat postfix program of
-//   ops/predicate.py (PRED_* below), parsing each leaf's column on demand
-//   from the row's bytes; SQL's three-valued logic runs on two 32-bit
-//   registers used as stacks of (is_true, is_false) bits. keep = live &
-//   (true | force-keep | a referenced field that failed to parse). A kept
-//   row packs its words as decode_row does; a dropped row writes zeros.
-//   Blocks are FILTER_BLOCK rows, so each warp covers one aligned group of
-//   32 rows: its __ballot_sync of keep IS that group's keep-mask word in
-//   the reference's little bit order, and __syncthreads_count gives the
-//   block's survivor count.
-// - compact_kernel: each block sums the survivor counts of the blocks
-//   before it (and of all blocks, the total) with a block reduction, so
-//   no separate scan launch is needed. A kept row moves to its block's
-//   offset plus the popcounts of the mask words before it in the block
-//   plus __popc(mask & lanemask_lt); positions at or after the total are
-//   zeroed, as compact_packed's zeros_like leaves them.
-//
-// Bound of the two, bytes: on the pgbench main path K2 reads 16 B a row
-// (12 nibble bytes, 3 lengths, 1 flag) and writes 8 B of words plus 1/8 B
-// of mask; the epilogue reads the survivors' words and the mask and
-// writes 8 B a row. This first version keeps the unfiltered kernel's
-// one-byte-at-a-time reads and re-parses a referenced column for each
-// leaf that reads it.
+// The same source compiles as host C++ (c++ -x c++, off __CUDACC__):
+// the etl_*_host functions run each block's walk with loops in place of
+// threads, staging each block's bytes into a tile laid out as on the card
+// and calling the same row body, so the CPU tests reach the tile
+// indexing, the sub-tile walk and the single-parse leaf bits.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC  (ops/decode_kernel.py)
@@ -70,10 +99,9 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #else
-// Host build of the same source (c++ -x c++), used by the CPU tests
-// (tests/test_torch_kernel_host.py) to run the kernel's parse and pack
-// code where there is no card: the device qualifiers vanish and
-// etl_decode_pack_host walks the rows in a loop.
+#include <stdlib.h>
+#include <string.h>
+#define __host__
 #define __device__
 #define __global__
 #define __constant__
@@ -89,96 +117,303 @@ enum Kind {
     K_F64 = 6, K_DATE = 7, K_TIME = 8, K_TIMESTAMP = 9, K_TIMESTAMPTZ = 10,
 };
 
-// column descriptor: DESC_STRIDE int32 per dense column
-constexpr int DESC_KIND = 0;    // Kind
-constexpr int DESC_WIDTH = 1;   // text width W of the field
-constexpr int DESC_OFF = 2;     // byte offset of the field in a row of bmat
-constexpr int DESC_NSLOTS = 3;  // packed slots of the column (ok first)
-constexpr int DESC_SLOT0 = 4;   // then per slot: comp, bit_off, bits, zigzag
+// column descriptor: DESC_STRIDE int32 per dense column (112 bytes, so
+// every column's head and slots are 16-byte aligned, one vector load
+// each): the head (Kind, text width W of the field, byte offset of the
+// field in a row of bmat, packed slots of the column, ok first), then
+// per slot (comp, bit_off, bits, zigzag)
+constexpr int DESC_SLOT0 = 4;
 constexpr int MAX_SLOTS = 6;
 constexpr int DESC_STRIDE = DESC_SLOT0 + 4 * MAX_SLOTS;
 constexpr int COMP_OK = -1;     // slot comp index of the ok bit
 
+// predicate descriptor (ops/decode_kernel.py pred_descriptor):
+// [n_instr, n_ref, n_ref referenced column slots,
+//  n_instr instructions of PRED_STRIDE int32 each:
+//  (opcode, slot, cmp, negate, a, b, c, d) — ops/predicate.py P_* / CMP_*,
+//  then the single-parse index: the last referenced slot, n_cols + 1
+//  offsets into the leaf list, a referenced flag per slot, and the leaf
+//  list: per slot, the instruction numbers of its comparison leaves]
+constexpr int PRED_CMP = 0, PRED_NULLTEST = 1, PRED_OR = 3, PRED_NOT = 4;
+constexpr int CMP_EQ = 0, CMP_LT = 1, CMP_GT = 2, CMP_CONST = 3;
+constexpr int PRED_STRIDE = 8;
+constexpr int LEAF_BITS = 64;      // leaves with a bit in the leaf sets
+constexpr int FILTER_BLOCK = 256;  // rows per block: whole 32-row warps
+
 __constant__ int32_t P10[9] = {1, 10, 100, 1000, 10000, 100000, 1000000,
                                10000000, 100000000};
 
+#ifdef __CUDACC__
+#define POPC(x) __popc(x)
+#else
+#define POPC(x) __builtin_popcount(x)
+#endif
+
 __device__ __forceinline__ bool is_digit(int d) { return d >= 0 && d <= 9; }
 
+// framer.c's nibble alphabet: codes 0-9 are digits, then - + . : space;
+// 15 (padding) reads as 0
+__device__ __forceinline__ int sym_char(uint32_t code) {
+    return code < 10 ? '0' + (int)code
+                     : (int)((0x00203A2E2B2DULL >> (8 * (code - 10))) & 0xFF);
+}
+
 // One field of one row: raw ASCII bytes or planar nibble pairs (byte k
-// holds symbol k in the high nibble and symbol k + W/2 in the low one).
+// holds symbol k in the high nibble and symbol k + W/2 in the low one),
+// in the block's tile (`tiled`) or, direct, in global memory.
 struct Field {
     const uint8_t *p;
-    int w;
-    bool nibble;
+    int w, half;
+    bool nibble, tiled;
 
     __device__ __forceinline__ int at(int k) const {
         if (!nibble) return p[k];
-        int half = w >> 1;
-        int code = k < half ? (p[k] >> 4) : (p[k - half] & 0xF);
-        if (code < 10) return '0' + code;
-        switch (code) {
-            case 10: return '-';
-            case 11: return '+';
-            case 12: return '.';
-            case 13: return ':';
-            case 14: return ' ';
-            default: return 0;  // 15: padding
-        }
+        bool low = k >= half;
+        uint32_t b = p[low ? k - half : k];
+        return sym_char(low ? b & 0xFu : b >> 4);
     }
     // clamped read (jnp take_along_axis over clip(q, 0, W - 1))
     __device__ __forceinline__ int atc(int q) const {
         return at(q < 0 ? 0 : (q > w - 1 ? w - 1 : q));
     }
-    __device__ __forceinline__ int fixed2(int k) const {
-        return (at(k) - '0') * 10 + (at(k + 1) - '0');
-    }
 };
 
-// parsers.parse_int: sign, three base-10^9 limbs, digit count, ok
-__device__ bool parse_int(const Field &f, int len, bool *neg, int32_t *l,
-                          int *ndigits) {
+// Four consecutive int32 of a descriptor, 16-byte aligned: one load.
+struct I4 {
+    int32_t x, y, z, w;
+};
+
+__device__ __forceinline__ I4 load_i4(const int32_t *p) {
+#ifdef __CUDACC__
+    int4 v = *reinterpret_cast<const int4 *>(p);
+    return I4{v.x, v.y, v.z, v.w};
+#else
+    I4 v;
+    memcpy(&v, p, sizeof v);
+    return v;
+#endif
+}
+
+// The field of a column whose descriptor head (kind, width, offset,
+// slots) is `hd`.
+__device__ __forceinline__ Field field_of(const uint8_t *row, const I4 &hd,
+                                          int nibble, bool tiled) {
+    return Field{row + hd.z, hd.y, hd.y >> 1, nibble != 0, tiled};
+}
+
+// a column's components in COLUMN_COMPONENTS order, as the reference's
+// int32 bit patterns
+struct Comps {
+    uint32_t c0, c1, c2, c3, c4;
+};
+
+__device__ __forceinline__ uint32_t comp_at(const Comps &c, int i) {
+    return i == 0 ? c.c0 : i == 1 ? c.c1 : i == 2 ? c.c2 : i == 3 ? c.c3
+                                                                   : c.c4;
+}
+
+// parsers.parse_int: sign, three base-10^9 limbs, digit count, ok. The
+// digits are walked from the last one read to the first, so the place
+// value 10^(r % 9) of limb r / 9 (r = len - 1 - pos) is a running product.
+__device__ __forceinline__ bool parse_int(const Field &f, int len, bool &neg,
+                                          int32_t &l0, int32_t &l1,
+                                          int32_t &l2, int &ndigits) {
     int b0 = f.at(0);
-    *neg = b0 == '-';
-    int start = (*neg || b0 == '+') ? 1 : 0;
-    l[0] = l[1] = l[2] = 0;
+    neg = b0 == '-';
+    int start = (neg || b0 == '+') ? 1 : 0;
+    l0 = l1 = l2 = 0;
     bool all_digits = true;
     int hi = len < f.w ? len : f.w;
-    for (int pos = start; pos < hi; ++pos) {
+    int r = len - hi;  // r of pos = hi - 1, >= 0
+    int k = r / 9, e = r - 9 * k;
+    int32_t pv = 1;
+    for (int i = 0; i < e; ++i) pv *= 10;
+    for (int pos = hi - 1; pos >= start; --pos) {
         int d = f.at(pos) - '0';
-        if (!is_digit(d)) {
+        if (is_digit(d)) {
+            int32_t v = d * pv;
+            if (k == 0) l0 += v;
+            else if (k == 1) l1 += v;
+            else if (k == 2) l2 += v;
+        } else {
             all_digits = false;
-            continue;
         }
-        int r = len - 1 - pos;  // >= 0: pos < len
-        int k = r / 9;
-        if (k < 3) l[k] += d * P10[r % 9];
+        pv *= 10;
+        if (++e == 9) {
+            e = 0;
+            pv = 1;
+            ++k;
+        }
     }
-    *ndigits = len - start;
-    return all_digits && *ndigits >= 1 && *ndigits <= 27 && len <= f.w;
+    ndigits = len - start;
+    return all_digits && ndigits >= 1 && ndigits <= 27 && len <= f.w;
+}
+
+__device__ __forceinline__ uint32_t load32(const uint8_t *p) {
+#ifdef __CUDACC__
+    return *reinterpret_cast<const uint32_t *>(p);
+#else
+    uint32_t v;
+    memcpy(&v, p, 4);
+    return v;
+#endif
+}
+
+// The low n 4-bit lanes of a 32- or 64-bit word (n <= 0: none).
+__device__ __forceinline__ uint32_t nib_mask32(int n) {
+    return n <= 0 ? 0u : n >= 8 ? ~0u : (1u << (4 * n)) - 1u;
+}
+__device__ __forceinline__ uint64_t nib_mask(int n) {
+    return n <= 0 ? 0 : n >= 16 ? ~0ull : (1ull << (4 * n)) - 1;
+}
+
+// A code in the low 4 bits of each byte of x -> the 8 codes as 4-bit
+// lanes of the low 32 bits, byte i's at lane i.
+__device__ __forceinline__ uint64_t compact_nibbles(uint64_t x) {
+    x = (x | (x >> 4)) & 0x00FF00FF00FF00FFull;
+    x = (x | (x >> 8)) & 0x0000FFFF0000FFFFull;
+    return (x | (x >> 16)) & 0x00000000FFFFFFFFull;
+}
+
+// The same for the 4 bytes of a 32-bit word -> 4 lanes of 16 bits.
+__device__ __forceinline__ uint32_t compact_nibbles32(uint32_t x) {
+    x = (x | (x >> 4)) & 0x00FF00FFu;
+    return (x | (x >> 8)) & 0x0000FFFFu;
+}
+
+// The 8 bytes of a field in the tile from byte f.p on, read as aligned
+// 32-bit words (the tile holds at least 12 bytes past any field).
+__device__ __forceinline__ uint64_t field_window(const Field &f) {
+    unsigned a = (unsigned)((uintptr_t)f.p & 3);
+    const uint8_t *base = f.p - a;
+    uint64_t win = load32(base) | (uint64_t)load32(base + 4) << 32;
+    // << (63 - 8a) << 1: 0 for a == 0, without a shift by 64
+    return (win >> (8 * a)) | (uint64_t)load32(base + 8) << (63 - 8 * a) << 1;
+}
+
+// The value of 8 decimal digits in the 4-bit lanes of x, lane 0 the most
+// significant; every lane <= 9.
+__device__ __forceinline__ uint32_t swar_decimal8(uint32_t x) {
+    x = (x & 0x0F0F0F0Fu) * 10 + ((x >> 4) & 0x0F0F0F0Fu);
+    x = (x & 0x00FF00FFu) * 100 + ((x >> 8) & 0x00FF00FFu);
+    return (x & 0xFFFFu) * 10000 + (x >> 16);
+}
+
+// 10^m for 0 <= m <= 8, without a table: one factor per bit of m.
+__device__ __forceinline__ uint32_t pow10_small(int m) {
+    return (m & 1 ? 10u : 1u) * (m & 2 ? 100u : 1u) * (m & 4 ? 10000u : 1u) *
+           (m & 8 ? 100000000u : 1u);
+}
+
+// The base-10^9 limbs of v * 10^e mod 10^27, for v < 10^9 and e >= 0:
+// v * 10^(e % 9) < 10^17 splits into two limbs, which e / 9 shifts up.
+struct Limbs {
+    uint32_t l0, l1, l2;
+};
+
+__device__ __forceinline__ Limbs scaled_limbs(uint32_t v, int e) {
+    int q = e / 9;
+    uint64_t t = (uint64_t)v * pow10_small(e - 9 * q);
+    uint32_t hi = (uint32_t)(t / 1000000000ull);
+    uint32_t lo = (uint32_t)t - hi * 1000000000u;
+    return Limbs{q == 0 ? lo : 0u, q == 0 ? hi : q == 1 ? lo : 0u,
+                 q == 1 ? hi : q == 2 ? lo : 0u};
+}
+
+// x + y limb by limb, mod 10^27.
+__device__ __forceinline__ Limbs add_limbs(const Limbs &x, const Limbs &y) {
+    uint32_t s0 = x.l0 + y.l0, c0 = s0 >= 1000000000u;
+    uint32_t s1 = x.l1 + y.l1 + c0, c1 = s1 >= 1000000000u;
+    uint32_t s2 = x.l2 + y.l2 + c1;
+    return Limbs{s0 - c0 * 1000000000u, s1 - c1 * 1000000000u,
+                 s2 >= 1000000000u ? s2 - 1000000000u : s2};
+}
+
+// parse_int on a nibble field of W <= 16 symbols in the tile, without a
+// loop or a branch. Its bytes are read as aligned 32-bit words and split
+// into a string of 4-bit codes, symbol k at lane k; the digit check, the
+// zeroing of non-digits and the decimal value of the positions read are
+// computed on all lanes at once (32-bit lanes for W <= 8), and the limbs
+// take that value times 10^(len - hi), the place value of the last
+// position read (len > hi for a field longer than its width). Equal to
+// parse_int.
+template <bool WIDE>  // W <= 8 in 32-bit lanes; WIDE: 9 <= W <= 16
+__device__ __forceinline__ bool parse_int_nibble(const Field &f, int len,
+                                                 bool &neg, int32_t &l0,
+                                                 int32_t &l1, int32_t &l2,
+                                                 int &ndigits) {
+    uint64_t win = field_window(f);
+    int hi = len < f.w ? len : f.w;
+    int e = len - hi;  // >= 0: the place value of position hi - 1
+    uint32_t c0;
+    int start;
+    bool all_digits;
+    Limbs lm;
+    if (!WIDE) {
+        uint32_t w32 = (uint32_t)win;
+        uint32_t s = ((compact_nibbles32((w32 >> 4) & 0x0F0F0F0Fu) &
+                       nib_mask32(f.half)) |
+                      (compact_nibbles32(w32 & 0x0F0F0F0Fu) << (4 * f.half))) &
+                     nib_mask32(f.w);
+        c0 = s & 0xFu;
+        neg = c0 == 10;
+        start = (neg || c0 == 11) ? 1 : 0;
+        uint32_t m = nib_mask32(hi) & ~nib_mask32(start);
+        // code >= 10 <=> bit 3 and (bit 2 or bit 1)
+        uint32_t bad = (s >> 3) & ((s >> 2) | (s >> 1)) & 0x11111111u & m;
+        all_digits = bad == 0;
+        uint32_t d = s & ~(bad * 0xFu) & m;
+        d = hi >= 8 ? d : hi > 0 ? d << (4 * (8 - hi)) : 0;  // -> lane 7
+        lm = scaled_limbs(swar_decimal8(d), e);
+    } else {
+        uint64_t s = ((compact_nibbles((win >> 4) & 0x0F0F0F0F0F0F0F0Full) &
+                       nib_mask(f.half)) |
+                      (compact_nibbles(win & 0x0F0F0F0F0F0F0F0Full)
+                       << (4 * f.half))) &
+                     nib_mask(f.w);
+        c0 = (uint32_t)s & 0xFu;
+        neg = c0 == 10;
+        start = (neg || c0 == 11) ? 1 : 0;
+        uint64_t m = nib_mask(hi) & ~nib_mask(start);
+        uint64_t bad = (s >> 3) & ((s >> 2) | (s >> 1)) &
+                       0x1111111111111111ull & m;
+        all_digits = bad == 0;
+        uint64_t d = s & ~(bad * 0xF) & m;
+        d = hi >= 16 ? d : hi > 0 ? d << (4 * (16 - hi)) : 0;  // -> lane 15
+        // lanes 0-7 weigh 10^8 more than lanes 8-15
+        lm = add_limbs(scaled_limbs(swar_decimal8((uint32_t)d), e + 8),
+                       scaled_limbs(swar_decimal8((uint32_t)(d >> 32)), e));
+    }
+    l0 = (int32_t)lm.l0;
+    l1 = (int32_t)lm.l1;
+    l2 = (int32_t)lm.l2;
+    ndigits = len - start;
+    return all_digits && ndigits >= 1 && ndigits <= 27 && len <= f.w;
 }
 
 // parsers._int_range_ok
-__device__ bool int_range_ok(int kind, bool neg, const int32_t *l, int nd) {
+__device__ __forceinline__ bool int_range_ok(int kind, bool neg, int32_t l0,
+                                             int32_t l1, int32_t l2, int nd) {
     if (kind == K_I16)
-        return nd <= 5 && l[1] == 0 && l[2] == 0 &&
-               ((neg && l[0] <= 32768) || (!neg && l[0] <= 32767));
+        return nd <= 5 && l1 == 0 && l2 == 0 &&
+               ((neg && l0 <= 32768) || (!neg && l0 <= 32767));
     if (kind == K_I32)
-        return nd <= 10 && l[2] == 0 &&
-               (l[1] < 2 || (l[1] == 2 && ((neg && l[0] <= 147483648) ||
-                                           (!neg && l[0] <= 147483647))));
+        return nd <= 10 && l2 == 0 &&
+               (l1 < 2 || (l1 == 2 && ((neg && l0 <= 147483648) ||
+                                       (!neg && l0 <= 147483647))));
     if (kind == K_U32)
-        return nd <= 10 && l[2] == 0 && !neg &&
-               (l[1] < 4 || (l[1] == 4 && l[0] <= 294967295));
+        return nd <= 10 && l2 == 0 && !neg &&
+               (l1 < 4 || (l1 == 4 && l0 <= 294967295));
     // K_I64: |min| = 9223372036854775808
     int hi = neg ? 1 : 0;
-    bool at_cap = l[2] == 9 && (l[1] > 223372036 ||
-                                (l[1] == 223372036 && l[0] > 854775807 + hi));
-    return nd <= 19 && !(l[2] > 9 || at_cap);
+    bool at_cap = l2 == 9 && (l1 > 223372036 ||
+                              (l1 == 223372036 && l0 > 854775807 + hi));
+    return nd <= 19 && !(l2 > 9 || at_cap);
 }
 
 // codec.text.days_from_civil for y >= 1, 1 <= m <= 12 (every operand of
 // / is then non-negative)
-__device__ int32_t days_from_civil(int y, int m, int d) {
+__device__ __forceinline__ int32_t days_from_civil(int y, int m, int d) {
     y -= m <= 2;
     int era = y / 400;
     int yoe = y - era * 400;
@@ -188,54 +423,64 @@ __device__ int32_t days_from_civil(int y, int m, int d) {
 }
 
 // parsers.parse_date: 'YYYY-MM-DD' -> days (0 unless ok)
-__device__ bool parse_date(const Field &f, int len, int32_t *days) {
-    int d[10];
-    for (int i = 0; i < 10; ++i) d[i] = f.at(i) - '0';
-    int y = d[0] * 1000 + d[1] * 100 + d[2] * 10 + d[3];
-    int m = d[5] * 10 + d[6];
-    int dd = d[8] * 10 + d[9];
-    bool digits_ok = is_digit(d[0]) && is_digit(d[1]) && is_digit(d[2]) &&
-                     is_digit(d[3]) && is_digit(d[5]) && is_digit(d[6]) &&
-                     is_digit(d[8]) && is_digit(d[9]);
+__device__ __forceinline__ bool parse_date(const Field &f, int len,
+                                           int32_t &days) {
+    int y0 = f.at(0) - '0', y1 = f.at(1) - '0', y2 = f.at(2) - '0',
+        y3 = f.at(3) - '0', m0 = f.at(5) - '0', m1 = f.at(6) - '0',
+        d0 = f.at(8) - '0', d1 = f.at(9) - '0';
+    int y = y0 * 1000 + y1 * 100 + y2 * 10 + y3;
+    int m = m0 * 10 + m1;
+    int dd = d0 * 10 + d1;
+    bool digits_ok = is_digit(y0) && is_digit(y1) && is_digit(y2) &&
+                     is_digit(y3) && is_digit(m0) && is_digit(m1) &&
+                     is_digit(d0) && is_digit(d1);
     bool ok = len == 10 && digits_ok && f.at(4) == '-' && f.at(7) == '-' &&
               m >= 1 && m <= 12 && dd >= 1 && dd <= 31 && y >= 1;
-    *days = ok ? days_from_civil(y, m, dd) : 0;
+    days = ok ? days_from_civil(y, m, dd) : 0;
     return ok;
 }
 
 // parsers._parse_hms_at: HH:MM:SS[.ffffff] at column `base`
-__device__ bool parse_hms(const Field &f, int len, int base, int32_t *sec,
-                          int32_t *us, int *end) {
-    int hh = f.fixed2(base), mm = f.fixed2(base + 3), ss = f.fixed2(base + 6);
+__device__ __forceinline__ bool parse_hms(const Field &f, int len, int base,
+                                          int32_t &sec, int32_t &us,
+                                          int &end) {
+    int h0 = f.at(base) - '0', h1 = f.at(base + 1) - '0',
+        m0 = f.at(base + 3) - '0', m1 = f.at(base + 4) - '0',
+        s0 = f.at(base + 6) - '0', s1 = f.at(base + 7) - '0';
+    int hh = h0 * 10 + h1, mm = m0 * 10 + m1, ss = s0 * 10 + s1;
     bool sep_ok = f.at(base + 2) == ':' && f.at(base + 5) == ':';
-    bool digits_ok = true;
-    const int dig_at[6] = {0, 1, 3, 4, 6, 7};
-    for (int i = 0; i < 6; ++i)
-        digits_ok = digits_ok && is_digit(f.at(base + dig_at[i]) - '0');
+    bool digits_ok = is_digit(h0) && is_digit(h1) && is_digit(m0) &&
+                     is_digit(m1) && is_digit(s0) && is_digit(s1);
     bool has_dot = base + 8 < f.w && len > base + 8 && f.at(base + 8) == '.';
-    // fractional digits: the run of digits starting at base + 9, max 6
+    // fractional digits: the run of digits starting at base + 9, max 6,
+    // summed Horner-wise and scaled to microseconds
     int run = 0;
     int32_t frac = 0;
-    if (has_dot) {
-        for (int k = 0; k < 6; ++k) {
-            int pos = base + 9 + k;
-            if (pos >= len || pos >= f.w) break;
-            int d = f.at(pos) - '0';
-            if (!is_digit(d)) break;
-            frac += d * P10[5 - k];
+    bool going = has_dot;
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int k = 0; k < 6; ++k) {
+        int pos = base + 9 + k;
+        if (going && (pos >= len || pos >= f.w)) going = false;
+        int d = going ? f.at(pos) - '0' : 0;
+        if (going && !is_digit(d)) going = false;
+        if (going) {
+            frac = frac * 10 + d;
             ++run;
         }
     }
-    *us = frac;
-    *end = base + 8 + (has_dot ? 1 + run : 0);
-    *sec = (hh * 60 + mm) * 60 + ss;  // |hh| <= 2277: no overflow
+    for (int k = run; k < 6; ++k) frac *= 10;
+    us = frac;
+    end = base + 8 + (has_dot ? 1 + run : 0);
+    sec = (hh * 60 + mm) * 60 + ss;  // |hh| <= 2277: no overflow
     return sep_ok && digits_ok && (!has_dot || run >= 1) && hh <= 23 &&
            mm <= 59 && ss <= 59;
 }
 
 // parsers._parse_tz_at: ±HH[:MM[:SS]] at per-row position p
-__device__ bool parse_tz(const Field &f, int len, int p, int32_t *off,
-                         int *end) {
+__device__ __forceinline__ bool parse_tz(const Field &f, int len, int p,
+                                         int32_t &off, int &end) {
     int sb = f.atc(p);
     bool neg = sb == '-';
     bool sign_ok = neg || sb == '+';
@@ -250,13 +495,14 @@ __device__ bool parse_tz(const Field &f, int len, int p, int32_t *off,
     int s1 = f.atc(p + 7) - '0', s2 = f.atc(p + 8) - '0';
     int ss = has_sec ? s1 * 10 + s2 : 0;
     bool ss_ok = !has_sec || (is_digit(s1) && is_digit(s2));
-    *end = p + 3 + (has_min ? 3 : 0) + (has_sec ? 3 : 0);
+    end = p + 3 + (has_min ? 3 : 0) + (has_sec ? 3 : 0);
     int o = hh * 3600 + mm * 60 + ss;
-    *off = neg ? -o : o;
+    off = neg ? -o : o;
     return sign_ok && hh_ok && mm_ok && ss_ok && hh <= 15;
 }
 
-__device__ bool match_lit(const Field &f, int len, const char *lit, int n) {
+__device__ __forceinline__ bool match_lit(const Field &f, int len,
+                                          const char *lit, int n) {
     if (len != n || n > f.w) return false;
     for (int i = 0; i < n; ++i)
         if (f.at(i) != lit[i]) return false;
@@ -264,7 +510,8 @@ __device__ bool match_lit(const Field &f, int len, const char *lit, int n) {
 }
 
 // parsers.parse_float -> (neg, limb0, limb1, exp_adj, special), ok
-__device__ bool parse_float(const Field &f, int len, int32_t *c) {
+__device__ __forceinline__ bool parse_float(const Field &f, int len,
+                                            Comps &c) {
     int special = match_lit(f, len, "NaN", 3) ? 1
                   : match_lit(f, len, "Infinity", 8) ? 2
                   : match_lit(f, len, "-Infinity", 9) ? 3 : 0;
@@ -337,149 +584,124 @@ __device__ bool parse_float(const Field &f, int len, int32_t *c) {
     bool fast = sig <= 15 && (exp_adj <= 22 && exp_adj >= -22) &&
                 n_mant >= 1 && n_mant <= 18 && n_dots <= 1 && mant_valid &&
                 exp_valid;
-    c[0] = neg;
-    c[1] = limb0;
-    c[2] = limb1;
-    c[3] = exp_adj;
-    c[4] = special;
+    c.c0 = neg;
+    c.c1 = (uint32_t)limb0;
+    c.c2 = (uint32_t)limb1;
+    c.c3 = (uint32_t)exp_adj;
+    c.c4 = (uint32_t)special;
     return fast || special > 0;
 }
 
-// parsers.parse_column: components in COLUMN_COMPONENTS order, as the
-// reference's int32 bit patterns
-__device__ bool parse_column(int kind, const Field &f, int len, uint32_t *c) {
-    switch (kind) {
-        case K_BOOL: {
-            int b0 = f.at(0);
-            c[0] = b0 == 't';
-            return len == 1 && (b0 == 't' || b0 == 'f');
-        }
-        case K_I16: case K_I32: case K_U32: case K_I64: {
-            bool neg;
-            int32_t l[3];
-            int nd;
-            bool ok = parse_int(f, len, &neg, l, &nd);
-            ok = ok && int_range_ok(kind, neg, l, nd);
-            if (kind == K_I64) {
-                c[0] = neg;
-                c[1] = l[0];
-                c[2] = l[1];
-                c[3] = l[2];
-            } else {
-                uint32_t v = (uint32_t)l[1] * 1000000000u + (uint32_t)l[0];
-                c[0] = neg ? 0u - v : v;
-            }
-            return ok;
-        }
-        case K_F32: case K_F64: {
-            int32_t v[5];
-            bool ok = parse_float(f, len, v);
-            for (int i = 0; i < 5; ++i) c[i] = (uint32_t)v[i];
-            return ok;
-        }
-        case K_DATE: {
-            int32_t days;
-            bool ok = parse_date(f, len, &days);
-            c[0] = (uint32_t)days;
-            return ok;
-        }
-        case K_TIME: {
-            int32_t sec, us;
-            int end;
-            bool ok = parse_hms(f, len, 0, &sec, &us, &end) && end == len;
-            c[0] = (uint32_t)sec * 1000u + (uint32_t)(us / 1000);
-            c[1] = (uint32_t)(us % 1000);
-            return ok;
-        }
-        default: {  // K_TIMESTAMP, K_TIMESTAMPTZ
-            int32_t days, sec, us, tz = 0;
-            int end, tz_end;
-            bool date_ok = parse_date(f, 10, &days);
-            bool space_ok = f.at(10) == ' ';
-            bool hms_ok = parse_hms(f, len, 11, &sec, &us, &end);
-            bool ok;
-            if (kind == K_TIMESTAMPTZ) {
-                bool tz_ok = parse_tz(f, len, end, &tz, &tz_end);
-                ok = date_ok && space_ok && hms_ok && tz_ok && tz_end == len;
-            } else {
-                ok = date_ok && space_ok && hms_ok && end == len;
-            }
-            uint32_t ms = (uint32_t)sec * 1000u + (uint32_t)(us / 1000);
-            c[0] = (uint32_t)days;
-            c[1] = ms - (uint32_t)tz * 1000u;
-            c[2] = (uint32_t)(us % 1000);
-            return ok && len >= 19;
-        }
-    }
-}
-
-// Length of field j of row r (u8 or int32 lengths [R, n_cols]).
-__device__ __forceinline__ int field_len(const void *lengths, int lengths_u8,
-                                         int n_cols, int64_t r, int j) {
-    return lengths_u8 ? (int)((const uint8_t *)lengths)[r * n_cols + j]
-                      : ((const int32_t *)lengths)[r * n_cols + j];
-}
-
-// Parse and pack row r: its column r of every output word.
-__device__ void decode_row(const uint8_t *__restrict__ bmat, int64_t row_bytes,
-                           const void *__restrict__ lengths, int lengths_u8,
-                           int n_cols, const int32_t *__restrict__ desc,
-                           int nibble, uint32_t *__restrict__ out,
-                           int64_t n_rows, int n_words, int64_t r) {
-    const uint8_t *row = bmat + r * row_bytes;
-    // words [0, cw) are stored; cur accumulates word cw, nxt word cw + 1
-    int cw = 0;
-    uint32_t cur = 0, nxt = 0;
-    for (int j = 0; j < n_cols; ++j) {
-        const int32_t *d = desc + j * DESC_STRIDE;
-        Field f{row + d[DESC_OFF], d[DESC_WIDTH], nibble != 0};
-        int len = field_len(lengths, lengths_u8, n_cols, r, j);
-        uint32_t comps[5];
-        bool ok = parse_column(d[DESC_KIND], f, len, comps);
-        int n_slots = d[DESC_NSLOTS];
-        for (int s = 0; s < n_slots; ++s) {
-            const int32_t *sl = d + DESC_SLOT0 + 4 * s;
-            uint32_t v = sl[0] == COMP_OK ? (uint32_t)ok : comps[sl[0]];
-            int bit_off = sl[1], bits = sl[2];
-            if (sl[3]) v = (v << 1) ^ (uint32_t)((int32_t)v >> 31);
-            if (bits < 32) v &= (1u << bits) - 1u;
-            int w = bit_off >> 5, sh = bit_off & 31;
-            while (cw < w) {
-                out[(int64_t)cw * n_rows + r] = cur;
-                cur = nxt;
-                nxt = 0;
-                ++cw;
-            }
-            cur |= v << sh;
-            if (sh + bits > 32) nxt |= v >> (32 - sh);
-        }
-    }
-    while (cw < n_words) {
-        out[(int64_t)cw * n_rows + r] = cur;
-        cur = nxt;
-        nxt = 0;
-        ++cw;
-    }
-}
-
-// ---------------------------------------------------------------------------
-// fused row filter (K2) and its compaction epilogue
-// ---------------------------------------------------------------------------
-
-// predicate descriptor: [n_instr, n_ref, n_ref referenced column slots,
-// then n_instr instructions of PRED_STRIDE int32 each:
-// (opcode, slot, cmp, negate, a, b, c, d)] — ops/predicate.py P_* / CMP_*
-constexpr int PRED_CMP = 0, PRED_NULLTEST = 1, PRED_AND = 2, PRED_OR = 3,
-              PRED_NOT = 4;
-constexpr int CMP_EQ = 0, CMP_LT = 1, CMP_GT = 2, CMP_CONST = 3;
-constexpr int PRED_STRIDE = 8;
-constexpr int FILTER_BLOCK = 256;  // rows per block: whole 32-row warps
-
 #ifdef __CUDACC__
-#define POPC(x) __popc(x)
+#define UNROLL _Pragma("unroll")
 #else
-#define POPC(x) __builtin_popcount(x)
+#define UNROLL
 #endif
+
+// parsers.parse_column on the same column of N rows: components in
+// COLUMN_COMPONENTS order, as the reference's int32 bit patterns, and ok.
+// One dispatch on the kind; each case runs the N rows' parses side by
+// side, independent chains the scheduler interleaves.
+template <int N>
+__device__ __forceinline__ void parse_columns(int kind, const Field (&f)[N],
+                                              const int (&len)[N],
+                                              Comps (&c)[N], bool (&ok)[N]) {
+    UNROLL for (int k = 0; k < N; ++k) c[k] = Comps{0, 0, 0, 0, 0};
+    switch (kind) {
+        case K_BOOL:
+            UNROLL for (int k = 0; k < N; ++k) {
+                int b0 = f[k].at(0);
+                c[k].c0 = b0 == 't';
+                ok[k] = len[k] == 1 && (b0 == 't' || b0 == 'f');
+            }
+            return;
+        case K_I16: case K_I32: case K_U32: case K_I64: {
+            bool neg[N];
+            int32_t l0[N], l1[N], l2[N];
+            int nd[N];
+            // a column's width and mode are the same on every row
+            if (f[0].tiled && f[0].nibble && f[0].w <= 8) {
+                UNROLL for (int k = 0; k < N; ++k)
+                    ok[k] = parse_int_nibble<false>(f[k], len[k], neg[k],
+                                                    l0[k], l1[k], l2[k],
+                                                    nd[k]);
+            } else if (f[0].tiled && f[0].nibble && f[0].w <= 16) {
+                UNROLL for (int k = 0; k < N; ++k)
+                    ok[k] = parse_int_nibble<true>(f[k], len[k], neg[k],
+                                                   l0[k], l1[k], l2[k],
+                                                   nd[k]);
+            } else {
+                UNROLL for (int k = 0; k < N; ++k)
+                    ok[k] = parse_int(f[k], len[k], neg[k], l0[k], l1[k],
+                                      l2[k], nd[k]);
+            }
+            UNROLL for (int k = 0; k < N; ++k) {
+                ok[k] = ok[k] &&
+                        int_range_ok(kind, neg[k], l0[k], l1[k], l2[k], nd[k]);
+                if (kind == K_I64) {
+                    c[k].c0 = neg[k];
+                    c[k].c1 = (uint32_t)l0[k];
+                    c[k].c2 = (uint32_t)l1[k];
+                    c[k].c3 = (uint32_t)l2[k];
+                } else {
+                    uint32_t v =
+                        (uint32_t)l1[k] * 1000000000u + (uint32_t)l0[k];
+                    c[k].c0 = neg[k] ? 0u - v : v;
+                }
+            }
+            return;
+        }
+        case K_F32: case K_F64:
+            UNROLL for (int k = 0; k < N; ++k)
+                ok[k] = parse_float(f[k], len[k], c[k]);
+            return;
+        case K_DATE:
+            UNROLL for (int k = 0; k < N; ++k) {
+                int32_t days;
+                ok[k] = parse_date(f[k], len[k], days);
+                c[k].c0 = (uint32_t)days;
+            }
+            return;
+        case K_TIME:
+            UNROLL for (int k = 0; k < N; ++k) {
+                int32_t sec, us;
+                int end;
+                ok[k] = parse_hms(f[k], len[k], 0, sec, us, end) &&
+                        end == len[k];
+                c[k].c0 = (uint32_t)sec * 1000u + (uint32_t)(us / 1000);
+                c[k].c1 = (uint32_t)(us % 1000);
+            }
+            return;
+        default:  // K_TIMESTAMP, K_TIMESTAMPTZ
+            UNROLL for (int k = 0; k < N; ++k) {
+                int32_t days, sec, us, tz = 0;
+                int end, tz_end;
+                bool date_ok = parse_date(f[k], 10, days);
+                bool space_ok = f[k].at(10) == ' ';
+                bool hms_ok = parse_hms(f[k], len[k], 11, sec, us, end);
+                bool good;
+                if (kind == K_TIMESTAMPTZ) {
+                    bool tz_ok = parse_tz(f[k], len[k], end, tz, tz_end);
+                    good = date_ok && space_ok && hms_ok && tz_ok &&
+                           tz_end == len[k];
+                } else {
+                    good = date_ok && space_ok && hms_ok && end == len[k];
+                }
+                uint32_t ms = (uint32_t)sec * 1000u + (uint32_t)(us / 1000);
+                c[k].c0 = (uint32_t)days;
+                c[k].c1 = ms - (uint32_t)tz * 1000u;
+                c[k].c2 = (uint32_t)(us % 1000);
+                ok[k] = good && len[k] >= 19;
+            }
+            return;
+    }
+}
+
+// Length of field j of a row whose n_cols lengths start at `lens`.
+__device__ __forceinline__ int field_len(const uint8_t *lens, int lengths_u8,
+                                         int j) {
+    return lengths_u8 ? (int)lens[j] : ((const int32_t *)lens)[j];
+}
 
 __device__ __forceinline__ bool cmp3(int64_t v, int64_t lit, int cmp) {
     return cmp == CMP_EQ ? v == lit : (cmp == CMP_LT ? v < lit : v > lit);
@@ -487,17 +709,18 @@ __device__ __forceinline__ bool cmp3(int64_t v, int64_t lit, int cmp) {
 
 // predicate._device_cmp on one row, against the host-folded literal words
 // of instruction `ins`. Components are the reference's int32 bit patterns.
-__device__ bool cmp_leaf(int kind, const uint32_t *c, const int32_t *ins) {
+__device__ __forceinline__ bool cmp_leaf(int kind, const Comps &c,
+                                         const int32_t *ins) {
     int cmp = ins[2];
     bool res;
     if (cmp == CMP_CONST) {
         res = ins[4] != 0;
     } else if (kind == K_U32) {
         // sign-flipped int32 space orders as uint32 (literal pre-biased)
-        res = cmp3((int32_t)(c[0] ^ 0x80000000u), ins[4], cmp);
+        res = cmp3((int32_t)(c.c0 ^ 0x80000000u), ins[4], cmp);
     } else if (kind == K_I64) {
-        bool neg = (int32_t)c[0] > 0;
-        int32_t l0 = (int32_t)c[1], l1 = (int32_t)c[2], l2 = (int32_t)c[3];
+        bool neg = (int32_t)c.c0 > 0;
+        int32_t l0 = (int32_t)c.c1, l1 = (int32_t)c.c2, l2 = (int32_t)c.c3;
         bool sign_neg = neg && (l0 > 0 || l1 > 0 || l2 > 0);  // "-0" is 0
         bool lneg = ins[7] != 0;
         bool mag_eq = l0 == ins[4] && l1 == ins[5] && l2 == ins[6];
@@ -513,7 +736,7 @@ __device__ bool cmp_leaf(int kind, const uint32_t *c, const int32_t *ins) {
             res = lneg ? (sign_neg && mag_gt)
                        : (sign_neg || (!mag_gt && !mag_eq));
     } else if (kind == K_TIME) {
-        int32_t ms = (int32_t)c[0], us = (int32_t)c[1];
+        int32_t ms = (int32_t)c.c0, us = (int32_t)c.c1;
         bool eq = ms == ins[4] && us == ins[5];
         bool gt = ms > ins[4] || (ms == ins[4] && us > ins[5]);
         res = cmp == CMP_EQ ? eq : (cmp == CMP_GT ? gt : !gt && !eq);
@@ -522,7 +745,8 @@ __device__ bool cmp_leaf(int kind, const uint32_t *c, const int32_t *ins) {
         // carry renormalises (|tz| < 1 day); int64 keeps garbage rows of
         // unparsed fields free of overflow
         const int64_t day_ms = 86400000;
-        int64_t days = (int32_t)c[0], ms = (int32_t)c[1], us = (int32_t)c[2];
+        int64_t days = (int32_t)c.c0, ms = (int32_t)c.c1,
+                us = (int32_t)c.c2;
         if (ms < 0) {
             days -= 1;
             ms += day_ms;
@@ -536,42 +760,204 @@ __device__ bool cmp_leaf(int kind, const uint32_t *c, const int32_t *ins) {
                                       (ms == ins[5] && us > ins[6])));
         res = cmp == CMP_EQ ? eq : (cmp == CMP_GT ? gt : !gt && !eq);
     } else {  // K_BOOL, K_I16, K_I32, K_DATE: one int32 component
-        res = cmp3((int32_t)c[0], ins[4], cmp);
+        res = cmp3((int32_t)c.c0, ins[4], cmp);
     }
     return ins[3] ? !res : res;
 }
 
-// predicate.CompiledRowFilter.device_keep for row r. `flag`: 0 dead,
-// 1 live, 2 live + force-keep.
-__device__ bool row_keep(const uint8_t *row, const void *lengths,
-                         int lengths_u8, int n_cols, const int32_t *desc,
-                         int nibble, const int32_t *pred, int flag,
-                         int64_t r) {
-    if (flag == 0) return false;
-    int n_instr = pred[0], n_ref = pred[1];
-    const int32_t *prog = pred + 2 + n_ref;
+// ---------------------------------------------------------------------------
+// one launch, its tile layout and the row body both kernels share
+// ---------------------------------------------------------------------------
+
+struct Job {
+    const uint8_t *bmat;     // [R, row_bytes]
+    int64_t row_bytes;
+    const uint8_t *lengths;  // [R, n_cols] u8 or int32
+    int lengths_u8, n_cols;
+    const int32_t *desc;     // n_cols * DESC_STRIDE
+    int nibble;
+    const uint8_t *flags;    // K2: [R] 0 dead, 1 live, 2 live + force-keep
+    const int32_t *pred;     // K2: the predicate descriptor
+    int pred_ints;
+    uint32_t *words;         // [n_words, R]
+    uint32_t *mask;          // K2: [ceil(R / 32)]
+    int32_t *block_counts;   // K2: [ceil(R / FILTER_BLOCK)]
+    int64_t n_rows;
+    int n_words;
+};
+
+// Row stride of the byte tile: one word more where a row is an even
+// number of 32-bit words, so a warp's 32 rows start on 32 banks.
+__host__ __device__ __forceinline__ int64_t tile_stride(int64_t row_bytes) {
+    return row_bytes % 8 == 0 ? row_bytes + 4 : row_bytes;
+}
+
+// Byte offsets in a block's dynamic shared memory for tiles of T rows:
+// row bytes, lengths, flags (K2), then the descriptor and the predicate
+// program. Every part before the descriptor is a multiple of 16 bytes
+// long (T is a multiple of 32), so each starts 16-byte aligned.
+struct Layout {
+    int64_t lens, flags, desc, pred, total;
+};
+
+__host__ __device__ __forceinline__ Layout tile_layout(int64_t row_bytes,
+                                                       int n_cols,
+                                                       int lengths_u8,
+                                                       bool filter,
+                                                       int pred_ints, int T) {
+    Layout L;
+    L.lens = T * tile_stride(row_bytes);
+    L.flags = L.lens + (int64_t)T * n_cols * (lengths_u8 ? 1 : 4);
+    L.desc = L.flags + (filter ? T : 0);
+    L.pred = L.desc + 4 * (int64_t)n_cols * DESC_STRIDE;
+    L.total = L.pred + 4 * (int64_t)(filter ? pred_ints : 0);
+    return L;
+}
+
+// Asynchronous copies from global memory into the tile (cp.async: the
+// thread issues every copy of its share without waiting for any, and
+// cp_async_wait waits for all of them), 16 or 4 bytes, both addresses
+// aligned to the size. On the host, plain copies.
+__device__ __forceinline__ void copy16_async(uint8_t *dst,
+                                             const uint8_t *src) {
+#ifdef __CUDACC__
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src));
+#else
+    memcpy(dst, src, 16);
+#endif
+}
+
+__device__ __forceinline__ void copy4_async(uint8_t *dst, const uint8_t *src) {
+#ifdef __CUDACC__
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                     (unsigned)__cvta_generic_to_shared(dst)),
+                 "l"(src));
+#else
+    memcpy(dst, src, 4);
+#endif
+}
+
+__device__ __forceinline__ void cp_async_wait() {
+#ifdef __CUDACC__
+    asm volatile("cp.async.wait_all;\n" ::);
+#endif
+}
+
+// Thread `tid` of nt's share of copying n bytes from a 16-byte-aligned
+// global range to a 16-byte-aligned tile: whole 16-byte chunks issued
+// asynchronously, then the ragged end bytewise.
+__device__ __forceinline__ void stage_bytes(uint8_t *dst, const uint8_t *src,
+                                            int64_t n, int tid, int nt) {
+    int64_t n16 = n >> 4;
+    for (int64_t c = tid; c < n16; c += nt)
+        copy16_async(dst + 16 * c, src + 16 * c);
+    for (int64_t b = 16 * n16 + tid; b < n; b += nt) dst[b] = src[b];
+}
+
+// The same for row bytes stored one word apart (tile_stride): a row of
+// rw words (rw even) lands at row * (rw + 1) words.
+__device__ __forceinline__ void stage_rows_padded(uint8_t *dst,
+                                                  const uint8_t *src,
+                                                  int64_t n, int64_t rw,
+                                                  int tid, int nt) {
+    int64_t n16 = n >> 4;
+    for (int64_t c = tid; c < n16; c += nt) {
+        int64_t i = 4 * c, row = i / rw, col = i - row * rw;
+        for (int q = 0; q < 4; ++q) {
+            copy4_async(dst + 4 * (i + q + row), src + 4 * (i + q));
+            if (++col == rw) {
+                col = 0;
+                ++row;
+            }
+        }
+    }
+    for (int64_t i = 4 * n16 + tid; 4 * i < n; i += nt)
+        copy4_async(dst + 4 * (i + i / rw), src + 4 * i);
+}
+
+// Stage rows [r0, r0 + T) ∩ [0, R): thread tid of nt's share.
+__device__ __forceinline__ void stage_step(const Job &a, const Layout &L,
+                                           uint8_t *smem, bool filter,
+                                           int64_t r0, int T, int tid,
+                                           int nt) {
+    int64_t n = a.n_rows - r0 < T ? a.n_rows - r0 : T;
+    int lsize = a.lengths_u8 ? 1 : 4;
+    if (tile_stride(a.row_bytes) != a.row_bytes)
+        stage_rows_padded(smem, a.bmat + r0 * a.row_bytes, n * a.row_bytes,
+                          a.row_bytes / 4, tid, nt);
+    else
+        stage_bytes(smem, a.bmat + r0 * a.row_bytes, n * a.row_bytes, tid,
+                    nt);
+    int64_t lrow = (int64_t)a.n_cols * lsize;
+    stage_bytes(smem + L.lens, a.lengths + r0 * lrow, n * lrow, tid, nt);
+    if (filter) stage_bytes(smem + L.flags, a.flags + r0, n, tid, nt);
+}
+
+// Stage the descriptor (whole 16-byte chunks: 112 bytes a column) and the
+// predicate program, once per block, asynchronously.
+__device__ __forceinline__ void stage_tables(const Job &a, const Layout &L,
+                                             uint8_t *smem, bool filter,
+                                             int tid, int nt) {
+    stage_bytes(smem + L.desc, (const uint8_t *)a.desc,
+                4 * (int64_t)a.n_cols * DESC_STRIDE, tid, nt);
+    if (filter)
+        for (int i = tid; i < a.pred_ints; i += nt)
+            copy4_async(smem + L.pred + 4 * i, (const uint8_t *)(a.pred + i));
+}
+
+// Zero row r's words (a dropped row of K2).
+__device__ __forceinline__ void zero_words(const Job &a, int64_t r) {
+    for (int w = 0; w < a.n_words; ++w) a.words[(int64_t)w * a.n_rows + r] = 0;
+}
+
+// A leaf past LEAF_BITS: its column parsed again from the row and judged
+// -> bit 0 true, bit 1 false.
+template <bool STAGED>
+__device__ __forceinline__ uint32_t reparse_leaf(const uint8_t *row,
+                                              const uint8_t *lens,
+                                              int lengths_u8,
+                                              const int32_t *desc, int nibble,
+                                              const int32_t *ins) {
+    int j = ins[1];
+    I4 hd = load_i4(desc + j * DESC_STRIDE);
+    Field f[1] = {field_of(row, hd, nibble, STAGED)};
+    int len[1] = {field_len(lens, lengths_u8, j)};
+    Comps c[1];
+    bool ok[1];
+    parse_columns<1>(hd.x, f, len, c, ok);
+    bool res = cmp_leaf(hd.x, c[0], ins);
+    return (uint32_t)(len[0] != 0 && res) | (uint32_t)(len[0] != 0 && !res)
+                                                << 1;
+}
+
+// The row filter's postfix program over one row, the leaves' bits taken
+// from the single parse (lt, lf); a leaf past LEAF_BITS parses its column
+// again from the row.
+template <bool STAGED>
+__device__ __forceinline__ bool judge(const Job &a, const int32_t *desc,
+                                      const int32_t *prog, int n_instr,
+                                      uint64_t lt, uint64_t lf,
+                                      const uint8_t *row, const uint8_t *lens,
+                                      int flag, bool unevaluable) {
     uint32_t ts = 0, fs = 0;  // Kleene stacks, bit 0 = top
     for (int i = 0; i < n_instr; ++i) {
         const int32_t *ins = prog + i * PRED_STRIDE;
         int op = ins[0];
         bool t, f;
-        if (op == PRED_CMP || op == PRED_NULLTEST) {
-            int j = ins[1];
-            bool is_null = field_len(lengths, lengths_u8, n_cols, r, j) == 0;
-            if (op == PRED_NULLTEST) {
-                t = ins[3] ? !is_null : is_null;
-                f = !t;
-            } else {
-                const int32_t *d = desc + j * DESC_STRIDE;
-                Field fl{row + d[DESC_OFF], d[DESC_WIDTH], nibble != 0};
-                uint32_t comps[5];
-                parse_column(d[DESC_KIND], fl,
-                             field_len(lengths, lengths_u8, n_cols, r, j),
-                             comps);
-                bool res = cmp_leaf(d[DESC_KIND], comps, ins);
-                t = !is_null && res;
-                f = !is_null && !res;
-            }
+        if (op == PRED_NULLTEST) {
+            bool is_null = field_len(lens, a.lengths_u8, ins[1]) == 0;
+            t = ins[3] ? !is_null : is_null;
+            f = !t;
+        } else if (op == PRED_CMP && i < LEAF_BITS) {
+            t = (lt >> i) & 1u;
+            f = (lf >> i) & 1u;
+        } else if (op == PRED_CMP) {
+            uint32_t tf = reparse_leaf<STAGED>(row, lens, a.lengths_u8, desc,
+                                               a.nibble, ins);
+            t = tf & 1u;
+            f = tf >> 1;
         } else if (op == PRED_NOT) {
             t = fs & 1u;
             f = ts & 1u;
@@ -592,38 +978,162 @@ __device__ bool row_keep(const uint8_t *row, const void *lengths,
     }
     // a referenced field that is present but failed its device parse
     // cannot be judged here: keep it, the host re-checks after fixup
-    bool unevaluable = false;
-    for (int k = 0; k < n_ref && !unevaluable; ++k) {
-        int j = pred[2 + k];
-        int len = field_len(lengths, lengths_u8, n_cols, r, j);
-        const int32_t *d = desc + j * DESC_STRIDE;
-        Field fl{row + d[DESC_OFF], d[DESC_WIDTH], nibble != 0};
-        uint32_t comps[5];
-        unevaluable = len != 0 && !parse_column(d[DESC_KIND], fl, len, comps);
-    }
     return (ts & 1u) || flag > 1 || unevaluable;
 }
 
-// K2's body for one row: keep verdict, then the packed words (zeros for a
-// dropped row, as the reference's words * keep).
-__device__ bool filter_pack_row(const uint8_t *__restrict__ bmat,
-                                int64_t row_bytes,
-                                const void *__restrict__ lengths,
-                                int lengths_u8, int n_cols,
-                                const int32_t *__restrict__ desc, int nibble,
-                                const uint8_t *__restrict__ flags,
-                                const int32_t *__restrict__ pred,
-                                uint32_t *__restrict__ words, int64_t n_rows,
-                                int n_words, int64_t r) {
-    bool keep = row_keep(bmat + r * row_bytes, lengths, lengths_u8, n_cols,
-                         desc, nibble, pred, flags[r], r);
-    if (keep) {
-        decode_row(bmat, row_bytes, lengths, lengths_u8, n_cols, desc, nibble,
-                   words, n_rows, n_words, r);
-    } else {
-        for (int w = 0; w < n_words; ++w) words[(int64_t)w * n_rows + r] = 0;
+// Row `lr` of the current step's rows: its bytes, lengths and flag, from
+// the tile (STAGED) or from global memory (row r).
+struct RowSrc {
+    const uint8_t *row, *lens;
+    int flag;
+};
+
+// Parse and pack the R rows r[k] of one thread: their column r[k] of
+// every output word (rows at or past n_rows are skipped). With FILTER, the
+// row filter decides whether each row is kept (keep[k]); a dropped row's
+// words are zeros. Every column is parsed once; a referenced column's
+// comparison leaves are judged on the components just parsed, and the
+// postfix program runs right after the last referenced column.
+template <bool FILTER, bool STAGED, int R>
+__device__ __forceinline__ void rows_body(const Job &a, const int32_t *desc,
+                                          const int32_t *pred,
+                                          const RowSrc (&src)[R],
+                                          const int64_t (&r)[R],
+                                          bool (&keep)[R]) {
+    const int32_t *prog = nullptr, *leaf_off = nullptr, *col_ref = nullptr,
+                  *leaves = nullptr;
+    int n_instr = 0, last_ref = -1;
+    bool live[R], unevaluable[R];
+    uint64_t lt[R], lf[R];  // leaf i's (true, false) at bit i
+    UNROLL for (int k = 0; k < R; ++k) {
+        live[k] = r[k] < a.n_rows;
+        unevaluable[k] = false;
+        lt[k] = lf[k] = 0;
     }
-    return keep;
+    if (FILTER) {
+        n_instr = pred[0];
+        prog = pred + 2 + pred[1];
+        last_ref = prog[n_instr * PRED_STRIDE];
+        leaf_off = prog + n_instr * PRED_STRIDE + 1;
+        col_ref = leaf_off + a.n_cols + 1;
+        leaves = col_ref + a.n_cols;
+        UNROLL for (int k = 0; k < R; ++k) {
+            if (live[k] &&
+                (src[k].flag == 0 ||
+                 (last_ref < 0 &&
+                  !judge<STAGED>(a, desc, prog, n_instr, lt[k], lf[k],
+                                 src[k].row, src[k].lens, src[k].flag,
+                                 unevaluable[k])))) {
+                zero_words(a, r[k]);
+                live[k] = false;
+            }
+        }
+    }
+    // words [0, cw) are stored; cur accumulates word cw, nxt word cw + 1
+    int cw = 0;
+    uint32_t cur[R], nxt[R];
+    UNROLL for (int k = 0; k < R; ++k) cur[k] = nxt[k] = 0;
+    for (int j = 0; j < a.n_cols; ++j) {
+        bool any = false;
+        UNROLL for (int k = 0; k < R; ++k) any = any || live[k];
+        if (FILTER && !any) break;  // every row dropped: all zeros already
+        const int32_t *d = desc + j * DESC_STRIDE;
+        I4 hd = load_i4(d);  // kind, width, offset, slots
+        Field f[R];
+        int len[R];
+        Comps c[R];
+        bool ok[R];
+        UNROLL for (int k = 0; k < R; ++k) {
+            f[k] = field_of(src[k].row, hd, a.nibble, STAGED);
+            len[k] = field_len(src[k].lens, a.lengths_u8, j);
+        }
+        parse_columns<R>(hd.x, f, len, c, ok);
+        if (FILTER && col_ref[j]) {
+            UNROLL for (int k = 0; k < R; ++k)
+                unevaluable[k] = unevaluable[k] || (len[k] != 0 && !ok[k]);
+            for (int q = leaf_off[j]; q < leaf_off[j + 1]; ++q) {
+                int i = leaves[q];
+                if (i >= LEAF_BITS) continue;
+                const int32_t *ins = prog + i * PRED_STRIDE;
+                UNROLL for (int k = 0; k < R; ++k) {
+                    bool res = cmp_leaf(hd.x, c[k], ins);
+                    lt[k] |= (uint64_t)(len[k] != 0 && res) << i;
+                    lf[k] |= (uint64_t)(len[k] != 0 && !res) << i;
+                }
+            }
+        }
+        for (int s = 0; s < hd.w; ++s) {
+            // comp, bit offset, bits, zigzag
+            I4 sl = load_i4(d + DESC_SLOT0 + 4 * s);
+            int w = sl.y >> 5, sh = sl.y & 31;
+            while (cw < w) {
+                UNROLL for (int k = 0; k < R; ++k) {
+                    if (live[k])
+                        a.words[(int64_t)cw * a.n_rows + r[k]] = cur[k];
+                    cur[k] = nxt[k];
+                    nxt[k] = 0;
+                }
+                ++cw;
+            }
+            UNROLL for (int k = 0; k < R; ++k) {
+                uint32_t v =
+                    sl.x == COMP_OK ? (uint32_t)ok[k] : comp_at(c[k], sl.x);
+                if (sl.w) v = (v << 1) ^ (uint32_t)((int32_t)v >> 31);
+                if (sl.z < 32) v &= (1u << sl.z) - 1u;
+                cur[k] |= v << sh;
+                if (sh + sl.z > 32) nxt[k] |= v >> (32 - sh);
+            }
+        }
+        if (FILTER && j == last_ref) {
+            UNROLL for (int k = 0; k < R; ++k) {
+                if (live[k] &&
+                    !judge<STAGED>(a, desc, prog, n_instr, lt[k], lf[k],
+                                   src[k].row, src[k].lens, src[k].flag,
+                                   unevaluable[k])) {
+                    zero_words(a, r[k]);  // the words stored so far too
+                    live[k] = false;
+                }
+            }
+        }
+    }
+    while (cw < a.n_words) {
+        UNROLL for (int k = 0; k < R; ++k) {
+            if (live[k]) a.words[(int64_t)cw * a.n_rows + r[k]] = cur[k];
+            cur[k] = nxt[k];
+            nxt[k] = 0;
+        }
+        ++cw;
+    }
+    UNROLL for (int k = 0; k < R; ++k) keep[k] = live[k];
+}
+
+template <bool STAGED, bool FILTER>
+__device__ __forceinline__ RowSrc row_src(const Job &a, const Layout &L,
+                                          const uint8_t *smem, int lr,
+                                          int64_t r) {
+    int64_t lrow = (int64_t)a.n_cols * (a.lengths_u8 ? 1 : 4);
+    if (STAGED)
+        return {smem + lr * tile_stride(a.row_bytes),
+                smem + L.lens + lr * lrow,
+                FILTER ? (int)smem[L.flags + lr] : 1};
+    // a row past the batch reads the last row (its results go nowhere)
+    int64_t rr = r < a.n_rows ? r : a.n_rows - 1;
+    return {a.bmat + rr * a.row_bytes, a.lengths + rr * lrow,
+            FILTER ? (int)a.flags[rr] : 1};
+}
+
+// A thread's R rows in a step of T rows from r0 (nt = T / R threads): lr
+// and lr + nt, ..., so each warp's rows stay 32 consecutive rows.
+template <bool STAGED, bool FILTER, int R>
+__device__ __forceinline__ void thread_rows(const Job &a, const Layout &L,
+                                            const uint8_t *smem, int64_t r0,
+                                            int tid, int nt, RowSrc (&src)[R],
+                                            int64_t (&r)[R]) {
+    UNROLL for (int k = 0; k < R; ++k) {
+        int lr = tid + k * nt;
+        r[k] = r0 + lr;
+        src[k] = row_src<STAGED, FILTER>(a, L, smem, lr, r[k]);
+    }
 }
 
 // Survivor counts of the blocks before `b` (*pre) and of all blocks
@@ -665,27 +1175,66 @@ __device__ void compact_row(const uint32_t *__restrict__ words,
 }
 
 #ifdef __CUDACC__
-__global__ void filter_pack_kernel(const uint8_t *__restrict__ bmat,
-                                   int64_t row_bytes,
-                                   const void *__restrict__ lengths,
-                                   int lengths_u8, int n_cols,
-                                   const int32_t *__restrict__ desc,
-                                   int nibble,
-                                   const uint8_t *__restrict__ flags,
-                                   const int32_t *__restrict__ pred,
-                                   uint32_t *__restrict__ words,
-                                   uint32_t *__restrict__ mask,
-                                   int32_t *__restrict__ block_counts,
-                                   int64_t n_rows, int n_words) {
-    int64_t r = (int64_t)blockIdx.x * FILTER_BLOCK + threadIdx.x;
-    bool keep = r < n_rows &&
-                filter_pack_row(bmat, row_bytes, lengths, lengths_u8, n_cols,
-                                desc, nibble, flags, pred, words, n_rows,
-                                n_words, r);
-    uint32_t ballot = __ballot_sync(0xFFFFFFFFu, keep);
-    if ((threadIdx.x & 31) == 0 && r < n_rows) mask[r >> 5] = ballot;
-    int count = __syncthreads_count(keep);
-    if (threadIdx.x == 0) block_counts[blockIdx.x] = count;
+// One block's FILTER_BLOCK rows, walked in steps of T = R * blockDim.x
+// rows, R rows a thread.
+template <bool STAGED, bool FILTER, int R>
+__device__ __forceinline__ void walk_block(const Job &a, uint8_t *smem) {
+    const int nt = blockDim.x, T = R * nt, tid = threadIdx.x;
+    Layout L = tile_layout(a.row_bytes, a.n_cols, a.lengths_u8, FILTER,
+                           a.pred_ints, T);
+    const int32_t *desc = a.desc, *pred = a.pred;
+    if (STAGED) {
+        stage_tables(a, L, smem, FILTER, tid, nt);
+        desc = (const int32_t *)(smem + L.desc);
+        pred = (const int32_t *)(smem + L.pred);
+    }
+    int count = 0;
+    for (int s = 0; s < FILTER_BLOCK; s += T) {
+        int64_t r0 = (int64_t)blockIdx.x * FILTER_BLOCK + s;
+        if (r0 >= a.n_rows) break;  // the same for the whole block
+        if (STAGED) {
+            stage_step(a, L, smem, FILTER, r0, T, tid, nt);
+            cp_async_wait();
+            __syncthreads();
+        }
+        RowSrc src[R];
+        int64_t r[R];
+        bool keep[R];
+        thread_rows<STAGED, FILTER, R>(a, L, smem, r0, tid, nt, src, r);
+        rows_body<FILTER, STAGED, R>(a, desc, pred, src, r, keep);
+        if (FILTER) {
+            UNROLL for (int k = 0; k < R; ++k) {
+                uint32_t ballot = __ballot_sync(0xFFFFFFFFu, keep[k]);
+                if ((tid & 31) == 0 && r[k] < a.n_rows)
+                    a.mask[r[k] >> 5] = ballot;
+                count += __syncthreads_count(keep[k]);  // guards the tile
+            }
+        } else if (STAGED && s + T < FILTER_BLOCK) {
+            __syncthreads();  // the next step overwrites the tile
+        }
+    }
+    if (FILTER && tid == 0) a.block_counts[blockIdx.x] = count;
+}
+
+// K1, R rows a thread (2 for the integer layouts of the loop-free parse,
+// where the two rows' chains interleave; 1 for every other layout, whose
+// longer parses would lose more to the registers than they gain).
+template <int R>
+__global__ void decode_pack_kernel(Job a, int staged) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    if (staged)
+        walk_block<true, false, R>(a, smem);
+    else
+        walk_block<false, false, R>(a, smem);
+}
+
+// K2, one row a thread.
+__global__ void filter_pack_kernel(Job a, int staged) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    if (staged)
+        walk_block<true, true, 1>(a, smem);
+    else
+        walk_block<false, true, 1>(a, smem);
 }
 
 __device__ __forceinline__ int64_t warp_sum(int64_t v) {
@@ -722,17 +1271,99 @@ __global__ void compact_kernel(const uint32_t *__restrict__ words,
         compact_row(words, mask, out, n_rows, n_words, pre, tot, r);
 }
 
-__global__ void decode_pack_kernel(const uint8_t *__restrict__ bmat,
-                                   int64_t row_bytes,
-                                   const void *__restrict__ lengths,
-                                   int lengths_u8, int n_cols,
-                                   const int32_t *__restrict__ desc,
-                                   int nibble, uint32_t *__restrict__ out,
-                                   int64_t n_rows, int n_words) {
-    int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (r < n_rows)
-        decode_row(bmat, row_bytes, lengths, lengths_u8, n_cols, desc, nibble,
-                   out, n_rows, n_words, r);
+// Launch K1 or K2 with tiles of `tile_rows` rows (256, 128, 64 or 32,
+// a multiple of 32 * rpt), or direct (tile_rows 0: no tile); rpt rows a
+// thread (K1: 1 or 2; K2: 1).
+int launch(bool filter, const Job &a, int tile_rows, int rpt, void *stream) {
+    if (a.n_rows <= 0) return 0;
+    int64_t blocks = (a.n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
+    int rows = tile_rows > 0 ? tile_rows : FILTER_BLOCK;
+    if (FILTER_BLOCK % rows != 0 || (rpt != 1 && (filter || rpt != 2)) ||
+        rows % (32 * rpt) != 0)
+        return (int)cudaErrorInvalidValue;
+    int threads = rows / rpt;
+    int64_t smem = tile_rows > 0
+                       ? tile_layout(a.row_bytes, a.n_cols, a.lengths_u8,
+                                     filter, a.pred_ints, tile_rows).total
+                       : 0;
+    const void *fn = filter ? (const void *)filter_pack_kernel
+                     : rpt == 2 ? (const void *)decode_pack_kernel<2>
+                                : (const void *)decode_pack_kernel<1>;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    int staged = tile_rows > 0;
+    if (filter)
+        filter_pack_kernel<<<(unsigned)blocks, threads, (size_t)smem,
+                             (cudaStream_t)stream>>>(a, staged);
+    else if (rpt == 2)
+        decode_pack_kernel<2><<<(unsigned)blocks, threads, (size_t)smem,
+                                (cudaStream_t)stream>>>(a, staged);
+    else
+        decode_pack_kernel<1><<<(unsigned)blocks, threads, (size_t)smem,
+                                (cudaStream_t)stream>>>(a, staged);
+    return (int)cudaGetLastError();
+}
+#else
+// The block walk on the host: loops in place of threads, split at the
+// places where the card's block synchronises. `tile_rows` 0 is direct.
+template <bool FILTER, int R>
+void walk_host(const Job &a, int tile_rows) {
+    int64_t blocks = (a.n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
+    int T = tile_rows > 0 ? tile_rows : FILTER_BLOCK, nt = T / R;
+    Layout L = tile_layout(a.row_bytes, a.n_cols, a.lengths_u8, FILTER,
+                           a.pred_ints, T);
+    uint8_t *smem = nullptr;
+    if (tile_rows > 0) {
+        smem = (uint8_t *)aligned_alloc(16, (size_t)((L.total + 15) & ~15));
+        memset(smem, 0xA5, (size_t)L.total);  // no stale zeros to lean on
+    }
+    bool *keep = new bool[T];  // keep of local row lr
+    for (int64_t b = 0; b < blocks; ++b) {
+        const int32_t *desc = a.desc, *pred = a.pred;
+        if (tile_rows > 0) {
+            for (int tid = 0; tid < nt; ++tid)
+                stage_tables(a, L, smem, FILTER, tid, nt);
+            desc = (const int32_t *)(smem + L.desc);
+            pred = (const int32_t *)(smem + L.pred);
+        }
+        int32_t count = 0;
+        for (int s = 0; s < FILTER_BLOCK; s += T) {
+            int64_t r0 = b * FILTER_BLOCK + s;
+            if (r0 >= a.n_rows) break;
+            if (tile_rows > 0)
+                for (int tid = 0; tid < nt; ++tid)
+                    stage_step(a, L, smem, FILTER, r0, T, tid, nt);
+            for (int tid = 0; tid < nt; ++tid) {
+                RowSrc src[R];
+                int64_t r[R];
+                bool kept[R];
+                if (tile_rows > 0) {
+                    thread_rows<true, FILTER, R>(a, L, smem, r0, tid, nt, src,
+                                                 r);
+                    rows_body<FILTER, true, R>(a, desc, pred, src, r, kept);
+                } else {
+                    thread_rows<false, FILTER, R>(a, L, smem, r0, tid, nt, src,
+                                               r);
+                    rows_body<FILTER, false, R>(a, desc, pred, src, r, kept);
+                }
+                for (int k = 0; k < R; ++k) keep[tid + k * nt] = kept[k];
+            }
+            if (!FILTER) continue;
+            for (int g = 0; g < T; g += 32) {  // each warp's ballot
+                uint32_t ballot = 0;
+                for (int lane = 0; lane < 32; ++lane)
+                    ballot |= (uint32_t)keep[g + lane] << lane;
+                if (r0 + g < a.n_rows) a.mask[(r0 + g) >> 5] = ballot;
+                count += POPC(ballot);
+            }
+        }
+        if (FILTER) a.block_counts[b] = count;
+    }
+    delete[] keep;
+    free(smem);
 }
 #endif
 
@@ -740,37 +1371,43 @@ __global__ void decode_pack_kernel(const uint8_t *__restrict__ bmat,
 
 extern "C" {
 
+// Bytes of dynamic shared memory a block with tiles of `tile_rows` rows
+// takes (ops/decode_kernel.py tile_bytes computes the same).
+int64_t etl_tile_bytes(int64_t row_bytes, int n_cols, int lengths_u8,
+                       int filter, int pred_ints, int tile_rows) {
+    return tile_layout(row_bytes, n_cols, lengths_u8, filter != 0, pred_ints,
+                       tile_rows).total;
+}
+
+int etl_filter_block_rows() { return FILTER_BLOCK; }
+
 #ifdef __CUDACC__
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// K1 on `stream`: out uint32[n_words, R]. Returns cudaGetLastError()
+// (0 = launched).
 int etl_decode_pack(const void *bmat, int64_t row_bytes, const void *lengths,
                     int lengths_u8, int n_cols, const void *desc, int nibble,
-                    void *out, int64_t n_rows, int n_words, void *stream) {
-    if (n_rows <= 0) return 0;
-    const int threads = 256;
-    int64_t blocks = (n_rows + threads - 1) / threads;
-    decode_pack_kernel<<<(unsigned)blocks, threads, 0,
-                         (cudaStream_t)stream>>>(
-        (const uint8_t *)bmat, row_bytes, lengths, lengths_u8, n_cols,
-        (const int32_t *)desc, nibble, (uint32_t *)out, n_rows, n_words);
-    return (int)cudaGetLastError();
+                    void *out, int64_t n_rows, int n_words, int tile_rows,
+                    int rows_per_thread, void *stream) {
+    Job a{(const uint8_t *)bmat, row_bytes, (const uint8_t *)lengths,
+          lengths_u8, n_cols, (const int32_t *)desc, nibble, nullptr,
+          nullptr, 0, (uint32_t *)out, nullptr, nullptr, n_rows, n_words};
+    return launch(false, a, tile_rows, rows_per_thread, stream);
 }
 
 // K2 on `stream`: words uint32[n_words, R] (zeros on dropped rows),
 // mask uint32[ceil(R / 32)], block_counts int32[ceil(R / FILTER_BLOCK)].
 int etl_filter_pack(const void *bmat, int64_t row_bytes, const void *lengths,
                     int lengths_u8, int n_cols, const void *desc, int nibble,
-                    const void *flags, const void *pred, void *words,
-                    void *mask, void *block_counts, int64_t n_rows,
-                    int n_words, void *stream) {
-    if (n_rows <= 0) return 0;
-    int64_t blocks = (n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
-    filter_pack_kernel<<<(unsigned)blocks, FILTER_BLOCK, 0,
-                         (cudaStream_t)stream>>>(
-        (const uint8_t *)bmat, row_bytes, lengths, lengths_u8, n_cols,
-        (const int32_t *)desc, nibble, (const uint8_t *)flags,
-        (const int32_t *)pred, (uint32_t *)words, (uint32_t *)mask,
-        (int32_t *)block_counts, n_rows, n_words);
-    return (int)cudaGetLastError();
+                    const void *flags, const void *pred, int pred_ints,
+                    void *words, void *mask, void *block_counts,
+                    int64_t n_rows, int n_words, int tile_rows,
+                    void *stream) {
+    Job a{(const uint8_t *)bmat, row_bytes, (const uint8_t *)lengths,
+          lengths_u8, n_cols, (const int32_t *)desc, nibble,
+          (const uint8_t *)flags, (const int32_t *)pred, pred_ints,
+          (uint32_t *)words, (uint32_t *)mask, (int32_t *)block_counts,
+          n_rows, n_words};
+    return launch(true, a, tile_rows, 1, stream);
 }
 
 // The compaction epilogue on `stream`: out uint32[n_words, R] (survivors
@@ -798,51 +1435,41 @@ int etl_copy_2d(void *dst, int64_t dpitch, const void *src, int64_t spitch,
                                   cudaMemcpyDefault, (cudaStream_t)stream);
 }
 
-int etl_filter_block_rows() { return FILTER_BLOCK; }
-
 const char *etl_cuda_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 #else
+// K1 on the host, walking each block's rows as the card does with tiles
+// of `tile_rows` rows (0: direct, from the arrays themselves) and
+// rows_per_thread (1 or 2) rows a thread.
 void etl_decode_pack_host(const void *bmat, int64_t row_bytes,
                           const void *lengths, int lengths_u8, int n_cols,
                           const void *desc, int nibble, void *out,
-                          int64_t n_rows, int n_words) {
-    for (int64_t r = 0; r < n_rows; ++r)
-        decode_row((const uint8_t *)bmat, row_bytes, lengths, lengths_u8,
-                   n_cols, (const int32_t *)desc, nibble, (uint32_t *)out,
-                   n_rows, n_words, r);
+                          int64_t n_rows, int n_words, int tile_rows,
+                          int rows_per_thread) {
+    Job a{(const uint8_t *)bmat, row_bytes, (const uint8_t *)lengths,
+          lengths_u8, n_cols, (const int32_t *)desc, nibble, nullptr,
+          nullptr, 0, (uint32_t *)out, nullptr, nullptr, n_rows, n_words};
+    if (rows_per_thread == 2)
+        walk_host<false, 2>(a, tile_rows);
+    else
+        walk_host<false, 1>(a, tile_rows);
 }
 
-// K2 on the host: the same per-row body, with each warp's ballot and each
-// block's count formed by loops.
+// K2 on the host: the same walk, with each warp's ballot and each block's
+// count formed by loops.
 void etl_filter_pack_host(const void *bmat, int64_t row_bytes,
                           const void *lengths, int lengths_u8, int n_cols,
                           const void *desc, int nibble, const void *flags,
-                          const void *pred, void *words, void *mask,
-                          void *block_counts, int64_t n_rows, int n_words) {
-    int64_t blocks = (n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
-    for (int64_t b = 0; b < blocks; ++b) {
-        int32_t count = 0;
-        for (int64_t g = b * FILTER_BLOCK; g < (b + 1) * FILTER_BLOCK;
-             g += 32) {
-            uint32_t ballot = 0;
-            for (int lane = 0; lane < 32; ++lane) {
-                int64_t r = g + lane;
-                bool keep = r < n_rows &&
-                            filter_pack_row(
-                                (const uint8_t *)bmat, row_bytes, lengths,
-                                lengths_u8, n_cols, (const int32_t *)desc,
-                                nibble, (const uint8_t *)flags,
-                                (const int32_t *)pred, (uint32_t *)words,
-                                n_rows, n_words, r);
-                ballot |= (uint32_t)keep << lane;
-            }
-            if (g < n_rows) ((uint32_t *)mask)[g >> 5] = ballot;
-            count += POPC(ballot);
-        }
-        ((int32_t *)block_counts)[b] = count;
-    }
+                          const void *pred, int pred_ints, void *words,
+                          void *mask, void *block_counts, int64_t n_rows,
+                          int n_words, int tile_rows) {
+    Job a{(const uint8_t *)bmat, row_bytes, (const uint8_t *)lengths,
+          lengths_u8, n_cols, (const int32_t *)desc, nibble,
+          (const uint8_t *)flags, (const int32_t *)pred, pred_ints,
+          (uint32_t *)words, (uint32_t *)mask, (int32_t *)block_counts,
+          n_rows, n_words};
+    walk_host<true, 1>(a, tile_rows);
 }
 
 // The compaction epilogue on the host: one "thread" per block does the

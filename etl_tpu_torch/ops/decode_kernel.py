@@ -20,6 +20,15 @@ plain C interface that this module loads with ctypes: a source that
 includes no PyTorch header builds in seconds. `launches`,
 `filter_launches` and `compact_launches` count the launches of K1, K2 and
 the epilogue in this process.
+
+K1 and K2 stage each block's 256 rows through shared memory. `tile_rows`
+picks, by shape, how: 256-row tiles where they fit SMEM_BUDGET ("tile"),
+else sub-tiles of 128, 64 or 32 rows (one warp's rows) walked in steps
+("subtile"), else no tile at all ("direct": the same row body reads
+global memory), which is also the choice for a base pointer that is not
+16-byte aligned. `path_launches` counts K1's and K2's launches by path.
+K1 parses two rows a thread where every column takes the loop-free
+integer parse in a tile (`rows_per_thread`), one otherwise; K2 one.
 """
 
 from __future__ import annotations
@@ -61,6 +70,8 @@ MAX_SLOTS = 6
 DESC_STRIDE = DESC_SLOT0 + 4 * MAX_SLOTS
 COMP_OK = -1
 
+INT_KINDS = (CellKind.I16, CellKind.I32, CellKind.U32, CellKind.I64)
+
 # the fixed byte positions each parser reads: narrower fields are refused
 # (the reference fails at trace time on them; the engine's gather widths
 # are never this narrow)
@@ -69,12 +80,16 @@ MIN_WIDTH = {
     CellKind.TIMESTAMPTZ: 19, CellKind.F32: 9, CellKind.F64: 9,
 }
 
-# rows per block of the filter kernels (FILTER_BLOCK in the source)
+# rows per block of K1 and K2 (FILTER_BLOCK in the source)
 FILTER_BLOCK = 256
+# dynamic shared memory a K1 or K2 block may take: two blocks fit in one
+# H100 SM's 228 KB
+SMEM_BUDGET = 100 * 1024
 
 launches = 0
 filter_launches = 0
 compact_launches = 0
+path_launches = {"tile": 0, "subtile": 0, "direct": 0}
 build_seconds: float | None = None
 build_log = ""
 
@@ -95,6 +110,12 @@ def _nvcc() -> str:
                        "(set NVCC or CUDA_HOME)")
 
 
+def nvcc_command(source: Path, out: Path) -> list[str]:
+    """The nvcc command that builds `source` into the shared library
+    `out`."""
+    return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
+
+
 def load() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib, build_seconds, build_log
@@ -110,9 +131,9 @@ def load() -> ctypes.CDLL:
             os.close(fd)
             t0 = time.perf_counter()
             try:
-                res = subprocess.run(
-                    [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                    capture_output=True, text=True, timeout=600)
+                res = subprocess.run(nvcc_command(SOURCE, Path(tmp)),
+                                     capture_output=True, text=True,
+                                     timeout=600)
                 if res.returncode != 0:
                     raise RuntimeError(
                         f"nvcc failed ({res.returncode}):\n{res.stderr}")
@@ -122,36 +143,39 @@ def load() -> ctypes.CDLL:
                 if os.path.exists(tmp):
                     os.unlink(tmp)
             build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
-        lib.etl_decode_pack.restype = ctypes.c_int
-        lib.etl_decode_pack.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,  # bmat, row_bytes
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int,  # lengths, u8, cols
-            ctypes.c_void_p, ctypes.c_int,  # desc, nibble
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,  # out, R, words
-            ctypes.c_void_p,  # stream
-        ]
-        vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.etl_filter_pack.restype = i32
-        lib.etl_filter_pack.argtypes = [
-            vp, i64, vp, i32, i32, vp, i32,  # bmat … nibble (as above)
-            vp, vp,  # flags, pred
-            vp, vp, vp,  # words, mask, block_counts
-            i64, i32, vp]  # R, words, stream
-        lib.etl_compact_packed.restype = i32
-        lib.etl_compact_packed.argtypes = [
-            vp, vp, vp, vp, vp,  # words, mask, block_counts, out, counts
-            i64, i32, vp]  # R, words, stream
-        lib.etl_copy_2d.restype = i32
-        lib.etl_copy_2d.argtypes = [vp, i64, vp, i64, i64, i64, vp]
-        lib.etl_filter_block_rows.restype = i32
-        lib.etl_filter_block_rows.argtypes = []
-        if lib.etl_filter_block_rows() != FILTER_BLOCK:
-            raise RuntimeError("FILTER_BLOCK disagrees with the source")
-        lib.etl_cuda_error_string.restype = ctypes.c_char_p
-        lib.etl_cuda_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-        return lib
+        _lib = bind(ctypes.CDLL(str(so)))
+        return _lib
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built kernel library."""
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.etl_decode_pack.restype = i32
+    lib.etl_decode_pack.argtypes = [
+        vp, i64,  # bmat, row_bytes
+        vp, i32, i32,  # lengths, u8, cols
+        vp, i32,  # desc, nibble
+        vp, i64, i32,  # out, R, words
+        i32, i32, vp]  # tile_rows, rows a thread, stream
+    lib.etl_filter_pack.restype = i32
+    lib.etl_filter_pack.argtypes = [
+        vp, i64, vp, i32, i32, vp, i32,  # bmat … nibble (as above)
+        vp, vp, i32,  # flags, pred, pred_ints
+        vp, vp, vp,  # words, mask, block_counts
+        i64, i32, i32, vp]  # R, words, tile_rows, stream
+    lib.etl_compact_packed.restype = i32
+    lib.etl_compact_packed.argtypes = [
+        vp, vp, vp, vp, vp,  # words, mask, block_counts, out, counts
+        i64, i32, vp]  # R, words, stream
+    lib.etl_copy_2d.restype = i32
+    lib.etl_copy_2d.argtypes = [vp, i64, vp, i64, i64, i64, vp]
+    lib.etl_filter_block_rows.restype = i32
+    lib.etl_filter_block_rows.argtypes = []
+    if lib.etl_filter_block_rows() != FILTER_BLOCK:
+        raise RuntimeError("FILTER_BLOCK disagrees with the source")
+    lib.etl_cuda_error_string.restype = ctypes.c_char_p
+    lib.etl_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
 
 
 def descriptor(specs: tuple, nibble: bool) -> list[int]:
@@ -194,14 +218,18 @@ def _check(bmat: torch.Tensor, lengths: torch.Tensor, specs: tuple,
 
 
 def decode_pack(bmat: torch.Tensor, lengths: torch.Tensor, specs: tuple,
-                nibble: bool, out: torch.Tensor | None = None) -> torch.Tensor:
+                nibble: bool, out: torch.Tensor | None = None,
+                walk: int | None = None) -> torch.Tensor:
     """Parse and bit-pack every dense column → uint32[n_words, R].
 
     `bmat` u8[R, ΣW] (u8[R, ΣW/2] planar nibble pairs when `nibble`),
     `lengths` u8 or int32 [R, n_dense], `specs` the engine's
     (col, kind, gather_width, bit_width) tuples. On CUDA, `out` may give
-    an int32 or uint32 [n_words, R] buffer to fill; the call launches on
-    the current stream and does not synchronise."""
+    an int32 or uint32 [n_words, R] buffer to fill; `walk` forces the
+    tile rows (256, 128, 64, 32 with one row a thread; 0 direct) in place
+    of `tile_rows`'s
+    choice, for tests; the call launches on the current stream and does
+    not synchronise."""
     global launches
     _check(bmat, lengths, specs, nibble)
     if bmat.device.type == "cpu" and lengths.device.type == "cpu":
@@ -223,20 +251,67 @@ def decode_pack(bmat: torch.Tensor, lengths: torch.Tensor, specs: tuple,
             or not out.is_contiguous():
         raise ValueError("decode_pack: bad output buffer")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = tile_rows(bmat, lengths, None, len(specs), 0) if walk is None \
+        else walk
+    rpt = rows_per_thread(specs, nibble, rows)
     rc = lib.etl_decode_pack(
         bmat.data_ptr(), bmat.shape[1], lengths.data_ptr(),
         int(lengths.dtype == torch.uint8), len(specs), desc.data_ptr(),
-        int(nibble), out.data_ptr(), R, n_words, stream)
+        int(nibble), out.data_ptr(), R, n_words, rows, rpt, stream)
     _raise_on(lib, rc, "decode kernel")
     with _lock:
         launches += 1
+        path_launches[path_of(rows)] += 1
     return out.view(torch.uint32)
+
+
+def tile_bytes(rows: int, row_bytes: int, n_cols: int, lengths_u8: bool,
+               pred_ints: int, filtered: bool) -> int:
+    """Dynamic shared memory of one K1 (K2 when `filtered`) block with
+    tiles of `rows` rows: the source's `tile_layout` (`etl_tile_bytes`)."""
+    stride = row_bytes + 4 if row_bytes % 8 == 0 else row_bytes
+    per_row = stride + n_cols * (1 if lengths_u8 else 4) + int(filtered)
+    return rows * per_row + 4 * (n_cols * DESC_STRIDE
+                                 + (pred_ints if filtered else 0))
+
+
+def tile_rows(bmat: torch.Tensor, lengths: torch.Tensor, flags, n_cols: int,
+              pred_ints: int) -> int:
+    """Rows a K1 or K2 block (K2 when `flags` is given) stages at once:
+    256, else the largest of 128, 64, 32 whose tile fits SMEM_BUDGET; 0
+    (direct) when none fits or a base pointer is not 16-byte aligned."""
+    ptrs = [bmat.data_ptr(), lengths.data_ptr()] \
+        + ([] if flags is None else [flags.data_ptr()])
+    if any(p % 16 for p in ptrs):
+        return 0
+    for rows in (256, 128, 64, 32):
+        if tile_bytes(rows, bmat.shape[1], n_cols,
+                      lengths.dtype == torch.uint8, pred_ints,
+                      flags is not None) <= SMEM_BUDGET:
+            return rows
+    return 0
+
+
+def rows_per_thread(specs: tuple, nibble: bool, rows: int) -> int:
+    """K1's rows a thread with tiles of `rows` rows: 2 where every column
+    is an integer of at most 16 nibble symbols (the loop-free parse, whose
+    two rows' chains interleave) in a tile of 64 rows or more, else 1."""
+    return 2 if rows >= 64 and nibble and all(
+        k in INT_KINDS and w <= 16 for _, k, w, _ in specs) else 1
+
+
+def path_of(rows: int) -> str:
+    return "tile" if rows == FILTER_BLOCK else "subtile" if rows else "direct"
 
 
 def pred_descriptor(pred, specs: tuple) -> list[int]:
     """The kernel's predicate descriptor for one filter on one spec set:
     [n_instr, n_ref, the referenced columns' spec slots, then the postfix
-    program (`pred.program`) with columns mapped to spec slots]."""
+    program (`pred.program`) with columns mapped to spec slots, then the
+    index K2's single parse reads: the last referenced slot, len(specs) + 1
+    offsets into the leaf list, a referenced flag per slot, and the leaf
+    list (per slot in spec order, the instruction numbers of its
+    comparison leaves)]."""
     if not pred.kernel_supported:
         raise ValueError(f"row filter {pred.filter!r} is outside the "
                          f"kernel's envelope")
@@ -247,10 +322,21 @@ def pred_descriptor(pred, specs: tuple) -> list[int]:
             raise ValueError(f"referenced column {col} ({kind.name}) is "
                              f"not a dense column of the specs")
     table = [len(pred.program), len(kinds)]
-    table += [slot_of[c][0] for c in pred.referenced_indices]
-    for ins in pred.program:
+    refs = [slot_of[c][0] for c in pred.referenced_indices]
+    table += refs
+    leaves: list[list[int]] = [[] for _ in specs]
+    for i, ins in enumerate(pred.program):
         col = slot_of[ins[1]][0] if ins[0] in (P_CMP, P_NULLTEST) else 0
         table += [ins[0], col, *ins[2:]]
+        if ins[0] == P_CMP:
+            leaves[col].append(i)
+    table.append(max(refs, default=-1))
+    offsets = [0]
+    for col in leaves:
+        offsets.append(offsets[-1] + len(col))
+    table += offsets + [int(j in refs) for j in range(len(specs))]
+    for col in leaves:
+        table += col
     return table
 
 
@@ -291,12 +377,13 @@ def _raise_on(lib, rc: int, what: str) -> None:
 
 
 def filter_pack(bmat: torch.Tensor, lengths: torch.Tensor,
-                row_flags: torch.Tensor, specs: tuple, nibble: bool, pred):
+                row_flags: torch.Tensor, specs: tuple, nibble: bool, pred,
+                walk: int | None = None):
     """K2: evaluate the row filter `pred` (a predicate.CompiledRowFilter)
     and pack the words of the kept rows → (words uint32[n_words, R], zero
     on dropped rows; keep_mask uint32[⌈R/32⌉]; block_counts
     int32[⌈R/FILTER_BLOCK⌉]). `row_flags` u8[R]: 0 dead, 1 live, 2 live +
-    force-keep."""
+    force-keep. `walk` as for `decode_pack`."""
     global filter_launches
     _check(bmat, lengths, specs, nibble)
     R = bmat.shape[0]
@@ -320,14 +407,17 @@ def filter_pack(bmat: torch.Tensor, lengths: torch.Tensor,
     counts = torch.empty(-(-R // FILTER_BLOCK), dtype=torch.int32,
                          device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = tile_rows(bmat, lengths, row_flags, len(specs), pdesc.numel()) \
+        if walk is None else walk
     _raise_on(lib, lib.etl_filter_pack(
         bmat.data_ptr(), bmat.shape[1], lengths.data_ptr(),
         int(lengths.dtype == torch.uint8), len(specs), desc.data_ptr(),
-        int(nibble), row_flags.data_ptr(), pdesc.data_ptr(),
+        int(nibble), row_flags.data_ptr(), pdesc.data_ptr(), pdesc.numel(),
         words.data_ptr(), mask.data_ptr(), counts.data_ptr(), R, n_words,
-        stream), "filter kernel")
+        rows, stream), "filter kernel")
     with _lock:
         filter_launches += 1
+        path_launches[path_of(rows)] += 1
     return words.view(torch.uint32), mask.view(torch.uint32), counts
 
 

@@ -21,6 +21,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT_MODULES = [
     "etl_tpu_torch", "etl_tpu_torch.bench", "etl_tpu_torch.convert",
     "etl_tpu_torch.testing", "etl_tpu_torch.native",
+    "etl_tpu_torch.kernel_variants",
     "etl_tpu_torch.models", "etl_tpu_torch.models.cell",
     "etl_tpu_torch.models.errors", "etl_tpu_torch.models.event",
     "etl_tpu_torch.models.lsn", "etl_tpu_torch.models.pgtypes",
@@ -97,7 +98,7 @@ def test_decode_pack_checks_inputs(bad):
         decode_kernel.decode_pack(bm, ln, specs, nibble)
 
 
-def test_row_filter_not_ported():
+def test_row_filter_round_trips_and_binds():
     """Checks that a schema's row filter round-trips through JSON and that
     the decoder binds it; neither step refuses a row filter any more."""
     from etl_tpu_torch.ops.predicate import parse_row_filter
@@ -146,8 +147,11 @@ def test_pred_descriptor_checks_the_filter_and_specs():
     pred = compile_row_filter("a > 1 AND a IS NOT NULL", schema)
     specs = ((0, PK.I32, 4, 2),)
     desc = decode_kernel.pred_descriptor(pred, specs)
-    # n_instr, n_ref, the referenced slot, then 3 instructions of 8
-    assert desc[:3] == [3, 1, 0] and len(desc) == 3 + 3 * 8
+    # n_instr, n_ref, the referenced slot, then 3 instructions of 8, then
+    # the single-parse index: last referenced slot 0, leaf offsets [0, 1],
+    # slot 0 referenced, its one comparison leaf at instruction 0
+    assert desc[:3] == [3, 1, 0] and len(desc) == 3 + 3 * 8 + 5
+    assert desc[3 + 3 * 8:] == [0, 0, 1, 1, 0]
     with pytest.raises(ValueError, match="not a dense column"):
         decode_kernel.pred_descriptor(pred, ((5, PK.I32, 4, 2),))
     with pytest.raises(ValueError, match="not a dense column"):

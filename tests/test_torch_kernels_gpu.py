@@ -222,3 +222,171 @@ def test_filter_column_position_per_table(cuda):
                                b.view(torch.int32).cpu()), names
         keeps.append(want[1].cpu())
     assert not torch.equal(keeps[0], keeps[1])
+
+
+# -- the block walks: 256-row tiles, sub-tiles, direct -----------------------
+
+WALKS = [256, 128, 64, 32, 0]  # tile rows; 0 = direct, from global memory
+
+
+def _bw(kind, w):
+    return (min(w, saturation_width(kind)) + 1) & ~1
+
+
+ALL_RAW = tuple((i, k, w, _bw(k, w))
+                for i, (k, w) in enumerate(WIDTHS.items()))
+NIB_SPECS = tuple((i, k, WIDTHS[k], _bw(k, WIDTHS[k]))
+                  for i, k in enumerate(NIBBLE))
+PGBENCH = tuple((i, K.I32, 8, 8) for i in range(3))
+
+
+def _pool(make, rows, pool=4096):
+    parts = make(min(rows, pool))
+    reps = -(-rows // pool)
+    return tuple(np.ascontiguousarray(np.tile(a, (reps,) + (1,) * (a.ndim - 1))
+                                      [:rows]) for a in parts)
+
+
+def _k1(specs, nibble, rows, seed, lengths_dtype=np.uint8, walk=None,
+        view=lambda t: t):
+    """K1 (in `walk`, or the planner's) against the plain version, on the
+    card; returns the path the launch took."""
+    rng = np.random.default_rng(seed)
+    bm, ln = _pool(lambda n: field_matrix(specs, n, rng, nibble,
+                                          lengths_dtype), rows)
+    bm_d, ln_d = (view(torch.from_numpy(a).cuda()) for a in (bm, ln))
+    before = dict(decode_kernel.path_launches)
+    got = decode_kernel.decode_pack(bm_d, ln_d, specs, nibble, walk=walk)
+    want = parse_and_pack_plain(bm_d, ln_d, specs, nibble)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32).cpu(),
+                       want.view(torch.int32).cpu()), (specs, nibble, walk)
+    return [k for k, v in decode_kernel.path_launches.items()
+            if v != before[k]]
+
+
+@pytest.mark.parametrize("walk", WALKS)
+@pytest.mark.parametrize("layout", ["raw-int32-lengths", "nibble-u8",
+                                    "nibble-ints-2-rows"])
+def test_kernel_walks_match_plain(cuda, walk, layout):
+    if layout == "nibble-u8":
+        path = _k1(NIB_SPECS, True, 3001, seed=21, walk=walk)
+    elif layout == "nibble-ints-2-rows":  # two rows a thread from 64 rows
+        specs = NIB_SPECS[:3] + ((3, K.I64, 16, 18), (4, K.I32, 4, 4))
+        path = _k1(specs, True, 3001, seed=23, walk=walk)
+    else:
+        path = _k1(ALL_RAW, False, 3001, seed=22, lengths_dtype=np.int32,
+                   walk=walk)
+    assert path == [decode_kernel.path_of(walk)]
+
+
+ROW_BYTES_CASES = {
+    11: (((0, K.I32, 11, 10),), False),
+    12: (PGBENCH, True),
+    6: (((0, K.I32, 12, 10),), True),
+    40: (((0, K.I64, 20, 18), (1, K.I64, 20, 18)), False),
+    228: (ALL_RAW + ((11, K.TIMESTAMPTZ, 36, 2),), False),
+}
+
+
+@pytest.mark.parametrize("row_bytes", list(ROW_BYTES_CASES))
+def test_row_bytes_not_multiple_of_16(cuda, row_bytes):
+    specs, nibble = ROW_BYTES_CASES[row_bytes]
+    assert _k1(specs, nibble, 4097, seed=row_bytes) == ["tile"]
+
+
+@pytest.mark.parametrize("rows", [1, 31, 257, 65_499])
+def test_row_counts(cuda, rows):
+    _k1(PGBENCH, True, rows, seed=rows)
+    got, want, k2, k2_want = _filtered(
+        [K.I32, K.I32, K.I32], True, "c1 <= 5 OR c2 IS NULL", rows,
+        seed=rows)
+    for a, b in zip(got + k2, want + k2_want):
+        assert torch.equal(a, b), rows
+
+
+@pytest.mark.parametrize("name,specs,nibble,path", [
+    ("11-raw-kinds", ALL_RAW, False, "tile"),  # a tile above 48 KB
+    ("100-i32-nibble", tuple((i, K.I32, 12, 10) for i in range(100)), True,
+     "subtile"),
+    ("260-i32-nibble", tuple((i, K.I32, 12, 10) for i in range(260)), True,
+     "subtile"),
+])
+def test_wide_rows_take_the_planned_walk(cuda, name, specs, nibble, path):
+    assert _k1(specs, nibble, 2000, seed=31) == [path], name
+
+
+def test_misaligned_base_reads_direct(cuda):
+    """A view that starts one row in is off 16-byte alignment (12-byte
+    rows): the launch reads global memory directly, with the same words;
+    so does K2."""
+    assert _k1(PGBENCH, True, 5001, seed=5, view=lambda t: t[1:]) \
+        == ["direct"]
+    got, want, k2, k2_want = _filtered(
+        [K.I32, K.I32, K.I32], True, "c1 <= 5", 5001, seed=5,
+        view=lambda t: t[1:])
+    for a, b in zip(got + k2, want + k2_want):
+        assert torch.equal(a, b)
+
+
+def _filtered(kinds, nibble, sql, rows, seed, walk=None, view=lambda t: t):
+    from etl_tpu_torch.ops.bitpack import filter_pack_plain
+    from etl_tpu_torch.ops.predicate import compile_row_filter
+    from etl_tpu_torch.testing import filter_case
+
+    specs = tuple((i, k, WIDTHS[k], _bw(k, WIDTHS[k]))
+                  for i, k in enumerate(kinds))
+    pred = compile_row_filter(sql, _kind_schema(kinds))
+    rng = np.random.default_rng(seed)
+    bm, ln, fl = _pool(lambda n: filter_case(specs, n, rng, nibble), rows)
+    args = (*(view(torch.from_numpy(a).cuda()) for a in (bm, ln, fl)),
+            specs, nibble, pred)
+    before = dict(decode_kernel.path_launches)
+    k2 = decode_kernel.filter_pack(*args, walk=walk)
+    if walk is not None:
+        assert decode_kernel.path_launches[decode_kernel.path_of(walk)] \
+            == before[decode_kernel.path_of(walk)] + 1
+    k2_want = filter_pack_plain(*args, decode_kernel.FILTER_BLOCK)
+    got = decode_kernel.compact_packed(*k2)
+    got = (got[0], k2[1], got[1])
+    want = parse_and_pack_plain(args[0], args[1], specs, nibble, pred=pred,
+                                row_flags=args[2])
+    torch.cuda.synchronize()
+
+    def host(ts):
+        return [t.view(torch.int32).cpu() for t in ts]
+
+    return host(got), host(want), host(k2), host(k2_want)
+
+
+@pytest.mark.parametrize("walk", WALKS)
+def test_filter_walks_match_plain(cuda, walk):
+    kinds, nibble, sql = FILTER_CASES["raw-compound"]
+    got, want, k2, k2_want = _filtered(kinds, nibble, sql, 4099, seed=walk,
+                                       walk=walk)
+    for a, b in zip(got + k2, want + k2_want):
+        assert torch.equal(a, b), walk
+
+
+FKINDS = [K.BOOL, K.I16, K.I32, K.U32, K.I64, K.DATE, K.TIME, K.TIMESTAMP,
+          K.TIMESTAMPTZ]
+MANY_LEAVES = {
+    "30-leaves": " OR ".join(
+        [f"c2 = {v}" for v in range(-5, 5)]
+        + [f"c1 < {-100 + 7 * i}" for i in range(10)]
+        + [f"c4 > {10 ** i}" for i in range(5)]
+        + ["c6 < '01:00:00'", "c7 > '2020-01-01 00:00:00'",
+           "c5 <> '2000-01-01'", "c3 >= 4000000000", "c0 = FALSE"]),
+    "past-the-leaf-bits": " AND ".join(
+        f"(c2 > {-1000 * i} OR c1 <> {i} OR c8 < '2024-06-15 00:00:0{i % 10}"
+        f"+00')" for i in range(18)),
+}
+
+
+@pytest.mark.parametrize("name", list(MANY_LEAVES))
+def test_filter_many_leaves(cuda, name):
+    got, want, k2, k2_want = _filtered(FKINDS, False, MANY_LEAVES[name],
+                                       6000, seed=7)
+    for a, b in zip(got + k2, want + k2_want):
+        assert torch.equal(a, b), name
+    assert 0 < int(want[2][0]) < 6000
