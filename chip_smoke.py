@@ -23,7 +23,9 @@ the final result line:
    3d. the fused row filter: K2 (`filter_pack`) and the compaction
    epilogue (`compact_packed`) against their plain versions, bit for bit,
    alone and chained (`decode_pack_filtered` against
-   `parse_and_pack_plain(pred=…)`): (i) the pgbench specs under
+   `parse_and_pack_plain(pred=…)`), and K2c (`filter_pack_compact`, the
+   two in one launch) against `parse_and_pack_plain(pred=…)` in
+   `words[:, :count]`, the mask and the count: (i) the pgbench specs under
    `bid <= 5` at 262,144 rows, (ii) every comparable kind raw under a
    compound AND/OR/NOT/IS NULL filter, (iii) the integer and temporal
    kinds nibble-packed; (ii) and (iii) at 65,499 rows, not a multiple of
@@ -32,25 +34,31 @@ the final result line:
    get its own predicate descriptor). Inputs are seeded and hold NULLs, rows that fail to parse,
    dead and force-kept rows, literals that fold to constants and edge
    values. Prints each kernel's time, bound, launch floor and plain time,
-   and for the epilogue the time of `words[:, keep]`; K2 in (i) is timed
-   three times, as K1 in (a).
-   3e. K1 and K2 at the main-path shape in every walk (256-row tiles,
-   sub-tiles of 128, 64 and 32 rows, direct), bit for bit and timed once.
+   and for the epilogue and K2c the time of `words[:, keep]`; K2 and K2c
+   in (i) are timed three times, as K1 in (a). Then K2c's own cases:
+   keep none, keep all, a ragged batch, 2^22 rows, 50 launches back to
+   back on one status buffer, two streams at once; and a layout whose
+   word tile does not fit K2c, which must take K2 + the epilogue.
+   3e. K1, K2 and K2c at the main-path shape in every walk (256-row
+   tiles, sub-tiles of 128, 64 and 32 rows, direct), bit for bit and
+   timed once.
 4. main path: pgbench insert CDC payloads → framing → stage_wal_batch →
    DeviceDecoder(device="cuda") with two batches in flight, 262,144 rows
    a batch. The decoder must launch the kernel; the first batch must equal
    the CPU decode of the same staged batch, every batch must have its
    digest, and a row sample must equal the CPU oracle. Prints records/s,
-   the stage split (framing + staging, pack, H2D, kernel, D2H, assemble)
-   and the device's busy share (copies + kernel over the batch's wall).
+   the stage split (framing + staging, pack, launch on the host clock,
+   H2D, kernel, D2H, assemble) and the device's busy share (copies +
+   kernel over the batch's wall); and K1's held time on a batch of the
+   main path, beside the engine's `kernel_ms`.
 5. filtered main path: the same stream under the publication filter
-   `bid <= 5` (about half the rows survive). The decoder must launch K2
-   and the epilogue for every batch; the first batch and its
+   `bid <= 5` (about half the rows survive). The decoder must launch K2c
+   once a batch, and K2 and the epilogue never; the first batch and its
    `source_rows` must equal the CPU decoder's, the survivors must be the
    payloads' rows with bid <= 5, a row sample must equal the CPU oracle,
    and each batch must fetch at most (keep + 0.11) of the unfiltered
    bytes. Prints records/s (staged records), the stage split with the
-   second D2H and the busy share.
+   second D2H, the busy share and K2c's held time on a main-path batch.
 
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
@@ -188,9 +196,10 @@ def paths_taken(before: dict) -> str:
 
 
 def walk_cases(specs, nibble, rows, pool, seed, pred):
-    """K1 and K2 at the main-path shape in every walk (256-row tiles,
-    sub-tiles of 128, 64 and 32 rows, direct), each bit for bit against
-    its plain version and timed once."""
+    """K1, K2 and K2c at the main-path shape in every walk (256-row tiles,
+    sub-tiles of 128, 64 and 32 rows, direct; K2c with one and, on
+    256-row tiles, two rows a thread), each bit for bit against its plain
+    version and timed once."""
     import numpy as np
     import torch
 
@@ -208,25 +217,40 @@ def walk_cases(specs, nibble, rows, pool, seed, pred):
     k1_want = parse_and_pack_plain(bm_d, ln_d, specs, nibble)
     k2_want = filter_pack_plain(bm_d, ln_d, fl_d, specs, nibble, pred,
                                 dk.FILTER_BLOCK)
+    k2c_want = parse_and_pack_plain(bm_d, ln_d, specs, nibble, pred=pred,
+                                    row_flags=fl_d)
     scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     out = {}
     for walk in (256, 128, 64, 32, 0):
         k1 = dk.decode_pack(bm_d, ln_d, specs, nibble, walk=walk)
         k2 = dk.filter_pack(bm_d, ln_d, fl_d, specs, nibble, pred, walk=walk)
+        rpts = (1, 2) if walk == 256 else (1,)
+        k2c = [dk.filter_pack_compact(bm_d, ln_d, fl_d, specs, nibble, pred,
+                                      walk=walk, rpt=rpt) for rpt in rpts]
         torch.cuda.synchronize()
         errs = [_words_err(k1, k1_want)] + [_words_err(a, b)
-                                            for a, b in zip(k2, k2_want)]
+                                            for a, b in zip(k2, k2_want)] \
+            + [e for got in k2c for e in fused_err(got, k2c_want)]
         check(all(e == 0 for e, _ in errs),
-              f"walk {walk}: K1 or K2 differs from its plain version {errs}")
+              f"walk {walk}: K1, K2 or K2c differs from its plain version "
+              f"{errs}")
         k1_ms = time_ms(lambda: dk.decode_pack(bm_d, ln_d, specs, nibble,
                                                walk=walk), 50, scratch.zero_)
         k2_ms = time_ms(lambda: dk.filter_pack(bm_d, ln_d, fl_d, specs,
                                                nibble, pred, walk=walk), 50,
                         scratch.zero_)
-        out[dk.path_of(walk) + (f"{walk}" if 0 < walk < 256 else "")] = {
-            "k1_ms": k1_ms, "k2_ms": k2_ms}
-        print(f"  walk {walk or 'direct'}: K1 and K2 bit-identical, "
-              f"K1 ms={k1_ms:.5f} K2 ms={k2_ms:.5f}", flush=True)
+        rec = {"k1_ms": k1_ms, "k2_ms": k2_ms}
+        for rpt in rpts:
+            rec[f"k2c_rpt{rpt}_ms"] = time_ms(
+                lambda: dk.filter_pack_compact(bm_d, ln_d, fl_d, specs,
+                                               nibble, pred, walk=walk,
+                                               rpt=rpt), 50, scratch.zero_)
+        out[dk.path_of(walk) + (f"{walk}" if 0 < walk < 256 else "")] = rec
+        print(f"  walk {walk or 'direct'}: K1, K2 and K2c bit-identical, "
+              + " ".join(f"{k[:-3]}={v:.5f}" for k, v in rec.items())
+              + f" ms (K2c rows a thread as built: "
+              f"{dk.compact_rows_per_thread(specs, nibble, walk)})",
+              flush=True)
     return out
 
 
@@ -246,9 +270,28 @@ def _words_err(got, want) -> tuple[int, int]:
         int((diff != 0).any(dim=0).sum().item())
 
 
+def fused_err(got, want) -> list:
+    """K2c's (words, mask, counts) against the plain version's: words in
+    columns [0, count) only (K2c writes no column past the count)."""
+    n = int(want[2][0])
+    return [_words_err(got[0][:, :n], want[0][:, :n]),
+            _words_err(got[1], want[1]), _words_err(got[2], want[2])]
+
+
+def fused_bytes(bm, ln, fl, n_words, survivors) -> int:
+    """Bytes K2c must move: its inputs read once, the survivors' words,
+    the keep mask and the count written once, and a status word a block
+    plus the ticket counter."""
+    rows = fl.shape[0]
+    n_blocks = -(-rows // 256)
+    return bm.nbytes + ln.nbytes + fl.nbytes + n_words * 4 * survivors \
+        + 4 * -(-rows // 32) + 4 + 8 * (n_blocks + 1)
+
+
 def filter_case(name, specs, nibble, rows, pool, seed, pred, runs=1):
-    """Phase 3d case: K2 and the epilogue against their plain versions on
-    the card; returns (K2 record, epilogue record)."""
+    """Phase 3d case: K2, the epilogue and K2c against their plain
+    versions on the card; returns (K2 record, epilogue record, K2c
+    record)."""
     import numpy as np
     import torch
 
@@ -279,13 +322,17 @@ def filter_case(name, specs, nibble, rows, pool, seed, pred, runs=1):
     full = dk.decode_pack_filtered(*args)
     full_want = parse_and_pack_plain(bm_d, ln_d, specs, nibble, pred=pred,
                                      row_flags=fl_d)
+    fpaths = dict(dk.path_launches)
+    fused = dk.filter_pack_compact(*args)
+    fpath = paths_taken(fpaths)
     torch.cuda.synchronize()
     k2_err = [_words_err(a, b) for a, b in zip(k2, k2_want)]
     epi_err = [_words_err(epi[0], epi_want[0]),
                _words_err(epi[1], epi_want[2])]
     full_err = [_words_err(a, b) for a, b in zip(full, full_want)]
+    k2c_err = fused_err(fused, full_want)
     for what, errs in (("K2", k2_err), ("epilogue", epi_err),
-                       ("K2 + epilogue", full_err)):
+                       ("K2 + epilogue", full_err), ("K2c", k2c_err)):
         check(all(e == 0 for e, _ in errs),
               f"{name}: {what} differs from its plain version "
               f"(max err, columns) = {errs}")
@@ -309,12 +356,20 @@ def filter_case(name, specs, nibble, rows, pool, seed, pred, runs=1):
     k2_ops = OPS_PER_TEXT_BYTE * sum(w for _, _, w, _ in specs) * rows
     epi_bytes = n_words * 4 * S + 4 * n_mask + 4 * n_blocks \
         + n_words * 4 * rows + 4
+    k2c_runs = time_runs(lambda: dk.filter_pack_compact(*args), runs,
+                         scratch.zero_)
+    k2c_ms = sorted(k2c_runs)[len(k2c_runs) // 2]
+    k2c_plain = time_ms(lambda: parse_and_pack_plain(
+        bm_d, ln_d, specs, nibble, pred=pred, row_flags=fl_d), 3)
+    k2c_bytes = fused_bytes(bm, ln, fl, n_words, S)
     recs = []
     for kname, ms, ms_runs, plain, nbytes, ops, err, lib in (
             ("decode_pack_filtered", k2_ms, k2_runs, k2_plain, k2_bytes,
              k2_ops, k2_err + full_err, None),
             ("compact_packed", epi_ms, [epi_ms], epi_plain, epi_bytes, 0,
-             epi_err + full_err, lib_ms)):
+             epi_err + full_err, lib_ms),
+            ("filter_pack_compact", k2c_ms, k2c_runs, k2c_plain, k2c_bytes,
+             k2_ops, k2c_err, lib_ms)):
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / SCALAR_OPS_PER_S * 1e3
         recs.append({
@@ -329,8 +384,10 @@ def filter_case(name, specs, nibble, rows, pool, seed, pred, runs=1):
             recs[-1]["path"] = path
             recs[-1].update(host_paced_ms_runs=paced,
                             host_paced_launch_floor_ms=paced_floor)
+        if kname == "filter_pack_compact":
+            recs[-1]["path"] = fpath
         print(f"  {name} {kname}: rows={rows} survivors={S} "
-              + (f"path={path} " if kname == "decode_pack_filtered" else "")
+              + (f"path={recs[-1]['path']} " if "path" in recs[-1] else "")
               + f"bit-identical=yes ms={ms:.5f} plain_ms={plain:.3f} "
               f"bound_ms={recs[-1]['bound_ms']:.5f} "
               f"({recs[-1]['bound_by']}, {nbytes} B) launch_floor_ms="
@@ -340,7 +397,153 @@ def filter_case(name, specs, nibble, rows, pool, seed, pred, runs=1):
         print(f"    K2 ms over {runs} timings: {spread(k2_runs)}", flush=True)
         print(f"    host-paced (no hold) K2 ms: {spread(paced)}; "
               f"launch_floor_ms={paced_floor:.5f}", flush=True)
+        print(f"    K2c ms over {runs} timings: {spread(k2c_runs)}; "
+              f"K2 + epilogue {k2_ms + epi_ms:.5f}", flush=True)
     return recs
+
+
+def fused_cases(specs, pool, seed, pred, wide_pred, wide_specs):
+    """Phase 3d, K2c's own cases at the pgbench specs (nibble), each bit
+    for bit against the plain version (`words[:, :count]`, mask, count):
+    keep none (every row dead), keep all (every row force-kept), a ragged
+    batch (100,003 rows), 2^22 rows (16,384 blocks: most look-backs meet
+    predecessors that are only aggregates), 50 launches back to back on
+    one status buffer, two streams at once; and a layout whose word tile
+    does not fit (260 INT4 columns), which the engine's route sends to K2
+    + the epilogue (full contract, zeros behind). Returns the cases'
+    records."""
+    import numpy as np
+    import torch
+
+    from etl_tpu_torch.ops import decode_kernel as dk
+    from etl_tpu_torch.ops.bitpack import layout_for_specs, \
+        parse_and_pack_plain
+    from etl_tpu_torch.testing import filter_case as inputs
+
+    def make(rows, seed_, flags=None, specs_=specs, pred_=pred):
+        bm, ln, fl = inputs(specs_, min(rows, pool),
+                            np.random.default_rng(seed_), True)
+        reps = -(-rows // pool)
+        bm, ln, fl = (np.ascontiguousarray(
+            np.tile(a, (reps,) + (1,) * (a.ndim - 1))[:rows])
+            for a in (bm, ln, fl))
+        if flags is not None:
+            fl[:] = flags
+        return (*(torch.from_numpy(a).cuda() for a in (bm, ln, fl)),
+                specs_, True, pred_)
+
+    def want(args):
+        return parse_and_pack_plain(args[0], args[1], args[3], args[4],
+                                    pred=args[5], row_flags=args[2])
+
+    def held(args, name, got, expect=None):
+        w = want(args)
+        torch.cuda.synchronize()
+        err = fused_err(got, w)
+        n = int(w[2][0])
+        check(all(e == 0 for e, _ in err),
+              f"{name}: K2c differs from the plain version {err}")
+        check(expect is None or n == expect,
+              f"{name}: {n} survivors, expected {expect}")
+        return {"case": name, "rows": int(args[0].shape[0]),
+                "survivors": n, "max_abs_err": max(e for e, _ in err)}
+
+    recs = []
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for name, rows, flags, expect in (
+            ("keep none", 262_144, 0, 0), ("keep all", 262_144, 2, 262_144),
+            ("ragged", 100_003, None, None),
+            ("2^22 rows", 1 << 22, None, None)):
+        args = make(rows, seed + rows, flags)
+        rec = held(args, name, dk.filter_pack_compact(*args), expect)
+        rec["ms"] = time_ms(lambda: dk.filter_pack_compact(*args), 20,
+                            scratch.zero_)
+        recs.append(rec)
+        print(f"  3d K2c {name}: rows={rows} survivors={rec['survivors']} "
+              f"bit-identical=yes ms={rec['ms']:.5f}", flush=True)
+    # back to back on one status buffer, no synchronisation between
+    batch = [make(rows, seed + k, flags) for k, (rows, flags) in
+             enumerate(((262_144, None), (300, None), (100_003, 2),
+                        (1, None), (65_499, 0)))]
+    torch.cuda.synchronize()
+    outs = [dk.filter_pack_compact(*batch[k % len(batch)])
+            for k in range(50)]
+    for k, got in enumerate(outs):
+        held(batch[k % len(batch)], f"back-to-back {k}", got)
+    recs.append({"case": "50 back-to-back launches", "max_abs_err": 0})
+    print("  3d K2c 50 back-to-back launches on one status buffer: "
+          "bit-identical=yes", flush=True)
+    # two streams at once, each with its own status buffer
+    two = [make(1 << 21, seed + 7), make(1 << 21, seed + 8)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for _ in range(4):
+        for st, args, out in zip(streams, two, got):
+            with torch.cuda.stream(st):
+                out.append(dk.filter_pack_compact(*args))
+    torch.cuda.synchronize()
+    for args, outs in zip(two, got):
+        for g in outs:
+            held(args, "two streams", g)
+    recs.append({"case": "two streams", "max_abs_err": 0})
+    print("  3d K2c on two streams at once (4 launches each, 2^21 rows): "
+          "bit-identical=yes", flush=True)
+    # a layout whose word tile does not fit: the two-launch route
+    wide = make(1_000, seed + 9, specs_=wide_specs, pred_=wide_pred)
+    n_words = layout_for_specs(wide_specs).n_words
+    walk = dk.fused_walk(*wide[:3], len(wide_specs),
+                         len(dk.pred_descriptor(wide_pred, wide_specs)),
+                         n_words)
+    check(walk is None, f"the wide layout fits K2c (walk {walk})")
+    before = (dk.fused_launches, dk.filter_launches, dk.compact_launches)
+    got = dk.prepare_filtered(*wide)()
+    w = want(wide)
+    torch.cuda.synchronize()
+    err = [_words_err(a, b) for a, b in zip(got, w)]
+    check(all(e == 0 for e, _ in err),
+          f"wide layout: the two-launch route differs {err}")
+    check((dk.fused_launches, dk.filter_launches, dk.compact_launches)
+          == (before[0], before[1] + 1, before[2] + 1),
+          "the wide layout did not take the two-launch route")
+    recs.append({"case": "wide layout, two-launch route",
+                 "cols": len(wide_specs), "n_words": n_words,
+                 "survivors": int(w[2][0]), "max_abs_err": 0})
+    print(f"  3d wide layout ({len(wide_specs)} INT4 columns, {n_words} "
+          f"words): word tile does not fit, K2 + epilogue taken, "
+          f"bit-identical=yes (full contract)", flush=True)
+    return recs
+
+
+def held_main_path_ms(decoder, staged, specs, filtered: bool) -> dict:
+    """The main path's kernels on one of its own batches, timed as the
+    kernel records are (held, `bench.device_ms`): K1, or the filtered
+    route (K2c), on the decoder's packed bytes, lengths and row flags of
+    `staged`, with the L2 flushed before each launch (`cold_ms`) and
+    without (`warm_ms`, as the engine finds the bytes just uploaded)."""
+    import torch
+
+    from etl_tpu_torch.ops import decode_kernel as dk
+
+    widths = tuple(w for _, _, w, _ in specs)
+    packed = decoder._pack_host(staged, widths)
+    bm = torch.from_numpy(packed.bmat).cuda()
+    ln = torch.from_numpy(packed.lengths).cuda()
+    if filtered:
+        pred = decoder._device_filter_for(staged)
+        fl = torch.from_numpy(decoder._row_flags(staged, specs, pred,
+                                                 packed.bad_rows)).cuda()
+
+        def fn():
+            return dk.prepare_filtered(bm, ln, fl, specs, packed.nibble,
+                                       pred)()
+    else:
+        def fn():
+            return dk.decode_pack(bm, ln, specs, packed.nibble)
+    decoder._pinned.give_back(packed.pinned)
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    return {"cold_ms": time_ms(fn, 50, flush=scratch.zero_),
+            "warm_ms": time_ms(fn, 50)}
 
 
 def main() -> int:
@@ -479,6 +682,11 @@ def main() -> int:
     frecords = [filter_case(name, specs, nib, n, pool, args.seed + 10 + i,
                             pred, runs=3 if i == 0 else 1)
                 for i, (name, specs, nib, n, pool, pred) in enumerate(fcases)]
+    wide_specs = tuple((i, K.I32, 12, bw(K.I32, 12)) for i in range(260))
+    wide_pred = compile_row_filter("c1 <= 5", kind_schema([(K.I32, 12)]
+                                                          * 260))
+    extra = fused_cases(main_specs, 16_384, args.seed + 30, fcases[0][5],
+                        wide_pred, wide_specs)
 
     print("[3e] every walk at the main-path shape", flush=True)
     walks = walk_cases(main_specs, True, rows, 16_384, args.seed + 20,
@@ -534,6 +742,11 @@ def main() -> int:
     print(f"  records/s={rps:.0f} wall_s={wall:.4f} device_busy_share="
           f"{busy:.4f} per-batch ms: "
           + " ".join(f"{k}={v:.4f}" for k, v in split.items()), flush=True)
+    held = held_main_path_ms(decoder, staged0, main_specs, False)
+    print(f"  kernel_ms={split['kernel_ms']:.5f} (engine events) against "
+          f"K1 held on a main-path batch: cold_ms={held['cold_ms']:.5f} "
+          f"warm_ms={held['warm_ms']:.5f}; launch_ms="
+          f"{split['launch_ms']:.5f} (host)", flush=True)
 
     unfiltered_fetched = done[0].timings["fetched_bytes"]
 
@@ -546,19 +759,23 @@ def main() -> int:
     decode_kernel.launches = 0
     decode_kernel.filter_launches = 0
     decode_kernel.compact_launches = 0
+    decode_kernel.fused_launches = 0
     paths = dict(decode_kernel.path_launches)
     fdone: list = []
     fwall = bench.decode_stream(fdecoder, timed_stage, args.batches,
                                 fdone.append)
     f_launches = decode_kernel.filter_launches
     c_launches = decode_kernel.compact_launches
+    k2c_launches = decode_kernel.fused_launches
     print(f"  batches={args.batches} rows/batch={rows} in_flight="
-          f"{bench.IN_FLIGHT} launches: filter={f_launches} "
-          f"compact={c_launches} unfiltered={decode_kernel.launches} "
+          f"{bench.IN_FLIGHT} launches: fused={k2c_launches} "
+          f"filter={f_launches} compact={c_launches} "
+          f"unfiltered={decode_kernel.launches} "
           f"path={paths_taken(paths)}", flush=True)
-    check(f_launches >= args.batches and c_launches >= args.batches,
-          "the filtered path did not launch K2 and the epilogue for every "
-          "batch")
+    check(k2c_launches == args.batches and f_launches == 0
+          and c_launches == 0,
+          "the filtered path did not launch K2c once a batch, and K2 and "
+          "the epilogue never")
     fbatches = [p.result() for p in fdone]
     truth = np.asarray([i for i, (_, bid, _) in
                         enumerate(bench.pgbench_rows(rows)) if bid <= 5],
@@ -595,19 +812,27 @@ def main() -> int:
     print(f"  records/s={frps:.0f} wall_s={fwall:.4f} device_busy_share="
           f"{fbusy:.4f} per-batch ms: "
           + " ".join(f"{k}={v:.4f}" for k, v in fsplit.items()), flush=True)
+    fheld = held_main_path_ms(fdecoder, staged0, main_specs, True)
+    print(f"  kernel_ms={fsplit['kernel_ms']:.5f} (engine events) against "
+          f"K2c held on a main-path batch: cold_ms={fheld['cold_ms']:.5f} "
+          f"warm_ms={fheld['warm_ms']:.5f}; launch_ms="
+          f"{fsplit['launch_ms']:.5f} (host)", flush=True)
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs
                if r["kernel"] == "decode_pack_filtered"]
     epi_recs = [r for recs in frecords for r in recs
                 if r["kernel"] == "compact_packed"]
+    k2c_recs = [r for recs in frecords for r in recs
+                if r["kernel"] == "filter_pack_compact"]
     filtered_main = {"records_per_s": frps, "batches": args.batches,
                      "rows_per_batch": rows, "row_filter": filter_sql,
                      "keep": keep, "split_ms": fsplit,
                      "fetched_bytes": fetched,
                      "unfiltered_fetched_bytes": unfiltered_fetched,
                      "fetched_ratio": max(ratios),
-                     "device_busy_share": fbusy}
+                     "device_busy_share": fbusy,
+                     "kernel_held_ms": fheld}
 
     def record(name, replaces, n_launches, recs, main):
         main_case = recs[0]
@@ -629,16 +854,24 @@ def main() -> int:
                records,
                {"records_per_s": rps, "batches": args.batches,
                 "rows_per_batch": rows, "split_ms": split,
-                "device_busy_share": busy}),
+                "device_busy_share": busy, "kernel_held_ms": held}),
         record("decode_pack_filtered", "etl_tpu/ops/pallas_kernel.py:118",
                f_launches, k2_recs, filtered_main),
         record("compact_packed", "etl_tpu/ops/bitpack.py:212", c_launches,
                epi_recs, filtered_main),
+        record("filter_pack_compact",
+               "etl_tpu/ops/pallas_kernel.py:118 + etl_tpu/ops/bitpack.py:212",
+               k2c_launches, k2c_recs, filtered_main),
     ]
-    kernels[0]["walks"] = walks
-    kernels[1]["walks"] = walks
+    kernels[3]["fused_cases"] = extra
+    kernels[3]["max_abs_err"] = max(
+        [kernels[3]["max_abs_err"]] + [r["max_abs_err"] for r in extra])
+    for k in kernels[:2] + kernels[3:]:
+        k["walks"] = walks
     kernels[1]["library_ms_note"] = (
         "null: no PyTorch call parses, filters and packs the fields")
+    kernels[3]["library_ms_note"] = (
+        "words[:, keep] after the plain K2, as the epilogue's")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

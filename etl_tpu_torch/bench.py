@@ -314,9 +314,10 @@ def run_selectivity(n_rows: int = N_ROWS, device: str = "cuda",
         sql = f"v < {int(-1_000_000 + 2_000_000 * keep)}"
         rts = plain.with_row_predicate(parse_row_filter(sql))
         dec = DeviceDecoder(rts, device=device, device_min_rows=1)
-        before = decode_kernel.filter_launches
+        before = decode_kernel.filter_launches + decode_kernel.fused_launches
         batch, filtered_bytes = decode(dec, stage())
-        launched = decode_kernel.filter_launches - before
+        launched = decode_kernel.filter_launches \
+            + decode_kernel.fused_launches - before
         cpu = DeviceDecoder(rts, device="cpu", device_min_rows=1) \
             .decode(stage())
         oracle = DeviceDecoder(rts, device="cpu", device_min_rows=10**9) \

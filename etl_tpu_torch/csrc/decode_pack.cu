@@ -19,10 +19,20 @@
 // are zeros. compact_kernel replaces the XLA epilogue
 // `bitpack.compact_packed` (etl_tpu/ops/bitpack.py:212).
 //
+// filter_pack_compact_kernel (K2c; filter_pack_compact2_kernel with two
+// rows a thread) replaces both in one launch: K2's walk, with a block's
+// words kept in shared memory and only its kept rows written, straight
+// to their place in the compacted output, after a single-pass decoupled
+// look-back (Merrill & Garland) over the blocks' survivor counts. Its
+// output equals the reference's in columns [0, count) of the words, the
+// keep mask and the count; later columns are not written.
+//
 // Bound: bytes. Per row K1 reads its field bytes and lengths once and
 // writes n_words * 4 bytes: on the pgbench main path 12 nibble bytes,
 // 3 lengths and 8 bytes of words, 23 B a row, 6.0 MB for 262,144 rows,
-// 1.8 us at 3.35 TB/s; K2 adds a flag byte (24 B a row, 1.9 us). The
+// 1.8 us at 3.35 TB/s; K2 adds a flag byte (24 B a row, 1.9 us); K2c
+// writes the survivors' words only (22.5 B a row at the main path's
+// 208,176 of 262,144 survivors, 1.8 us). The
 // parse is a few hundred integer instructions a row, about 3-4 us of
 // issue over 132 SMs: close to the byte bound, so neither may waste the
 // other. On the card the time goes to the length of each thread's chain
@@ -78,6 +88,24 @@
 //   kept row moves to its block's offset plus the popcounts of the mask
 //   words before it in the block plus its rank in its own word;
 //   positions at or after the total are zeroed.
+// - K2c: the row body stores a block's words to a word tile, uint32
+//   [n_words][256] in shared memory beside the rows' tile, which holds
+//   them across every sub-tile step; a dropped row writes nothing. A
+//   block takes its logical index from a ticket (atomicAdd) when it
+//   starts, so it waits only on blocks that have started and the
+//   look-back cannot deadlock. After the walk it publishes its count
+//   (AGGREGATE) in a 64-bit status word tagged with the launch's epoch
+//   (so words of an earlier launch read as unpublished and the buffer
+//   needs no reset; the ticket counter, 64 bits, never does either), warp
+//   0 sums its predecessors back to the nearest INCLUSIVE prefix with
+//   release stores and acquire loads, publishes its own inclusive prefix,
+//   and the block moves each kept row from the word tile to prefix + its
+//   rank (the popcounts of the warps' ballots before it): a warp's kept
+//   rows land on consecutive columns. What K2c adds to K2 is latency on
+//   each block's path (the ticket, the look-back's round trips to L2,
+//   the scatter), paid once a wave of resident blocks: on 256-row tiles
+//   it runs two rows a thread in 128-thread blocks capped at 64 registers,
+//   so that the main path's 1,024 blocks are resident at once.
 //
 // All packing is in uint32_t and the reference's wrapping int32 products
 // (l1 * 1e9 + l0, ms = sec * 1000 + ...) are computed in uint32_t, where
@@ -89,7 +117,9 @@
 // the etl_*_host functions run each block's walk with loops in place of
 // threads, staging each block's bytes into a tile laid out as on the card
 // and calling the same row body, so the CPU tests reach the tile
-// indexing, the sub-tile walk and the single-parse leaf bits.
+// indexing, the sub-tile walk and the single-parse leaf bits; K2c's host
+// walk interleaves the blocks' phases in a seeded order, so its look-back
+// meets unpublished and aggregate-only predecessors.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC  (ops/decode_kernel.py)
@@ -784,6 +814,13 @@ struct Job {
     int32_t *block_counts;   // K2: [ceil(R / FILTER_BLOCK)]
     int64_t n_rows;
     int n_words;
+    // K2c: per-logical-block status words, the ticket counter, the tickets
+    // earlier launches on this buffer took, this launch's epoch, counts[1]
+    uint64_t *status;
+    unsigned long long *ticket;
+    uint64_t ticket_base;
+    uint32_t epoch;
+    int32_t *counts;
 };
 
 // Row stride of the byte tile: one word more where a row is an even
@@ -795,22 +832,33 @@ __host__ __device__ __forceinline__ int64_t tile_stride(int64_t row_bytes) {
 // Byte offsets in a block's dynamic shared memory for tiles of T rows:
 // row bytes, lengths, flags (K2), then the descriptor and the predicate
 // program. Every part before the descriptor is a multiple of 16 bytes
-// long (T is a multiple of 32), so each starts 16-byte aligned.
+// long (T is a multiple of 32), so each starts 16-byte aligned. T = 0
+// (direct) stages nothing. K2c (tile_words = n_words) adds the block's
+// word tile, uint32 [n_words][FILTER_BLOCK], 16-byte aligned after the
+// rest: it holds the whole block's words across every sub-tile step.
 struct Layout {
-    int64_t lens, flags, desc, pred, total;
+    int64_t lens, flags, desc, pred, words, total;
 };
 
 __host__ __device__ __forceinline__ Layout tile_layout(int64_t row_bytes,
                                                        int n_cols,
                                                        int lengths_u8,
                                                        bool filter,
-                                                       int pred_ints, int T) {
-    Layout L;
-    L.lens = T * tile_stride(row_bytes);
-    L.flags = L.lens + (int64_t)T * n_cols * (lengths_u8 ? 1 : 4);
-    L.desc = L.flags + (filter ? T : 0);
-    L.pred = L.desc + 4 * (int64_t)n_cols * DESC_STRIDE;
-    L.total = L.pred + 4 * (int64_t)(filter ? pred_ints : 0);
+                                                       int pred_ints, int T,
+                                                       int tile_words) {
+    Layout L{0, 0, 0, 0, 0, 0};
+    if (T > 0) {
+        L.lens = T * tile_stride(row_bytes);
+        L.flags = L.lens + (int64_t)T * n_cols * (lengths_u8 ? 1 : 4);
+        L.desc = L.flags + (filter ? T : 0);
+        L.pred = L.desc + 4 * (int64_t)n_cols * DESC_STRIDE;
+        L.total = L.pred + 4 * (int64_t)(filter ? pred_ints : 0);
+    }
+    L.words = L.total;
+    if (tile_words > 0) {
+        L.words = (L.total + 15) & ~(int64_t)15;
+        L.total = L.words + 4 * (int64_t)tile_words * FILTER_BLOCK;
+    }
     return L;
 }
 
@@ -912,6 +960,17 @@ __device__ __forceinline__ void zero_words(const Job &a, int64_t r) {
     for (int w = 0; w < a.n_words; ++w) a.words[(int64_t)w * a.n_rows + r] = 0;
 }
 
+// Word cw of row r: to the output (K1, K2) or, COMPACT (K2c), to the
+// block's word tile `wt`, column r % FILTER_BLOCK.
+template <bool COMPACT>
+__device__ __forceinline__ void put_word(const Job &a, uint32_t *wt, int cw,
+                                         int64_t r, uint32_t v) {
+    if (COMPACT)
+        wt[cw * FILTER_BLOCK + (int)(r % FILTER_BLOCK)] = v;
+    else
+        a.words[(int64_t)cw * a.n_rows + r] = v;
+}
+
 // A leaf past LEAF_BITS: its column parsed again from the row and judged
 // -> bit 0 true, bit 1 false.
 template <bool STAGED>
@@ -991,15 +1050,17 @@ struct RowSrc {
 // Parse and pack the R rows r[k] of one thread: their column r[k] of
 // every output word (rows at or past n_rows are skipped). With FILTER, the
 // row filter decides whether each row is kept (keep[k]); a dropped row's
-// words are zeros. Every column is parsed once; a referenced column's
-// comparison leaves are judged on the components just parsed, and the
-// postfix program runs right after the last referenced column.
-template <bool FILTER, bool STAGED, int R>
+// words are zeros, or with COMPACT not written at all (its words go to
+// the word tile `wt`, and only kept rows leave it). Every column is parsed
+// once; a referenced column's comparison leaves are judged on the
+// components just parsed, and the postfix program runs right after the
+// last referenced column.
+template <bool FILTER, bool STAGED, bool COMPACT, int R>
 __device__ __forceinline__ void rows_body(const Job &a, const int32_t *desc,
                                           const int32_t *pred,
                                           const RowSrc (&src)[R],
                                           const int64_t (&r)[R],
-                                          bool (&keep)[R]) {
+                                          bool (&keep)[R], uint32_t *wt) {
     const int32_t *prog = nullptr, *leaf_off = nullptr, *col_ref = nullptr,
                   *leaves = nullptr;
     int n_instr = 0, last_ref = -1;
@@ -1024,7 +1085,7 @@ __device__ __forceinline__ void rows_body(const Job &a, const int32_t *desc,
                   !judge<STAGED>(a, desc, prog, n_instr, lt[k], lf[k],
                                  src[k].row, src[k].lens, src[k].flag,
                                  unevaluable[k])))) {
-                zero_words(a, r[k]);
+                if (!COMPACT) zero_words(a, r[k]);
                 live[k] = false;
             }
         }
@@ -1068,8 +1129,7 @@ __device__ __forceinline__ void rows_body(const Job &a, const int32_t *desc,
             int w = sl.y >> 5, sh = sl.y & 31;
             while (cw < w) {
                 UNROLL for (int k = 0; k < R; ++k) {
-                    if (live[k])
-                        a.words[(int64_t)cw * a.n_rows + r[k]] = cur[k];
+                    if (live[k]) put_word<COMPACT>(a, wt, cw, r[k], cur[k]);
                     cur[k] = nxt[k];
                     nxt[k] = 0;
                 }
@@ -1090,7 +1150,8 @@ __device__ __forceinline__ void rows_body(const Job &a, const int32_t *desc,
                     !judge<STAGED>(a, desc, prog, n_instr, lt[k], lf[k],
                                    src[k].row, src[k].lens, src[k].flag,
                                    unevaluable[k])) {
-                    zero_words(a, r[k]);  // the words stored so far too
+                    // the words stored so far too
+                    if (!COMPACT) zero_words(a, r[k]);
                     live[k] = false;
                 }
             }
@@ -1098,7 +1159,7 @@ __device__ __forceinline__ void rows_body(const Job &a, const int32_t *desc,
     }
     while (cw < a.n_words) {
         UNROLL for (int k = 0; k < R; ++k) {
-            if (live[k]) a.words[(int64_t)cw * a.n_rows + r[k]] = cur[k];
+            if (live[k]) put_word<COMPACT>(a, wt, cw, r[k], cur[k]);
             cur[k] = nxt[k];
             nxt[k] = 0;
         }
@@ -1174,14 +1235,114 @@ __device__ void compact_row(const uint32_t *__restrict__ words,
         for (int w = 0; w < n_words; ++w) out[(int64_t)w * n_rows + r] = 0;
 }
 
+// ---------------------------------------------------------------------------
+// K2c's single-pass compaction: status words and the decoupled look-back
+// ---------------------------------------------------------------------------
+
+// A logical block's status word: bits 63-34 the launch epoch, 33-32 the
+// flag, 31-0 the value. A word whose epoch is not this launch's was left
+// by an earlier launch (or is the zero of a new buffer): not yet published.
+constexpr uint32_t ST_AGG = 1;   // value: the block's own survivor count
+constexpr uint32_t ST_INCL = 2;  // value: survivors up to and including it
+constexpr int EPOCH_SHIFT = 34;
+constexpr int LOOKBACK = 32;     // predecessors a look-back warp reads at once
+
+__device__ __forceinline__ uint64_t make_status(uint32_t epoch, uint32_t flag,
+                                                uint32_t value) {
+    return (uint64_t)epoch << EPOCH_SHIFT | (uint64_t)flag << 32 | value;
+}
+
+__device__ __forceinline__ bool status_current(uint64_t s, uint32_t epoch) {
+    return (uint32_t)(s >> EPOCH_SHIFT) == epoch;
+}
+
+__device__ __forceinline__ uint32_t status_flag(uint64_t s) {
+    return (uint32_t)(s >> 32) & 3u;
+}
+
+__device__ __forceinline__ uint32_t status_value(uint64_t s) {
+    return (uint32_t)s;
+}
+
+// Publish a status word (release: what the block wrote before is visible
+// to whoever acquires the word), and read one (acquire).
+__device__ __forceinline__ void status_store(uint64_t *p, uint64_t v) {
 #ifdef __CUDACC__
-// One block's FILTER_BLOCK rows, walked in steps of T = R * blockDim.x
-// rows, R rows a thread.
-template <bool STAGED, bool FILTER, int R>
-__device__ __forceinline__ void walk_block(const Job &a, uint8_t *smem) {
+    asm volatile("st.release.gpu.global.u64 [%0], %1;\n" ::"l"(p), "l"(v)
+                 : "memory");
+#else
+    *p = v;
+#endif
+}
+
+__device__ __forceinline__ uint64_t status_load(const uint64_t *p) {
+#ifdef __CUDACC__
+    uint64_t v;
+    asm volatile("ld.acquire.gpu.global.u64 %0, [%1];\n"
+                 : "=l"(v)
+                 : "l"(p)
+                 : "memory");
+    return v;
+#else
+    return *p;
+#endif
+}
+
+// The status a look-back lane reads in the window of LOOKBACK
+// predecessors below logical block `hi`: block hi - 1 - lane; before block
+// 0, an inclusive prefix of 0.
+__device__ __forceinline__ uint64_t window_status(const Job &a, int64_t hi,
+                                                  int lane) {
+    int64_t p = hi - 1 - lane;
+    return p < 0 ? make_status(a.epoch, ST_INCL, 0) : status_load(a.status + p);
+}
+
+// Whether a window sums lane's status: no inclusive prefix at a lower lane
+// (a nearer predecessor); `incl` holds the window's inclusive lanes.
+__device__ __forceinline__ bool lane_taken(uint32_t incl, int lane) {
+    return (incl & ((1u << lane) - 1u)) == 0;
+}
+
+// Rank of block row i among the block's survivors: the survivors of the
+// warps before its warp plus those below it in its warp's ballot.
+__device__ __forceinline__ int block_rank(const uint32_t *ballots, int i) {
+    int rank = POPC(ballots[i >> 5] & ((1u << (i & 31)) - 1u));
+    for (int w = 0; w < (i >> 5); ++w) rank += POPC(ballots[w]);
+    return rank;
+}
+
+// Block row i, if kept, from the word tile to its final place pre + rank
+// in every output word.
+__device__ __forceinline__ void scatter_row(const Job &a, const uint32_t *wt,
+                                            const uint32_t *ballots,
+                                            int64_t pre, int i) {
+    if (!((ballots[i >> 5] >> (i & 31)) & 1u)) return;
+    int64_t dest = pre + block_rank(ballots, i);
+    for (int w = 0; w < a.n_words; ++w)
+        a.words[(int64_t)w * a.n_rows + dest] = wt[w * FILTER_BLOCK + i];
+}
+
+// After the look-back: publish the inclusive prefix; the last block also
+// writes the batch's survivor count.
+__device__ __forceinline__ void publish_inclusive(const Job &a, int64_t blk,
+                                                  int64_t pre, int count) {
+    status_store(a.status + blk,
+                 make_status(a.epoch, ST_INCL, (uint32_t)(pre + count)));
+    if (blk == (a.n_rows - 1) / FILTER_BLOCK) a.counts[0] = (int32_t)(pre + count);
+}
+
+#ifdef __CUDACC__
+// The FILTER_BLOCK rows of logical block `blk`, walked in steps of
+// T = R * blockDim.x rows, R rows a thread. K2 writes the block's count;
+// COMPACT (K2c) keeps the words in the word tile `wt` and each warp's
+// ballot in `ballots`. Returns the block's survivors (FILTER).
+template <bool STAGED, bool FILTER, bool COMPACT, int R>
+__device__ __forceinline__ int walk_block(const Job &a, uint8_t *smem,
+                                          int64_t blk, uint32_t *wt,
+                                          uint32_t *ballots) {
     const int nt = blockDim.x, T = R * nt, tid = threadIdx.x;
     Layout L = tile_layout(a.row_bytes, a.n_cols, a.lengths_u8, FILTER,
-                           a.pred_ints, T);
+                           a.pred_ints, T, 0);
     const int32_t *desc = a.desc, *pred = a.pred;
     if (STAGED) {
         stage_tables(a, L, smem, FILTER, tid, nt);
@@ -1190,7 +1351,7 @@ __device__ __forceinline__ void walk_block(const Job &a, uint8_t *smem) {
     }
     int count = 0;
     for (int s = 0; s < FILTER_BLOCK; s += T) {
-        int64_t r0 = (int64_t)blockIdx.x * FILTER_BLOCK + s;
+        int64_t r0 = blk * FILTER_BLOCK + s;
         if (r0 >= a.n_rows) break;  // the same for the whole block
         if (STAGED) {
             stage_step(a, L, smem, FILTER, r0, T, tid, nt);
@@ -1201,19 +1362,23 @@ __device__ __forceinline__ void walk_block(const Job &a, uint8_t *smem) {
         int64_t r[R];
         bool keep[R];
         thread_rows<STAGED, FILTER, R>(a, L, smem, r0, tid, nt, src, r);
-        rows_body<FILTER, STAGED, R>(a, desc, pred, src, r, keep);
+        rows_body<FILTER, STAGED, COMPACT, R>(a, desc, pred, src, r, keep,
+                                              wt);
         if (FILTER) {
             UNROLL for (int k = 0; k < R; ++k) {
                 uint32_t ballot = __ballot_sync(0xFFFFFFFFu, keep[k]);
-                if ((tid & 31) == 0 && r[k] < a.n_rows)
+                if ((tid & 31) == 0 && r[k] < a.n_rows) {
                     a.mask[r[k] >> 5] = ballot;
+                    if (COMPACT) ballots[(r[k] % FILTER_BLOCK) >> 5] = ballot;
+                }
                 count += __syncthreads_count(keep[k]);  // guards the tile
             }
         } else if (STAGED && s + T < FILTER_BLOCK) {
             __syncthreads();  // the next step overwrites the tile
         }
     }
-    if (FILTER && tid == 0) a.block_counts[blockIdx.x] = count;
+    if (FILTER && !COMPACT && tid == 0) a.block_counts[blk] = count;
+    return count;
 }
 
 // K1, R rows a thread (2 for the integer layouts of the loop-free parse,
@@ -1223,23 +1388,106 @@ template <int R>
 __global__ void decode_pack_kernel(Job a, int staged) {
     extern __shared__ __align__(16) uint8_t smem[];
     if (staged)
-        walk_block<true, false, R>(a, smem);
+        walk_block<true, false, false, R>(a, smem, blockIdx.x, nullptr,
+                                          nullptr);
     else
-        walk_block<false, false, R>(a, smem);
+        walk_block<false, false, false, R>(a, smem, blockIdx.x, nullptr,
+                                           nullptr);
 }
 
 // K2, one row a thread.
 __global__ void filter_pack_kernel(Job a, int staged) {
     extern __shared__ __align__(16) uint8_t smem[];
     if (staged)
-        walk_block<true, true, 1>(a, smem);
+        walk_block<true, true, false, 1>(a, smem, blockIdx.x, nullptr,
+                                         nullptr);
     else
-        walk_block<false, true, 1>(a, smem);
+        walk_block<false, true, false, 1>(a, smem, blockIdx.x, nullptr,
+                                          nullptr);
 }
 
 __device__ __forceinline__ int64_t warp_sum(int64_t v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xFFFFFFFFu, v, o);
     return v;
+}
+
+// The decoupled look-back of logical block blk > 0 by one warp, after
+// the block has published its count as AGGREGATE: the survivors of the
+// blocks before it. The warp reads LOOKBACK predecessors at once, spins
+// until each has published in this launch, and sums them back to the
+// nearest inclusive prefix (summing whole windows of aggregates until one
+// holds it). Result in lane 0.
+__device__ int64_t look_back(const Job &a, int64_t blk) {
+    const int lane = threadIdx.x & 31;
+    int64_t pre = 0;
+    for (int64_t hi = blk;; hi -= LOOKBACK) {
+        uint64_t s;
+        do {
+            s = window_status(a, hi, lane);
+        } while (!__all_sync(0xFFFFFFFFu, status_current(s, a.epoch)));
+        uint32_t incl = __ballot_sync(0xFFFFFFFFu, status_flag(s) == ST_INCL);
+        pre += warp_sum(lane_taken(incl, lane) ? (int64_t)status_value(s) : 0);
+        if (incl) return pre;
+    }
+}
+
+// K2c: K2's walk with the compaction folded in, R rows a thread. The
+// block's logical index is its ticket (a block waits only on blocks that
+// started before it, so the look-back cannot deadlock however many blocks
+// the grid has). Its words stay in the word tile; after the walk it
+// publishes its count, warp 0 looks back for the survivors before it and
+// publishes the inclusive prefix, and every thread moves its kept rows
+// from the tile to their place: a warp's kept rows land on consecutive
+// columns. Columns at or past the survivor count are not written.
+template <int R>
+__device__ __forceinline__ void compact_block(const Job &a, bool staged) {
+    extern __shared__ __align__(16) uint8_t smem[];
+    __shared__ uint32_t ballots[FILTER_BLOCK / 32];
+    __shared__ int64_t s_blk, s_pre;
+    const int tid = threadIdx.x;
+    if (tid < FILTER_BLOCK / 32) ballots[tid] = 0;  // steps past the batch
+    if (tid == 0)
+        s_blk = (int64_t)(atomicAdd(a.ticket, 1ull) - a.ticket_base);
+    __syncthreads();
+    const int64_t blk = s_blk;
+    Layout L = tile_layout(a.row_bytes, a.n_cols, a.lengths_u8, true,
+                           a.pred_ints, staged ? R * (int)blockDim.x : 0,
+                           a.n_words);
+    uint32_t *wt = (uint32_t *)(smem + L.words);
+    int count = staged ? walk_block<true, true, true, R>(a, smem, blk, wt,
+                                                         ballots)
+                       : walk_block<false, true, true, R>(a, smem, blk, wt,
+                                                          ballots);
+    if (tid < 32) {
+        int64_t pre = 0;
+        if (blk > 0) {
+            if (tid == 0)
+                status_store(a.status + blk,
+                             make_status(a.epoch, ST_AGG, (uint32_t)count));
+            pre = look_back(a, blk);
+        }
+        if (tid == 0) {
+            publish_inclusive(a, blk, pre, count);
+            s_pre = pre;
+        }
+    }
+    __syncthreads();
+    for (int i = tid; i < FILTER_BLOCK; i += blockDim.x)
+        scatter_row(a, wt, ballots, s_pre, i);
+}
+
+// K2c, one row a thread: sub-tiles and direct.
+__global__ void filter_pack_compact_kernel(Job a, int staged) {
+    compact_block<1>(a, staged != 0);
+}
+
+// K2c on 256-row tiles, two rows a thread (128 threads) and at most 64
+// registers, so that 8 blocks fit an SM: the main path's 1,024 blocks are
+// then all resident at once, and no look-back waits for a block of a
+// later wave to start, walk and publish.
+__global__ void __launch_bounds__(FILTER_BLOCK / 2, 8)
+    filter_pack_compact2_kernel(Job a) {
+    compact_block<2>(a, true);
 }
 
 __global__ void compact_kernel(const uint32_t *__restrict__ words,
@@ -1284,7 +1532,7 @@ int launch(bool filter, const Job &a, int tile_rows, int rpt, void *stream) {
     int threads = rows / rpt;
     int64_t smem = tile_rows > 0
                        ? tile_layout(a.row_bytes, a.n_cols, a.lengths_u8,
-                                     filter, a.pred_ints, tile_rows).total
+                                     filter, a.pred_ints, tile_rows, 0).total
                        : 0;
     const void *fn = filter ? (const void *)filter_pack_kernel
                      : rpt == 2 ? (const void *)decode_pack_kernel<2>
@@ -1306,64 +1554,214 @@ int launch(bool filter, const Job &a, int tile_rows, int rpt, void *stream) {
                                 (cudaStream_t)stream>>>(a, staged);
     return (int)cudaGetLastError();
 }
+
+// Launch K2c with tiles of `tile_rows` rows (256, 128, 64 or 32), or
+// direct (0): the word tile alone in shared memory; rpt rows a thread (1,
+// or 2 with 256-row tiles).
+int launch_compact(const Job &a, int tile_rows, int rpt, void *stream) {
+    if (a.n_rows <= 0) return 0;
+    int64_t blocks = (a.n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
+    int rows = tile_rows > 0 ? tile_rows : FILTER_BLOCK;
+    if (FILTER_BLOCK % rows != 0 || rows % 32 != 0 ||
+        (rpt != 1 && (rpt != 2 || tile_rows != FILTER_BLOCK)))
+        return (int)cudaErrorInvalidValue;
+    int64_t smem = tile_layout(a.row_bytes, a.n_cols, a.lengths_u8, true,
+                               a.pred_ints, tile_rows, a.n_words).total;
+    const void *fn = rpt == 2 ? (const void *)filter_pack_compact2_kernel
+                              : (const void *)filter_pack_compact_kernel;
+    if (smem > 48 * 1024) {
+        cudaError_t e = cudaFuncSetAttribute(
+            fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (e != cudaSuccess) return (int)e;
+    }
+    if (rpt == 2)
+        filter_pack_compact2_kernel<<<(unsigned)blocks, FILTER_BLOCK / 2,
+                                      (size_t)smem, (cudaStream_t)stream>>>(a);
+    else
+        filter_pack_compact_kernel<<<(unsigned)blocks, rows, (size_t)smem,
+                                     (cudaStream_t)stream>>>(a,
+                                                             tile_rows > 0);
+    return (int)cudaGetLastError();
+}
 #else
-// The block walk on the host: loops in place of threads, split at the
-// places where the card's block synchronises. `tile_rows` 0 is direct.
+// The walk of logical block b on the host: loops in place of threads,
+// split at the places where the card's block synchronises, over a tile
+// `smem` laid out by L (tile_rows 0: direct). keep[] holds the step's
+// keep bits. COMPACT keeps the words in `wt` and the warps' ballots in
+// `ballots`, as K2c does. Returns the block's survivors (FILTER).
+template <bool FILTER, bool COMPACT, int R>
+int32_t walk_host_block(const Job &a, int tile_rows, const Layout &L,
+                        uint8_t *smem, bool *keep, int64_t b, uint32_t *wt,
+                        uint32_t *ballots) {
+    int T = tile_rows > 0 ? tile_rows : FILTER_BLOCK, nt = T / R;
+    const int32_t *desc = a.desc, *pred = a.pred;
+    if (tile_rows > 0) {
+        for (int tid = 0; tid < nt; ++tid)
+            stage_tables(a, L, smem, FILTER, tid, nt);
+        desc = (const int32_t *)(smem + L.desc);
+        pred = (const int32_t *)(smem + L.pred);
+    }
+    int32_t count = 0;
+    for (int s = 0; s < FILTER_BLOCK; s += T) {
+        int64_t r0 = b * FILTER_BLOCK + s;
+        if (r0 >= a.n_rows) break;
+        if (tile_rows > 0)
+            for (int tid = 0; tid < nt; ++tid)
+                stage_step(a, L, smem, FILTER, r0, T, tid, nt);
+        for (int tid = 0; tid < nt; ++tid) {
+            RowSrc src[R];
+            int64_t r[R];
+            bool kept[R];
+            if (tile_rows > 0) {
+                thread_rows<true, FILTER, R>(a, L, smem, r0, tid, nt, src, r);
+                rows_body<FILTER, true, COMPACT, R>(a, desc, pred, src, r,
+                                                    kept, wt);
+            } else {
+                thread_rows<false, FILTER, R>(a, L, smem, r0, tid, nt, src,
+                                              r);
+                rows_body<FILTER, false, COMPACT, R>(a, desc, pred, src, r,
+                                                     kept, wt);
+            }
+            for (int k = 0; k < R; ++k) keep[tid + k * nt] = kept[k];
+        }
+        if (!FILTER) continue;
+        for (int g = 0; g < T; g += 32) {  // each warp's ballot
+            uint32_t ballot = 0;
+            for (int lane = 0; lane < 32; ++lane)
+                ballot |= (uint32_t)keep[g + lane] << lane;
+            if (r0 + g < a.n_rows) {
+                a.mask[(r0 + g) >> 5] = ballot;
+                if (COMPACT) ballots[(s + g) >> 5] = ballot;
+            }
+            count += POPC(ballot);
+        }
+    }
+    return count;
+}
+
+// Tile and keep buffers of a host walk with tiles of `tile_rows` rows.
+struct HostTile {
+    Layout L;
+    uint8_t *smem = nullptr;
+    bool *keep;
+
+    HostTile(const Job &a, bool filter, int tile_rows) {
+        int T = tile_rows > 0 ? tile_rows : FILTER_BLOCK;
+        L = tile_layout(a.row_bytes, a.n_cols, a.lengths_u8, filter,
+                        a.pred_ints, T, 0);
+        if (tile_rows > 0) {
+            smem = (uint8_t *)aligned_alloc(16,
+                                            (size_t)((L.total + 15) & ~15));
+            memset(smem, 0xA5, (size_t)L.total);  // no stale zeros to lean on
+        }
+        keep = new bool[T];  // keep of local row lr
+    }
+    ~HostTile() {
+        delete[] keep;
+        free(smem);
+    }
+};
+
+// K1 or K2 on the host, block after block.
 template <bool FILTER, int R>
 void walk_host(const Job &a, int tile_rows) {
     int64_t blocks = (a.n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
-    int T = tile_rows > 0 ? tile_rows : FILTER_BLOCK, nt = T / R;
-    Layout L = tile_layout(a.row_bytes, a.n_cols, a.lengths_u8, FILTER,
-                           a.pred_ints, T);
-    uint8_t *smem = nullptr;
-    if (tile_rows > 0) {
-        smem = (uint8_t *)aligned_alloc(16, (size_t)((L.total + 15) & ~15));
-        memset(smem, 0xA5, (size_t)L.total);  // no stale zeros to lean on
-    }
-    bool *keep = new bool[T];  // keep of local row lr
+    HostTile t(a, FILTER, tile_rows);
     for (int64_t b = 0; b < blocks; ++b) {
-        const int32_t *desc = a.desc, *pred = a.pred;
-        if (tile_rows > 0) {
-            for (int tid = 0; tid < nt; ++tid)
-                stage_tables(a, L, smem, FILTER, tid, nt);
-            desc = (const int32_t *)(smem + L.desc);
-            pred = (const int32_t *)(smem + L.pred);
-        }
-        int32_t count = 0;
-        for (int s = 0; s < FILTER_BLOCK; s += T) {
-            int64_t r0 = b * FILTER_BLOCK + s;
-            if (r0 >= a.n_rows) break;
-            if (tile_rows > 0)
-                for (int tid = 0; tid < nt; ++tid)
-                    stage_step(a, L, smem, FILTER, r0, T, tid, nt);
-            for (int tid = 0; tid < nt; ++tid) {
-                RowSrc src[R];
-                int64_t r[R];
-                bool kept[R];
-                if (tile_rows > 0) {
-                    thread_rows<true, FILTER, R>(a, L, smem, r0, tid, nt, src,
-                                                 r);
-                    rows_body<FILTER, true, R>(a, desc, pred, src, r, kept);
-                } else {
-                    thread_rows<false, FILTER, R>(a, L, smem, r0, tid, nt, src,
-                                               r);
-                    rows_body<FILTER, false, R>(a, desc, pred, src, r, kept);
-                }
-                for (int k = 0; k < R; ++k) keep[tid + k * nt] = kept[k];
-            }
-            if (!FILTER) continue;
-            for (int g = 0; g < T; g += 32) {  // each warp's ballot
-                uint32_t ballot = 0;
-                for (int lane = 0; lane < 32; ++lane)
-                    ballot |= (uint32_t)keep[g + lane] << lane;
-                if (r0 + g < a.n_rows) a.mask[(r0 + g) >> 5] = ballot;
-                count += POPC(ballot);
-            }
-        }
+        int32_t count = walk_host_block<FILTER, false, R>(
+            a, tile_rows, t.L, t.smem, t.keep, b, nullptr, nullptr);
         if (FILTER) a.block_counts[b] = count;
     }
-    delete[] keep;
-    free(smem);
+}
+
+// The host's look-back of logical block blk > 0 (the warp's lanes as a
+// loop): false where a predecessor in a window has not published in this
+// launch, where the card's warp would spin; the host comes back later.
+bool look_back_host(const Job &a, int64_t blk, int64_t *pre) {
+    int64_t sum = 0;
+    for (int64_t hi = blk;; hi -= LOOKBACK) {
+        uint64_t s[LOOKBACK];
+        uint32_t incl = 0;
+        for (int lane = 0; lane < LOOKBACK; ++lane) {
+            s[lane] = window_status(a, hi, lane);
+            if (!status_current(s[lane], a.epoch)) return false;
+            incl |= (uint32_t)(status_flag(s[lane]) == ST_INCL) << lane;
+        }
+        for (int lane = 0; lane < LOOKBACK; ++lane)
+            if (lane_taken(incl, lane)) sum += status_value(s[lane]);
+        if (incl) break;
+    }
+    *pre = sum;
+    return true;
+}
+
+// A seeded shuffle of 0..n-1 (splitmix64 draws, Fisher-Yates).
+void shuffle(int64_t *order, int64_t n, uint64_t &state) {
+    for (int64_t i = 0; i < n; ++i) order[i] = i;
+    for (int64_t i = n - 1; i > 0; --i) {
+        uint64_t z = (state += 0x9E3779B97F4A7C15ull);
+        z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
+        z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
+        z ^= z >> 31;
+        int64_t j = (int64_t)(z % (uint64_t)(i + 1));
+        int64_t t = order[i];
+        order[i] = order[j];
+        order[j] = t;
+    }
+}
+
+// K2c on the host, in the card's phases with the blocks' progress
+// interleaved by a seeded order: every block takes its ticket; in one
+// shuffled order each block walks, publishes its count (block 0 its
+// inclusive prefix) and tries its look-back, which stops where a
+// predecessor has not published in this launch (a status word of an
+// earlier launch, or none); in another shuffled order the blocks whose
+// look-back stopped run it again, meeting predecessors that are only
+// aggregates; then every block scatters its kept rows.
+template <int R>
+void compact_host(const Job &a, int tile_rows, uint64_t seed) {
+    int64_t blocks = (a.n_rows + FILTER_BLOCK - 1) / FILTER_BLOCK;
+    HostTile t(a, true, tile_rows);
+    uint32_t *wt = new uint32_t[blocks * a.n_words * FILTER_BLOCK];
+    memset(wt, 0xA5, sizeof(uint32_t) * blocks * a.n_words * FILTER_BLOCK);
+    uint32_t *ballots = new uint32_t[blocks * (FILTER_BLOCK / 32)]();
+    int32_t *count = new int32_t[blocks];
+    int64_t *pre = new int64_t[blocks], *order = new int64_t[blocks];
+    bool *done = new bool[blocks];
+    int64_t *blk = new int64_t[blocks];
+    for (int64_t b = 0; b < blocks; ++b)  // tickets, in start order
+        blk[b] = (int64_t)((*a.ticket)++ - a.ticket_base);
+    shuffle(order, blocks, seed);
+    for (int64_t i = 0; i < blocks; ++i) {
+        int64_t k = blk[order[i]];
+        count[k] = walk_host_block<true, true, R>(
+            a, tile_rows, t.L, t.smem, t.keep, k,
+            wt + k * a.n_words * FILTER_BLOCK,
+            ballots + k * (FILTER_BLOCK / 32));
+        pre[k] = 0;
+        if (k > 0)
+            a.status[k] = make_status(a.epoch, ST_AGG, (uint32_t)count[k]);
+        done[k] = k == 0 || look_back_host(a, k, &pre[k]);
+        if (done[k]) publish_inclusive(a, k, pre[k], count[k]);
+    }
+    shuffle(order, blocks, seed);
+    for (int64_t i = 0; i < blocks; ++i) {
+        int64_t k = order[i];
+        if (done[k]) continue;
+        if (!look_back_host(a, k, &pre[k])) abort();  // all published
+        publish_inclusive(a, k, pre[k], count[k]);
+    }
+    for (int64_t k = 0; k < blocks; ++k)
+        for (int i = 0; i < FILTER_BLOCK; ++i)
+            scatter_row(a, wt + k * a.n_words * FILTER_BLOCK,
+                        ballots + k * (FILTER_BLOCK / 32), pre[k], i);
+    delete[] wt;
+    delete[] ballots;
+    delete[] count;
+    delete[] pre;
+    delete[] order;
+    delete[] done;
+    delete[] blk;
 }
 #endif
 
@@ -1372,11 +1770,13 @@ void walk_host(const Job &a, int tile_rows) {
 extern "C" {
 
 // Bytes of dynamic shared memory a block with tiles of `tile_rows` rows
-// takes (ops/decode_kernel.py tile_bytes computes the same).
+// (0: direct) and a word tile of `tile_words` words a row (K2c: n_words;
+// K1, K2: 0) takes (ops/decode_kernel.py tile_bytes computes the same).
 int64_t etl_tile_bytes(int64_t row_bytes, int n_cols, int lengths_u8,
-                       int filter, int pred_ints, int tile_rows) {
+                       int filter, int pred_ints, int tile_rows,
+                       int tile_words) {
     return tile_layout(row_bytes, n_cols, lengths_u8, filter != 0, pred_ints,
-                       tile_rows).total;
+                       tile_rows, tile_words).total;
 }
 
 int etl_filter_block_rows() { return FILTER_BLOCK; }
@@ -1408,6 +1808,33 @@ int etl_filter_pack(const void *bmat, int64_t row_bytes, const void *lengths,
           (uint32_t *)words, (uint32_t *)mask, (int32_t *)block_counts,
           n_rows, n_words};
     return launch(true, a, tile_rows, 1, stream);
+}
+
+// K2c on `stream`, rows_per_thread rows a thread (1, or 2 with 256-row
+// tiles): out
+// uint32[n_words, R] (the survivors' words in
+// columns [0, count); later columns are not written), mask
+// uint32[ceil(R / 32)], counts int32[1]. `status` holds a status word per
+// block of this launch and `ticket` the ticket counter, which earlier
+// launches on the same buffer advanced to `ticket_base`; `epoch` is
+// this launch's (1 <= epoch < 2^30, never that of an earlier launch whose
+// status words are still in the buffer).
+int etl_filter_pack_compact(const void *bmat, int64_t row_bytes,
+                            const void *lengths, int lengths_u8, int n_cols,
+                            const void *desc, int nibble, const void *flags,
+                            const void *pred, int pred_ints, void *out,
+                            void *mask, void *counts, void *status,
+                            void *ticket, uint64_t ticket_base,
+                            uint32_t epoch, int64_t n_rows, int n_words,
+                            int tile_rows, int rows_per_thread,
+                            void *stream) {
+    Job a{(const uint8_t *)bmat, row_bytes, (const uint8_t *)lengths,
+          lengths_u8, n_cols, (const int32_t *)desc, nibble,
+          (const uint8_t *)flags, (const int32_t *)pred, pred_ints,
+          (uint32_t *)out, (uint32_t *)mask, nullptr, n_rows, n_words,
+          (uint64_t *)status, (unsigned long long *)ticket, ticket_base,
+          epoch, (int32_t *)counts};
+    return launch_compact(a, tile_rows, rows_per_thread, stream);
 }
 
 // The compaction epilogue on `stream`: out uint32[n_words, R] (survivors
@@ -1470,6 +1897,30 @@ void etl_filter_pack_host(const void *bmat, int64_t row_bytes,
           (uint32_t *)words, (uint32_t *)mask, (int32_t *)block_counts,
           n_rows, n_words};
     walk_host<true, 1>(a, tile_rows);
+}
+
+// K2c on the host (compact_host), with the same buffers and rows a
+// thread as etl_filter_pack_compact; `seed` orders the blocks' progress.
+void etl_filter_pack_compact_host(const void *bmat, int64_t row_bytes,
+                                  const void *lengths, int lengths_u8,
+                                  int n_cols, const void *desc, int nibble,
+                                  const void *flags, const void *pred,
+                                  int pred_ints, void *out, void *mask,
+                                  void *counts, void *status, void *ticket,
+                                  uint64_t ticket_base, uint32_t epoch,
+                                  int64_t n_rows, int n_words, int tile_rows,
+                                  int rows_per_thread, uint64_t seed) {
+    Job a{(const uint8_t *)bmat, row_bytes, (const uint8_t *)lengths,
+          lengths_u8, n_cols, (const int32_t *)desc, nibble,
+          (const uint8_t *)flags, (const int32_t *)pred, pred_ints,
+          (uint32_t *)out, (uint32_t *)mask, nullptr, n_rows, n_words,
+          (uint64_t *)status, (unsigned long long *)ticket, ticket_base,
+          epoch, (int32_t *)counts};
+    if (n_rows <= 0) return;
+    if (rows_per_thread == 2)
+        compact_host<2>(a, tile_rows, seed);
+    else
+        compact_host<1>(a, tile_rows, seed);
 }
 
 // The compaction epilogue on the host: one "thread" per block does the

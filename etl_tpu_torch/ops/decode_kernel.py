@@ -3,30 +3,40 @@ wrappers. Counterpart of the reference's `etl_tpu/ops/pallas_kernel.py`.
 
 - `decode_pack(bmat, lengths, specs, nibble)`: the reference's
   `bitpack.parse_and_pack` words (K1).
+- `filter_pack_compact(bmat, lengths, row_flags, specs, nibble, pred)`:
+  the fused row filter in one launch (K2c: K2's walk with the compaction
+  folded in by a decoupled look-back) → (words, keep_mask, counts), equal
+  to `parse_and_pack(pred=…)` in `words[:, :count]`, the mask and the
+  count; columns at or past the count are not written.
 - `decode_pack_filtered(bmat, lengths, row_flags, specs, nibble, pred)`:
-  the fused row filter, `parse_and_pack(pred=…)` → (words_compacted,
-  keep_mask, counts). On CUDA it is two launches: `filter_pack` (K2:
-  filter, words × keep, keep mask, per-block survivor counts) and
-  `compact_packed` (the compaction epilogue).
+  the same function with the reference's full contract (zeros behind the
+  survivors), in two launches: `filter_pack` (K2: filter, words × keep,
+  keep mask, per-block survivor counts) and `compact_packed` (the
+  compaction epilogue). It is the route for a layout whose word tile
+  does not fit K2c (`fused_walk`).
 
 Each wrapper sends a CPU tensor to its plain version (`bitpack.
 parse_and_pack_plain`, `filter_pack_plain`, `compact_packed_plain`), a
 CUDA tensor to its kernel, and raises for any other device. There is no
-fallback: a kernel that fails to build or to launch raises.
+fallback: a kernel that fails to build or to launch raises. The
+`prepare_*` functions do a wrapper's host work (descriptors, the walk,
+outputs, the look-back's status buffer) and return the launch, so a
+caller can time the launch alone; each wrapper is its prepare, called.
 
 The kernels are compiled with nvcc at first use into
 `etl_tpu_torch/_build/` (ignored by git), as a shared library with a
 plain C interface that this module loads with ctypes: a source that
 includes no PyTorch header builds in seconds. `launches`,
-`filter_launches` and `compact_launches` count the launches of K1, K2 and
-the epilogue in this process.
+`filter_launches`, `compact_launches` and `fused_launches` count the
+launches of K1, K2, the epilogue and K2c in this process.
 
 K1 and K2 stage each block's 256 rows through shared memory. `tile_rows`
 picks, by shape, how: 256-row tiles where they fit SMEM_BUDGET ("tile"),
 else sub-tiles of 128, 64 or 32 rows (one warp's rows) walked in steps
 ("subtile"), else no tile at all ("direct": the same row body reads
 global memory), which is also the choice for a base pointer that is not
-16-byte aligned. `path_launches` counts K1's and K2's launches by path.
+16-byte aligned. `path_launches` counts K1's, K2's and K2c's launches by
+path. K2c keeps a block's words in a word tile beside the rows' tile.
 K1 parses two rows a thread where every column takes the loop-free
 integer parse in a tile (`rows_per_thread`), one otherwise; K2 one.
 """
@@ -89,6 +99,7 @@ SMEM_BUDGET = 100 * 1024
 launches = 0
 filter_launches = 0
 compact_launches = 0
+fused_launches = 0
 path_launches = {"tile": 0, "subtile": 0, "direct": 0}
 build_seconds: float | None = None
 build_log = ""
@@ -98,6 +109,10 @@ _lock = threading.Lock()
 _desc_cache: dict = {}  # (specs, nibble, device) → descriptor on device
 _pred_cache: dict = {}  # (program, referenced columns, spec columns, device)
 _DESC_CACHE_MAX = 64
+# K2c's look-back state per (device, stream): launches on one stream run
+# one after the other, so each stream has its own status buffer
+_scan_states: dict = {}
+EPOCH_LIMIT = 1 << 30  # epochs are 30 bits of a status word
 
 
 def _nvcc() -> str:
@@ -163,6 +178,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp, vp, i32,  # flags, pred, pred_ints
         vp, vp, vp,  # words, mask, block_counts
         i64, i32, i32, vp]  # R, words, tile_rows, stream
+    lib.etl_filter_pack_compact.restype = i32
+    lib.etl_filter_pack_compact.argtypes = [
+        vp, i64, vp, i32, i32, vp, i32,  # bmat … nibble (as above)
+        vp, vp, i32,  # flags, pred, pred_ints
+        vp, vp, vp,  # out, mask, counts
+        vp, vp, ctypes.c_uint64, ctypes.c_uint32,  # status, ticket, base, epoch
+        i64, i32, i32, i32, vp]  # R, words, tile_rows, rows a thread, stream
     lib.etl_compact_packed.restype = i32
     lib.etl_compact_packed.argtypes = [
         vp, vp, vp, vp, vp,  # words, mask, block_counts, out, counts
@@ -230,10 +252,17 @@ def decode_pack(bmat: torch.Tensor, lengths: torch.Tensor, specs: tuple,
     of `tile_rows`'s
     choice, for tests; the call launches on the current stream and does
     not synchronise."""
-    global launches
+    return prepare_decode_pack(bmat, lengths, specs, nibble, out, walk)()
+
+
+def prepare_decode_pack(bmat: torch.Tensor, lengths: torch.Tensor,
+                        specs: tuple, nibble: bool,
+                        out: torch.Tensor | None = None,
+                        walk: int | None = None):
+    """`decode_pack`'s host work; returns its launch."""
     _check(bmat, lengths, specs, nibble)
     if bmat.device.type == "cpu" and lengths.device.type == "cpu":
-        return parse_and_pack_plain(bmat, lengths, specs, nibble)
+        return lambda: parse_and_pack_plain(bmat, lengths, specs, nibble)
     if bmat.device.type != "cuda" or lengths.device != bmat.device:
         raise ValueError(f"decode_pack: unsupported devices {bmat.device}, "
                          f"{lengths.device}")
@@ -254,25 +283,36 @@ def decode_pack(bmat: torch.Tensor, lengths: torch.Tensor, specs: tuple,
     rows = tile_rows(bmat, lengths, None, len(specs), 0) if walk is None \
         else walk
     rpt = rows_per_thread(specs, nibble, rows)
-    rc = lib.etl_decode_pack(
-        bmat.data_ptr(), bmat.shape[1], lengths.data_ptr(),
-        int(lengths.dtype == torch.uint8), len(specs), desc.data_ptr(),
-        int(nibble), out.data_ptr(), R, n_words, rows, rpt, stream)
-    _raise_on(lib, rc, "decode kernel")
-    with _lock:
-        launches += 1
-        path_launches[path_of(rows)] += 1
-    return out.view(torch.uint32)
+    args = (bmat.data_ptr(), bmat.shape[1], lengths.data_ptr(),
+            int(lengths.dtype == torch.uint8), len(specs), desc.data_ptr(),
+            int(nibble), out.data_ptr(), R, n_words, rows, rpt, stream)
+
+    def launch():
+        global launches
+        _raise_on(lib, lib.etl_decode_pack(*args), "decode kernel")
+        with _lock:
+            launches += 1
+            path_launches[path_of(rows)] += 1
+        return out.view(torch.uint32)
+
+    return launch
 
 
 def tile_bytes(rows: int, row_bytes: int, n_cols: int, lengths_u8: bool,
-               pred_ints: int, filtered: bool) -> int:
+               pred_ints: int, filtered: bool, tile_words: int = 0) -> int:
     """Dynamic shared memory of one K1 (K2 when `filtered`) block with
-    tiles of `rows` rows: the source's `tile_layout` (`etl_tile_bytes`)."""
-    stride = row_bytes + 4 if row_bytes % 8 == 0 else row_bytes
-    per_row = stride + n_cols * (1 if lengths_u8 else 4) + int(filtered)
-    return rows * per_row + 4 * (n_cols * DESC_STRIDE
-                                 + (pred_ints if filtered else 0))
+    tiles of `rows` rows (0: direct, no tile), plus K2c's word tile of
+    `tile_words` words a row for FILTER_BLOCK rows, 16-byte aligned: the
+    source's `tile_layout` (`etl_tile_bytes`)."""
+    total = 0
+    if rows:
+        stride = row_bytes + 4 if row_bytes % 8 == 0 else row_bytes
+        per_row = stride + n_cols * (1 if lengths_u8 else 4) + int(filtered)
+        total = rows * per_row + 4 * (n_cols * DESC_STRIDE
+                                      + (pred_ints if filtered else 0))
+    if tile_words:
+        total = -(-total // 16) * 16 + 4 * tile_words * FILTER_BLOCK
+    return total
 
 
 def tile_rows(bmat: torch.Tensor, lengths: torch.Tensor, flags, n_cols: int,
@@ -290,6 +330,27 @@ def tile_rows(bmat: torch.Tensor, lengths: torch.Tensor, flags, n_cols: int,
                       flags is not None) <= SMEM_BUDGET:
             return rows
     return 0
+
+
+def fused_walk(bmat: torch.Tensor, lengths: torch.Tensor,
+               flags: torch.Tensor, n_cols: int, pred_ints: int,
+               n_words: int) -> int | None:
+    """The route of a filtered decode, by shape: the walk K2c takes (256,
+    else the largest of 128, 64, 32 rows whose tile fits SMEM_BUDGET
+    beside the word tile; 0, direct with the word tile alone, where a
+    base pointer is not 16-byte aligned), or None where the word tile does
+    not fit beside the smallest (32-row) sub-tile: then the decode takes
+    the two-launch route, K2 + the epilogue (`decode_pack_filtered`)."""
+    fits = [rows for rows in (256, 128, 64, 32)
+            if tile_bytes(rows, bmat.shape[1], n_cols,
+                          lengths.dtype == torch.uint8, pred_ints, True,
+                          n_words) <= SMEM_BUDGET]
+    if not fits:
+        return None
+    if any(p % 16 for p in (bmat.data_ptr(), lengths.data_ptr(),
+                            flags.data_ptr())):
+        return 0
+    return fits[0]
 
 
 def rows_per_thread(specs: tuple, nibble: bool, rows: int) -> int:
@@ -384,24 +445,42 @@ def filter_pack(bmat: torch.Tensor, lengths: torch.Tensor,
     on dropped rows; keep_mask uint32[⌈R/32⌉]; block_counts
     int32[⌈R/FILTER_BLOCK⌉]). `row_flags` u8[R]: 0 dead, 1 live, 2 live +
     force-keep. `walk` as for `decode_pack`."""
-    global filter_launches
+    return prepare_filter_pack(bmat, lengths, row_flags, specs, nibble,
+                               pred, walk)()
+
+
+def _filter_inputs(what: str, bmat, lengths, row_flags, specs, nibble,
+                   pred) -> tuple | None:
+    """Checks of a filter wrapper's inputs; None for CPU tensors (the
+    plain version), else (lib, the contiguous inputs, the column and
+    predicate descriptors on the device, n_words)."""
     _check(bmat, lengths, specs, nibble)
     R = bmat.shape[0]
     if row_flags.shape != (R,) or row_flags.dtype != torch.uint8:
         raise ValueError("row_flags must be uint8[R]")
     devs = {bmat.device, lengths.device, row_flags.device}
     if devs == {torch.device("cpu")}:
-        return filter_pack_plain(bmat, lengths, row_flags, specs, nibble,
-                                 pred, FILTER_BLOCK)
+        return None
     if len(devs) != 1 or bmat.device.type != "cuda":
-        raise ValueError(f"filter_pack: unsupported devices {devs}")
+        raise ValueError(f"{what}: unsupported devices {devs}")
     lib = load()
     dev = bmat.device
-    bmat, lengths = bmat.contiguous(), lengths.contiguous()
-    row_flags = row_flags.contiguous()
-    desc = _device_desc(specs, nibble, dev)
-    pdesc = _device_pred(pred, specs, dev)
-    n_words = layout_for_specs(specs).n_words
+    return (lib, bmat.contiguous(), lengths.contiguous(),
+            row_flags.contiguous(), _device_desc(specs, nibble, dev),
+            _device_pred(pred, specs, dev), layout_for_specs(specs).n_words)
+
+
+def prepare_filter_pack(bmat: torch.Tensor, lengths: torch.Tensor,
+                        row_flags: torch.Tensor, specs: tuple, nibble: bool,
+                        pred, walk: int | None = None):
+    """`filter_pack`'s host work; returns its launch."""
+    got = _filter_inputs("filter_pack", bmat, lengths, row_flags, specs,
+                         nibble, pred)
+    if got is None:
+        return lambda: filter_pack_plain(bmat, lengths, row_flags, specs,
+                                         nibble, pred, FILTER_BLOCK)
+    lib, bmat, lengths, row_flags, desc, pdesc, n_words = got
+    dev, R = bmat.device, bmat.shape[0]
     words = torch.empty((n_words, R), dtype=torch.int32, device=dev)
     mask = torch.empty(-(-R // 32), dtype=torch.int32, device=dev)
     counts = torch.empty(-(-R // FILTER_BLOCK), dtype=torch.int32,
@@ -409,16 +488,22 @@ def filter_pack(bmat: torch.Tensor, lengths: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     rows = tile_rows(bmat, lengths, row_flags, len(specs), pdesc.numel()) \
         if walk is None else walk
-    _raise_on(lib, lib.etl_filter_pack(
-        bmat.data_ptr(), bmat.shape[1], lengths.data_ptr(),
-        int(lengths.dtype == torch.uint8), len(specs), desc.data_ptr(),
-        int(nibble), row_flags.data_ptr(), pdesc.data_ptr(), pdesc.numel(),
-        words.data_ptr(), mask.data_ptr(), counts.data_ptr(), R, n_words,
-        rows, stream), "filter kernel")
-    with _lock:
-        filter_launches += 1
-        path_launches[path_of(rows)] += 1
-    return words.view(torch.uint32), mask.view(torch.uint32), counts
+    args = (bmat.data_ptr(), bmat.shape[1], lengths.data_ptr(),
+            int(lengths.dtype == torch.uint8), len(specs), desc.data_ptr(),
+            int(nibble), row_flags.data_ptr(), pdesc.data_ptr(),
+            pdesc.numel(), words.data_ptr(), mask.data_ptr(),
+            counts.data_ptr(), R, n_words, rows, stream)
+
+    def launch():
+        global filter_launches
+        _raise_on(lib, lib.etl_filter_pack(*args), "filter kernel")
+        with _lock:
+            filter_launches += 1
+            path_launches[path_of(rows)] += 1
+        return words.view(torch.uint32), mask.view(torch.uint32), counts
+
+    launch.outputs = (words, mask, counts)
+    return launch
 
 
 def compact_packed(words: torch.Tensor, keep_mask: torch.Tensor,
@@ -428,17 +513,26 @@ def compact_packed(words: torch.Tensor, keep_mask: torch.Tensor,
     behind → (words_compacted uint32[n_words, R], counts int32[1]).
     `block_counts` holds the survivors of each FILTER_BLOCK rows, as
     `filter_pack` leaves them."""
-    global compact_launches
+    return prepare_compact_packed(words, keep_mask, block_counts)()
+
+
+def prepare_compact_packed(words: torch.Tensor, keep_mask: torch.Tensor,
+                           block_counts: torch.Tensor):
+    """`compact_packed`'s host work; returns its launch. The inputs may
+    be outputs of a K2 launch prepared but not yet made."""
     n_words, R = words.shape
     if keep_mask.shape != (-(-R // 32),) \
             or block_counts.shape != (-(-R // FILTER_BLOCK),):
         raise ValueError("compact_packed: mask or counts do not fit words")
     devs = {words.device, keep_mask.device, block_counts.device}
     if devs == {torch.device("cpu")}:
-        keep = torch.zeros(R, dtype=torch.bool)
-        keep[torch.from_numpy(unpack_keep_mask(keep_mask.numpy(), R))] = True
-        out, _, counts = compact_packed_plain(words, keep)
-        return out, counts
+        def plain():
+            keep = torch.zeros(R, dtype=torch.bool)
+            keep[torch.from_numpy(unpack_keep_mask(keep_mask.numpy(),
+                                                   R))] = True
+            out, _, counts = compact_packed_plain(words, keep)
+            return out, counts
+        return plain
     if len(devs) != 1 or words.device.type != "cuda":
         raise ValueError(f"compact_packed: unsupported devices {devs}")
     lib = load()
@@ -448,13 +542,17 @@ def compact_packed(words: torch.Tensor, keep_mask: torch.Tensor,
     out = torch.empty((n_words, R), dtype=torch.int32, device=dev)
     counts = torch.empty(1, dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _raise_on(lib, lib.etl_compact_packed(
-        words.data_ptr(), keep_mask.data_ptr(), block_counts.data_ptr(),
-        out.data_ptr(), counts.data_ptr(), R, n_words, stream),
-        "compaction kernel")
-    with _lock:
-        compact_launches += 1
-    return out.view(torch.uint32), counts
+    args = (words.data_ptr(), keep_mask.data_ptr(), block_counts.data_ptr(),
+            out.data_ptr(), counts.data_ptr(), R, n_words, stream)
+
+    def launch():
+        global compact_launches
+        _raise_on(lib, lib.etl_compact_packed(*args), "compaction kernel")
+        with _lock:
+            compact_launches += 1
+        return out.view(torch.uint32), counts
+
+    return launch
 
 
 def decode_pack_filtered(bmat: torch.Tensor, lengths: torch.Tensor,
@@ -465,15 +563,167 @@ def decode_pack_filtered(bmat: torch.Tensor, lengths: torch.Tensor,
     uint32[⌈R/32⌉], counts int32[1]), the reference's
     `parse_and_pack(pred=…)` bit for bit. On CUDA: `filter_pack` then
     `compact_packed` on the current stream, without synchronising."""
+    return prepare_decode_pack_filtered(bmat, lengths, row_flags, specs,
+                                        nibble, pred)()
+
+
+def _plain_filtered(bmat, lengths, row_flags, specs, nibble, pred):
+    _check(bmat, lengths, specs, nibble)
+    return lambda: parse_and_pack_plain(bmat, lengths, specs, nibble,
+                                        pred=pred, row_flags=row_flags)
+
+
+def prepare_decode_pack_filtered(bmat: torch.Tensor, lengths: torch.Tensor,
+                                 row_flags: torch.Tensor, specs: tuple,
+                                 nibble: bool, pred):
+    """`decode_pack_filtered`'s host work, for both launches; returns
+    the launch of both."""
     if {bmat.device, lengths.device, row_flags.device} \
             == {torch.device("cpu")}:
-        _check(bmat, lengths, specs, nibble)
-        return parse_and_pack_plain(bmat, lengths, specs, nibble, pred=pred,
-                                    row_flags=row_flags)
-    words, mask, block_counts = filter_pack(bmat, lengths, row_flags, specs,
+        return _plain_filtered(bmat, lengths, row_flags, specs, nibble, pred)
+    k2 = prepare_filter_pack(bmat, lengths, row_flags, specs, nibble, pred)
+    words, mask, block_counts = k2.outputs
+    epi = prepare_compact_packed(words, mask, block_counts)
+
+    def launch():
+        k2()
+        out, counts = epi()
+        return out, mask.view(torch.uint32), counts
+
+    return launch
+
+
+def filter_pack_compact(bmat: torch.Tensor, lengths: torch.Tensor,
+                        row_flags: torch.Tensor, specs: tuple, nibble: bool,
+                        pred, walk: int | None = None, rpt: int | None = None):
+    """K2c: the fused row filter in one launch → (words uint32[n_words, R],
+    keep_mask uint32[⌈R/32⌉], counts int32[1]). `words[:, :counts[0]]`,
+    the mask and the count equal the reference's `parse_and_pack(pred=…)`
+    (`compact_packed` of K2's words) bit for bit; on CUDA, columns at or
+    past the count are NOT written (they hold whatever the allocation
+    held), so a caller reads `words[:, :count]` only — the engine fetches
+    a count-sized slice. `decode_pack_filtered` keeps the full contract,
+    zeros behind. On CPU tensors the plain version (zeros behind).
+    `walk` as for `decode_pack`, `rpt` forces the rows a thread (1 or 2)
+    in place of `compact_rows_per_thread`'s choice; on CUDA a layout whose
+    word tile does not fit (`fused_walk` None) raises: the caller takes
+    `decode_pack_filtered` for it. Launches on the current stream, with
+    that stream's status buffer, and does not synchronise."""
+    return prepare_filter_pack_compact(bmat, lengths, row_flags, specs,
+                                       nibble, pred, walk, rpt)()
+
+
+class _ScanState:
+    """K2c's look-back buffer on one stream: int64 [1 + blocks], the
+    ticket counter then one status word per logical block; `tickets` is
+    how far the launches made so far advanced the counter, `epoch` the
+    last launch's epoch."""
+
+    __slots__ = ("buf", "tickets", "epoch")
+
+    def __init__(self, blocks: int, dev):
+        self.buf = torch.zeros(1 + blocks, dtype=torch.int64, device=dev)
+        self.tickets = 0
+        self.epoch = 0
+
+
+def scan_state(dev, blocks: int) -> _ScanState:
+    """The status buffer of the current stream of `dev`, grown (a new
+    zeroed buffer, on the stream) to hold `blocks` status words."""
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    with _lock:
+        st = _scan_states.get(key)
+        if st is None or st.buf.numel() < 1 + blocks:
+            st = _scan_states[key] = _ScanState(blocks, dev)
+    return st
+
+
+def compact_rows_per_thread(specs: tuple, nibble: bool, rows: int) -> int:
+    """K2c's rows a thread with tiles of `rows` rows (0: direct): 2 on
+    256-row tiles of the layouts where K1 takes two (`rows_per_thread`:
+    every column a nibble integer of at most 16 symbols), 128 threads a
+    block at most 64 registers, so 8 blocks fit an SM and the main path's
+    1,024 blocks are resident at once; else 1 (longer parses under that
+    register cap spill)."""
+    return 2 if rows == FILTER_BLOCK \
+        and rows_per_thread(specs, nibble, rows) == 2 else 1
+
+
+def prepare_filter_pack_compact(bmat: torch.Tensor, lengths: torch.Tensor,
+                                row_flags: torch.Tensor, specs: tuple,
+                                nibble: bool, pred, walk: int | None = None,
+                                rpt: int | None = None):
+    """`filter_pack_compact`'s host work (descriptors, the walk, outputs,
+    the stream's status buffer); returns its launch, which takes the
+    launch's epoch and ticket base and advances them once it launched."""
+    got = _filter_inputs("filter_pack_compact", bmat, lengths, row_flags,
+                         specs, nibble, pred)
+    if got is None:
+        return _plain_filtered(bmat, lengths, row_flags, specs, nibble, pred)
+    lib, bmat, lengths, row_flags, desc, pdesc, n_words = got
+    dev, R = bmat.device, bmat.shape[0]
+    if R >= 1 << 31:
+        raise ValueError("filter_pack_compact: more rows than int32 counts")
+    rows = fused_walk(bmat, lengths, row_flags, len(specs), pdesc.numel(),
+                      n_words) if walk is None else walk
+    if rows is None:
+        raise ValueError("filter_pack_compact: the word tile does not fit "
+                         "shared memory; use decode_pack_filtered")
+    if rpt is None:
+        rpt = compact_rows_per_thread(specs, nibble, rows)
+    blocks = -(-R // FILTER_BLOCK)
+    out = torch.empty((n_words, R), dtype=torch.int32, device=dev)
+    mask = torch.empty(-(-R // 32), dtype=torch.int32, device=dev)
+    counts = (torch.empty if R else torch.zeros)(1, dtype=torch.int32,
+                                                 device=dev)
+    st = scan_state(dev, blocks)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (bmat.data_ptr(), bmat.shape[1], lengths.data_ptr(),
+            int(lengths.dtype == torch.uint8), len(specs), desc.data_ptr(),
+            int(nibble), row_flags.data_ptr(), pdesc.data_ptr(),
+            pdesc.numel(), out.data_ptr(), mask.data_ptr(), counts.data_ptr(),
+            st.buf.data_ptr() + 8, st.buf.data_ptr())
+
+    def launch():
+        global fused_launches
+        with _lock:
+            epoch = st.epoch + 1
+            if epoch == EPOCH_LIMIT:  # every 2^30 launches: a clean buffer
+                st.buf[1:].zero_()
+                epoch = 1
+            rc = lib.etl_filter_pack_compact(*head, st.tickets, epoch, R,
+                                             n_words, rows, rpt, stream)
+            _raise_on(lib, rc, "fused filter kernel")
+            st.epoch = epoch
+            st.tickets += blocks
+            fused_launches += 1
+            path_launches[path_of(rows)] += 1
+        return out.view(torch.uint32), mask.view(torch.uint32), counts
+
+    return launch
+
+
+def prepare_filtered(bmat: torch.Tensor, lengths: torch.Tensor,
+                     row_flags: torch.Tensor, specs: tuple, nibble: bool,
+                     pred):
+    """The engine's filtered device step, prepared: K2c
+    (`filter_pack_compact`) where the layout's word tile fits
+    (`fused_walk`), else K2 + the epilogue (`decode_pack_filtered`),
+    chosen by shape before any launch (`fused_launches` counts the first
+    route's launches, `filter_launches` and `compact_launches` the
+    second's)."""
+    got = _filter_inputs("filtered decode", bmat, lengths, row_flags, specs,
+                         nibble, pred)
+    if got is None:
+        return _plain_filtered(bmat, lengths, row_flags, specs, nibble, pred)
+    _, bmat, lengths, row_flags, _, pdesc, n_words = got
+    rows = fused_walk(bmat, lengths, row_flags, len(specs), pdesc.numel(),
+                      n_words)
+    if rows is None:
+        return prepare_decode_pack_filtered(bmat, lengths, row_flags, specs,
                                             nibble, pred)
-    out, counts = compact_packed(words, mask, block_counts)
-    return out, mask, counts
+    return prepare_filter_pack_compact(bmat, lengths, row_flags, specs,
+                                       nibble, pred, walk=rows)
 
 
 def copy_columns(dst: torch.Tensor, src: torch.Tensor, n_cols: int) -> None:

@@ -19,8 +19,10 @@ the mesh, the program store or autotune. Pipeline per batch:
       columns as Arrow-layout TextArrays)
 
 With a publication row filter (`schema.row_predicate`) the device step is
-the fused filter (`decode_kernel.decode_pack_filtered`: K2 + the
-compaction epilogue) over a per-row disposition vector (`_row_flags`);
+the fused filter (`decode_kernel.prepare_filtered`: K2c, one launch that
+filters, packs and compacts, or K2 + the compaction epilogue where the
+layout's word tile does not fit) over a per-row disposition vector
+(`_row_flags`);
 only the survivor count and the 1-bit-per-row keep mask come back with
 the dispatch, then a count-sized slice of the compacted words
 (`staging.slice_rows`), and the batch assembles over the survivors only
@@ -189,8 +191,9 @@ class _Packed:
 class _Filtered:
     """The in-flight half of a fused-filter dispatch: the compiled filter,
     the row disposition vector it ran over, the compacted words (left on
-    the device on CUDA) and the keep mask and survivor count (host
-    tensors; on CUDA pinned, landing behind the dispatch's last event)."""
+    the device on CUDA, where only the first `counts[0]` columns need be
+    written) and the keep mask and survivor count (host tensors; on CUDA
+    pinned, landing behind the dispatch's last event)."""
 
     pred: Any
     row_flags: np.ndarray
@@ -206,24 +209,28 @@ class _PendingDecode:
     the next batches while the copy runs; a filtered decode brings back
     only its keep mask and survivor count that way, and fetches a
     count-sized slice of its words at `result()`. After `result()`,
-    `timings` holds the batch's stage times in ms — pack and assemble on
-    the host clock, and on CUDA h2d, kernel and d2h (plus d2h_words for a
-    filtered decode) from the stream's events — and `fetched_bytes`, the
-    bytes of results brought from the device."""
+    `timings` holds the batch's stage times in ms — pack, launch (the
+    kernel wrapper's host time: its preparation and the launch call; on
+    the CPU the plain version's run) and assemble on the host clock, and
+    on CUDA h2d, kernel and d2h (plus d2h_words for a filtered decode)
+    from the stream's events, `kernel_ms` bracketing the launches alone —
+    and `fetched_bytes`, the bytes of results brought from the device."""
 
     __slots__ = ("_decoder", "_staged", "_specs", "_packed", "_words",
-                 "_events", "_pack_s", "_filtered", "_done", "timings")
+                 "_events", "_pack_s", "_launch_s", "_filtered", "_done",
+                 "timings")
 
     def __init__(self, decoder: "DeviceDecoder", staged: StagedBatch,
                  specs: tuple, packed: _Packed | None, words,
                  pack_s: float = 0.0, events: tuple = (),
-                 filtered: _Filtered | None = None):
+                 filtered: _Filtered | None = None, launch_s: float = 0.0):
         self._decoder = decoder
         self._staged = staged
         self._specs = specs
         self._packed = packed
         self._words = words
         self._pack_s = pack_s
+        self._launch_s = launch_s
         self._events = events  # CUDA: before H2D, after H2D, kernel, D2H
         self._filtered = filtered
         self._done: ColumnarBatch | None = None
@@ -437,11 +444,13 @@ class DeviceDecoder:
 
     def _dispatch(self, staged: StagedBatch, specs: tuple) -> _PendingDecode:
         """Pack, then start the device work and return the in-flight
-        handle. CUDA: non-blocking H2D from pinned buffers, the kernel on
-        the current stream, non-blocking D2H into a pinned buffer, and an
-        event for `_PendingDecode.result()` to wait on. A fused-filter
-        dispatch uploads its row flags too and fetches only the keep mask
-        and the survivor count here."""
+        handle. CUDA: the kernel wrapper's host work first (descriptors,
+        the walk, outputs, the look-back's status buffer: `prepare_*`),
+        then non-blocking H2D from pinned buffers, the launch alone
+        between two events on the current stream, non-blocking D2H into a
+        pinned buffer, and an event for `_PendingDecode.result()` to wait
+        on. A fused-filter dispatch uploads its row flags too and fetches
+        only the keep mask and the survivor count here."""
         pred = self._device_filter_for(staged)
         t0 = time.perf_counter()
         widths = tuple(w for _, _, w, _ in specs)
@@ -452,40 +461,57 @@ class DeviceDecoder:
         bmat_h = torch.from_numpy(packed.bmat)
         lengths_h = torch.from_numpy(packed.lengths)
         if self.device.type == "cpu":
+            t0 = time.perf_counter()
             if pred is None:
                 words = decode_kernel.decode_pack(bmat_h, lengths_h, specs,
                                                   packed.nibble)
                 return _PendingDecode(self, staged, specs, packed, words,
-                                      pack_s)
-            out = decode_kernel.decode_pack_filtered(
+                                      pack_s,
+                                      launch_s=time.perf_counter() - t0)
+            out = decode_kernel.prepare_filtered(
                 bmat_h, lengths_h, torch.from_numpy(flags), specs,
-                packed.nibble, pred)
+                packed.nibble, pred)()
             return _PendingDecode(self, staged, specs, packed, None, pack_s,
-                                  filtered=_Filtered(pred, flags, *out))
+                                  filtered=_Filtered(pred, flags, *out),
+                                  launch_s=time.perf_counter() - t0)
         stream = torch.cuda.current_stream(self.device)
-        ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(4))
-        ev[0].record(stream)
-        bmat_d = bmat_h.to(self.device, non_blocking=True)
-        lengths_d = lengths_h.to(self.device, non_blocking=True)
+        bmat_d = torch.empty(bmat_h.shape, dtype=bmat_h.dtype,
+                             device=self.device)
+        lengths_d = torch.empty(lengths_h.shape, dtype=lengths_h.dtype,
+                                device=self.device)
         if pred is not None:
             flags_h = self._pinned.take(flags.shape, torch.uint8)
             flags_h.numpy()[:] = flags
             packed.pinned = packed.pinned + (flags_h,)
-            flags_d = flags_h.to(self.device, non_blocking=True)
-        ev[1].record(stream)
+            flags_d = torch.empty(flags.shape, dtype=torch.uint8,
+                                  device=self.device)
+        t0 = time.perf_counter()
         if pred is None:
-            words_d = decode_kernel.decode_pack(bmat_d, lengths_d, specs,
-                                                packed.nibble)
-            ev[2].record(stream)
-            words_h = self._pinned.take(tuple(words_d.shape), torch.int32)
-            words_h.copy_(words_d.view(torch.int32), non_blocking=True)
+            launch = decode_kernel.prepare_decode_pack(
+                bmat_d, lengths_d, specs, packed.nibble)
+        else:
+            launch = decode_kernel.prepare_filtered(
+                bmat_d, lengths_d, flags_d, specs, packed.nibble, pred)
+        launch_s = time.perf_counter() - t0
+        ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(4))
+        ev[0].record(stream)
+        bmat_d.copy_(bmat_h, non_blocking=True)
+        lengths_d.copy_(lengths_h, non_blocking=True)
+        if pred is not None:
+            flags_d.copy_(flags_h, non_blocking=True)
+        ev[1].record(stream)
+        t0 = time.perf_counter()
+        out = launch()
+        launch_s += time.perf_counter() - t0
+        ev[2].record(stream)
+        if pred is None:
+            words_h = self._pinned.take(tuple(out.shape), torch.int32)
+            words_h.copy_(out.view(torch.int32), non_blocking=True)
             ev[3].record(stream)
             packed.pinned = packed.pinned + (words_h,)
             return _PendingDecode(self, staged, specs, packed, words_h,
-                                  pack_s, ev)
-        words_d, mask_d, counts_d = decode_kernel.decode_pack_filtered(
-            bmat_d, lengths_d, flags_d, specs, packed.nibble, pred)
-        ev[2].record(stream)
+                                  pack_s, ev, launch_s=launch_s)
+        words_d, mask_d, counts_d = out
         mask_h = self._pinned.take(tuple(mask_d.shape), torch.int32)
         counts_h = self._pinned.take((1,), torch.int32)
         mask_h.copy_(mask_d.view(torch.int32), non_blocking=True)
@@ -494,7 +520,7 @@ class DeviceDecoder:
         packed.pinned = packed.pinned + (mask_h, counts_h)
         return _PendingDecode(self, staged, specs, packed, None, pack_s, ev,
                               _Filtered(pred, flags, words_d, mask_h,
-                                        counts_h))
+                                        counts_h), launch_s)
 
     def _gather_text(self, staged: StagedBatch, spec: _ColSpec,
                      valid: np.ndarray) -> TextArray:
@@ -645,6 +671,8 @@ class DeviceDecoder:
         if p._events:
             p._events[-1].synchronize()
         p.timings = {"pack_ms": p._pack_s * 1e3}
+        if p._packed is not None:  # the device route: a kernel wrapper ran
+            p.timings["launch_ms"] = p._launch_s * 1e3
         if p._events:
             ev = p._events
             p.timings.update(h2d_ms=ev[0].elapsed_time(ev[1]),

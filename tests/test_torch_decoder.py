@@ -253,7 +253,8 @@ def test_decode_async_two_in_flight():
     pending = [dec.decode_async(port_staged(staged)) for _ in range(2)]
     for p in pending:
         assert_same_batch(ref, p.result())
-        assert set(p.timings) == {"pack_ms", "assemble_ms", "fetched_bytes"}
+        assert set(p.timings) == {"pack_ms", "launch_ms", "assemble_ms",
+                                 "fetched_bytes"}
 
 
 @pytest.mark.parametrize("oid,text", [

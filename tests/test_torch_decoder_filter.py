@@ -350,7 +350,8 @@ def test_two_filtered_batches_in_flight():
         got = p.result()
         assert filtered_batches_identical(first, got)
         assert list(got.source_rows) == list(range(250, 1000))
-        assert set(p.timings) == {"pack_ms", "assemble_ms", "fetched_bytes"}
+        assert set(p.timings) == {"pack_ms", "launch_ms", "assemble_ms",
+                                 "fetched_bytes"}
 
 
 def test_selectivity_bench_on_the_cpu():
@@ -362,3 +363,24 @@ def test_selectivity_bench_on_the_cpu():
     for p in res["points"]:
         assert abs(p["measured_keep"] - p["target_keep"]) < 0.05
         assert p["kernel_plain_oracle_identical"] and p["fetch_reduction_ok"]
+
+
+@pytest.mark.parametrize("row_filter", [None, "c1 >= 250"])
+def test_decode_timings_report_the_launch(row_filter):
+    """Unfiltered and filtered decodes report the kernel wrapper's host
+    time as `launch_ms` beside the same keys as before (CPU: no device
+    events, so no h2d, kernel or d2h times); the oracle route runs no
+    wrapper and reports no launch."""
+    rts = make_rts([Oid.INT8, Oid.INT4], row_filter)
+    rows = [[str(i), str(i)] for i in range(1000)]
+    dec = DeviceDecoder(port_schema(rts), device="cpu")
+    p = dec.decode_async(port_staged(stage_texts(rows, 2)))
+    p.result()
+    assert set(p.timings) == {"pack_ms", "launch_ms", "assemble_ms",
+                              "fetched_bytes"}
+    assert p.timings["launch_ms"] > 0
+    oracle = DeviceDecoder(port_schema(rts), device="cpu",
+                           device_min_rows=10**9)
+    q = oracle.decode_async(port_staged(stage_texts(rows, 2)))
+    q.result()
+    assert "launch_ms" not in q.timings

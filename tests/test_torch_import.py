@@ -137,6 +137,14 @@ def test_filter_wrappers_refuse_other_devices_and_bad_inputs():
         decode_kernel.compact_packed(t((1, 40), torch.int32, "cpu"),
                                      t(1, torch.int32, "cpu"),
                                      t(1, torch.int32, "cpu"))
+    for fn in (decode_kernel.filter_pack_compact,
+               decode_kernel.prepare_filtered):
+        with pytest.raises(ValueError, match="unsupported devices"):
+            fn(t((8, 4), torch.uint8), t((8, 1), torch.uint8),
+               t(8, torch.uint8), specs, False, pred)
+        with pytest.raises(ValueError, match="row_flags"):
+            fn(t((8, 4), torch.uint8, "cpu"), t((8, 1), torch.uint8, "cpu"),
+               t(7, torch.uint8, "cpu"), specs, False, pred)
 
 
 def test_pred_descriptor_checks_the_filter_and_specs():
@@ -224,3 +232,48 @@ def test_schema_carried_across_gives_reference_layout():
     assert [[(s.comp, s.bit_off, s.bits, s.zigzag) for s in col]
             for col in a.slots] == [[(s.comp, s.bit_off, s.bits, s.zigzag)
                                      for s in col] for col in b.slots]
+
+
+def test_fused_route_by_shape():
+    """`fused_walk`: K2c's walk where its word tile fits beside the rows'
+    tile (256 rows on the pgbench shape, a sub-tile on a wider one,
+    direct where a base pointer is off 16-byte alignment), None (the
+    two-launch route) where it does not fit beside a 32-row sub-tile."""
+    def fits(n_cols, width, n_words, view=lambda t: t):
+        bm = view(torch.zeros((65, n_cols * width // 2), dtype=torch.uint8))
+        ln = view(torch.zeros((65, n_cols), dtype=torch.uint8))
+        fl = view(torch.zeros(65, dtype=torch.uint8))
+        return decode_kernel.fused_walk(bm, ln, fl, n_cols, 40, n_words)
+
+    assert fits(3, 8, 2) == 256  # pgbench: 12 nibble bytes, 2 words
+    assert fits(100, 12, 35) == 64
+    assert fits(3, 8, 2, view=lambda t: t[1:]) == 0
+    assert fits(260, 12, 90) is None
+    assert decode_kernel.tile_bytes(32, 1560, 260, True, 40, True, 90) \
+        > decode_kernel.SMEM_BUDGET
+    assert decode_kernel.tile_bytes(0, 12, 3, True, 40, True, 2) == 2048
+    # two rows a thread on 256-row tiles of all-integer nibble layouts only
+    pgbench = tuple((i, PK.I32, 8, 8) for i in range(3))
+    assert [decode_kernel.compact_rows_per_thread(pgbench, True, rows)
+            for rows in (256, 128, 0)] == [2, 1, 1]
+    assert decode_kernel.compact_rows_per_thread(
+        ((0, PK.TIMESTAMP, 32, 2),), True, 256) == 1
+
+
+def test_fused_wrapper_cpu_route_is_the_plain_version():
+    from etl_tpu_torch.ops.bitpack import parse_and_pack_plain
+    from etl_tpu_torch.ops.predicate import compile_row_filter
+    from etl_tpu_torch.testing import filter_case
+
+    pred = compile_row_filter("a > 1", _schema())
+    specs = ((0, PK.I32, 12, 10),)
+    bm, ln, fl = (torch.from_numpy(a) for a in filter_case(
+        specs, 700, np.random.default_rng(5), False))
+    want = parse_and_pack_plain(bm, ln, specs, False, pred=pred,
+                                row_flags=fl)
+    for got in (decode_kernel.filter_pack_compact(bm, ln, fl, specs, False,
+                                                  pred),
+                decode_kernel.prepare_filtered(bm, ln, fl, specs, False,
+                                               pred)()):
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -2,13 +2,18 @@
 the plain PyTorch version, bit for bit.
 
 `csrc/decode_pack.cu` builds without nvcc as C++ (its device qualifiers
-vanish off `__CUDACC__`) and exports `etl_decode_pack_host` and
-`etl_filter_pack_host`, which walk each block's rows as the card does:
-stage the block's byte range into a tile laid out as in shared memory
-(256 rows, or sub-tiles of 128 or 64 rows, or none: direct) and run
-the kernel's row body on it. This checks the kernel's logic on every kind
-and every walk here on the CPU; tests/test_torch_kernels_gpu.py checks
-the compiled kernel on the card.
+vanish off `__CUDACC__`) and exports `etl_decode_pack_host`,
+`etl_filter_pack_host` and `etl_filter_pack_compact_host`, which walk
+each block's rows as the card does: stage the block's byte range into a
+tile laid out as in shared memory (256 rows, or sub-tiles of 128 or 64
+rows, or none: direct) and run the kernel's row body on it. The fused
+kernel (K2c) runs in the card's phases with the blocks' progress
+interleaved in a seeded order, so its look-back meets predecessors that
+are only aggregates and status words of an earlier launch. This checks
+the kernels' logic on every kind and every walk here on the CPU;
+tests/test_torch_kernels_gpu.py checks the compiled kernels on the card.
+
+    JAX_PLATFORMS=cpu python -m pytest tests/test_torch_kernel_host.py -q
 """
 
 import ctypes
@@ -381,16 +386,21 @@ def test_planner_choices():
 
 @pytest.mark.parametrize("filtered", [False, True])
 def test_tile_bytes_matches_the_source(host_kernel, filtered):
+    """K1's and K2's tiles, and with `filtered` also K2c's (the word tile
+    of 2 or 90 words a row beside them, or alone: direct)."""
     fn = host_kernel.lib.etl_tile_bytes
     fn.restype = ctypes.c_int64
     fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int]
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int]
     for row_bytes in (1, 6, 11, 12, 16, 40, 228, 1560):
         for n_cols, u8, pred_ints, rows in ((1, 1, 29, 256), (3, 0, 40, 64),
-                                            (260, 1, 300, 128)):
-            assert fn(row_bytes, n_cols, u8, int(filtered), pred_ints,
-                      rows) == decode_kernel.tile_bytes(
-                rows, row_bytes, n_cols, bool(u8), pred_ints, filtered)
+                                            (260, 1, 300, 128),
+                                            (3, 1, 41, 0)):
+            for words in (0, 2, 90) if filtered else (0,):
+                assert fn(row_bytes, n_cols, u8, int(filtered), pred_ints,
+                          rows, words) == decode_kernel.tile_bytes(
+                    rows, row_bytes, n_cols, bool(u8), pred_ints, filtered,
+                    words)
 
 
 @pytest.mark.parametrize("walk", WALKS)
@@ -487,3 +497,213 @@ def test_host_nibble_ints_register_parse(host_kernel, width):
     for walk in (256, 0):
         _check(host_kernel, specs, True, 900, seed=width + walk,
                tile_rows=walk)
+
+
+# -- K2c: the fused filter with the compaction folded in ----------------------
+
+SENTINEL = 0xC0FFEE11
+
+
+class HostScan:
+    """A K2c look-back buffer kept across launches, as the wrapper keeps
+    one per stream: the ticket counter then one status word per block,
+    with the tickets the launches took and the last launch's epoch."""
+
+    def __init__(self, blocks):
+        self.buf = np.zeros(1 + blocks, dtype=np.uint64)
+        self.tickets = 0
+        self.epoch = 0
+
+
+def _build_fused_lib(src, out_dir):
+    so = out_dir / "decode_pack_fused_host.so"
+    subprocess.run([os.environ.get("CXX", "c++"), "-O2", "-std=c++17",
+                    "-shared", "-fPIC", "-x", "c++", str(src), "-o", str(so)],
+                   check=True, capture_output=True, timeout=300)
+    lib = ctypes.CDLL(str(so))
+    vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn = lib.etl_filter_pack_compact_host
+    fn.restype = None
+    fn.argtypes = [vp, i64, vp, i32, i32, vp, i32, vp, vp, i32, vp, vp, vp,
+                   vp, vp, ctypes.c_uint64, ctypes.c_uint32, i64, i32, i32,
+                   i32, ctypes.c_uint64]
+
+    def run(bmat, lengths, flags, specs, nibble, pred, tile_rows=256,
+            scan=None, seed=0, rpt=None):
+        """K2c with tiles of `tile_rows` rows and `rpt` rows a thread (the
+        wrapper's choice when None) → (words [n_words, R], mask, counts,
+        the words' buffer whole: out-of-range writes land in its slack,
+        past n_words * R)."""
+        if rpt is None:
+            rpt = decode_kernel.compact_rows_per_thread(specs, nibble,
+                                                        tile_rows)
+        desc = np.array(decode_kernel.descriptor(specs, nibble), np.int32)
+        pdesc = np.array(decode_kernel.pred_descriptor(pred, specs),
+                         np.int32)
+        R = bmat.shape[0]
+        blocks = -(-R // decode_kernel.FILTER_BLOCK)
+        if scan is None or scan.buf.size < 1 + blocks:
+            scan = HostScan(blocks)
+        n_words = layout_for_specs(specs).n_words
+        buf = np.full(n_words * R + R + 512, SENTINEL, dtype=np.uint32)
+        mask = np.full(-(-R // 32), 0xA5A5A5A5, dtype=np.uint32)
+        counts = np.full(1, -7, dtype=np.int32)
+        scan.epoch += 1
+        ptr = scan.buf.ctypes.data
+        fn(bmat.ctypes.data, bmat.shape[1], lengths.ctypes.data,
+           int(lengths.dtype == np.uint8), len(specs), desc.ctypes.data,
+           int(nibble), flags.ctypes.data, pdesc.ctypes.data, pdesc.size,
+           buf.ctypes.data, mask.ctypes.data, counts.ctypes.data, ptr + 8,
+           ptr, scan.tickets, scan.epoch, R, n_words, tile_rows, rpt, seed)
+        scan.tickets += blocks
+        assert int(scan.buf[0]) == scan.tickets  # one ticket a block
+        return buf[:n_words * R].reshape(n_words, R), mask, counts, buf
+
+    return run
+
+
+@pytest.fixture(scope="module")
+def host_fused(tmp_path_factory):
+    return _build_fused_lib(decode_kernel.SOURCE,
+                            tmp_path_factory.mktemp("fused"))
+
+
+def _fused_inputs(sql, nibble, rows, seed, flags=None):
+    """(bm, ln, fl, specs, pred, the plain version's (words, mask,
+    counts)) for FKINDS (nibble: without BOOL) under `sql`; `flags` "dead"
+    or "force" sets every row's flag to 0 (keep none) or 2 (keep all)."""
+    from etl_tpu_torch import convert
+    from etl_tpu_torch.ops.predicate import compile_row_filter
+    from etl_tpu_torch.testing import filter_case
+
+    kinds = FKINDS[1:] if nibble else FKINDS
+    offset = 1 if nibble else 0
+    pred = compile_row_filter(sql, convert.schema_from_plain(
+        1, "public", "t",
+        [(f"c{i + offset}", FOIDS[k], -1, True, None)
+         for i, k in enumerate(kinds)], [True] * len(kinds),
+        [True] * len(kinds)))
+    specs = tuple((i, k, WIDTHS[k], _bw(k, WIDTHS[k]))
+                  for i, k in enumerate(kinds))
+    rng = np.random.default_rng(seed)
+    bm, ln, fl = _rows(lambda n: filter_case(specs, n, rng, nibble), rows)
+    if flags is not None:
+        fl = np.full_like(fl, {"dead": 0, "force": 2}[flags])
+    want = parse_and_pack_plain(torch.from_numpy(bm), torch.from_numpy(ln),
+                                specs, nibble, pred=pred,
+                                row_flags=torch.from_numpy(fl))
+    want = (want[0].numpy().view(np.uint32), want[1].numpy().view(np.uint32),
+            want[2].numpy())
+    return bm, ln, fl, specs, pred, want
+
+
+def _fused_same(got, want) -> bool:
+    """K2c's [:, :count], mask and count equal the plain version's; the
+    columns past the count and the slack hold the sentinel."""
+    words, mask, counts, buf = got
+    n = int(want[2][0])
+    return (np.array_equal(counts, want[2]) and np.array_equal(mask, want[1])
+            and np.array_equal(words[:, :n], want[0][:, :n])
+            and bool((words[:, n:] == SENTINEL).all())
+            and bool((buf[words.size:] == SENTINEL).all()))
+
+
+def _fused_check(run, sql, nibble, rows, seed, tile_rows=256, flags=None,
+                 rpt=None):
+    """K2c against the plain version, launched on a status buffer that an
+    earlier launch over the same rows with every row force-kept left
+    (so the look-back meets status words of an earlier launch, whose
+    prefixes differ)."""
+    bm, ln, fl, specs, pred, want = _fused_inputs(sql, nibble, rows, seed,
+                                                  flags)
+    scan = HostScan(-(-rows // decode_kernel.FILTER_BLOCK))
+    run(bm, ln, np.full_like(fl, 2), specs, nibble, pred, tile_rows, scan,
+        seed=seed + 1, rpt=rpt)
+    got = run(bm, ln, fl, specs, nibble, pred, tile_rows, scan, seed=seed,
+              rpt=rpt)
+    assert _fused_same(got, want), (sql, rows, tile_rows, seed)
+    return want
+
+
+@pytest.mark.parametrize("i", range(len(FILTERS)))
+def test_host_fused_matches_plain(host_fused, i):
+    """K2c, compiled as host C++, under every filter case, raw."""
+    _fused_check(host_fused, FILTERS[i], False, 600 + 37 * i, seed=i)
+
+
+@pytest.mark.parametrize("walk,rpt", [(256, 2), (256, 1), (128, 1),
+                                      (64, 1), (32, 1), (0, 1)])
+def test_host_fused_walks(host_fused, walk, rpt):
+    """K2c in every walk (the word tile across sub-tile steps), 256-row
+    tiles with one or two rows a thread, nibble, at a row count that
+    leaves the last block ragged."""
+    sql = ("(c1 >= 100 AND c2 <> -2147483648) OR c3 <= 2147483648 OR "
+           "c4 IS NULL OR c8 > '2024-06-15 00:00:00+00'")
+    _fused_check(host_fused, sql, True, 1111, seed=walk + rpt,
+                 tile_rows=walk, rpt=rpt)
+
+
+@pytest.mark.parametrize("walk", [256, 32])
+@pytest.mark.parametrize("rows", [1, 31, 255, 256, 257, 16_411])
+def test_host_fused_row_counts(host_fused, rows, walk):
+    """Row counts that end inside a warp, at a block's end, right after
+    it, and inside the 65th block, in 256-row tiles (two rows a thread)
+    and 32-row sub-tiles."""
+    want = _fused_check(host_fused, "c1 <= 5 OR c3 IS NULL", True, rows,
+                        seed=rows, tile_rows=walk)
+    if rows > 255:
+        assert 0 < int(want[2][0]) < rows
+
+
+def test_host_fused_two_windows(host_fused):
+    """33,111 rows: 130 blocks, so the last blocks look back over
+    several windows of predecessors (LOOKBACK)."""
+    want = _fused_check(host_fused, "c1 <= 5 OR c3 IS NULL", True, 33_111,
+                        seed=8)
+    assert 0 < int(want[2][0]) < 33_111
+
+
+@pytest.mark.parametrize("flags", ["dead", "force"])
+def test_host_fused_keep_none_and_all(host_fused, flags):
+    want = _fused_check(host_fused, FILTERS[3], False, 3001, seed=9,
+                        flags=flags)
+    assert int(want[2][0]) == (0 if flags == "dead" else 3001)
+
+
+def test_host_fused_back_to_back(host_fused):
+    """Ten launches on one status buffer, growing and shrinking grids
+    (up to 36 blocks), each block order seeded differently."""
+    scan = HostScan(36)
+    for k, rows in enumerate((4_000, 300, 9_000, 2_048, 1, 700, 3_333,
+                              4_096, 2_000, 8_999)):
+        bm, ln, fl, specs, pred, want = _fused_inputs(
+            "c2 < -5000000 OR c1 < 100", False, rows, seed=k)
+        got = host_fused(bm, ln, fl, specs, False, pred, 32, scan, seed=k)
+        assert _fused_same(got, want), (k, rows)
+    assert scan.epoch == 10
+
+
+@pytest.mark.parametrize("mutation", [
+    # a look-back window one block short: the nearest inclusive prefix
+    # is not summed
+    ("return (incl & ((1u << lane) - 1u)) == 0;",
+     "return (incl & ((2u << lane) - 1u)) == 0;"),
+    # the epoch check dropped: any published flag counts as current
+    ("return (uint32_t)(s >> EPOCH_SHIFT) == epoch;",
+     "return ((s >> 32) & 3u) != 0;"),
+    # a row's rank within its warp one off
+    ("int rank = POPC(ballots[i >> 5] & ((1u << (i & 31)) - 1u));",
+     "int rank = POPC(ballots[i >> 5] & ((2u << (i & 31)) - 1u));"),
+], ids=["window-one-short", "epoch-check-dropped", "rank-off-by-one"])
+def test_host_fused_mutation_is_caught(tmp_path, mutation):
+    """The K2c checks above fail on a deliberately broken copy of the
+    source (the harness's slack keeps stray writes inside its buffer)."""
+    old, new = mutation
+    src = decode_kernel.SOURCE.read_text()
+    assert src.count(old) == 1
+    broken = tmp_path / "decode_pack_broken.cu"
+    broken.write_text(src.replace(old, new))
+    run = _build_fused_lib(broken, tmp_path)
+    with pytest.raises(AssertionError):
+        _fused_check(run, "c1 <= 5 OR c3 IS NULL", True, 16_411, seed=3,
+                     tile_rows=32)

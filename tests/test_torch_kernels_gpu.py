@@ -390,3 +390,157 @@ def test_filter_many_leaves(cuda, name):
     for a, b in zip(got + k2, want + k2_want):
         assert torch.equal(a, b), name
     assert 0 < int(want[2][0]) < 6000
+
+
+# -- K2c: the fused filter with the compaction folded in ----------------------
+
+def _fused_inputs(kinds, nibble, sql, rows, seed, flags=None):
+    from etl_tpu_torch.ops.predicate import compile_row_filter
+    from etl_tpu_torch.testing import filter_case
+
+    specs = tuple((i, k, WIDTHS[k], _bw(k, WIDTHS[k]))
+                  for i, k in enumerate(kinds))
+    pred = compile_row_filter(sql, _kind_schema(kinds))
+    rng = np.random.default_rng(seed)
+    bm, ln, fl = _pool(lambda n: filter_case(specs, n, rng, nibble), rows)
+    if flags is not None:
+        fl = np.full_like(fl, flags)
+    return (*(torch.from_numpy(a).cuda() for a in (bm, ln, fl)), specs,
+            nibble, pred)
+
+
+def _fused_equal(got, args) -> int:
+    """K2c's words[:, :count], mask and count against the plain version
+    on the same inputs; returns the count."""
+    want = parse_and_pack_plain(args[0], args[1], args[3], args[4],
+                                pred=args[5], row_flags=args[2])
+    torch.cuda.synchronize()
+    n = int(want[2][0])
+    assert torch.equal(got[2].cpu(), want[2].cpu())
+    assert torch.equal(got[1].view(torch.int32).cpu(),
+                       want[1].view(torch.int32).cpu())
+    assert torch.equal(got[0].view(torch.int32)[:, :n].cpu(),
+                       want[0].view(torch.int32)[:, :n].cpu())
+    return n
+
+
+@pytest.mark.parametrize("name", list(FILTER_CASES))
+@pytest.mark.parametrize("rows", [4099, 20000])
+def test_fused_matches_plain(cuda, name, rows):
+    args = _fused_inputs(*FILTER_CASES[name], rows, seed=rows + len(name))
+    n = _fused_equal(decode_kernel.filter_pack_compact(*args), args)
+    assert 0 < n < rows
+
+
+@pytest.mark.parametrize("walk", WALKS)
+def test_fused_walks_match_plain(cuda, walk):
+    args = _fused_inputs(*FILTER_CASES["raw-compound"], 4099, seed=walk)
+    before = dict(decode_kernel.path_launches)
+    _fused_equal(decode_kernel.filter_pack_compact(*args, walk=walk), args)
+    path = decode_kernel.path_of(walk)
+    assert decode_kernel.path_launches[path] == before[path] + 1
+
+
+@pytest.mark.parametrize("flags,rows", [(0, 65_499), (2, 65_499), (1, 1),
+                                        (1, 31), (1, 257)])
+def test_fused_keep_none_all_and_ragged(cuda, flags, rows):
+    args = _fused_inputs([K.I32, K.I32, K.I32], True, "c1 <= 5", rows,
+                         seed=rows + flags, flags=flags)
+    n = _fused_equal(decode_kernel.filter_pack_compact(*args), args)
+    assert n == {0: 0, 2: rows}.get(flags, n)
+
+
+def test_fused_many_blocks(cuda):
+    """2^22 rows: 16,384 blocks, far more than the card holds at once, so
+    most look-backs meet predecessors that are only aggregates."""
+    args = _fused_inputs([K.I32, K.I32, K.I32], True, "c1 <= 5", 1 << 22,
+                         seed=22)
+    n = _fused_equal(decode_kernel.filter_pack_compact(*args), args)
+    assert 0 < n < 1 << 22
+
+
+def test_fused_back_to_back_on_one_status_buffer(cuda):
+    """50 launches on one stream without a synchronisation between them:
+    grids that grow and shrink, flags that keep none, all or some rows;
+    every launch's epoch keeps the statuses of the one before from being
+    read as its own."""
+    kinds = [K.I32, K.I32, K.I32]
+    inputs = [_fused_inputs(kinds, True, "c1 <= 5", rows, seed=k,
+                            flags=flags)
+              for k, (rows, flags) in enumerate(
+                  [(40_000, None), (300, None), (65_536, 2), (1, None),
+                   (33_333, 0)])]
+    got = [decode_kernel.filter_pack_compact(*inputs[k % len(inputs)])
+           for k in range(50)]
+    for k, g in enumerate(got):
+        _fused_equal(g, inputs[k % len(inputs)])
+
+
+def test_fused_two_streams_at_once(cuda):
+    """Two streams launch K2c at once, each with its own status buffer."""
+    kinds = [K.I32, K.I32, K.I32]
+    a = _fused_inputs(kinds, True, "c1 <= 5", 1 << 21, seed=1)
+    b = _fused_inputs(kinds, True, "c1 <= 3", 1 << 21, seed=2)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for _ in range(4):
+        for s, args, out in zip(streams, (a, b), got):
+            with torch.cuda.stream(s):
+                out.append(decode_kernel.filter_pack_compact(*args))
+    torch.cuda.synchronize()
+    for args, outs in zip((a, b), got):
+        for g in outs:
+            _fused_equal(g, args)
+
+
+def test_fused_counters_and_routes(cuda):
+    """K2c counts its launches; the engine's route takes K2c where the
+    word tile fits and K2 + the epilogue for a layout whose word tile
+    does not fit beside a 32-row sub-tile."""
+    args = _fused_inputs([K.I32, K.I32, K.I32], True, "c1 <= 5", 5000,
+                         seed=4)
+    before = (decode_kernel.fused_launches, decode_kernel.filter_launches,
+              decode_kernel.compact_launches)
+    _fused_equal(decode_kernel.prepare_filtered(*args)(), args)
+    wide = _fused_inputs([K.I32] * 260, True, "c1 <= 5", 600, seed=5)
+    assert decode_kernel.fused_walk(
+        *wide[:3], 260, decode_kernel._device_pred(
+            wide[5], wide[3], wide[0].device).numel(),
+        decode_kernel.layout_for_specs(wide[3]).n_words) is None
+    got = decode_kernel.prepare_filtered(*wide)()
+    want = parse_and_pack_plain(wide[0], wide[1], wide[3], True,
+                                pred=wide[5], row_flags=wide[2])
+    for x, y in zip(got, want):  # the full contract: zeros behind
+        assert torch.equal(x.view(torch.int32).cpu(),
+                           y.view(torch.int32).cpu())
+    assert (decode_kernel.fused_launches, decode_kernel.filter_launches,
+            decode_kernel.compact_launches) \
+        == (before[0] + 1, before[1] + 1, before[2] + 1)
+    with pytest.raises(ValueError, match="word tile"):
+        decode_kernel.filter_pack_compact(*wide)
+
+
+def test_fused_decoder_cuda_matches_cpu(cuda):
+    """`DeviceDecoder(fschema, device="cuda")` with K2c on its path (one
+    launch a batch, no K2 or epilogue) equals the CPU decoder."""
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.predicate import parse_row_filter
+    from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch
+
+    payloads = bench.build_workload(20_000)
+    schema = bench.make_schema().with_row_predicate(
+        parse_row_filter("bid <= 5"))
+    staged = stage_wal_batch(*concat_payloads(payloads), 4).staged
+    dec = DeviceDecoder(schema, device="cuda")
+    before = (decode_kernel.fused_launches, decode_kernel.filter_launches,
+              decode_kernel.compact_launches)
+    pending = [dec.decode_async(staged) for _ in range(3)]
+    cpu = DeviceDecoder(schema, device="cpu").decode(staged)
+    for p in pending:
+        assert bench.filtered_batches_identical(p.result(), cpu)
+        assert {"launch_ms", "kernel_ms", "d2h_words_ms"} <= set(p.timings)
+    assert (decode_kernel.fused_launches, decode_kernel.filter_launches,
+            decode_kernel.compact_launches) \
+        == (before[0] + 3, before[1], before[2])
