@@ -59,6 +59,29 @@ the final result line:
    and each batch must fetch at most (keep + 0.11) of the unfiltered
    bytes. Prints records/s (staged records), the stage split with the
    second D2H, the busy share and K2c's held time on a main-path batch.
+6. table copy through the replication runtime (`bench.run_table_copy`):
+   the port's `Pipeline` (BatchEngine.CUDA) copies a seeded
+   pgbench_accounts table of 1,000,000 rows from the fake walsender until
+   the table is READY, each copy partition decoding through a
+   `DecodePipeline` on a CUDA stream of its own. K1 must launch, every
+   chunk must take the device route, the delivered row count and an
+   order-independent digest over all columns must equal the written
+   rows', and 512 sampled rows must equal the CPU oracle. Prints rows/s,
+   MiB/s and the stage sums.
+7. CDC through the runtime (`bench.run_table_streaming`): 500,000 insert
+   events in 500-row transactions (30 ms fill window) into the empty
+   table. As phase 6, plus every row arriving once with its (commit LSN,
+   ordinal) in order, and after shutdown no decode worker thread, nothing
+   in flight and no admission tenant left. Prints events/s, p50/p95 lag
+   (source commit to the destination's arrival), the pipeline's pack,
+   dispatch and fetch sums with their overlap, the device busy share and
+   the distribution of sealed run sizes.
+8. the same CDC stream under the publication filter `bid <= 5` in offload
+   mode (the walsender ships every row): K2c must launch and K2 and the
+   epilogue never; the delivered rows are exactly those with bid <= 5,
+   and each event's change types, commit LSNs and ordinals are compacted
+   with its rows. Prints events/s (staged events), the keep share and the
+   lag.
 
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
@@ -546,10 +569,117 @@ def held_main_path_ms(decoder, staged, specs, filtered: bool) -> dict:
             "warm_ms": time_ms(fn, 50)}
 
 
+def _reset_launch_counts() -> None:
+    from etl_tpu_torch.ops import decode_kernel as dk
+
+    dk.launches = dk.filter_launches = dk.compact_launches = 0
+    dk.fused_launches = 0
+
+
+def _launch_counts() -> dict:
+    from etl_tpu_torch.ops import decode_kernel as dk
+
+    return {"k1_launches": dk.launches, "k2_launches": dk.filter_launches,
+            "epilogue_launches": dk.compact_launches,
+            "k2c_launches": dk.fused_launches}
+
+
+def _stage_line(r: dict) -> str:
+    return (f"pack_s={r['pack_s']:.4f} dispatch_s={r['dispatch_s']:.4f} "
+            f"fetch_s={r['fetch_s']:.4f} overlap_s={r['overlap_s']:.4f} "
+            f"device_s={r['device_s']:.4f} kernel_s={r['kernel_s']:.5f} "
+            f"device_busy_share={r['device_busy_share']:.5f}")
+
+
+def runtime_phases(args) -> dict:
+    """Phases 6-8: the replication runtime on the card. Each phase sets
+    the launch counts to 0 before it drives the runtime and reads them
+    after; returns each phase's result with those counts."""
+    import asyncio
+
+    from etl_tpu_torch import bench
+
+    out = {}
+    print(f"[6] table copy through the runtime ({args.copy_rows} rows)",
+          flush=True)
+    _reset_launch_counts()
+    r = asyncio.run(bench.run_table_copy(args.copy_rows, "cuda",
+                                         seed=args.seed))
+    r.update(_launch_counts())
+    print(f"  rows/s={r['rows_per_second']:.0f} MiB/s="
+          f"{r['mib_per_second']:.2f} copy_wait_ms={r['copy_wait_ms']:.1f} "
+          f"batches={r['batches']} delivered={r['rows_delivered']} "
+          f"launches: k1={r['k1_launches']} k2c={r['k2c_launches']} "
+          f"device_rows={r['device_rows']} oracle_rows={r['oracle_rows']}",
+          flush=True)
+    print(f"  {_stage_line(r)}", flush=True)
+    check(r["k1_launches"] > 0, "the copy launched no K1")
+    check(r["device_route_ok"], "a copy chunk did not take the device route")
+    check(r["count_ok"] and r["digest_ok"],
+          "copied rows differ from the written rows (count or digest)")
+    check(r["oracle_sample_ok"], "a sampled copied row differs from the "
+          "CPU oracle")
+    print("  parity: count and digest of all columns == written rows, 512 "
+          "oracle rows equal", flush=True)
+    out["6_copy"] = r
+    for phase, row_filter in (("7_cdc", None), ("8_cdc_filtered",
+                                                "bid <= 5")):
+        tag = phase.split("_")[0]
+        print(f"[{tag}] CDC through the runtime ({args.cdc_events} events, "
+              f"500-row transactions"
+              + (f", offload filter {row_filter})" if row_filter else ")"),
+              flush=True)
+        _reset_launch_counts()
+        r = asyncio.run(bench.run_table_streaming(
+            args.cdc_events, device="cuda", row_filter=row_filter,
+            seed=args.seed + 1))
+        r.update(_launch_counts())
+        r["events_per_second"] = r["end_to_end_events_per_second"]
+        print(f"  events/s={r['events_per_second']:.0f} lag_p50_ms="
+              f"{r['lag_p50_ms']:.2f} lag_p95_ms={r['lag_p95_ms']:.2f} "
+              f"delivered={r['delivered_rows']} keep_share="
+              f"{r['keep_share']:.4f} decoded_events={r['decoded_events']} "
+              f"launches: k1={r['k1_launches']} k2c={r['k2c_launches']} "
+              f"k2={r['k2_launches']} epilogue={r['epilogue_launches']} "
+              f"device_rows={r['device_rows']} oracle_rows="
+              f"{r['oracle_rows']}", flush=True)
+        print(f"  {_stage_line(r)} overlap_ratio={r['overlap_ratio']:.4f}",
+              flush=True)
+        print(f"  run sizes: {json.dumps(r['run_rows'])}", flush=True)
+        print(f"  after shutdown: {json.dumps(r['after_shutdown'])}",
+              flush=True)
+        if row_filter is None:
+            check(r["k1_launches"] > 0, "CDC launched no K1")
+        else:
+            check(r["k2c_launches"] > 0, "filtered CDC launched no K2c")
+            check(r["k2_launches"] == 0 and r["epilogue_launches"] == 0,
+                  "filtered CDC launched K2 or the epilogue")
+        check(r["count_ok"] and r["digest_ok"],
+              "delivered CDC rows differ from the produced rows (count or "
+              "digest)")
+        check(r["order_ok"], "CDC rows not delivered once each, in "
+              "(commit LSN, ordinal) order")
+        check(r["identity_ok"], "an event's identity arrays are not "
+              "compacted with its rows")
+        check(r["oracle_sample_ok"], "a sampled CDC row differs from the "
+              "CPU oracle")
+        check(r["shutdown_ok"], "a decode thread, an admission ticket or a "
+              "tenant outlived shutdown")
+        print("  parity: count and digest == produced rows"
+              + (" with bid <= 5" if row_filter else "")
+              + ", (commit LSN, ordinal) once each in order, identity "
+              "arrays compacted with the rows, 512 oracle rows equal, "
+              "clean shutdown", flush=True)
+        out[phase] = r
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--batches", type=int, default=6)
+    ap.add_argument("--copy-rows", type=int, default=1_000_000)
+    ap.add_argument("--cdc-events", type=int, default=500_000)
     args = ap.parse_args()
 
     import torch
@@ -818,6 +948,8 @@ def main() -> int:
           f"warm_ms={fheld['warm_ms']:.5f}; launch_ms="
           f"{fsplit['launch_ms']:.5f} (host)", flush=True)
 
+    runtime = runtime_phases(args)
+
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs
                if r["kernel"] == "decode_pack_filtered"]
@@ -863,6 +995,15 @@ def main() -> int:
                "etl_tpu/ops/pallas_kernel.py:118 + etl_tpu/ops/bitpack.py:212",
                k2c_launches, k2c_recs, filtered_main),
     ]
+    for k, name in zip(kernels, ("k1", "k2", "epilogue", "k2c")):
+        k["runtime_launches"] = {
+            phase: res[f"{name}_launches"] for phase, res in runtime.items()}
+        # the runtime phases this kernel ran in, and what they measured
+        k["runtime"] = {phase: {key: res[key] for key in (
+            "rows_per_second", "events_per_second", "lag_p50_ms",
+            "lag_p95_ms", "device_busy_share") if key in res}
+            for phase, res in runtime.items()
+            if k["runtime_launches"][phase]}
     kernels[3]["fused_cases"] = extra
     kernels[3]["max_abs_err"] = max(
         [kernels[3]["max_abs_err"]] + [r["max_abs_err"] for r in extra])

@@ -5,10 +5,10 @@ from .cell import (JSON_NULL, TOAST_UNCHANGED, PgInterval, PgNumeric, PgSpecialD
                    PgSpecialTimestamp, PgTimeTz, py_value_kind)
 from .errors import (EtlError, ErrorKind, RetryDirective, RetryKind,
                      etl_error, retry_directive)
-from .event import (BeginEvent, ChangeType, CommitEvent, DeleteEvent, Event,
-                    EventSequenceKey, InsertEvent, RelationEvent,
-                    ROW_EVENT_TYPES, SchemaChangeEvent, TruncateEvent,
-                    UpdateEvent, event_size_hint)
+from .event import (BeginEvent, ChangeType, CommitEvent, DecodedBatchEvent,
+                    DeleteEvent, Event, EventSequenceKey, InsertEvent,
+                    RelationEvent, ROW_EVENT_TYPES, SchemaChangeEvent,
+                    TruncateEvent, UpdateEvent, event_size_hint)
 from .lsn import Lsn
 from .pgtypes import CellKind, Oid, array_element, is_array_oid, kind_for_oid
 from .schema import (ColumnMask, ColumnSchema, ColumnModification,

@@ -1,12 +1,16 @@
 """Replication events.
 
-Copy of the reference's `etl_tpu/models/event.py` without
-`DecodedBatchEvent`, which belongs to the runtime wiring (not ported yet).
-
 Reference parity: `Event` enum Begin/Commit/Insert/Update/Delete/Truncate/
 Relation each carrying `start_lsn`, `commit_lsn`, `tx_ordinal` and its
 `ReplicatedTableSchema` (crates/etl/src/event.rs:21-320);
 `EventSequenceKey = commit_lsn/tx_ordinal` (event.rs:323).
+
+Copy of the reference's `etl_tpu/models/event.py`. `DecodedBatchEvent` is
+a run of same-table row changes already decoded into a `ColumnarBatch` by
+the device engine, with per-row change types and ordinals. The CPU engine
+emits per-row events; the CUDA engine emits batch events. Destinations
+accept both (destinations/base.py expands batches for row-oriented
+writers).
 """
 
 from __future__ import annotations
@@ -15,9 +19,11 @@ import enum
 from dataclasses import dataclass, field
 from typing import Sequence, Union
 
+import numpy as np
+
 from .lsn import Lsn
 from .schema import ReplicatedTableSchema, TableId
-from .table_row import PartialTableRow, TableRow
+from .table_row import ColumnarBatch, PartialTableRow, TableRow
 
 
 @dataclass(frozen=True, slots=True, order=True)
@@ -137,9 +143,104 @@ class SchemaChangeEvent:
     new_schema: ReplicatedTableSchema | None  # None = table dropped
 
 
+class DecodedBatchEvent:
+    """Device-path event: a contiguous same-table run of changes decoded on
+    device into columnar form. `change_types[i]` and `tx_ordinals[i]` /
+    `commit_lsns[i]` give each row its identity in the WAL order.
+
+    `batch` / `old_batch` resolve lazily: the assembler hands the event an
+    in-flight device decode (`pending`, an object with `.result()`), so the
+    device works and the result streams back to the host while the apply
+    loop keeps reading WAL — the decode completes inside the destination
+    write that consumes it (the software-pipelining analogue of the
+    reference's one-in-flight flush, apply.rs:1956-2023).
+
+    Old-tuple identity (reference codec/event.rs:28-50): `old_rows[j]` is
+    the row index whose update carried an old/key tuple (stored as row j of
+    `old_batch`); `old_is_key[j]` distinguishes 'K' key tuples from 'O'
+    full tuples. `delete_is_key[i]` is True when DELETE row i carried a 'K'
+    tuple (identity columns only) rather than a full 'O' old row.
+    """
+
+    __slots__ = ("start_lsn", "commit_lsn", "schema", "change_types",
+                 "commit_lsns", "tx_ordinals", "old_rows", "old_is_key",
+                 "delete_is_key", "_batch", "_pending", "_old_batch",
+                 "_old_pending")
+
+    def __init__(self, start_lsn: Lsn, commit_lsn: Lsn,
+                 schema: ReplicatedTableSchema, *,
+                 change_types: np.ndarray, commit_lsns: np.ndarray,
+                 tx_ordinals: np.ndarray,
+                 batch: ColumnarBatch | None = None, pending=None,
+                 old_batch: ColumnarBatch | None = None, old_pending=None,
+                 old_rows: np.ndarray | None = None,
+                 old_is_key: np.ndarray | None = None,
+                 delete_is_key: np.ndarray | None = None):
+        if batch is None and pending is None:
+            raise ValueError("DecodedBatchEvent needs batch or pending")
+        self.start_lsn = start_lsn
+        self.commit_lsn = commit_lsn
+        self.schema = schema
+        self.change_types = change_types
+        self.commit_lsns = commit_lsns
+        self.tx_ordinals = tx_ordinals
+        self.old_rows = old_rows if old_rows is not None \
+            else np.zeros(0, dtype=np.int64)
+        self.old_is_key = old_is_key if old_is_key is not None \
+            else np.zeros(0, dtype=np.bool_)
+        self.delete_is_key = delete_is_key
+        self._batch = batch
+        self._pending = pending
+        self._old_batch = old_batch
+        self._old_pending = old_pending
+
+    @property
+    def batch(self) -> ColumnarBatch:
+        if self._batch is None:
+            self._batch = self._pending.result()
+            self._pending = None
+            surv = getattr(self._batch, "source_rows", None)
+            if surv is not None:
+                # fused publication row filter: the decode compacted the
+                # rows, so the per-row identity arrays compact in lockstep
+                # the moment the batch resolves. Consumers read these
+                # arrays only alongside the batch (CoalescedBatch /
+                # expand_batch_events both resolve `batch` first);
+                # event_size_hint deliberately reads the pre-filter arrays
+                # — an overestimate, never a forced decode.
+                self.change_types = self.change_types[surv]
+                self.commit_lsns = np.asarray(self.commit_lsns)[surv]
+                self.tx_ordinals = np.asarray(self.tx_ordinals)[surv]
+        return self._batch
+
+    @property
+    def old_batch(self) -> ColumnarBatch | None:
+        if self._old_batch is None and self._old_pending is not None:
+            self._old_batch = self._old_pending.result()
+            self._old_pending = None
+        return self._old_batch
+
+    def abandon(self) -> None:
+        """Discard an event that will never be consumed (a hard-killed
+        worker's flushed-but-undelivered write window): release the
+        pending decode's pooled resources (staging arena, window slot,
+        admission ticket) without paying the fetch. Resolved events
+        already returned them; handles without an abandon hook (the
+        serial `_PendingDecode`) hold no pooled resources."""
+        for pending in (self._pending, self._old_pending):
+            ab = getattr(pending, "abandon", None)
+            if ab is not None:
+                ab()
+        self._pending = None
+        self._old_pending = None
+
+    def __len__(self) -> int:
+        return len(self.change_types)
+
+
 Event = Union[
     BeginEvent, CommitEvent, RelationEvent, InsertEvent, UpdateEvent,
-    DeleteEvent, TruncateEvent, SchemaChangeEvent,
+    DeleteEvent, TruncateEvent, SchemaChangeEvent, DecodedBatchEvent,
 ]
 
 ROW_EVENT_TYPES = (InsertEvent, UpdateEvent, DeleteEvent)
@@ -155,4 +256,10 @@ def event_size_hint(e: Event) -> int:
         return base
     if isinstance(e, DeleteEvent):
         return 64 + e.old_row.size_hint()
+    if isinstance(e, DecodedBatchEvent):
+        # don't force a lazy in-flight decode just for accounting
+        base = 64 + e.change_types.nbytes + 16 * len(e)
+        if e._batch is not None:
+            base += e._batch.size_hint()
+        return base
     return 64

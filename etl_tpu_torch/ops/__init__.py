@@ -1,2 +1,2 @@
 """The GPU decode engine: staging, the parse-and-pack kernel and its
-plain version, and the DeviceDecoder."""
+plain version, the DeviceDecoder and the pipelined decode scheduler."""

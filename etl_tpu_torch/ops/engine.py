@@ -32,6 +32,14 @@ float columns; a postfix program deeper than its stack) applies host-side
 after an unfiltered decode (`CompiledRowFilter.host_keep`), with the same
 result.
 
+The serial `decode`/`decode_async` run the two stages back to back;
+`ops/pipeline.py` runs them on a worker thread with a CUDA stream of its
+own: `_pack_stage` (the host pack, into a staging arena's pinned buffers
+where the pipeline leases one) and `_dispatch_stage` (uploads, the
+launch, the fetch of the words or of the keep mask and count, all on the
+current stream, which `_PendingDecode` keeps: a filtered decode's
+count-sized second fetch runs on it too, ordered after the kernel).
+
 The packing uses the EXACT specs of each batch: the reference's canonical
 layouts (program_store.canonical_plan) only share compiled programs, and
 the kernel takes its specs as a runtime descriptor table, so there is
@@ -45,6 +53,7 @@ is no fallback: no card, a failed build or a failed launch raises.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Any
 
@@ -60,11 +69,16 @@ from ..models.table_row import (Column, ColumnarBatch, TextArray, _to_dense,
                                 dense_dtype)
 from ..postgres.codec.copy_text import unescape_copy_field
 from ..postgres.codec.text import parse_cell_text
+from ..telemetry.metrics import (ETL_DECODE_DEVICE_SECONDS_TOTAL,
+                                 ETL_DECODE_KERNEL_SECONDS_TOTAL,
+                                 ETL_DECODE_ROUTED_DEVICE_ROWS_TOTAL,
+                                 ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL,
+                                 registry)
 from . import decode_kernel
 from .bitpack import (layout_for_specs, saturation_width, unpack_host,
                       unpack_keep_mask)
 from .predicate import RowFilterError, compile_row_filter
-from .staging import StagedBatch, bucket_width, slice_rows
+from .staging import ArenaLease, StagedBatch, bucket_width, slice_rows
 
 # kinds parsed on device; everything else is host-object
 DEVICE_KINDS = frozenset({
@@ -108,6 +122,15 @@ _TORCH_DTYPE = {np.dtype(np.uint8): torch.uint8,
 
 def round_up_even(n: int) -> int:
     return (n + 1) & ~1
+
+
+def accelerator_backend(device: str | torch.device) -> bool:
+    """True when decoders on `device` run on a card (CUDA). Gates
+    policies that only pay off with a device across the transfer link:
+    backlog mega-batching grows seals toward device-size batches, which
+    on the CPU's plain versions only makes each batch larger and
+    slower."""
+    return torch.device(device).type == "cuda"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,36 +178,47 @@ class _PinnedPool:
     """Reusable page-locked host buffers keyed by (shape, dtype): pinning
     is a slow CUDA call, and a steady stream reuses a handful of
     shapes. A buffer returns to the pool when the decode that used it has
-    completed (its D2H event has fired)."""
+    completed (its D2H event has fired). Under the decode pipeline the
+    worker thread takes buffers and the consumer thread gives them back,
+    so a lock guards the free lists."""
 
     def __init__(self, max_per_key: int = 4):
         self.max_per_key = max_per_key
+        self._lock = threading.Lock()
         self._free: dict[tuple, list[torch.Tensor]] = {}
 
     def take(self, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
-        free = self._free.get((tuple(shape), dtype))
-        if free:
-            return free.pop()
+        with self._lock:
+            free = self._free.get((tuple(shape), dtype))
+            if free:
+                return free.pop()
         return torch.empty(shape, dtype=dtype, pin_memory=True)
 
     def give_back(self, bufs) -> None:
-        for b in bufs:
-            free = self._free.setdefault((tuple(b.shape), b.dtype), [])
-            if len(free) < self.max_per_key:
-                free.append(b)
+        with self._lock:
+            for b in bufs:
+                free = self._free.setdefault((tuple(b.shape), b.dtype), [])
+                if len(free) < self.max_per_key:
+                    free.append(b)
 
 
 @dataclasses.dataclass
 class _Packed:
-    """Output of the pack stage: the host byte matrix and lengths, whether
-    they are nibble-packed, the rows the nibble packer flagged, and the
-    pinned buffers (on CUDA) to return once the decode completes."""
+    """Output of the pack stage: the host byte matrix and lengths (pinned
+    on CUDA), whether they are nibble-packed, the rows the
+    nibble packer flagged, the pinned buffers of the decoder's own pool to
+    return once the decode completes (an arena's go back with its lease),
+    and for a fused-filter batch the filter and its row disposition
+    vector; `pack_s` is the stage's host time."""
 
     bmat: np.ndarray
     lengths: np.ndarray
     nibble: bool
     bad_rows: np.ndarray | None
     pinned: tuple = ()
+    pred: Any = None
+    row_flags: np.ndarray | None = None
+    pack_s: float = 0.0
 
 
 @dataclasses.dataclass
@@ -214,16 +248,20 @@ class _PendingDecode:
     the CPU the plain version's run) and assemble on the host clock, and
     on CUDA h2d, kernel and d2h (plus d2h_words for a filtered decode)
     from the stream's events, `kernel_ms` bracketing the launches alone —
-    and `fetched_bytes`, the bytes of results brought from the device."""
+    and `fetched_bytes`, the bytes of results brought from the device.
+    `stream` is the CUDA stream the decode was dispatched on (None on the
+    CPU): the filtered second fetch is enqueued there, whichever thread
+    completes the decode."""
 
     __slots__ = ("_decoder", "_staged", "_specs", "_packed", "_words",
                  "_events", "_pack_s", "_launch_s", "_filtered", "_done",
-                 "timings")
+                 "stream", "timings")
 
     def __init__(self, decoder: "DeviceDecoder", staged: StagedBatch,
                  specs: tuple, packed: _Packed | None, words,
                  pack_s: float = 0.0, events: tuple = (),
-                 filtered: _Filtered | None = None, launch_s: float = 0.0):
+                 filtered: _Filtered | None = None, launch_s: float = 0.0,
+                 stream=None):
         self._decoder = decoder
         self._staged = staged
         self._specs = specs
@@ -232,6 +270,7 @@ class _PendingDecode:
         self._pack_s = pack_s
         self._launch_s = launch_s
         self._events = events  # CUDA: before H2D, after H2D, kernel, D2H
+        self.stream = stream
         self._filtered = filtered
         self._done: ColumnarBatch | None = None
         self.timings: dict | None = None
@@ -333,22 +372,29 @@ class DeviceDecoder:
                 and all(w % 2 == 0 and w <= 255 for w in widths)
                 and len(self._dense) > 0)
 
-    def _pack_host(self, staged: StagedBatch,
-                   widths: tuple[int, ...]) -> _Packed:
+    def _pack_host(self, staged: StagedBatch, widths: tuple[int, ...],
+                   arena: ArenaLease | None = None) -> _Packed:
         """Gather all dense fields into one byte matrix: nibble-packed C
         path (halves the upload) when the column mix allows, raw C pass
         otherwise, numpy for fields wider than the u8 lengths allow. On
-        CUDA the buffers are pinned, so the upload can run async."""
+        CUDA the buffers are pinned, so the upload can run async. With an
+        `arena` the buffers come from its lease (returned when the
+        pipeline releases it), else from the decoder's pinned pool (on
+        CUDA) or fresh (on the CPU)."""
         from ..native import pack_bmat, pack_bmat_nibble
 
         R = staged.row_capacity
         cols = [s.index for s in self._dense]
         pinned: list[torch.Tensor] = []
+        cuda = self.device.type == "cuda"
 
         def buf(shape, dtype):
-            if self.device.type != "cuda":
+            tdtype = _TORCH_DTYPE[np.dtype(dtype)]
+            if arena is not None:
+                return arena.take(shape, tdtype, pinned=cuda).numpy()
+            if not cuda:
                 return np.empty(shape, dtype=dtype)
-            t = self._pinned.take(shape, _TORCH_DTYPE[np.dtype(dtype)])
+            t = self._pinned.take(shape, tdtype)
             pinned.append(t)
             return t.numpy()
 
@@ -442,22 +488,35 @@ class DeviceDecoder:
         flags[:n][force] = 2
         return flags
 
-    def _dispatch(self, staged: StagedBatch, specs: tuple) -> _PendingDecode:
-        """Pack, then start the device work and return the in-flight
-        handle. CUDA: the kernel wrapper's host work first (descriptors,
-        the walk, outputs, the look-back's status buffer: `prepare_*`),
-        then non-blocking H2D from pinned buffers, the launch alone
-        between two events on the current stream, non-blocking D2H into a
-        pinned buffer, and an event for `_PendingDecode.result()` to wait
-        on. A fused-filter dispatch uploads its row flags too and fetches
-        only the keep mask and the survivor count here."""
+    def _pack_stage(self, staged: StagedBatch, specs: tuple,
+                    arena: ArenaLease | None = None) -> _Packed:
+        """Stage 1: the host gather of all dense fields (into `arena`'s
+        buffers where given) and, for a fused-filter batch, its row
+        disposition vector. Host work only (numpy and the C packers):
+        safe on any thread."""
         pred = self._device_filter_for(staged)
         t0 = time.perf_counter()
         widths = tuple(w for _, _, w, _ in specs)
-        packed = self._pack_host(staged, widths)
-        flags = None if pred is None \
-            else self._row_flags(staged, specs, pred, packed.bad_rows)
-        pack_s = time.perf_counter() - t0
+        packed = self._pack_host(staged, widths, arena)
+        if pred is not None:
+            packed.pred = pred
+            packed.row_flags = self._row_flags(staged, specs, pred,
+                                               packed.bad_rows)
+        packed.pack_s = time.perf_counter() - t0
+        return packed
+
+    def _dispatch_stage(self, staged: StagedBatch, specs: tuple,
+                        packed: _Packed) -> _PendingDecode:
+        """Stage 2: start the device work on the packed inputs and return
+        the in-flight handle. CUDA: the kernel wrapper's host work first
+        (descriptors, the walk, outputs, the look-back's status buffer:
+        `prepare_*`), then non-blocking H2D from pinned buffers, the
+        launch alone between two events on the current stream,
+        non-blocking D2H into a pinned buffer, and an event for
+        `_PendingDecode.result()` to wait on. A fused-filter dispatch
+        uploads its row flags too and fetches only the keep mask and the
+        survivor count here."""
+        pred, flags, pack_s = packed.pred, packed.row_flags, packed.pack_s
         bmat_h = torch.from_numpy(packed.bmat)
         lengths_h = torch.from_numpy(packed.lengths)
         if self.device.type == "cpu":
@@ -510,7 +569,8 @@ class DeviceDecoder:
             ev[3].record(stream)
             packed.pinned = packed.pinned + (words_h,)
             return _PendingDecode(self, staged, specs, packed, words_h,
-                                  pack_s, ev, launch_s=launch_s)
+                                  pack_s, ev, launch_s=launch_s,
+                                  stream=stream)
         words_d, mask_d, counts_d = out
         mask_h = self._pinned.take(tuple(mask_d.shape), torch.int32)
         counts_h = self._pinned.take((1,), torch.int32)
@@ -520,7 +580,7 @@ class DeviceDecoder:
         packed.pinned = packed.pinned + (mask_h, counts_h)
         return _PendingDecode(self, staged, specs, packed, None, pack_s, ev,
                               _Filtered(pred, flags, words_d, mask_h,
-                                        counts_h), launch_s)
+                                        counts_h), launch_s, stream)
 
     def _gather_text(self, staged: StagedBatch, spec: _ColSpec,
                      valid: np.ndarray) -> TextArray:
@@ -701,6 +761,13 @@ class DeviceDecoder:
                 batch.source_rows = surv
             p.timings["assemble_ms"] = (time.perf_counter() - t0) * 1e3
         p.timings["fetched_bytes"] = fetched
+        if p._events:
+            registry.counter_inc(ETL_DECODE_KERNEL_SECONDS_TOTAL,
+                                 p.timings["kernel_ms"] / 1e3)
+            registry.counter_inc(ETL_DECODE_DEVICE_SECONDS_TOTAL, sum(
+                p.timings[k] for k in ("h2d_ms", "kernel_ms", "d2h_ms",
+                                       "d2h_words_ms")
+                if k in p.timings) / 1e3)
         if p._packed is not None:
             self._pinned.give_back(p._packed.pinned)
             p._packed = None
@@ -734,16 +801,20 @@ class DeviceDecoder:
             words_np = f.words[:, :Sb].numpy()
         else:
             # count-sized slice: only the survivors' words (and the
-            # slice's pad slack) cross the link
-            stream = torch.cuda.current_stream(f.words.device)
+            # slice's pad slack) cross the link. It runs on the dispatch
+            # stream, whichever thread completes the decode: ordered
+            # after the kernel there, and the words, allocated on that
+            # stream, are read on no other
+            stream = p.stream
             words_h = self._pinned.take((n_words, Sb), torch.int32)
             p._packed.pinned = p._packed.pinned + (words_h,)
             ev = tuple(torch.cuda.Event(enable_timing=True)
                        for _ in range(2))
-            ev[0].record(stream)
-            decode_kernel.copy_columns(words_h, f.words.view(torch.int32),
-                                       Sb)
-            ev[1].record(stream)
+            with torch.cuda.stream(stream):
+                ev[0].record(stream)
+                decode_kernel.copy_columns(words_h,
+                                           f.words.view(torch.int32), Sb)
+                ev[1].record(stream)
             ev[1].synchronize()
             p.timings["d2h_words_ms"] = ev[0].elapsed_time(ev[1])
             words_np = words_h.numpy().view(np.uint32)
@@ -774,14 +845,18 @@ class DeviceDecoder:
 
     def _route(self, staged: StagedBatch) -> tuple[str, tuple]:
         """Pick the decode path for this batch: ("device"|"oracle",
-        specs)."""
+        specs); the routed rows count in the routing counters."""
         cols = self.schema.replicated_columns
         if len(cols) != staged.n_cols:
             raise ValueError(
                 f"staged batch has {staged.n_cols} cols, schema expects "
                 f"{len(cols)}")
         if self._dense and staged.n_rows >= self.device_min_rows:
+            registry.counter_inc(ETL_DECODE_ROUTED_DEVICE_ROWS_TOTAL,
+                                 staged.n_rows)
             return "device", self._specs(staged, self._widths(staged))
+        registry.counter_inc(ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL,
+                             staged.n_rows)
         return "oracle", ()
 
     def decode_async(self, staged: StagedBatch) -> _PendingDecode:
@@ -790,7 +865,8 @@ class DeviceDecoder:
         mode, specs = self._route(staged)
         if mode == "oracle":
             return _PendingDecode(self, staged, (), None, None)
-        return self._dispatch(staged, specs)
+        return self._dispatch_stage(staged, specs,
+                                    self._pack_stage(staged, specs))
 
     def decode(self, staged: StagedBatch) -> ColumnarBatch:
         return self.decode_async(staged).result()

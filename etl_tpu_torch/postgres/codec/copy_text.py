@@ -11,7 +11,7 @@ in COPY text format a literal TAB/NEWLINE inside a value is always escaped
 0x0A bytes exclusively row terminators. Field split is therefore a plain
 `split(b"\\t")`; escape resolution runs per-field only when a backslash is
 present. Batch-level vectorized scanning for the device path lives in
-the reference's etl_tpu/ops/staging.py (not ported yet).
+etl_tpu_torch/ops/staging.py.
 """
 
 from __future__ import annotations

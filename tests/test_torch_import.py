@@ -33,8 +33,42 @@ PORT_MODULES = [
     "etl_tpu_torch.ops.bitpack", "etl_tpu_torch.ops.decode_kernel",
     "etl_tpu_torch.ops.engine", "etl_tpu_torch.ops.parsers",
     "etl_tpu_torch.ops.predicate",
-    "etl_tpu_torch.ops.staging", "etl_tpu_torch.ops.wal", "chip_smoke",
+    "etl_tpu_torch.ops.staging", "etl_tpu_torch.ops.wal",
+    "etl_tpu_torch.ops.pipeline", "etl_tpu_torch.models.table_state",
+    "etl_tpu_torch.config", "etl_tpu_torch.config.pipeline",
+    "etl_tpu_torch.retry", "etl_tpu_torch.postgres",
+    "etl_tpu_torch.postgres.source", "etl_tpu_torch.postgres.slots",
+    "etl_tpu_torch.postgres.fake", "etl_tpu_torch.postgres.migrations",
+    "etl_tpu_torch.store", "etl_tpu_torch.store.base",
+    "etl_tpu_torch.store.memory", "etl_tpu_torch.sharding",
+    "etl_tpu_torch.sharding.shardmap", "etl_tpu_torch.destinations",
+    "etl_tpu_torch.destinations.base", "etl_tpu_torch.destinations.util",
+    "etl_tpu_torch.destinations.memory", "etl_tpu_torch.telemetry",
+    "etl_tpu_torch.telemetry.metrics", "etl_tpu_torch.telemetry.egress",
+    "etl_tpu_torch.chaos", "etl_tpu_torch.chaos.failpoints",
+    "etl_tpu_torch.analysis", "etl_tpu_torch.analysis.annotations",
+    "etl_tpu_torch.runtime", "etl_tpu_torch.runtime.ack_window",
+    "etl_tpu_torch.runtime.apply_loop", "etl_tpu_torch.runtime.apply_worker",
+    "etl_tpu_torch.runtime.assembler", "etl_tpu_torch.runtime.backpressure",
+    "etl_tpu_torch.runtime.copy", "etl_tpu_torch.runtime.failpoints",
+    "etl_tpu_torch.runtime.pipeline", "etl_tpu_torch.runtime.shutdown",
+    "etl_tpu_torch.runtime.state", "etl_tpu_torch.runtime.table_cache",
+    "etl_tpu_torch.runtime.table_sync", "chip_smoke",
 ]
+
+
+def test_every_port_module_is_probed():
+    """The probe list names every module of the package: a module added
+    to the port cannot escape the import check."""
+    import pathlib
+
+    pkg = pathlib.Path(ROOT, "etl_tpu_torch")
+    found = set()
+    for path in pkg.rglob("*.py"):
+        rel = path.relative_to(ROOT).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        found.add(".".join(parts))
+    assert found <= set(PORT_MODULES), sorted(found - set(PORT_MODULES))
 
 _PROBE = """
 import importlib, sys

@@ -544,3 +544,112 @@ def test_fused_decoder_cuda_matches_cpu(cuda):
     assert (decode_kernel.fused_launches, decode_kernel.filter_launches,
             decode_kernel.compact_launches) \
         == (before[0] + 3, before[1], before[2])
+
+
+def _pgbench_staged(n_rows, seed):
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch
+
+    t = bench.pgbench_table(n_rows, seed)
+    return stage_wal_batch(*concat_payloads(bench.table_payloads(t)),
+                           4).staged
+
+
+def test_two_pipelines_on_two_threads(cuda):
+    """Two DecodePipelines, fed from two threads at once, one with
+    unfiltered and one with filtered pgbench batches: every result equals
+    serial decode() byte for byte, each worker dispatched on a stream of
+    its own (not the default stream), and the filtered pipeline's K2c
+    launches used that stream's own status buffer."""
+    import threading
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.pipeline import DecodePipeline
+    from etl_tpu_torch.ops.predicate import parse_row_filter
+
+    plain = DeviceDecoder(bench.make_schema(), device="cuda")
+    filt = DeviceDecoder(bench.make_schema().with_row_predicate(
+        parse_row_filter("bid <= 5")), device="cuda")
+    jobs = {"plain": (plain, [_pgbench_staged(40_000, s) for s in range(4)]),
+            "filt": (filt, [_pgbench_staged(40_000, 10 + s)
+                            for s in range(4)])}
+    pipes = {k: DecodePipeline(window=2, name=k) for k in jobs}
+    results: dict = {}
+    errors: list = []
+    start = threading.Barrier(2)
+
+    def feed(k):
+        try:
+            dec, staged = jobs[k]
+            start.wait()
+            handles = [pipes[k].submit(dec, s) for s in staged]
+            results[k] = [(h.result(), h._future.result()[0].stream)
+                          for h in handles]
+        except BaseException as e:  # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=feed, args=(k,)) for k in jobs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    for p in pipes.values():
+        p.close()
+    assert not errors, errors
+    for k, (dec, staged) in jobs.items():
+        cpu = DeviceDecoder(dec.schema, device="cpu")
+        for s, (got, _) in zip(staged, results[k]):
+            want = dec.decode(s)
+            assert bench.filtered_batches_identical(got, want) \
+                if k == "filt" else bench.batches_equal(got, want)
+            assert bench.batch_digest(got) == bench.batch_digest(
+                cpu.decode(s))
+    streams = {k: {st for _, st in results[k]} for k in results}
+    dev = torch.device("cuda", torch.cuda.current_device())
+    for k, sts in streams.items():
+        assert len(sts) == 1
+        (st,) = sts
+        assert st == pipes[k].streams[dev]
+        assert st.cuda_stream != torch.cuda.default_stream(dev).cuda_stream
+    assert streams["plain"] != streams["filt"]
+    (fst,) = streams["filt"]
+    assert (dev, fst.cuda_stream) in decode_kernel._scan_states
+
+
+def test_filtered_second_fetch_from_another_thread(cuda):
+    """A filtered decode dispatched on one thread's stream and completed
+    on another thread: the count-sized second fetch runs on the dispatch
+    stream, after the kernel, and returns the right words (the batch
+    equals the serial decode and the CPU decoder)."""
+    import threading
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.predicate import parse_row_filter
+
+    schema = bench.make_schema().with_row_predicate(
+        parse_row_filter("bid <= 5"))
+    dec = DeviceDecoder(schema, device="cuda")
+    staged = [_pgbench_staged(65_536, 20 + s) for s in range(3)]
+    side = torch.cuda.Stream()
+    pending = []
+
+    def dispatch():
+        with torch.cuda.stream(side):
+            for s in staged:
+                pending.append(dec.decode_async(s))
+
+    t = threading.Thread(target=dispatch)
+    t.start()
+    t.join(60)
+    assert len(pending) == 3
+    # this thread's current stream is the default stream, not `side`
+    assert torch.cuda.current_stream().cuda_stream != side.cuda_stream
+    cpu = DeviceDecoder(schema, device="cpu")
+    for p, s in zip(reversed(pending), reversed(staged)):
+        assert p.stream == side
+        got = p.result()
+        assert "d2h_words_ms" in p.timings
+        assert bench.filtered_batches_identical(got, cpu.decode(s))
+        assert bench.filtered_batches_identical(got, dec.decode(s))
