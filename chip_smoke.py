@@ -8,8 +8,9 @@ the final result line:
 
 1. device: the card's name, the device count, nvidia-smi's name and power
    limit. No CUDA device → exit 1.
-2. build: nvcc builds the decode kernel from csrc/ (build time and the
-   `-Xptxas -v` report are printed).
+2. build: nvcc builds the decode kernels and the egress render kernel
+   from csrc/, one nvcc a source, both started together (build times and
+   the `-Xptxas -v` reports are printed).
 3. kernel against its plain version, on the card, bit for bit: (a) the
    pgbench main-path specs at 262,144 rows, (b) every dense kind raw at
    65,536 rows, (c) the integer and temporal kinds nibble-packed at
@@ -83,6 +84,26 @@ the final result line:
    with its rows. Prints events/s (staged events), the keep share and the
    lag.
 
+9. device egress. (a) The render kernel (`egress_render`) against its
+   plain version (`egress.render_plain`), bit for bit on both outputs and
+   every row: (i) the pgbench main-path specs (nibble) at 262,144 rows,
+   timed three times, as K1 in (3a); (ii) every kind the `tsv` encoder
+   renders, raw, at 65,536 rows, with the `tsv` plan and the `json` plan
+   on the same words. Inputs are seeded: decoded junk, out-of-range and
+   edge texts (integer extremes, dates at year ends, TIMESTAMPTZ shifted
+   across midnight and year ends), rows of random bits, fields that
+   straddle two words. (b) `bench --egress` at 262,144 rows: each encoder
+   alone, and the TSV and NDJSON fast paths, which must use the device
+   text and equal the columnar oracle byte for byte. (c) Phase 7's CDC
+   stream into a destination that declares the `tsv` encoder and renders
+   every write's TSV body on the clock (`render_batch_tsv_fast`, minus the
+   HTTP insert): every body must equal `render_batch_tsv_columnar` on the
+   same batch, the render kernel must launch once per device run (as
+   often as K1), every device run's batch must carry device text and
+   every write of such batches use it, besides phase 7's checks. Prints
+   events/s, p50/p95 lag, the render and egress-fetch sums and the busy
+   share beside phase 7's.
+
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -95,6 +116,7 @@ import os
 import shutil
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -102,6 +124,7 @@ sys.path.insert(0, ROOT)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 OPS_PER_TEXT_BYTE = 4      # compare, subtract, multiply, add per byte parsed
+OPS_PER_RENDERED_BYTE = 4  # divide, modulo, add, select per byte rendered
 
 
 class SmokeFailure(Exception):
@@ -571,17 +594,20 @@ def held_main_path_ms(decoder, staged, specs, filtered: bool) -> dict:
 
 def _reset_launch_counts() -> None:
     from etl_tpu_torch.ops import decode_kernel as dk
+    from etl_tpu_torch.ops import egress_kernel as ek
 
     dk.launches = dk.filter_launches = dk.compact_launches = 0
-    dk.fused_launches = 0
+    dk.fused_launches = ek.launches = 0
 
 
 def _launch_counts() -> dict:
     from etl_tpu_torch.ops import decode_kernel as dk
+    from etl_tpu_torch.ops import egress_kernel as ek
 
     return {"k1_launches": dk.launches, "k2_launches": dk.filter_launches,
             "epilogue_launches": dk.compact_launches,
-            "k2c_launches": dk.fused_launches}
+            "k2c_launches": dk.fused_launches,
+            "egress_launches": ek.launches}
 
 
 def _stage_line(r: dict) -> str:
@@ -674,6 +700,157 @@ def runtime_phases(args) -> dict:
     return out
 
 
+def egress_case(name, specs, nibble, rows, pool, seed, encoders, runs=1):
+    """Phase 9(a) case: the render kernel against its plain version on the
+    card, on one set of seeded words, under each encoder's plan; returns
+    one record per encoder (times, bound, error)."""
+    import numpy as np
+    import torch
+
+    from etl_tpu_torch.ops import egress, egress_kernel
+    from etl_tpu_torch.testing import egress_words
+
+    words = egress_words(specs, pool, np.random.default_rng(seed), nibble)
+    words = words.view(torch.int32).repeat(1, -(-rows // pool))[:, :rows]
+    words_d = words.contiguous().cuda()
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    recs = []
+    for enc in encoders:
+        plan = egress.plan_for_specs(specs, enc)
+        got = egress_kernel.render(words_d, specs, plan)
+        torch.cuda.synchronize()
+        want = egress.render_plain(words_d, specs, plan)
+        torch.cuda.synchronize()
+        max_err = max(int((g.long() - w.long()).abs().max().item())
+                      for g, w in zip(got, want))
+        n_bad = int(sum(((g != w).reshape(rows, -1).any(dim=1))
+                        for g, w in zip(got, want)).count_nonzero().item())
+        check(max_err == 0, f"9a {name} {enc}: the render kernel differs "
+              f"from its plain version on {n_bad} of {rows} rows")
+
+        def fn():
+            return egress_kernel.render(words_d, specs, plan)
+
+        k_runs = time_runs(fn, runs, scratch.zero_)
+        k_ms = sorted(k_runs)[len(k_runs) // 2]
+        floor_ms = launch_floor_ms(scratch.zero_)
+        p_ms = time_ms(lambda: egress.render_plain(words_d, specs, plan), 3)
+        n_bytes = (words.numel() * 4 + rows * plan.total_width
+                   + rows * len(plan.slots) * 4)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = OPS_PER_RENDERED_BYTE * rows * plan.total_width \
+            / SCALAR_OPS_PER_S * 1e3
+        rec = {"case": f"{name} {enc}", "rows": rows, "nibble": nibble,
+               "encoder": enc,
+               "specs": [[c, k.name, w, bw] for c, k, w, bw in specs],
+               "rendered": [k.name for k in plan.kinds],
+               "max_abs_err": max_err, "ms": k_ms, "ms_runs": k_runs,
+               "plain_ms": p_ms, "bound_ms": max(bytes_ms, ops_ms),
+               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "bytes": n_bytes, "library_ms": None,
+               "launch_floor_ms": floor_ms}
+        print(f"  {name} {enc}: rows={rows} columns={len(plan.slots)} "
+              f"width={plan.total_width} bit-identical=yes "
+              f"kernel_ms={k_ms:.5f} plain_ms={p_ms:.3f} "
+              f"bound_ms={rec['bound_ms']:.5f} ({rec['bound_by']}, "
+              f"{n_bytes} B) launch_floor_ms={floor_ms:.5f} library_ms=null",
+              flush=True)
+        if runs > 1:
+            print(f"    kernel_ms over {runs} timings: {spread(k_runs)}",
+                  flush=True)
+        recs.append(rec)
+    return recs
+
+
+def egress_phase(args, main_specs, cdc: dict) -> dict:
+    """Phase 9: the render kernel against its plain version (a), the
+    encoders alone (b), and phase 7's CDC stream into a destination that
+    renders TSV with the device text (c), its launch counts set to 0
+    just before it and read just after. `cdc` is phase 7's result, which
+    (c) is printed beside."""
+    import asyncio
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.models.pgtypes import CellKind as K
+    from etl_tpu_torch.ops import egress, egress_kernel
+    from etl_tpu_torch.ops.bitpack import saturation_width
+
+    print("[9a] egress render kernel vs plain version", flush=True)
+    cases = egress_case("9a(i) pgbench", main_specs, True, bench.N_ROWS,
+                        16_384, args.seed + 40, [egress.ENCODER_TSV], runs=3)
+    widths = {K.BOOL: 4, K.I16: 8, K.I32: 12, K.U32: 12, K.I64: 20,
+              K.DATE: 16, K.TIMESTAMP: 32, K.TIMESTAMPTZ: 32}
+    kinds = [k for k in widths if k in egress.ENCODER_KINDS["tsv"]] * 2
+    specs = tuple((i, k, widths[k],
+                   (min(widths[k], saturation_width(k)) + 1) & ~1)
+                  for i, k in enumerate(kinds))
+    cases += egress_case("9a(ii) every tsv kind raw", specs, False, 65_536,
+                         4_096, args.seed + 41,
+                         [egress.ENCODER_TSV, egress.ENCODER_JSON])
+
+    print(f"[9b] encoders alone (bench --egress, {bench.N_ROWS} rows)",
+          flush=True)
+    eb = bench.run_egress(bench.N_ROWS)
+    print("  " + " ".join(f"{k}={v}" for k, v in eb.items()
+                          if k.endswith(("_per_sec", "_attached",
+                                         "_used_device", "_identical"))),
+          flush=True)
+    print(f"  parquet: {eb['parquet']}", flush=True)
+    for e in ("tsv", "json"):
+        t = eb[f"device_{e}_decode_timings"]
+        print(f"  {e} decode: " + " ".join(
+            f"{k}={v:.4f}" for k, v in t.items() if k.endswith("_ms"))
+            + f" fetched_bytes={t['fetched_bytes']}", flush=True)
+    check(eb["ok"], "bench --egress: a fast path did not use the device "
+          "text or differs from the columnar oracle")
+
+    print(f"[9c] CDC through the runtime into a TSV destination "
+          f"({args.cdc_events} events)", flush=True)
+    _reset_launch_counts()
+    r = asyncio.run(bench.run_table_streaming(
+        args.cdc_events, device="cuda", seed=args.seed + 1, tsv=True))
+    r.update(_launch_counts())
+    r["events_per_second"] = r["end_to_end_events_per_second"]
+    t = r["tsv"]
+    print(f"  events/s={r['events_per_second']:.0f} (phase 7: "
+          f"{cdc['events_per_second']:.0f}) lag_p50_ms={r['lag_p50_ms']:.2f} "
+          f"lag_p95_ms={r['lag_p95_ms']:.2f} (phase 7: "
+          f"{cdc['lag_p50_ms']:.2f} / {cdc['lag_p95_ms']:.2f}) "
+          f"device_busy_share={r['device_busy_share']:.5f} (phase 7: "
+          f"{cdc['device_busy_share']:.5f})", flush=True)
+    print(f"  launches: egress={r['egress_launches']} k1={r['k1_launches']} "
+          f"k2c={r['k2c_launches']} egress_s={r['egress_s']:.5f} "
+          f"d2h_egress_s={r['d2h_egress_s']:.5f} kernel_s="
+          f"{r['kernel_s']:.5f} device_s={r['device_s']:.4f} render_s="
+          f"{t['render_s']:.4f} (share {t['render_share']:.4f}) writes="
+          f"{t['writes']} device_writes={t['device_writes']} "
+          f"decoded_batches={t['decoded_batches']} device_batches="
+          f"{t['device_batches']} oracle_rows={r['oracle_rows']}",
+          flush=True)
+    print(f"  {_stage_line(r)} overlap_ratio={r['overlap_ratio']:.4f}",
+          flush=True)
+    print(f"  run sizes: {json.dumps(r['run_rows'])}", flush=True)
+    print(f"  after shutdown: {json.dumps(r['after_shutdown'])}", flush=True)
+    check(r["egress_launches"] > 0
+          and r["egress_launches"] == r["k1_launches"],
+          "the render kernel did not launch once per device run")
+    check(t["bodies_identical"], "a TSV body differs from "
+          "render_batch_tsv_columnar on the same batch")
+    check(t["device_runs_carried_text"] and t["used_device_when_carried"],
+          "a device run carried no device text, or a write did not use it")
+    check(r["count_ok"] and r["digest_ok"] and r["order_ok"]
+          and r["identity_ok"] and r["oracle_sample_ok"],
+          "delivered TSV-destination rows differ from the produced rows")
+    check(r["shutdown_ok"], "a decode thread, an admission ticket or a "
+          "tenant outlived shutdown")
+    print("  parity: every body == render_batch_tsv_columnar, the render "
+          "once per device run, device text used on every device write, "
+          "count/digest/order/identity/512 oracle rows as phase 7, clean "
+          "shutdown", flush=True)
+    return {"cases": cases, "encoders": eb, "cdc_tsv": r,
+            "launches": egress_kernel.launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--seed", type=int, default=7)
@@ -681,6 +858,7 @@ def main() -> int:
     ap.add_argument("--copy-rows", type=int, default=1_000_000)
     ap.add_argument("--cdc-events", type=int, default=500_000)
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -693,7 +871,7 @@ def main() -> int:
 
     from etl_tpu_torch import bench, convert
     from etl_tpu_torch.models.pgtypes import CellKind as K
-    from etl_tpu_torch.ops import decode_kernel
+    from etl_tpu_torch.ops import decode_kernel, egress_kernel
     from etl_tpu_torch.ops.bitpack import saturation_width
     from etl_tpu_torch.ops.engine import DeviceDecoder
     from etl_tpu_torch.ops.predicate import (compile_row_filter,
@@ -710,11 +888,17 @@ def main() -> int:
     # -- 2. build ------------------------------------------------------------
     print("[2] build", flush=True)
     shutil.rmtree(decode_kernel.BUILD_DIR, ignore_errors=True)
-    decode_kernel.load()
-    print(f"  nvcc build of {os.path.relpath(decode_kernel.SOURCE, ROOT)}: "
-          f"{decode_kernel.build_seconds:.2f} s", flush=True)
-    for line in decode_kernel.build_log.strip().splitlines():
-        print(f"  ptxas: {line}", flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:  # one nvcc a source, together
+        for f in [pool.submit(lib.load) for lib in (decode_kernel,
+                                                     egress_kernel)]:
+            f.result()
+    print(f"  both built in {time.perf_counter() - t0:.2f} s", flush=True)
+    for lib in (decode_kernel, egress_kernel):
+        print(f"  nvcc build of {os.path.relpath(lib.SOURCE, ROOT)}: "
+              f"{lib.build_seconds:.2f} s", flush=True)
+        for line in lib.build_log.strip().splitlines():
+            print(f"  ptxas: {line}", flush=True)
 
     # -- 3. kernel vs plain version ------------------------------------------
     print("[3] kernel vs plain version", flush=True)
@@ -949,6 +1133,8 @@ def main() -> int:
           f"{fsplit['launch_ms']:.5f} (host)", flush=True)
 
     runtime = runtime_phases(args)
+    eph = egress_phase(args, main_specs, runtime["7_cdc"])
+    runtime["9_cdc_tsv"] = eph["cdc_tsv"]
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs
@@ -1013,6 +1199,30 @@ def main() -> int:
         "null: no PyTorch call parses, filters and packs the fields")
     kernels[3]["library_ms_note"] = (
         "words[:, keep] after the plain K2, as the epilogue's")
+    ecase = eph["cases"][0]
+    cdc_tsv = eph["cdc_tsv"]
+    kernels.append({
+        "name": "egress_render", "route": "cuda",
+        "source": "etl_tpu_torch/csrc/egress_render.cu",
+        "replaces": "etl_tpu/ops/egress.py:340",
+        "launches": cdc_tsv["egress_launches"],
+        "runtime_launches": {phase: res["egress_launches"]
+                             for phase, res in runtime.items()},
+        "max_abs_err": max(c["max_abs_err"] for c in eph["cases"]),
+        "ms": ecase["ms"], "plain_ms": ecase["plain_ms"],
+        "bound_ms": ecase["bound_ms"], "bound_by": ecase["bound_by"],
+        "library_ms": None,
+        "library_ms_note": "null: no PyTorch call renders integers or "
+                           "dates as decimal text",
+        "launch_floor_ms": ecase["launch_floor_ms"],
+        "ms_runs": ecase["ms_runs"], "cases": eph["cases"],
+        "encoders": eph["encoders"],
+        "main_path": {key: cdc_tsv[key] for key in (
+            "events_per_second", "lag_p50_ms", "lag_p95_ms",
+            "device_busy_share", "egress_s", "d2h_egress_s", "kernel_s",
+            "device_s", "k1_launches", "egress_launches", "tsv")}})
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -40,6 +40,15 @@ JSON line (rows/s and MiB/s; events/s and p50/p95 lag, the stage sums,
 the run sizes and the device busy share) and exits 0 only when every
 check holds: delivered count and digest, order, identity, a 512-row
 oracle sample, and for the copy that every chunk took the device route.
+
+    python -m etl_tpu_torch.bench --egress [--rows N]
+
+runs the reference's `--egress --device` mode (`harness.run_egress`) at
+262,144 rows: rows/s and bytes/s of the BigQuery proto, ClickHouse TSV
+and Snowpipe NDJSON encoders, and of the TSV and NDJSON fast paths on
+batches whose decode launched the egress render kernel. It exits 0 only
+when both fast paths used the device text and equal the columnar oracle
+byte for byte. Parquet is left out: its writer needs pyarrow.
 """
 
 from __future__ import annotations
@@ -50,7 +59,6 @@ import json
 import random
 import subprocess
 import sys
-import threading
 import time
 
 import numpy as np
@@ -464,6 +472,10 @@ def _counting_destination():
     the decode stays on the measured path), counts its rows, records the
     arrival time of each commit LSN it carries, and keeps the batches for
     the checks made after the measured window."""
+    return _counting_class()()
+
+
+def _counting_class():
     from .destinations.base import Destination, WriteAck
     from .models.event import DecodedBatchEvent
 
@@ -504,7 +516,99 @@ def _counting_destination():
         async def truncate_table(self, table_id):
             return None
 
-    return CountingDestination()
+    return CountingDestination
+
+
+def _tsv_destination():
+    """The counting destination as a ClickHouse-shaped sink that declares
+    the `tsv` encoder: each coalesced batch of a CDC write is rendered to
+    its TSV body on the clock, as `ClickHouseDestination.
+    write_event_batches` does (`render_batch_tsv_fast` over the batch and
+    its device-rendered text), minus the HTTP insert, with no fallback
+    around it; rows and arrivals count after the render. The bodies, and
+    each decoded event's row count and whether it carried device text,
+    are kept for the checks made after the measured window."""
+    from .destinations.base import WriteAck, sequential_batch_program
+    from .destinations.clickhouse import render_batch_tsv_fast
+    from .destinations.util import (change_type_batch, count_egress_write,
+                                    sequence_number_buffer)
+    from .models.event import DecodedBatchEvent
+
+    class TsvDestination(_counting_class()):
+        egress_encoder = "tsv"
+
+        def __init__(self):
+            super().__init__()
+            self.writes: list = []  # (CoalescedBatch, body, used_device)
+            self.decoded: list = []  # (rows, carried device text)
+            self.render_s = 0.0
+
+        async def write_event_batches(self, events):
+            for e in events:
+                if isinstance(e, DecodedBatchEvent):
+                    self.decoded.append((e.batch.num_rows,
+                                         e.batch.device_egress is not None))
+            for op in sequential_batch_program(events):
+                if op[0] == "rows":
+                    raise RuntimeError("a CDC write fell to the row path")
+                if op[0] != "batch":
+                    self.other_events += 1
+                    continue
+                _, schema, cb = op
+                t0 = time.perf_counter()
+                # the row path renders with_ordinal(0): a constant key
+                seq_buf = sequence_number_buffer(
+                    cb.commit_lsns, cb.tx_ordinals,
+                    np.zeros(cb.num_rows, dtype=np.uint64))
+                body, used = render_batch_tsv_fast(
+                    schema, cb.batch, change_type_batch(cb.change_types),
+                    seq_buf, egress=cb.egress)
+                count_egress_write(used)
+                now = time.perf_counter()
+                self.render_s += now - t0
+                self.writes.append((cb, body, used))
+                self.rows_delivered += cb.num_rows
+                self.events.append((cb.batch, cb.change_types,
+                                    np.asarray(cb.commit_lsns),
+                                    np.asarray(cb.tx_ordinals)))
+                for lsn in np.unique(cb.commit_lsns).tolist():
+                    self.arrivals.append((int(lsn), now))
+            return WriteAck.durable()
+
+    return TsvDestination()
+
+
+def tsv_checks(dest, device_min_rows: int) -> dict:
+    """The checks of a TSV destination's writes: every body equals
+    `render_batch_tsv_columnar` on the same batch and metadata; every
+    decoded batch of a device run (at least `device_min_rows` rows)
+    carried device-rendered text and every oracle-routed one none; and a
+    write used the device text exactly when all its batches carried it."""
+    from .destinations.clickhouse import render_batch_tsv_columnar
+    from .destinations.util import change_type_batch, sequence_number_batch
+
+    identical = True
+    for cb, body, _ in dest.writes:
+        labels = [t.decode() for t in
+                  change_type_batch(cb.change_types).tolist()]
+        seqs = [q.decode() for q in sequence_number_batch(
+            cb.commit_lsns, cb.tx_ordinals,
+            np.zeros(cb.num_rows, dtype=np.uint64))]
+        identical &= body == render_batch_tsv_columnar(cb.schema, cb.batch,
+                                                       labels, seqs)
+    return {
+        "bodies_identical": bool(identical),
+        "device_runs_carried_text": all(
+            carried == (rows >= device_min_rows)
+            for rows, carried in dest.decoded),
+        "used_device_when_carried": all(
+            used == (cb.egress is not None) for cb, _, used in dest.writes),
+        "writes": len(dest.writes),
+        "device_writes": sum(used for _, _, used in dest.writes),
+        "decoded_batches": len(dest.decoded),
+        "device_batches": sum(c for _, c in dest.decoded),
+        "render_s": dest.render_s,
+    }
 
 
 def _pipeline(db, dest, device: str, max_fill_ms: int = 40):
@@ -529,18 +633,21 @@ def _pipeline(db, dest, device: str, max_fill_ms: int = 40):
 
 def _counters() -> dict:
     """Snapshot of the runtime's decode counters and stage sums."""
-    from .ops import decode_kernel
+    from .ops import decode_kernel, egress_kernel
     from .telemetry import metrics as m
 
     r = m.registry
     out = {"k1_launches": decode_kernel.launches,
            "k2c_launches": decode_kernel.fused_launches,
            "k2_launches": decode_kernel.filter_launches,
-           "epilogue_launches": decode_kernel.compact_launches}
+           "epilogue_launches": decode_kernel.compact_launches,
+           "egress_launches": egress_kernel.launches}
     for key, name in (("device_rows", m.ETL_DECODE_ROUTED_DEVICE_ROWS_TOTAL),
                       ("oracle_rows", m.ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL),
                       ("device_s", m.ETL_DECODE_DEVICE_SECONDS_TOTAL),
                       ("kernel_s", m.ETL_DECODE_KERNEL_SECONDS_TOTAL),
+                      ("egress_s", m.ETL_EGRESS_RENDER_SECONDS_TOTAL),
+                      ("d2h_egress_s", m.ETL_EGRESS_FETCH_SECONDS_TOTAL),
                       ("overlap_s",
                        m.ETL_DECODE_PIPELINE_OVERLAP_SECONDS_TOTAL)):
         out[key] = r.get_counter(name)
@@ -663,8 +770,8 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
                               arrival_rate: int | None = None,
                               device: str = "cuda",
                               row_filter: str | None = None,
-                              seed: int = 8, warmup_events: int = 17_000
-                              ) -> dict:
+                              seed: int = 8, warmup_events: int = 17_000,
+                              tsv: bool = False) -> dict:
     """CDC throughput and end-to-end replication lag: the port of the
     reference's `harness.run_table_streaming` (its defaults: 500,000
     insert events, 500-row transactions, a 30 ms fill window) on the
@@ -675,8 +782,11 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
     produces as fast as possible. With `row_filter` the publication
     carries that filter and the walsender ships every row (offload mode,
     `server_row_filtering = False`): the client's fused filter keeps the
-    matching rows. Payloads are encoded before the window; warm-up
-    transactions (`warmup_events`, rows of other aids) run first.
+    matching rows. With `tsv` the destination is `_tsv_destination`,
+    which declares the `tsv` encoder and renders every write's TSV body on
+    the clock: each device run then also launches the egress render
+    kernel. Payloads are encoded before the window; warm-up transactions
+    (`warmup_events`, rows of other aids) run first.
 
     Checks over the measured window: the delivered rows are exactly the
     produced rows (those matching the filter, with one), by count and by
@@ -684,8 +794,11 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
     with its (commit LSN, ordinal) in order, and the identity arrays of
     each event are compacted with its rows (each row's ordinal names the
     produced row it is); 512 sampled rows equal the CPU oracle's
-    decode."""
+    decode. With `tsv`: every body equals the columnar oracle's, device
+    runs carry device text and their writes use it, and the render kernel
+    launched once per device run (as often as K1)."""
     from .models.table_state import TableStateType
+    from .ops.engine import DeviceDecoder
     from .ops.pipeline import global_admission
     from .postgres.fake import FakeDatabase
 
@@ -702,7 +815,7 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
         row_filters = {PGBENCH_TID: (row_filter, lambda r: True)}
         db.server_row_filtering = False
     db.create_publication("pub", [PGBENCH_TID], row_filters=row_filters)
-    dest = _counting_destination()
+    dest = _tsv_destination() if tsv else _counting_destination()
     pipeline, store = _pipeline(db, dest, device, max_fill_ms)
     await pipeline.start()
     await asyncio.wait_for(
@@ -729,6 +842,10 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
         await asyncio.wait_for(wait_rows(int(warm_keep[:w].sum())), 120)
     dest.events.clear()
     dest.arrivals.clear()
+    if tsv:
+        dest.writes.clear()
+        dest.decoded.clear()
+        dest.render_s = 0.0
     base = dest.rows_delivered
     want_rows = int(keep.sum())
     commit_times: dict = {}
@@ -831,19 +948,31 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
                           and not out["after_shutdown"]["admission_tenants"])
     out["ok"] = bool(out["count_ok"] and out["digest_ok"] and out["order_ok"]
                      and out["identity_ok"] and out["oracle_sample_ok"])
+    if tsv:
+        out.update(egress_launches=int(d["egress_launches"]),
+                   egress_s=d["egress_s"], d2h_egress_s=d["d2h_egress_s"],
+                   tsv=tsv_checks(dest, DeviceDecoder.DEVICE_MIN_ROWS))
+        out["tsv"]["render_share"] = out["tsv"]["render_s"] / window
+        out["ok"] = bool(
+            out["ok"] and out["tsv"]["bodies_identical"]
+            and out["tsv"]["device_runs_carried_text"]
+            and out["tsv"]["used_device_when_carried"]
+            and out["egress_launches"] == out["k1_launches"]
+            and (device != "cuda" or out["egress_launches"] > 0))
     return out
 
 
 def _pipeline_threads(timeout_s: float) -> list:
-    """Names of decode-pipeline worker threads still alive, after giving
-    closed pipelines up to `timeout_s` to let their workers exit."""
+    """The port's decode-pipeline worker threads still alive (`describe_
+    thread` of each), after giving closed pipelines up to `timeout_s` to
+    let their workers exit."""
+    from .ops.pipeline import describe_thread, worker_threads
+
     deadline = time.monotonic() + timeout_s
     while True:
-        names = [th.name for th in threading.enumerate()
-                 if th.name.startswith("etl-")
-                 and th.name.endswith("-pipeline")]
-        if not names or time.monotonic() >= deadline:
-            return names
+        left = worker_threads()
+        if not left or time.monotonic() >= deadline:
+            return [describe_thread(th) for th in left]
         time.sleep(0.01)
 
 
@@ -865,6 +994,146 @@ def _filter_truth(sql: str, t: dict) -> np.ndarray:
                       .host_keep(ColumnarBatch(schema, cols)), dtype=bool)
 
 
+def _egress_batch(n_rows: int, egress: str | None = None,
+                  device: str = "cuda"):
+    """The reference's `harness._egress_batch` on the port: a decoded
+    batch of the pgbench-CDC column mix (id INT8, bucket INT4, val FLOAT8,
+    note TEXT) through the real staging and decode path on `device`; with
+    `egress` the decode launches the render kernel and the batch carries
+    `device_egress`. Returns (schema, batch, the decode's timings)."""
+    from .models import (ColumnSchema, Oid, ReplicatedTableSchema, TableName,
+                         TableSchema)
+    from .ops.engine import DeviceDecoder
+    from .ops.wal import concat_payloads, stage_wal_batch
+    from .postgres.codec.pgoutput import encode_insert
+
+    tid = 16390
+    schema = ReplicatedTableSchema.with_all_columns(TableSchema(
+        tid, TableName("public", "bench_egress"),
+        (ColumnSchema("id", Oid.INT8, nullable=False, primary_key_ordinal=1),
+         ColumnSchema("bucket", Oid.INT4),
+         ColumnSchema("val", Oid.FLOAT8),
+         ColumnSchema("note", Oid.TEXT))))
+    payloads = [encode_insert(tid, [str(i).encode(), str(i % 97).encode(),
+                                    (b"%d.5" % i), b"note-%d" % i])
+                for i in range(n_rows)]
+    staged = stage_wal_batch(*concat_payloads(payloads), 4).staged
+    decoder = DeviceDecoder(schema, device=device, egress=egress)
+    decoder.decode(staged)  # warm-up: descriptors, pinned buffers
+    pending = decoder.decode_async(staged)
+    return schema, pending.result(), pending.timings
+
+
+def run_egress(n_rows: int = N_ROWS, n_iters: int = 3,
+               device: str = "cuda") -> dict:
+    """Each destination encoder in isolation (ColumnarBatch → wire bytes):
+    the port of the reference's `harness.run_egress(device=True)`. Rows/s
+    and bytes/s of the BigQuery proto encoder, the ClickHouse TSV and the
+    Snowpipe NDJSON columnar renderers on a batch decoded without egress,
+    then of the TSV and NDJSON fast paths on batches decoded with it
+    (`device_{tsv,json}_*`: the buffers attached, the fast path used them,
+    its bytes equal the columnar oracle's) and of the same fast paths on
+    the host twins (`host_{tsv,json}_*`). Parquet is not measured: it
+    needs pyarrow. Min over `n_iters` of the host clock."""
+    from .destinations import bq_proto
+    from .destinations.clickhouse import (render_batch_tsv_columnar,
+                                          render_batch_tsv_fast)
+    from .destinations.snowflake import (encode_batch_ndjson,
+                                         encode_batch_ndjson_fast,
+                                         offset_token_batch)
+    from .destinations.util import (change_type_batch, sequence_number_batch,
+                                    sequence_number_buffer)
+    from .ops.egress import ENCODER_JSON, ENCODER_TSV
+
+    schema, batch, _ = _egress_batch(n_rows, device=device)
+    cts = np.zeros(n_rows, dtype=np.int64)
+    lsns = np.arange(n_rows, dtype=np.uint64) + (1 << 40)
+    txos = np.arange(n_rows, dtype=np.uint64)
+    ords = np.arange(n_rows, dtype=np.uint64)
+
+    def timed(fn):
+        times, nbytes = [], 0
+        for _ in range(n_iters):
+            t0 = time.perf_counter()
+            nbytes = fn()
+            times.append(time.perf_counter() - t0)
+        dt = min(times)
+        return round(n_rows / dt), round(nbytes / dt)
+
+    def bq():
+        labels = change_type_batch(cts).tolist()
+        seqs = sequence_number_batch(lsns, txos, ords)
+        return sum(len(r) for r in bq_proto.encode_batch(schema, batch,
+                                                         labels, seqs))
+
+    def clickhouse():
+        labels = [t.decode() for t in change_type_batch(cts).tolist()]
+        seqs = [q.decode() for q in sequence_number_batch(lsns, txos, ords)]
+        return len(render_batch_tsv_columnar(schema, batch, labels, seqs))
+
+    def snowpipe():
+        lines = encode_batch_ndjson(schema, batch, ["insert"] * n_rows,
+                                    offset_token_batch(lsns, txos))
+        return sum(len(ln) for ln in lines)
+
+    out: dict = {"mode": "egress", "rows": n_rows, "iters": n_iters,
+                 "device": device,
+                 "parquet": "not measured: the Parquet writer needs pyarrow"}
+    for name, fn in (("bq_proto", bq), ("clickhouse_tsv", clickhouse),
+                     ("snowpipe_ndjson", snowpipe)):
+        out[f"{name}_rows_per_sec"], out[f"{name}_bytes_per_sec"] = timed(fn)
+
+    seq_buf = sequence_number_buffer(lsns, txos, ords)
+    seq_strs = [q.decode() for q in sequence_number_batch(lsns, txos, ords)]
+    _, tsv_batch, tsv_timings = _egress_batch(n_rows, ENCODER_TSV, device)
+    dev_tsv = tsv_batch.device_egress
+    used = {}
+
+    def tsv():
+        body, used["tsv"] = render_batch_tsv_fast(
+            schema, tsv_batch, "UPSERT", seq_buf, egress=dev_tsv)
+        return len(body)
+
+    out["device_tsv_attached"] = dev_tsv is not None
+    out["device_tsv_rows_per_sec"], out["device_tsv_bytes_per_sec"] = \
+        timed(tsv)
+    # the same fast path on the host twins (no device text): what the
+    # device text buys the encoder
+    out["host_tsv_rows_per_sec"], out["host_tsv_bytes_per_sec"] = timed(
+        lambda: len(render_batch_tsv_fast(schema, tsv_batch, "UPSERT",
+                                          seq_buf)[0]))
+    out["device_tsv_used_device"] = used["tsv"]
+    out["device_tsv_identical"] = render_batch_tsv_fast(
+        schema, tsv_batch, "UPSERT", seq_buf, egress=dev_tsv)[0] \
+        == render_batch_tsv_columnar(schema, tsv_batch, "UPSERT", seq_strs)
+    out["device_tsv_decode_timings"] = tsv_timings
+
+    _, json_batch, json_timings = _egress_batch(n_rows, ENCODER_JSON, device)
+    dev_json = json_batch.device_egress
+    ops = ["insert"] * n_rows
+    seqs = offset_token_batch(lsns, txos)
+
+    def ndjson():
+        lines, used["json"] = encode_batch_ndjson_fast(
+            schema, json_batch, ops, seqs, egress=dev_json)
+        return sum(len(ln) for ln in lines)
+
+    out["device_json_attached"] = dev_json is not None
+    out["device_json_rows_per_sec"], out["device_json_bytes_per_sec"] = \
+        timed(ndjson)
+    out["host_json_rows_per_sec"], out["host_json_bytes_per_sec"] = timed(
+        lambda: sum(len(ln) for ln in encode_batch_ndjson_fast(
+            schema, json_batch, ops, seqs)[0]))
+    out["device_json_used_device"] = used["json"]
+    out["device_json_identical"] = encode_batch_ndjson_fast(
+        schema, json_batch, ops, seqs, egress=dev_json)[0] \
+        == encode_batch_ndjson(schema, json_batch, ops, seqs)
+    out["device_json_decode_timings"] = json_timings
+    out["ok"] = all(out[f"device_{e}_{k}"] for e in ("tsv", "json")
+                    for k in ("attached", "used_device", "identical"))
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -878,8 +1147,12 @@ def main(argv=None) -> int:
                       help="initial table copy through the Pipeline")
     mode.add_argument("--streaming", action="store_true",
                       help="CDC streaming through the Pipeline")
-    ap.add_argument("--rows", type=int, default=1_000_000,
-                    help="--copy: rows of the table")
+    mode.add_argument("--egress", action="store_true",
+                      help="each destination encoder in isolation, with "
+                           "and without device-rendered text")
+    ap.add_argument("--rows", type=int, default=None,
+                    help="--copy: rows of the table (1,000,000); --egress: "
+                         f"rows of the batch ({N_ROWS})")
     ap.add_argument("--events", type=int, default=500_000,
                     help="--streaming: insert events")
     ap.add_argument("--arrival-rate", type=int, default=None,
@@ -893,9 +1166,15 @@ def main(argv=None) -> int:
         print("etl_tpu_torch.bench: no CUDA device; nothing measured",
               file=sys.stderr)
         return 1
+    if args.egress:
+        res = run_egress(args.rows or N_ROWS)
+        res["device_name"] = torch.cuda.get_device_name(0)
+        res["power_limit"] = card_info().split(",")[-1].strip()
+        print(json.dumps(res))
+        return 0 if res["ok"] else 1
     if args.copy or args.streaming:
         res = asyncio.run(
-            run_table_copy(args.rows) if args.copy else
+            run_table_copy(args.rows or 1_000_000) if args.copy else
             run_table_streaming(args.events, arrival_rate=args.arrival_rate,
                                 row_filter=args.row_filter))
         res["device_name"] = torch.cuda.get_device_name(0)

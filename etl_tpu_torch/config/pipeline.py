@@ -13,7 +13,10 @@ oracle) or "cuda" (the port's DeviceDecoder, in place of the reference's
 "tpu"). `BatchConfig.device` names the torch device the decoder runs on:
 "cuda" by default; "cpu" runs the kernels' plain versions (the tests).
 Every other field keeps the reference's name and default; the program
-cache, prewarm and device-egress fields have no effect in the port yet.
+cache and prewarm fields have no effect in the port yet. `device_egress`
+does: with it set (the default) and a destination that declares an
+`egress_encoder`, unfiltered device batches carry text the render kernel
+made on the card (ops/egress.py).
 """
 
 from __future__ import annotations
@@ -119,12 +122,13 @@ class BatchConfig:
     prewarm_programs: bool | None = None
     prewarm_row_buckets: tuple | None = None
     # device-resident wire encoding (ops/egress.py): when True and the
-    # destination declares an egress encoder, decode programs gain a
-    # second fused stage that renders int/bool/temporal field TEXT on
-    # device, and decoded batches arrive with wire-ready byte buffers
-    # the destination splices instead of re-rendering host-side. Purely
-    # a fast path: batches without buffers (cold program, unsupported
-    # layout, filtered batches) encode host-side byte-identically.
+    # destination declares an egress encoder, each unfiltered device
+    # decode launches the render kernel after the decode kernel, which
+    # renders int/bool/temporal field TEXT on the card, and decoded
+    # batches arrive with wire-ready byte buffers the destination splices
+    # instead of re-rendering host-side. Batches without buffers (no
+    # renderable column, filtered batches) encode host-side byte-
+    # identically; a render that fails fails its batch.
     device_egress: bool = True
 
     def validate(self) -> None:

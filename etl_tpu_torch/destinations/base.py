@@ -254,6 +254,15 @@ class _RowChange:
     row: TableRow | None
 
 
+def egress_encoder(config, destination) -> "str | None":
+    """The wire encoder the decoders render for (ops/egress.py): the
+    destination's `egress_encoder` when the pipeline's
+    `BatchConfig.device_egress` is set, else None."""
+    if not config.batch.device_egress:
+        return None
+    return getattr(destination, "egress_encoder", None)
+
+
 def batch_event_columnar_ok(e: DecodedBatchEvent) -> bool:
     """True when a batch event can be encoded column-at-a-time with row-path
     semantics preserved: no old tuples (TOAST back-fill and the
@@ -281,9 +290,17 @@ class CoalescedBatch:
         self.schema = events[0].schema
         self.batch = ColumnarBatch.concat([e.batch for e in events]) \
             if len(events) > 1 else events[0].batch
-        # device-rendered wire buffers are not ported yet: encoders take
-        # their host path
-        self.egress = None
+        # device-rendered wire buffers (ops/egress.py DeviceEgress),
+        # merged all-or-nothing: one part without buffers (or with
+        # another encoder or field set) drops the merged fast path, and
+        # the encoders render host-side byte-identically
+        parts = [e.batch.device_egress for e in events]
+        if len(parts) == 1:
+            self.egress = parts[0]
+        else:
+            from ..ops.egress import DeviceEgress
+
+            self.egress = DeviceEgress.concat(parts)
         if len(events) == 1:
             self.change_types = events[0].change_types
             self.commit_lsns = events[0].commit_lsns

@@ -1,15 +1,83 @@
 """Shared destination helpers.
 
 Copy of the parts of the reference's `etl_tpu/destinations/util.py` that
-the ported destinations use: the background task set and the
-order-preserving event program row-oriented writers consume. The CDC
-metadata, naming, HTTP retry and Arrow helpers of the other destinations
-come with them, in a later slice.
+the ported destinations and encoders use: the background task set, the
+order-preserving event program row-oriented writers consume, and the
+batch-granularity CDC metadata of the columnar encoders (`_CHANGE_TYPE`
+labels, `_CHANGE_SEQUENCE_NUMBER` keys) with the egress write counter.
+The naming, HTTP retry and Arrow helpers of the other destinations come
+with them, in a later slice.
 """
 
 from __future__ import annotations
 
 import asyncio
+
+import numpy as np
+
+from ..models.event import ChangeType
+
+# `_CHANGE_TYPE` labels (reference bigquery/core.rs:42-45)
+CDC_UPSERT = "UPSERT"
+CDC_DELETE = "DELETE"
+
+
+# -- batch-granularity CDC metadata (columnar egress) -------------------------
+#
+# The row path renders `_CHANGE_SEQUENCE_NUMBER` with an f-string per row.
+# These build the same `%016x/%016x/%016x` keys for a WHOLE batch as numpy
+# nibble-lookup ops: one (n, 50)-byte buffer, no per-row Python.
+
+_HEX_DIGITS = np.frombuffer(b"0123456789abcdef", dtype=np.uint8)
+_SEQ_WIDTH = 50  # 16 hex + '/' + 16 hex + '/' + 16 hex
+
+
+def _hex16(arr: np.ndarray, out: np.ndarray) -> None:
+    """(n,) uint64 → 16 lowercase ASCII hex bytes per value, into `out`
+    (an (n, 16) uint8 view)."""
+    b = np.ascontiguousarray(arr, dtype=">u8").view(np.uint8).reshape(-1, 8)
+    out[:, 0::2] = _HEX_DIGITS[b >> 4]
+    out[:, 1::2] = _HEX_DIGITS[b & 0x0F]
+
+
+def sequence_number_buffer(commit_lsns, tx_ordinals, ordinals) -> np.ndarray:
+    """Vectorized CDC sequence keys: (n, 50) uint8 buffer of
+    `{commit:016x}/{tx_ordinal:016x}/{ordinal:016x}` rows — byte-identical
+    to `EventSequenceKey.with_ordinal` output."""
+    commit_lsns = np.asarray(commit_lsns, dtype=np.uint64)
+    n = len(commit_lsns)
+    out = np.empty((n, _SEQ_WIDTH), dtype=np.uint8)
+    _hex16(commit_lsns, out[:, 0:16])
+    out[:, 16] = ord("/")
+    _hex16(np.asarray(tx_ordinals, dtype=np.uint64), out[:, 17:33])
+    out[:, 33] = ord("/")
+    _hex16(np.asarray(ordinals, dtype=np.uint64), out[:, 34:50])
+    return out
+
+
+def sequence_number_batch(commit_lsns, tx_ordinals, ordinals) -> list[bytes]:
+    """Per-row sequence keys as a list of ASCII bytes (TSV/proto form)."""
+    buf = sequence_number_buffer(commit_lsns, tx_ordinals, ordinals)
+    return buf.reshape(-1).view(f"S{_SEQ_WIDTH}").tolist()
+
+
+def change_type_batch(change_types) -> np.ndarray:
+    """Vectorized `_CHANGE_TYPE` labels for a batch: (n,) bytes array
+    (S6) of UPSERT/DELETE matching `change_type_label` per row."""
+    cts = np.asarray(change_types)
+    return np.where(cts == int(ChangeType.DELETE),
+                    np.bytes_(CDC_DELETE), np.bytes_(CDC_UPSERT))
+
+
+def count_egress_write(used_device: bool) -> None:
+    """Account one columnar wire write: path=device when any field came
+    from device-rendered egress buffers, path=host when every field was
+    rendered host-side."""
+    from ..telemetry.metrics import ETL_EGRESS_WRITES_TOTAL, registry
+
+    registry.counter_inc(ETL_EGRESS_WRITES_TOTAL,
+                         labels={"path": "device" if used_device
+                                 else "host"})
 
 
 class TaskSet:

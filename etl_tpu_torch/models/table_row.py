@@ -160,6 +160,20 @@ class TextArray:
     def to_pylist(self) -> list:
         return [self[i] for i in range(len(self))]
 
+    @classmethod
+    def concat(cls, parts: "Sequence[TextArray]") -> "TextArray":
+        """One array holding the rows of `parts` in order."""
+        offsets = [parts[0].offsets.astype(np.int64)]
+        base = int(parts[0].offsets[-1])
+        for p in parts[1:]:
+            offsets.append(p.offsets[1:].astype(np.int64) + base)
+            base += int(p.offsets[-1])
+        if base >= 1 << 31:
+            raise ValueError("text column past int32 offsets")
+        return cls(np.concatenate(offsets).astype(np.int32),
+                   np.concatenate([p.values[:p.offsets[-1]] for p in parts]),
+                   np.concatenate([p.validity for p in parts]))
+
     def take(self, rows: np.ndarray) -> "TextArray":
         """Row-gather by index array, in Arrow layout (no Python
         objects): the values of each taken row, concatenated in order."""
@@ -252,15 +266,23 @@ class ColumnarBatch:
     `source_rows` (int64[num_rows] | None) is set by filtered decodes
     only: the staged-batch row index each surviving row came from, so
     consumers holding per-source-row side arrays can compact them to
-    match."""
+    match.
 
-    __slots__ = ("schema", "columns", "num_rows", "source_rows")
+    `device_egress` (ops/egress.py DeviceEgress | None) is attached by
+    unfiltered device decodes whose render kernel turned the decoded
+    words into wire text: per-column destination-ready byte buffers the
+    columnar encoders splice instead of re-rendering. Row-count-
+    preserving only — `take` drops it (the buffers are positional)."""
+
+    __slots__ = ("schema", "columns", "num_rows", "source_rows",
+                 "device_egress")
 
     def __init__(self, schema: ReplicatedTableSchema, columns: list[Column]):
         self.schema = schema
         self.columns = columns
         self.num_rows = len(columns[0]) if columns else 0
         self.source_rows: np.ndarray | None = None
+        self.device_egress = None
         for c in columns:
             if len(c) != self.num_rows:
                 raise ValueError("ragged columnar batch")
@@ -272,6 +294,50 @@ class ColumnarBatch:
         if self.source_rows is not None:
             out.source_rows = self.source_rows[rows]
         return out
+
+    @classmethod
+    def concat(cls, batches: "Sequence[ColumnarBatch]") -> "ColumnarBatch":
+        """Concatenate same-schema batches column-wise (the coalescing step
+        of the columnar CDC write seam: consecutive same-table
+        DecodedBatchEvents become ONE destination write). Dense columns
+        concatenate as numpy arrays, text columns as one TextArray, object
+        columns as list extend — no row objects."""
+        if not batches:
+            raise ValueError("concat of zero batches")
+        if len(batches) == 1:
+            return batches[0]
+        first = batches[0]
+        for b in batches[1:]:
+            if b.schema is not first.schema and b.schema != first.schema:
+                raise ValueError("concat across schemas")
+        columns: list[Column] = []
+        for j, cs in enumerate(first.schema.replicated_columns):
+            parts = [b.columns[j] for b in batches]
+            validity = np.concatenate([c.validity for c in parts])
+            toast = None
+            if any(c.toast_unchanged is not None for c in parts):
+                toast = np.concatenate([
+                    c.toast_unchanged if c.toast_unchanged is not None
+                    else np.zeros(len(c), dtype=np.bool_) for c in parts])
+            if all(c.is_dense for c in parts):
+                data: Any = np.concatenate([c.data for c in parts])
+                lazy = None
+            elif all(c.is_text for c in parts) and len(
+                    {c.lazy_text_oid for c in parts}) == 1:
+                data = TextArray.concat([c.data for c in parts])
+                lazy = parts[0].lazy_text_oid
+            else:
+                # mixed storage (e.g. a fixed-up batch next to a text
+                # one): degrade to object values via each column's own
+                # accessor — correctness over speed on this rare edge
+                data = [c.value(i) for c in parts for i in range(len(c))]
+                lazy = None
+                validity = np.asarray(
+                    [v is not None and v is not TOAST_UNCHANGED
+                     for v in data], dtype=np.bool_)
+            columns.append(Column(cs, data, validity, toast,
+                                  lazy_text_oid=lazy))
+        return cls(first.schema, columns)
 
     @classmethod
     def from_rows(cls, schema: ReplicatedTableSchema, rows: Sequence[TableRow]) -> "ColumnarBatch":

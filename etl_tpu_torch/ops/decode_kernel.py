@@ -131,33 +131,43 @@ def nvcc_command(source: Path, out: Path) -> list[str]:
     return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
 
 
+def build(source: Path) -> tuple[Path, float | None, str]:
+    """Build the CUDA source `source` with nvcc into a shared library in
+    BUILD_DIR, once per hash of the source and the flags; returns (the
+    library's path, the build's seconds, None when it was built already,
+    and nvcc's output). Each kernel library's `load` calls it under its
+    own lock, so two sources build in parallel."""
+    tag = hashlib.sha256(source.read_bytes()
+                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    so = BUILD_DIR / f"{source.stem}-{tag}.so"
+    if so.exists():
+        return so, None, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(nvcc_command(source, Path(tmp)),
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {source.name} "
+                               f"({res.returncode}):\n{res.stderr}")
+        os.replace(tmp, so)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so, time.perf_counter() - t0, res.stdout + res.stderr
+
+
 def load() -> ctypes.CDLL:
     """Build (once per source hash) and load the kernel library."""
     global _lib, build_seconds, build_log
     with _lock:
         if _lib is not None:
             return _lib
-        tag = hashlib.sha256(SOURCE.read_bytes()
-                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        so = BUILD_DIR / f"decode_pack-{tag}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            t0 = time.perf_counter()
-            try:
-                res = subprocess.run(nvcc_command(SOURCE, Path(tmp)),
-                                     capture_output=True, text=True,
-                                     timeout=600)
-                if res.returncode != 0:
-                    raise RuntimeError(
-                        f"nvcc failed ({res.returncode}):\n{res.stderr}")
-                build_log = res.stdout + res.stderr
-                os.replace(tmp, so)
-            finally:
-                if os.path.exists(tmp):
-                    os.unlink(tmp)
-            build_seconds = time.perf_counter() - t0
+        so, seconds, log = build(SOURCE)
+        if seconds is not None:
+            build_seconds, build_log = seconds, log
         _lib = bind(ctypes.CDLL(str(so)))
         return _lib
 
@@ -295,6 +305,7 @@ def prepare_decode_pack(bmat: torch.Tensor, lengths: torch.Tensor,
             path_launches[path_of(rows)] += 1
         return out.view(torch.uint32)
 
+    launch.outputs = (out,)
     return launch
 
 

@@ -1,7 +1,7 @@
 """DeviceDecoder: the GPU decode engine, on one device.
 
-Port of the reference's `etl_tpu/ops/engine.py` without device egress,
-the mesh, the program store or autotune. Pipeline per batch:
+Port of the reference's `etl_tpu/ops/engine.py` without the mesh, the
+program store or autotune. Pipeline per batch:
 
   StagedBatch (host, ops/staging.py)
     → host pack: the C packers gather every dense-column field into ONE
@@ -32,6 +32,13 @@ float columns; a postfix program deeper than its stack) applies host-side
 after an unfiltered decode (`CompiledRowFilter.host_keep`), with the same
 result.
 
+Device egress (`egress=` an encoder of ops/egress.py): on an unfiltered
+device batch whose layout has columns the encoder renders, the render
+kernel (ops/egress_kernel.py, csrc/egress_render.cu) turns the words into
+wire text on the card right after the decode kernel, the text and its
+lengths come back beside the words, and the batch carries them as
+`device_egress` (untrusted: the rows the CPU oracle fixed up).
+
 The serial `decode`/`decode_async` run the two stages back to back;
 `ops/pipeline.py` runs them on a worker thread with a CUDA stream of its
 own: `_pack_stage` (the host pack, into a staging arena's pinned buffers
@@ -45,9 +52,10 @@ layouts (program_store.canonical_plan) only share compiled programs, and
 the kernel takes its specs as a runtime descriptor table, so there is
 nothing to share. The decoded batch is the same either way.
 
-`device="cpu"` runs the kernel's plain version (bitpack.
-parse_and_pack_plain) on CPU tensors: the tests' path. On `"cuda"` there
-is no fallback: no card, a failed build or a failed launch raises.
+`device="cpu"` runs the kernels' plain versions (bitpack.
+parse_and_pack_plain, egress.render_plain) on CPU tensors: the tests'
+path. On `"cuda"` there is no fallback: no card, a failed build or a
+failed launch raises, the render kernel's included.
 """
 
 from __future__ import annotations
@@ -71,10 +79,13 @@ from ..postgres.codec.copy_text import unescape_copy_field
 from ..postgres.codec.text import parse_cell_text
 from ..telemetry.metrics import (ETL_DECODE_DEVICE_SECONDS_TOTAL,
                                  ETL_DECODE_KERNEL_SECONDS_TOTAL,
+                                 ETL_EGRESS_DEVICE_BATCHES_TOTAL,
+                                 ETL_EGRESS_FETCH_SECONDS_TOTAL,
+                                 ETL_EGRESS_RENDER_SECONDS_TOTAL,
                                  ETL_DECODE_ROUTED_DEVICE_ROWS_TOTAL,
                                  ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL,
                                  registry)
-from . import decode_kernel
+from . import decode_kernel, egress as egress_mod
 from .bitpack import (layout_for_specs, saturation_width, unpack_host,
                       unpack_keep_mask)
 from .predicate import RowFilterError, compile_row_filter
@@ -251,17 +262,21 @@ class _PendingDecode:
     and `fetched_bytes`, the bytes of results brought from the device.
     `stream` is the CUDA stream the decode was dispatched on (None on the
     CPU): the filtered second fetch is enqueued there, whichever thread
-    completes the decode."""
+    completes the decode. With device egress, `_egress` holds the render's
+    (ebytes, elens, plan) — host tensors, on CUDA pinned and landing
+    behind `_egress_events` (after the render, after the fetch of its
+    outputs), which add `egress_ms` and `d2h_egress_ms` to the timings."""
 
     __slots__ = ("_decoder", "_staged", "_specs", "_packed", "_words",
                  "_events", "_pack_s", "_launch_s", "_filtered", "_done",
-                 "stream", "timings")
+                 "_egress", "_egress_events", "stream", "timings")
 
     def __init__(self, decoder: "DeviceDecoder", staged: StagedBatch,
                  specs: tuple, packed: _Packed | None, words,
                  pack_s: float = 0.0, events: tuple = (),
                  filtered: _Filtered | None = None, launch_s: float = 0.0,
-                 stream=None):
+                 stream=None, egress: tuple | None = None,
+                 egress_events: tuple = ()):
         self._decoder = decoder
         self._staged = staged
         self._specs = specs
@@ -272,6 +287,8 @@ class _PendingDecode:
         self._events = events  # CUDA: before H2D, after H2D, kernel, D2H
         self.stream = stream
         self._filtered = filtered
+        self._egress = egress
+        self._egress_events = egress_events
         self._done: ColumnarBatch | None = None
         self.timings: dict | None = None
 
@@ -299,14 +316,22 @@ class DeviceDecoder:
     def __init__(self, schema: ReplicatedTableSchema, *,
                  device: str | torch.device = "cuda",
                  numeric_mode: str = "text",
-                 device_min_rows: int | None = None):
+                 device_min_rows: int | None = None,
+                 egress: str | None = None):
         self.schema = schema
         self.device = torch.device(device)
+        # wire encoder name (ops/egress.py ENCODER_*) of the destination:
+        # unfiltered device batches then carry `device_egress` buffers
+        self.egress = egress
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
                 raise RuntimeError("DeviceDecoder(device='cuda'): no CUDA "
                                    "device is available")
             decode_kernel.load()
+            if egress is not None:
+                from . import egress_kernel
+
+                egress_kernel.load()
         elif self.device.type != "cpu":
             raise ValueError(f"unsupported device {self.device}")
         self.device_min_rows = self.DEVICE_MIN_ROWS \
@@ -519,14 +544,20 @@ class DeviceDecoder:
         pred, flags, pack_s = packed.pred, packed.row_flags, packed.pack_s
         bmat_h = torch.from_numpy(packed.bmat)
         lengths_h = torch.from_numpy(packed.lengths)
+        eplan = self._egress_plan(staged, specs) if pred is None else None
         if self.device.type == "cpu":
             t0 = time.perf_counter()
             if pred is None:
                 words = decode_kernel.decode_pack(bmat_h, lengths_h, specs,
                                                   packed.nibble)
+                launch_s = time.perf_counter() - t0
+                egress = None
+                if eplan is not None:
+                    egress = (*egress_mod.render(words, specs, eplan), eplan)
+                    registry.counter_inc(ETL_EGRESS_DEVICE_BATCHES_TOTAL)
                 return _PendingDecode(self, staged, specs, packed, words,
-                                      pack_s,
-                                      launch_s=time.perf_counter() - t0)
+                                      pack_s, launch_s=launch_s,
+                                      egress=egress)
             out = decode_kernel.prepare_filtered(
                 bmat_h, lengths_h, torch.from_numpy(flags), specs,
                 packed.nibble, pred)()
@@ -545,9 +576,15 @@ class DeviceDecoder:
             flags_d = torch.empty(flags.shape, dtype=torch.uint8,
                                   device=self.device)
         t0 = time.perf_counter()
+        render = None
         if pred is None:
             launch = decode_kernel.prepare_decode_pack(
                 bmat_d, lengths_d, specs, packed.nibble)
+            if eplan is not None:
+                from . import egress_kernel
+
+                render = egress_kernel.prepare_render(launch.outputs[0],
+                                                      specs, eplan)
         else:
             launch = decode_kernel.prepare_filtered(
                 bmat_d, lengths_d, flags_d, specs, packed.nibble, pred)
@@ -564,13 +601,33 @@ class DeviceDecoder:
         launch_s += time.perf_counter() - t0
         ev[2].record(stream)
         if pred is None:
+            egress, eev = None, ()
+            if render is not None:
+                # the render right behind the decode kernel, between
+                # events of its own; its outputs come back after the words
+                eev = tuple(torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+                ebytes_d, elens_d = render()
+                eev[0].record(stream)
+                registry.counter_inc(ETL_EGRESS_DEVICE_BATCHES_TOTAL)
             words_h = self._pinned.take(tuple(out.shape), torch.int32)
             words_h.copy_(out.view(torch.int32), non_blocking=True)
             ev[3].record(stream)
             packed.pinned = packed.pinned + (words_h,)
+            if render is not None:
+                ebytes_h = self._pinned.take(tuple(ebytes_d.shape),
+                                             torch.uint8)
+                elens_h = self._pinned.take(tuple(elens_d.shape),
+                                            torch.int32)
+                ebytes_h.copy_(ebytes_d, non_blocking=True)
+                elens_h.copy_(elens_d, non_blocking=True)
+                eev[1].record(stream)
+                packed.pinned = packed.pinned + (ebytes_h, elens_h)
+                egress = (ebytes_h, elens_h, eplan)
             return _PendingDecode(self, staged, specs, packed, words_h,
                                   pack_s, ev, launch_s=launch_s,
-                                  stream=stream)
+                                  stream=stream, egress=egress,
+                                  egress_events=eev)
         words_d, mask_d, counts_d = out
         mask_h = self._pinned.take(tuple(mask_d.shape), torch.int32)
         counts_h = self._pinned.take((1,), torch.int32)
@@ -581,6 +638,17 @@ class DeviceDecoder:
         return _PendingDecode(self, staged, specs, packed, None, pack_s, ev,
                               _Filtered(pred, flags, words_d, mask_h,
                                         counts_h), launch_s, stream)
+
+    def _egress_plan(self, staged: StagedBatch, specs: tuple):
+        """The render plan of an unfiltered device batch, or None: no
+        encoder, a batch the host filter will re-index (`take` drops the
+        buffers), or a layout with no column the encoder renders or more
+        than EGRESS_MAX_COLS of them. Routing, not failure: such a batch
+        ships without buffers and encodes host-side."""
+        if self.egress is None or not specs \
+                or self._host_filter_for(staged) is not None:
+            return None
+        return egress_mod.plan_for_specs(specs, self.egress)
 
     def _gather_text(self, staged: StagedBatch, spec: _ColSpec,
                      valid: np.ndarray) -> TextArray:
@@ -728,16 +796,20 @@ class DeviceDecoder:
     def _complete(self, p: _PendingDecode) -> ColumnarBatch:
         """Wait for the words of an in-flight decode, assemble the batch,
         record the stage times and return the pinned buffers."""
-        if p._events:
-            p._events[-1].synchronize()
+        for e in p._events[-1:] + p._egress_events[-1:]:
+            e.synchronize()
         p.timings = {"pack_ms": p._pack_s * 1e3}
         if p._packed is not None:  # the device route: a kernel wrapper ran
             p.timings["launch_ms"] = p._launch_s * 1e3
         if p._events:
-            ev = p._events
+            ev, eev = p._events, p._egress_events
             p.timings.update(h2d_ms=ev[0].elapsed_time(ev[1]),
                              kernel_ms=ev[1].elapsed_time(ev[2]),
-                             d2h_ms=ev[2].elapsed_time(ev[3]))
+                             d2h_ms=(eev[0] if eev else ev[2])
+                             .elapsed_time(ev[3]))
+            if eev:
+                p.timings.update(egress_ms=ev[2].elapsed_time(eev[0]),
+                                 d2h_egress_ms=ev[3].elapsed_time(eev[1]))
         if p._filtered is not None:
             batch, fetched = self._complete_filtered(p)
         else:
@@ -747,9 +819,17 @@ class DeviceDecoder:
             if isinstance(words, torch.Tensor):
                 fetched = words.numel() * words.element_size()
                 words = words.numpy().view(np.uint32)
-            batch, _ = self._assemble(
+            batch, fixups = self._assemble(
                 p._staged, p._specs, words,
                 p._packed.bad_rows if p._packed is not None else None)
+            if p._egress is not None:
+                # the rendered text, indexed by schema column; the rows
+                # the oracle fixed up are the untrusted set, whose lines
+                # destinations re-render per value
+                fetched += sum(t.numel() * t.element_size()
+                               for t in p._egress[:2])
+                batch.device_egress = egress_mod.materialize(
+                    p._egress, None, self._dense, p._staged.n_rows, fixups)
             host_rf = self._host_filter_for(p._staged)
             if host_rf is not None:
                 # predicate outside the kernel's envelope (or an oracle-
@@ -766,12 +846,18 @@ class DeviceDecoder:
                                  p.timings["kernel_ms"] / 1e3)
             registry.counter_inc(ETL_DECODE_DEVICE_SECONDS_TOTAL, sum(
                 p.timings[k] for k in ("h2d_ms", "kernel_ms", "d2h_ms",
-                                       "d2h_words_ms")
+                                       "d2h_words_ms", "egress_ms",
+                                       "d2h_egress_ms")
                 if k in p.timings) / 1e3)
+            if p._egress_events:
+                registry.counter_inc(ETL_EGRESS_RENDER_SECONDS_TOTAL,
+                                     p.timings["egress_ms"] / 1e3)
+                registry.counter_inc(ETL_EGRESS_FETCH_SECONDS_TOTAL,
+                                     p.timings["d2h_egress_ms"] / 1e3)
         if p._packed is not None:
             self._pinned.give_back(p._packed.pinned)
             p._packed = None
-        p._words = p._filtered = None
+        p._words = p._filtered = p._egress = None
         return batch
 
     def _complete_filtered(self, p: _PendingDecode

@@ -423,6 +423,35 @@ def global_admission(capacity: int | None = None) -> AdmissionScheduler:
         return _GLOBAL_ADMISSION
 
 
+class _WorkerThread(threading.Thread):
+    """The pack/dispatch worker of one `DecodePipeline` of this module:
+    a leak check finds this package's workers by class, not by thread
+    name, which another package's decode pipeline may share."""
+
+
+def worker_threads(exclude=()) -> list:
+    """The live worker threads of this module's decode pipelines, less
+    those in `exclude` (e.g. the threads alive before a run started)."""
+    skip = set(exclude)
+    return [t for t in threading.enumerate()
+            if isinstance(t, _WorkerThread) and t not in skip]
+
+
+def describe_thread(t: threading.Thread) -> str:
+    """`name (ident N, owner module)`: the owner is the module of the
+    object whose method the thread runs (a decode pipeline's worker runs
+    its `_run`), else of the thread's class."""
+    owner = getattr(getattr(t, "_target", None), "__self__", None)
+    module = type(owner).__module__ if owner is not None \
+        else type(t).__module__
+    return f"{t.name} (ident {t.ident}, owner {module})"
+
+
+#: how long the runtime's teardown waits for a closed pipeline's worker
+#: to exit (`DecodePipeline.join`), off the event loop
+WORKER_JOIN_S = 5.0
+
+
 class _Interval:
     """[start, end) of one batch's in-flight (dispatch→fetch) span;
     end None while still in flight."""
@@ -551,7 +580,7 @@ class DecodePipeline:
         # the worker's CUDA streams, one per device it dispatched to
         # (created and entered on the worker thread only)
         self._streams: dict[torch.device, torch.cuda.Stream] = {}
-        self._worker = threading.Thread(
+        self._worker = _WorkerThread(
             target=self._run, name=f"etl-{name}-pipeline", daemon=True)
         self._worker.start()
 
@@ -612,9 +641,12 @@ class DecodePipeline:
             # tenant, which is a guarded no-op.
             self._admission.close()
 
-    def join(self, timeout: float | None = None) -> None:
-        """Wait for the worker to exit after `close()`."""
+    def join(self, timeout: float | None = None) -> bool:
+        """Wait up to `timeout` s for the worker to exit after `close()`;
+        True when it has. Blocks: an event loop calls it in an executor
+        (`asyncio.to_thread`)."""
         self._worker.join(timeout)
+        return not self._worker.is_alive()
 
     # -- worker side --------------------------------------------------------
 

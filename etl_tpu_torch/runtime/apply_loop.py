@@ -49,12 +49,13 @@ from ..models.event import (BeginEvent, CommitEvent, RelationEvent,
 from ..models.lsn import Lsn
 from ..models.schema import TableId
 from ..ops.engine import accelerator_backend
+from ..ops.pipeline import WORKER_JOIN_S
 from ..postgres.codec import event as event_codec
 from ..postgres.codec import pgoutput
 from ..postgres.source import FrameSpan, ReplicationStream
 from ..store.base import PipelineStore
 from ..analysis.annotations import flush_path
-from ..destinations.base import Destination
+from ..destinations.base import Destination, egress_encoder
 from ..telemetry.egress import record_egress
 from ..telemetry.metrics import (ETL_APPLY_LOOP_BATCHES_TOTAL,
                                  ETL_APPLY_LOOP_EVENTS_TOTAL,
@@ -164,7 +165,10 @@ class ApplyLoop:
                 0, int(self.state.received_lsn) - int(self.state.durable_lsn)),
             admission_capacity=config.batch.admission_capacity,
             seal_bytes=config.batch.max_size_bytes,
-            device=config.batch.device)
+            device=config.batch.device,
+            # the destination's wire encoder: unfiltered device batches
+            # then carry device-rendered text (ops/egress.py)
+            egress_encoder=egress_encoder(config, destination))
         self.state = _LoopState(durable_lsn=start_lsn, received_lsn=start_lsn,
                                 last_status_flush_lsn=start_lsn)
         # bounded write window (runtime/ack_window.py): flushes keep
@@ -425,6 +429,8 @@ class ApplyLoop:
             if self._lease is not None:
                 self._lease.release()
             self.assembler.close()  # stop the decode pipeline's worker
+            # and wait for it, bounded and off the event loop
+            await asyncio.to_thread(self.assembler.join, WORKER_JOIN_S)
             await self.stream.close()
 
     # -- frame handling ---------------------------------------------------------

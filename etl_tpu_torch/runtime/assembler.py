@@ -74,8 +74,12 @@ class EventAssembler:
     def __init__(self, engine: BatchEngine, monitor=None,
                  decode_window: int = 3, lag_bytes=None,
                  admission_capacity: int = 0, seal_bytes: int = 0,
-                 device: str = "cuda"):
+                 device: str = "cuda", egress_encoder: "str | None" = None):
         self.engine = engine
+        # wire-encoder name (ops/egress.py) the destination consumes —
+        # threaded into every DeviceDecoder this loop creates, so device
+        # batches carry device-rendered wire buffers (`device_egress`)
+        self.egress_encoder = egress_encoder
         # torch device of the decoders this loop creates (BatchConfig.
         # device): "cuda" launches the kernels, "cpu" runs their plain
         # versions
@@ -121,6 +125,7 @@ class EventAssembler:
         _ASSEMBLER_SEQ[0] += 1
         self._seq = _ASSEMBLER_SEQ[0]
         self._pipeline: DecodePipeline | None = None
+        self._closed = False
         # dynamic: the apply loop grows it ×4 (one row bucket per step)
         # under sustained backlog and resets it when the stream idles
         self.seal_rows = RUN_SEAL_ROWS
@@ -266,7 +271,8 @@ class EventAssembler:
             # new schema compiles nothing; on "cuda" the kernel library
             # was built at Pipeline.start, and a card that cannot build or
             # launch it fails the flush (no fallback to the oracle)
-            decoder = DeviceDecoder(r.schema, device=self.device)
+            decoder = DeviceDecoder(r.schema, device=self.device,
+                                    egress=self.egress_encoder)
             self._decoders[r.table_id] = decoder
         from ..telemetry.metrics import ETL_ASSEMBLER_RUN_ROWS, registry
 
@@ -287,6 +293,10 @@ class EventAssembler:
         # reading WAL; the DecodedBatchEvent resolves the batch lazily
         # when the destination write consumes it, in submit order — the
         # bounded in-flight window caps staged memory across flushes
+        if self._closed:
+            raise EtlError(ErrorKind.INVALID_STATE_TRANSITION,
+                           "event assembler is closed: a resumed apply loop "
+                           "builds a new one")
         if self._pipeline is None:
             from ..ops.pipeline import global_admission
 
@@ -400,8 +410,15 @@ class EventAssembler:
     def close(self) -> None:
         """Stop the decode pipeline's worker (apply-loop teardown).
         Already-flushed DecodedBatchEvents stay resolvable — close only
-        fences new submits, and _seal_run re-creates the pipeline if a
-        resumed loop reuses this assembler."""
+        fences new submits. A closed assembler seals no more runs: a
+        resumed apply loop builds a fresh one. `join` then waits for the
+        worker to exit."""
+        self._closed = True
         if self._pipeline is not None:
             self._pipeline.close()
-            self._pipeline = None
+
+    def join(self, timeout: float) -> bool:
+        """Wait up to `timeout` s for the worker `close` stopped; True when
+        it has exited (or there was none). Blocks: the apply loop runs it
+        in an executor."""
+        return self._pipeline is None or self._pipeline.join(timeout)

@@ -27,11 +27,11 @@ from ..models.errors import ErrorKind, EtlError
 from ..models.schema import ReplicatedTableSchema, TableId
 from ..models.table_row import ColumnarBatch
 from ..ops.engine import DeviceDecoder
-from ..ops.pipeline import DecodePipeline
+from ..ops.pipeline import WORKER_JOIN_S, DecodePipeline
 from ..ops.staging import stage_copy_chunk
 from ..postgres.codec.copy_text import parse_copy_chunk_columns
 from ..postgres.source import ReplicationSource
-from ..destinations.base import Destination
+from ..destinations.base import Destination, egress_encoder
 from .ack_window import CopyAckWindow
 from ..telemetry.egress import record_egress
 from ..telemetry.metrics import (ETL_TABLE_COPY_BYTES_TOTAL,
@@ -223,6 +223,9 @@ async def _copy_partition(source: ReplicationSource,
     finally:
         if pipe is not None:
             pipe.close()
+            # a bounded wait for the worker, off the event loop: the
+            # partition ends with no decode thread left behind
+            await asyncio.to_thread(pipe.join, WORKER_JOIN_S)
     # durability barrier for this partition (mod.rs:360-378): the window
     # owns the waits (etl-lint rule 17) — drain what is still pending
     await acks.drain()
@@ -264,7 +267,8 @@ async def parallel_table_copy(*, source_factory, primary_source,
     # one decoder for every partition of the table: its pinned pool and
     # the kernel's caches are shared across the partitions' worker
     # threads under their locks
-    decoder = DeviceDecoder(schema, device=config.batch.device) \
+    decoder = DeviceDecoder(schema, device=config.batch.device,
+                            egress=egress_encoder(config, destination)) \
         if config.batch.batch_engine is BatchEngine.CUDA else None
     progress = CopyProgress()
     queue: asyncio.Queue[CopyPartition] = asyncio.Queue()

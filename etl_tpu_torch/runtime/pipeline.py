@@ -27,7 +27,7 @@ from ..models.errors import ErrorKind, EtlError
 from ..postgres.slots import table_sync_slot_name
 from ..postgres.source import ReplicationSource
 from ..store.base import PipelineStore
-from ..destinations.base import Destination
+from ..destinations.base import Destination, egress_encoder
 from ..ops import decode_kernel
 from .apply_worker import ApplyWorker
 from .backpressure import BatchBudgetController, MemoryMonitor
@@ -71,6 +71,10 @@ class Pipeline:
                                f"{batch.device!r}: no CUDA device is "
                                "available")
             await asyncio.to_thread(decode_kernel.load)
+            if egress_encoder(self.config, self.destination) is not None:
+                from ..ops import egress_kernel
+
+                await asyncio.to_thread(egress_kernel.load)
         # the reference's autotune and program-store prewarm come here;
         # they have no counterpart until ROADMAP.md queue 1 item 6
         source = self.source_factory()

@@ -82,10 +82,13 @@ ETL_DECODE_PIPELINE_IN_FLIGHT = "etl_decode_pipeline_in_flight"
 # reused, miss = a fresh allocation (labels: {"result": "hit"|"miss"})
 ETL_STAGING_ARENA_REQUESTS_TOTAL = "etl_staging_arena_requests_total"
 # the card's time per decode, from the dispatch stream's events (H2D,
-# kernel, D2H and a filtered decode's second fetch; the kernel alone):
+# kernel, D2H, a filtered decode's second fetch, the egress render and
+# its fetch; the decode kernel alone; the render alone and its fetch):
 # the device busy share of a window is their delta over its wall time
 ETL_DECODE_DEVICE_SECONDS_TOTAL = "etl_decode_device_seconds_total"
 ETL_DECODE_KERNEL_SECONDS_TOTAL = "etl_decode_kernel_seconds_total"
+ETL_EGRESS_RENDER_SECONDS_TOTAL = "etl_egress_render_seconds_total"
+ETL_EGRESS_FETCH_SECONDS_TOTAL = "etl_egress_fetch_seconds_total"
 # rows of each run the CDC assembler seals into one decode batch (what the
 # runtime hands the card: launches and copies are paid per run)
 ETL_ASSEMBLER_RUN_ROWS = "etl_assembler_run_rows"

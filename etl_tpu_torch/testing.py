@@ -9,6 +9,8 @@ the reference and to the port; `chip_smoke.py` and the GPU tests feed them
 to the kernel and to its plain version. `filter_case` adds what the
 fused row filter (K2) needs: NULL fields, edge values of every comparable
 kind and a row-flags vector with dead and force-kept rows.
+`egress_words` gives the render kernel its input: the decoded words of
+such rows, with edge values and rows of random bits.
 """
 
 from __future__ import annotations
@@ -215,3 +217,57 @@ def filter_case(specs: tuple, n_rows: int, rng: np.random.Generator,
     flags = rng.choice(np.array([0, 1, 2], dtype=np.uint8), size=n_rows,
                        p=[0.05, 0.85, 0.10])
     return bm, ln, flags
+
+
+# values at the edges of the egress render, by kind: integer extremes
+# and digit-count boundaries, dates at year ends and leap days,
+# TIMESTAMPTZ values whose zone shift crosses midnight and year ends
+EGRESS_EDGE_TEXTS = {
+    CellKind.BOOL: ["t", "f"],
+    CellKind.I16: ["-32768", "32767", "0", "-0", "-1", "9", "10", "-10000"],
+    CellKind.I32: ["-2147483648", "2147483647", "0", "-1", "999999999",
+                   "1000000000", "-1000000000"],
+    CellKind.U32: ["4294967295", "0", "999999999", "1000000000",
+                   "2147483648"],
+    CellKind.I64: ["-9223372036854775808", "9223372036854775807", "0", "-0",
+                   "999999999", "1000000000", "-999999999999999999",
+                   "1000000000000000000"],
+    CellKind.DATE: ["0001-01-01", "9999-12-31", "1999-12-31", "2000-01-01",
+                    "1970-01-01", "1969-12-31", "2000-02-29", "1900-03-01"],
+    CellKind.TIMESTAMP: ["1999-12-31 23:59:59.999999", "2000-01-01 00:00:00",
+                         "0001-01-01 00:00:00", "9999-12-31 23:59:59.999999",
+                         "1970-01-01 00:00:00.000001", "2024-02-29 12:00:00"],
+    CellKind.TIMESTAMPTZ: ["1999-12-31 23:30:00-05",
+                           "2000-01-01 00:30:00+09:30",
+                           "2024-12-31 20:00:00-15:59:59",
+                           "2025-01-01 01:00:00+15:59:59",
+                           "0001-01-01 00:00:00+01",
+                           "9999-12-31 23:59:59.999999-14",
+                           "1970-01-01 00:00:00+00", "2024-03-01 00:00:00+01"],
+}
+
+
+def egress_words(specs: tuple, n_rows: int, rng: np.random.Generator,
+                 nibble: bool = False, junk_share: float = 0.05):
+    """Packed decode words uint32[n_words, R] for the egress render: the
+    plain decode (`bitpack.parse_and_pack_plain`) of `field_matrix` rows,
+    every tenth row an edge value of its column's kind (EGRESS_EDGE_TEXTS),
+    then a share of rows overwritten with random bits, so every field holds
+    values no parse gives (and rows that failed to parse keep theirs)."""
+    import torch
+
+    from .ops.bitpack import parse_and_pack_plain
+
+    bm, ln = field_matrix(specs, n_rows, rng, nibble)
+    edge_rows = np.arange(0, n_rows, 10)
+    cols = [[str(rng.choice(EGRESS_EDGE_TEXTS.get(kind, ["0"])))
+             for _ in edge_rows] for _, kind, _, _ in specs]
+    ebm, eln = text_matrix(specs, cols, nibble)
+    bm[edge_rows], ln[edge_rows] = ebm, eln
+    words = parse_and_pack_plain(torch.from_numpy(bm), torch.from_numpy(ln),
+                                 specs, nibble).view(torch.int32).clone()
+    junk = np.flatnonzero(rng.random(n_rows) < junk_share)
+    words[:, junk] = torch.from_numpy(rng.integers(
+        -2**31, 2**31, size=(words.shape[0], len(junk)), dtype=np.int64)
+        .astype(np.int32))
+    return words.view(torch.uint32)

@@ -31,6 +31,7 @@ PORT_MODULES = [
     "etl_tpu_torch.postgres.codec.pgoutput",
     "etl_tpu_torch.postgres.codec.text", "etl_tpu_torch.ops",
     "etl_tpu_torch.ops.bitpack", "etl_tpu_torch.ops.decode_kernel",
+    "etl_tpu_torch.ops.egress", "etl_tpu_torch.ops.egress_kernel",
     "etl_tpu_torch.ops.engine", "etl_tpu_torch.ops.parsers",
     "etl_tpu_torch.ops.predicate",
     "etl_tpu_torch.ops.staging", "etl_tpu_torch.ops.wal",
@@ -43,7 +44,10 @@ PORT_MODULES = [
     "etl_tpu_torch.store.memory", "etl_tpu_torch.sharding",
     "etl_tpu_torch.sharding.shardmap", "etl_tpu_torch.destinations",
     "etl_tpu_torch.destinations.base", "etl_tpu_torch.destinations.util",
-    "etl_tpu_torch.destinations.memory", "etl_tpu_torch.telemetry",
+    "etl_tpu_torch.destinations.memory",
+    "etl_tpu_torch.destinations.clickhouse",
+    "etl_tpu_torch.destinations.snowflake",
+    "etl_tpu_torch.destinations.bq_proto", "etl_tpu_torch.telemetry",
     "etl_tpu_torch.telemetry.metrics", "etl_tpu_torch.telemetry.egress",
     "etl_tpu_torch.chaos", "etl_tpu_torch.chaos.failpoints",
     "etl_tpu_torch.analysis", "etl_tpu_torch.analysis.annotations",
@@ -90,6 +94,57 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "HAVE True" in out.stdout
+
+
+_EGRESS_PROBE = """
+import sys
+import numpy as np
+from etl_tpu_torch import bench
+from etl_tpu_torch.destinations import bq_proto
+from etl_tpu_torch.destinations.clickhouse import render_batch_tsv_fast
+from etl_tpu_torch.destinations.snowflake import (encode_batch_ndjson_fast,
+                                                  offset_token_batch)
+from etl_tpu_torch.destinations.util import (sequence_number_batch,
+                                             sequence_number_buffer)
+from etl_tpu_torch.ops import egress_kernel
+from etl_tpu_torch.ops.engine import DeviceDecoder
+from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch
+
+schema = bench.make_schema()
+staged = stage_wal_batch(*concat_payloads(bench.build_workload(300)),
+                         4).staged
+for enc in ("tsv", "json"):
+    b = DeviceDecoder(schema, device="cpu", egress=enc).decode(staged)
+    assert b.device_egress is not None
+    z = np.zeros(b.num_rows, dtype=np.uint64)
+    if enc == "tsv":
+        render_batch_tsv_fast(schema, b, "UPSERT",
+                              sequence_number_buffer(z, z, z),
+                              egress=b.device_egress)
+        bq_proto.encode_batch(schema, b, [b"UPSERT"] * b.num_rows,
+                              sequence_number_batch(z, z, z),
+                              egress=b.device_egress)
+    else:
+        encode_batch_ndjson_fast(schema, b, "insert",
+                                 offset_token_batch(z, z),
+                                 egress=b.device_egress)
+print("BAD", sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("pyarrow", "aiohttp", "jax",
+                                           "etl_tpu")))
+"""
+
+
+def test_egress_path_imports_neither_pyarrow_nor_aiohttp():
+    """Decoding with device egress and encoding TSV, NDJSON and BigQuery
+    proto from it imports no pyarrow and no aiohttp (the card's machine
+    has no pyarrow), and neither jax nor the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", _EGRESS_PROBE], cwd=ROOT,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def _schema():

@@ -653,3 +653,203 @@ def test_filtered_second_fetch_from_another_thread(cuda):
         assert "d2h_words_ms" in p.timings
         assert bench.filtered_batches_identical(got, cpu.decode(s))
         assert bench.filtered_batches_identical(got, dec.decode(s))
+
+
+# -- the egress render kernel (csrc/egress_render.cu) --------------------------
+
+EGRESS_WIDTHS = {K.BOOL: 4, K.I16: 8, K.I32: 12, K.U32: 12, K.I64: 20,
+                 K.DATE: 16, K.TIMESTAMP: 32, K.TIMESTAMPTZ: 32}
+PGBENCH_SPECS = ((0, K.I32, 8, 6), (1, K.I32, 4, 2), (2, K.I32, 12, 10))
+
+
+@pytest.fixture
+def egress_cuda(cuda):
+    from etl_tpu_torch.ops import egress_kernel
+
+    egress_kernel.load()
+    return cuda
+
+
+def _egress_specs():
+    kinds = list(EGRESS_WIDTHS.items()) * 2
+    return tuple((i, k, w, (min(w, saturation_width(k)) + 1) & ~1)
+                 for i, (k, w) in enumerate(kinds))
+
+
+def _render_both(specs, encoder, rows, seed, nibble=False, pool=4096):
+    from etl_tpu_torch.ops import egress, egress_kernel
+    from etl_tpu_torch.testing import egress_words
+
+    words = egress_words(specs, min(rows, pool),
+                         np.random.default_rng(seed), nibble)
+    words = words.view(torch.int32).repeat(1, -(-rows // pool))[:, :rows]
+    words_d = words.contiguous().cuda()
+    plan = egress.plan_for_specs(specs, encoder)
+    got = egress_kernel.render(words_d, specs, plan)
+    want = egress.render_plain(words_d, specs, plan)
+    torch.cuda.synchronize()
+    return [g.cpu() for g in got], [w.cpu() for w in want]
+
+
+@pytest.mark.parametrize("encoder", ["tsv", "json"])
+@pytest.mark.parametrize("rows", [1, 31, 257, 65_499])
+def test_egress_render_matches_plain(egress_cuda, encoder, rows):
+    """Every kind the encoder renders, raw, on seeded adversarial words,
+    at ragged row counts: both outputs bit for bit on every row."""
+    got, want = _render_both(_egress_specs(), encoder, rows,
+                             seed=rows + len(encoder))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_egress_render_2_22_rows(egress_cuda):
+    """The main path's layout (three INT4 columns, nibble) at 2^22 rows."""
+    got, want = _render_both(PGBENCH_SPECS, "tsv", 1 << 22, seed=3,
+                             nibble=True, pool=16_384)
+    assert got[0].shape == (1 << 22, 33)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_egress_render_two_streams_at_once(egress_cuda):
+    """Renders on two streams at once, each of its own words, are each
+    their plain version's."""
+    from etl_tpu_torch.ops import egress, egress_kernel
+    from etl_tpu_torch.testing import egress_words
+
+    specs = _egress_specs()
+    plan = egress.plan_for_specs(specs, "tsv")
+    words = [egress_words(specs, 4096, np.random.default_rng(s))
+             .view(torch.int32).repeat(1, 64).cuda() for s in (1, 2)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    got = [[], []]
+    for _ in range(3):
+        for st, w, out in zip(streams, words, got):
+            with torch.cuda.stream(st):
+                out.append(egress_kernel.render(w, specs, plan))
+    torch.cuda.synchronize()
+    for w, outs in zip(words, got):
+        want = egress.render_plain(w, specs, plan)
+        for g in outs:
+            assert all(torch.equal(a, b) for a, b in zip(g, want))
+
+
+def test_egress_launch_counter_and_cpu_route(egress_cuda):
+    from etl_tpu_torch.ops import egress, egress_kernel
+    from etl_tpu_torch.testing import egress_words
+
+    plan = egress.plan_for_specs(PGBENCH_SPECS, "tsv")
+    words = egress_words(PGBENCH_SPECS, 64, np.random.default_rng(0), True)
+    before = egress_kernel.launches
+    egress_kernel.render(words, PGBENCH_SPECS, plan)
+    assert egress_kernel.launches == before  # CPU tensor: plain version
+    egress_kernel.render(words.cuda(), PGBENCH_SPECS, plan)
+    assert egress_kernel.launches == before + 1
+
+
+def test_egress_decoder_cuda_matches_cpu(egress_cuda):
+    """`DeviceDecoder(..., device="cuda", egress="tsv")` launches the
+    render once a batch after K1; the attached text equals the CPU
+    decoder's, and the timings hold the render and its fetch."""
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops import egress_kernel
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch
+
+    staged = stage_wal_batch(*concat_payloads(bench.build_workload(20_000)),
+                             4).staged
+    dec = DeviceDecoder(bench.make_schema(), device="cuda", egress="tsv")
+    before = (decode_kernel.launches, egress_kernel.launches)
+    pending = [dec.decode_async(staged) for _ in range(3)]
+    cpu = DeviceDecoder(bench.make_schema(), device="cpu",
+                        egress="tsv").decode(staged)
+    for p in pending:
+        b = p.result()
+        assert bench.batches_equal(b, cpu)
+        assert set(b.device_egress.fields) == set(cpu.device_egress.fields)
+        for j, (buf, lens) in cpu.device_egress.fields.items():
+            gb, gl = b.device_egress.fields[j]
+            assert np.array_equal(gb, buf) and np.array_equal(gl, lens)
+        assert {"egress_ms", "d2h_egress_ms", "kernel_ms"} <= set(p.timings)
+    assert (decode_kernel.launches, egress_kernel.launches) \
+        == (before[0] + 3, before[1] + 3)
+
+
+def test_egress_launch_failure_fails_the_batch(egress_cuda, monkeypatch):
+    """No fallback: a render launch the card refuses fails its batch; it
+    does not ship without device text."""
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops import egress_kernel
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch
+
+    class Refusing:
+        def __init__(self, lib):
+            self._lib = lib
+
+        def etl_egress_render(self, *args):
+            return 1  # cudaErrorInvalidValue
+
+        def __getattr__(self, name):
+            return getattr(self._lib, name)
+
+    staged = stage_wal_batch(*concat_payloads(bench.build_workload(1000)),
+                             4).staged
+    dec = DeviceDecoder(bench.make_schema(), device="cuda", egress="tsv")
+    monkeypatch.setattr(egress_kernel, "_lib",
+                        Refusing(egress_kernel.load()))
+    with pytest.raises(RuntimeError, match="egress render launch failed"):
+        dec.decode(staged)
+
+
+@pytest.mark.parametrize("n_cols", [100, 260])
+def test_very_wide_tables(cuda, n_cols):
+    """100 and 260 dense columns through the kernel wrapper: the walk and
+    descriptor sizes a wide table takes, bit for bit."""
+    kinds = [K.I32, K.I64, K.DATE, K.TIMESTAMPTZ, K.BOOL]
+    specs = tuple((i, kinds[i % 5], WIDTHS[kinds[i % 5]],
+                   (min(WIDTHS[kinds[i % 5]],
+                        saturation_width(kinds[i % 5])) + 1) & ~1)
+                  for i in range(n_cols))
+    got, want = _both(specs, False, 700, seed=n_cols)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("route", ["k2c", "k2+epilogue"])
+def test_copy_escapes_fix_up_at_compacted_indices(cuda, route, monkeypatch):
+    """COPY rows with escapes are force-kept by the fused filter and fixed
+    up at their compacted positions, on K2c and on the two-launch route:
+    the card's batch and source_rows equal the CPU decoder's."""
+    from etl_tpu_torch import convert
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.predicate import parse_row_filter
+    from etl_tpu_torch.ops.staging import stage_copy_chunk
+
+    rng = np.random.default_rng(9)
+    vals = rng.integers(-1000, 1000, size=3000)
+    lines = [f"{i}\t{v}\t" + (f"a\\tb{i}" if i % 7 == 0 else f"plain{i}")
+             for i, v in enumerate(vals)]
+    chunk = ("\n".join(lines) + "\n").encode()
+    schema = convert.schema_from_plain(
+        1, "public", "t", [("c0", 20, -1, False, 1), ("c1", 23, -1, True,
+                                                      None),
+                           ("c2", 25, -1, True, None)],
+        [True] * 3, [True, False, False]).with_row_predicate(
+            parse_row_filter("c1 < 0"))
+    if route != "k2c":
+        monkeypatch.setattr(decode_kernel, "fused_walk",
+                            lambda *a, **k: None)
+    before = (decode_kernel.fused_launches, decode_kernel.filter_launches)
+    got = DeviceDecoder(schema, device="cuda",
+                        device_min_rows=0).decode(stage_copy_chunk(chunk, 3))
+    want = DeviceDecoder(schema, device="cpu",
+                         device_min_rows=0).decode(stage_copy_chunk(chunk, 3))
+    after = (decode_kernel.fused_launches, decode_kernel.filter_launches)
+    assert after[0 if route == "k2c" else 1] \
+        == before[0 if route == "k2c" else 1] + 1
+    assert list(got.source_rows) == list(np.flatnonzero(vals < 0))
+    assert list(want.source_rows) == list(got.source_rows)
+    for pos, src in enumerate(got.source_rows):
+        assert got.columns[2].value(pos) == (
+            f"a\tb{src}" if src % 7 == 0 else f"plain{src}")
+        assert [c.value(pos) for c in got.columns] \
+            == [c.value(pos) for c in want.columns]

@@ -605,8 +605,14 @@ class TestPortRules:
     async def test_no_decode_thread_outlives_shutdown(self):
         import threading
 
-        from etl_tpu_torch.ops.pipeline import global_admission
+        from etl_tpu_torch.ops.pipeline import (describe_thread,
+                                                global_admission,
+                                                worker_threads)
 
+        # the port's own workers, created by this run: another package's
+        # decode pipeline names its workers the same way, and a test run
+        # shares its process with the reference's tests
+        before = threading.enumerate()
         db = make_db()
         pipeline, store, dest = make_pipeline(db)
         await pipeline.start()
@@ -617,9 +623,18 @@ class TestPortRules:
         await _wait_for(lambda: len(_row_events(dest)) >= 100)
         await pipeline.shutdown_and_wait()
         deadline = asyncio.get_event_loop().time() + 10
-        while any(t.name.startswith("etl-") and t.name.endswith("-pipeline")
-                  for t in threading.enumerate()):
-            assert asyncio.get_event_loop().time() < deadline
+        while True:
+            left = worker_threads(exclude=before)
+            if not left:
+                break
+            named = [t for t in threading.enumerate()
+                     if t.name.startswith("etl-")
+                     and t.name.endswith("-pipeline")]
+            assert asyncio.get_event_loop().time() < deadline, (
+                "decode workers of this run outlived shutdown: "
+                + ", ".join(describe_thread(t) for t in left)
+                + "; every thread named etl-*-pipeline: "
+                + ", ".join(describe_thread(t) for t in named))
             await asyncio.sleep(0.02)
         sched = global_admission()
         assert sched.in_flight == 0
