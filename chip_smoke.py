@@ -95,14 +95,40 @@ the final result line:
    straddle two words. (b) `bench --egress` at 262,144 rows: each encoder
    alone, and the TSV and NDJSON fast paths, which must use the device
    text and equal the columnar oracle byte for byte. (c) Phase 7's CDC
-   stream into a destination that declares the `tsv` encoder and renders
-   every write's TSV body on the clock (`render_batch_tsv_fast`, minus the
-   HTTP insert): every body must equal `render_batch_tsv_columnar` on the
+   stream, with the default PipelineConfig (supervision and poison on),
+   into a destination that declares the `tsv` encoder and renders every
+   write's TSV body on the clock (`render_batch_tsv_fast`, minus the HTTP
+   insert); the SupervisedDestination forwards its encoder. Every body must equal `render_batch_tsv_columnar` on the
    same batch, the render kernel must launch once per device run (as
    often as K1), every device run's batch must carry device text and
-   every write of such batches use it, besides phase 7's checks. Prints
+   every write of such batches use it, besides phase 7's and 10(a)'s
+   supervision checks. Prints
    events/s, p50/p95 lag, the render and egress-fetch sums and the busy
    share beside phase 7's.
+
+10. the reference's default PipelineConfig: supervision and poison-pill
+   isolation on. (a) Phase 7's stream with PipelineConfig's defaults but
+   for the pipeline id, the publication and the batch: the supervisor
+   started, the destination is a SupervisedDestination, K1 launched once
+   per device run, no degrade event, no `device-degraded` reason, health
+   `healthy` at the end, and phase 7's checks. (b) The same stream with
+   0.1 % of the rows poison (a `filler` starting `POISON`) into
+   `PoisonRejectingDestination(counting)`, the state in a SqliteStore in a
+   temporary directory and `PoisonConfig(budget_rows=1_000_000)`: every
+   poison row is on the dead-letter store exactly once under its WAL key,
+   every other row delivered once in (commit LSN, ordinal) order, each
+   isolation's probe writes within `bisection_bound`, K1 launched, and
+   `python -m etl_tpu_torch.dlq --sqlite <db> --pipeline-id 1 list` in
+   another process lists the same entries. (c) The supervisor's
+   host-oracle degrade (`bench.run_device_degrade`): a copy fetch held
+   past a 0.5 s stall deadline with `device_degrade_threshold=1` and a
+   3 s cooldown; the degrade fires, the device-routed batches and rows
+   stay flat from the degrade event until it lifts while the
+   oracle-routed rows rise, K1 launches once per device-routed batch over
+   the run, it lifts and K1 launches again, and the delivered rows equal
+   the written ones. Prints events/s and lag of (a) and (b) beside phase
+   7's. The engine's forced-oracle state is checked clear before phases
+   4-9, 9(c) and each of 10, and after 10(c).
 
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
@@ -805,10 +831,13 @@ def egress_phase(args, main_specs, cdc: dict) -> dict:
           "text or differs from the columnar oracle")
 
     print(f"[9c] CDC through the runtime into a TSV destination "
-          f"({args.cdc_events} events)", flush=True)
+          f"({args.cdc_events} events, the default PipelineConfig)",
+          flush=True)
+    oracle_clear("phase 9(c)")
     _reset_launch_counts()
     r = asyncio.run(bench.run_table_streaming(
-        args.cdc_events, device="cuda", seed=args.seed + 1, tsv=True))
+        args.cdc_events, device="cuda", seed=args.seed + 1, tsv=True,
+        subsystems="default"))
     r.update(_launch_counts())
     r["events_per_second"] = r["end_to_end_events_per_second"]
     t = r["tsv"]
@@ -831,6 +860,13 @@ def egress_phase(args, main_specs, cdc: dict) -> dict:
           flush=True)
     print(f"  run sizes: {json.dumps(r['run_rows'])}", flush=True)
     print(f"  after shutdown: {json.dumps(r['after_shutdown'])}", flush=True)
+    sv = r["supervision"]
+    print(f"  supervisor started={sv['started']} wrapped={sv['wrapped']} "
+          f"health={sv['health']} degrade_events={sv['degrade_events']}",
+          flush=True)
+    check(r["supervision_ok"], "the supervised TSV stream did not keep "
+          "its supervision checks (started, wrapped, healthy, no degrade, "
+          "K1 once per device run)")
     check(r["egress_launches"] > 0
           and r["egress_launches"] == r["k1_launches"],
           "the render kernel did not launch once per device run")
@@ -844,11 +880,162 @@ def egress_phase(args, main_specs, cdc: dict) -> dict:
     check(r["shutdown_ok"], "a decode thread, an admission ticket or a "
           "tenant outlived shutdown")
     print("  parity: every body == render_batch_tsv_columnar, the render "
-          "once per device run, device text used on every device write, "
-          "count/digest/order/identity/512 oracle rows as phase 7, clean "
-          "shutdown", flush=True)
+          "once per device run through the SupervisedDestination, device "
+          "text used on every device write, count/digest/order/identity/"
+          "512 oracle rows as phase 7, clean shutdown", flush=True)
     return {"cases": cases, "encoders": eb, "cdc_tsv": r,
             "launches": egress_kernel.launches}
+
+
+def oracle_clear(before: str) -> None:
+    from etl_tpu_torch.ops import engine
+
+    check(not engine.host_oracle_forced(),
+          f"the engine's forced host-oracle state is set before {before}")
+
+
+def default_config_phase(args, cdc: dict) -> dict:
+    """Phase 10: the reference's default PipelineConfig (supervision and
+    poison on) on the card: (a) phase 7's stream, (b) the stream with
+    poison rows over a SqliteStore, (c) the supervisor's host-oracle
+    degrade. Each sets the launch counts to 0 just before it and reads
+    them just after. `cdc` is phase 7's result, printed beside (a)."""
+    import asyncio
+    import logging
+    import tempfile
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops import engine
+
+    # one warning a poison row is the isolator's log; the counts print here
+    logging.getLogger("etl_tpu_torch.poison").setLevel(logging.ERROR)
+    out = {}
+    print(f"[10a] CDC with the default PipelineConfig ({args.cdc_events} "
+          f"events, supervision and poison on)", flush=True)
+    oracle_clear("phase 10(a)")
+    _reset_launch_counts()
+    r = asyncio.run(bench.run_table_streaming(
+        args.cdc_events, device="cuda", seed=args.seed + 1,
+        subsystems="default"))
+    window_k1 = r["k1_launches"]
+    r.update(_launch_counts())
+    r["events_per_second"] = r["end_to_end_events_per_second"]
+    sv = r["supervision"]
+    print(f"  events/s={r['events_per_second']:.0f} (phase 7: "
+          f"{cdc['events_per_second']:.0f}) lag_p50_ms={r['lag_p50_ms']:.2f} "
+          f"lag_p95_ms={r['lag_p95_ms']:.2f} (phase 7: "
+          f"{cdc['lag_p50_ms']:.2f} / {cdc['lag_p95_ms']:.2f}) "
+          f"device_busy_share={r['device_busy_share']:.5f}", flush=True)
+    print(f"  supervisor started={sv['started']} wrapped={sv['wrapped']} "
+          f"health={sv['health']} reasons={json.dumps(sv['reasons'])} "
+          f"degrade_events={sv['degrade_events']} events="
+          f"{json.dumps(sv['events'])}", flush=True)
+    print(f"  launches: k1={r['k1_launches']} (window {window_k1}, device "
+          f"runs {r['device_runs']}) device_rows={r['device_rows']} "
+          f"oracle_rows={r['oracle_rows']}", flush=True)
+    print(f"  {_stage_line(r)}", flush=True)
+    print(f"  after shutdown: {json.dumps(r['after_shutdown'])}", flush=True)
+    check(sv["started"], "the supervisor did not start")
+    check(sv["wrapped"], "the destination is not a SupervisedDestination")
+    check(window_k1 > 0 and r["k1_per_device_run_ok"],
+          "K1 did not launch once per device run")
+    check(sv["degrade_events"] == 0
+          and "device-degraded" not in sv["reasons"],
+          "the default config degraded the engine")
+    check(sv["health"] == "healthy", f"health {sv['health']} at the end")
+    check(r["count_ok"] and r["digest_ok"] and r["order_ok"]
+          and r["identity_ok"] and r["oracle_sample_ok"],
+          "default-config rows differ from the produced rows")
+    check(r["shutdown_ok"], "a decode thread, an admission ticket or a "
+          "tenant outlived shutdown")
+    print("  parity: count/digest/order/identity/512 oracle rows as phase 7, "
+          "clean shutdown", flush=True)
+    out["10a_default"] = r
+
+    print(f"[10b] CDC with poison rows ({args.cdc_events} events, poison "
+          f"rate {bench.POISON_RATE}, SqliteStore)", flush=True)
+    oracle_clear("phase 10(b)")
+    _reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        r = asyncio.run(bench.run_table_streaming(
+            args.cdc_events, device="cuda", seed=args.seed + 1,
+            subsystems="default", poison_rate=bench.POISON_RATE,
+            store_dir=tmp))
+    r.update(_launch_counts())
+    r["events_per_second"] = r["end_to_end_events_per_second"]
+    q = r["dlq"]
+    print(f"  events/s={r['events_per_second']:.0f} (10a: "
+          f"{out['10a_default']['events_per_second']:.0f}) lag_p50_ms="
+          f"{r['lag_p50_ms']:.2f} lag_p95_ms={r['lag_p95_ms']:.2f} "
+          f"delivered={r['delivered_rows']} want={r['want_rows']}",
+          flush=True)
+    print(f"  dlq: poison_rows={q['poison_rows']} entries={q['entries']} "
+          f"exactly_once={q['exactly_once']} values_ok={q['values_ok']} "
+          f"isolations={q['isolations']} probe_writes={q['probe_writes']} "
+          f"probe_bound={q['probe_bound']} bound_ok={q['bound_ok']} "
+          f"cli_ok={q['cli_ok']} cli_s={q['cli_s']:.2f}", flush=True)
+    print(f"  launches: k1={r['k1_launches']} device_rows="
+          f"{r['device_rows']} oracle_rows={r['oracle_rows']}", flush=True)
+    print(f"  {_stage_line(r)}", flush=True)
+    print(f"  after shutdown: {json.dumps(r['after_shutdown'])}", flush=True)
+    if q["cli_stderr"]:
+        print(f"  dlq cli stderr: {q['cli_stderr']}", flush=True)
+    check(r["k1_launches"] > 0, "the poisoned stream launched no K1")
+    check(q["exactly_once"] and q["values_ok"], "a poison row is not on "
+          "the dead-letter store exactly once under its WAL key")
+    check(r["count_ok"] and r["digest_ok"] and r["order_ok"]
+          and r["identity_ok"] and r["oracle_sample_ok"],
+          "the healthy rows are not delivered once each in (commit LSN, "
+          "ordinal) order")
+    check(q["bound_ok"], "an isolation's probe writes exceeded "
+          "bisection_bound")
+    check(q["cli_ok"], "the DLQ CLI in another process listed other "
+          "entries")
+    check(r["shutdown_ok"], "a decode thread, an admission ticket or a "
+          "tenant outlived shutdown")
+    print("  parity: healthy rows count/digest/order/identity/512 oracle "
+          "rows, poison rows on the DLQ once each, probe bound, CLI list "
+          "equal", flush=True)
+    out["10b_poison"] = r
+
+    print("[10c] host-oracle degrade (a copy with a held fetch, then CDC)",
+          flush=True)
+    oracle_clear("phase 10(c)")
+    _reset_launch_counts()
+    r = asyncio.run(bench.run_device_degrade(device="cuda"))
+    r.update(_launch_counts())
+    print(f"  degrade_fired={r['degrade_fired']} component="
+          f"{r['degrade_component']} at_s={r['degrade_at_s']} ready_at_s="
+          f"{r['ready_at_s']:.2f} done_at_s={r['done_at_s']:.2f}",
+          flush=True)
+    print(f"  from the degrade to its last forced sample (K1 launches of "
+          f"batches routed before it): {json.dumps(r['while_degraded'])} "
+          f"lifted="
+          f"{r['lifted']} after lift: {json.dumps(r['after_lift'])}",
+          flush=True)
+    print(f"  launches: k1={r['k1_launches']} device_batches="
+          f"{r['device_batches']} device_rows={r['device_rows']} "
+          f"oracle_rows={r['oracle_rows']} restarts="
+          f"{json.dumps(r['restarts'])} health_at_end={r['health_at_end']} "
+          f"streamed={r['cdc_rows_delivered']} once_in_order="
+          f"{r['cdc_once_in_order']}", flush=True)
+    check(r["degrade_fired"], "the held fetch did not degrade the engine")
+    check(r["device_flat_while_degraded"], "batches or rows were routed "
+          "to the device while the degrade held")
+    check(r["k1_per_device_batch"], "K1 did not launch once per "
+          "device-routed batch")
+    check(r["oracle_rose_while_degraded"],
+          "no rows took the oracle route while the degrade held")
+    check(r["lifted"] and r["k1_after_lift"],
+          "the degrade did not lift, or K1 did not launch after it")
+    check(r["copy_ok"] and r["cdc_ok"], "the delivered rows differ from "
+          "the written rows")
+    check(not engine.host_oracle_forced(),
+          "the forced host-oracle state outlived phase 10(c)")
+    print("  parity: copied and streamed rows == written rows (count and "
+          "digest); forced-oracle state clear", flush=True)
+    out["10c_degrade"] = r
+    return out
 
 
 def main() -> int:
@@ -1008,6 +1195,7 @@ def main() -> int:
 
     # -- 4. main path --------------------------------------------------------
     print("[4] main path", flush=True)
+    oracle_clear("phase 4")
     check(args.batches >= 6, "--batches must be at least 6")
     warm = decoder.decode(staged0)  # descriptor upload, pinned buffers
     check(warm.num_rows == rows, "warm-up batch has the wrong row count")
@@ -1132,9 +1320,11 @@ def main() -> int:
           f"warm_ms={fheld['warm_ms']:.5f}; launch_ms="
           f"{fsplit['launch_ms']:.5f} (host)", flush=True)
 
+    oracle_clear("phases 6-9")
     runtime = runtime_phases(args)
     eph = egress_phase(args, main_specs, runtime["7_cdc"])
     runtime["9_cdc_tsv"] = eph["cdc_tsv"]
+    runtime.update(default_config_phase(args, runtime["7_cdc"]))
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs

@@ -56,6 +56,7 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import json
+import os
 import random
 import subprocess
 import sys
@@ -456,28 +457,71 @@ def table_digest(t: dict, rows: np.ndarray | None = None) -> int:
                         np.full(n, FILLER_WIDTH), valid)
 
 
+def _text_buffers(col) -> tuple:
+    """(offsets, values) of a text column: a TextArray's own buffers, or
+    built from the strings of a batch transposed from rows."""
+    data = col.data
+    if hasattr(data, "offsets"):
+        return data.offsets, data.values
+    enc = [(v or "").encode() for v in data]
+    offsets = np.zeros(len(enc) + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum([len(b) for b in enc])
+    return offsets, np.frombuffer(b"".join(enc), dtype=np.uint8)
+
+
 def batch_rows_digest(batch) -> int:
     """`_rows_digest` of a decoded pgbench ColumnarBatch."""
-    aid, bid, abal, filler = batch.columns
-    text = filler.data
-    return _rows_digest(aid.data, bid.data, abal.data,
-                        _text_hash(text.offsets, text.values),
-                        np.diff(text.offsets.astype(np.int64)),
-                        [aid.validity, bid.validity, abal.validity,
-                         filler.validity])
+    return _rows_digest(*_rows_arrays([batch]))
+
+
+def _rows_arrays(batches: list) -> tuple:
+    """The `_rows_digest` inputs of pgbench batches, concatenated: aid,
+    bid, abalance, the filler's hash and length, and the four validity
+    masks."""
+    cols: list = [[] for _ in range(9)]
+    for b in batches:
+        aid, bid, abal, filler = b.columns
+        offsets, values = _text_buffers(filler)
+        for k, v in enumerate((aid.data, bid.data, abal.data,
+                               _text_hash(offsets, values),
+                               np.diff(offsets.astype(np.int64)),
+                               aid.validity, bid.validity, abal.validity,
+                               filler.validity)):
+            cols[k].append(np.asarray(v))
+    arrs = [np.concatenate(c) if c else np.zeros(0) for c in cols]
+    return (*arrs[:5], arrs[5:])
+
+
+def poison_rows(t: dict, rate: float, seed: int) -> np.ndarray:
+    """Mark a seeded `rate` of the table's rows as poison: their filler
+    starts with `POISON` (every other filler is lowercase), the value
+    `PoisonRejectingDestination` refuses. Returns the boolean mask."""
+    n = len(t["aid"])
+    mask = np.zeros(n, dtype=bool)
+    k = int(round(rate * n))
+    if k:
+        mask[np.random.default_rng(seed).choice(n, size=k,
+                                                replace=False)] = True
+        t["filler"][mask, :6] = np.frombuffer(b"POISON", dtype=np.uint8)
+    return mask
 
 
 def _counting_destination():
     """A destination that resolves every decoded batch as it arrives (so
     the decode stays on the measured path), counts its rows, records the
     arrival time of each commit LSN it carries, and keeps the batches for
-    the checks made after the measured window."""
+    the checks made after the measured window. Per-row INSERT events (the
+    poison isolator's probe writes expand the batches of a failed flush)
+    are kept the same way: each consecutive run of them in a write becomes
+    one ColumnarBatch. Dropping the table drops the copied rows (a
+    restarted table sync recopies)."""
     return _counting_class()()
 
 
 def _counting_class():
     from .destinations.base import Destination, WriteAck
-    from .models.event import DecodedBatchEvent
+    from .models.event import ChangeType, DecodedBatchEvent, InsertEvent
+    from .models.table_row import ColumnarBatch
 
     class CountingDestination(Destination):
         def __init__(self):
@@ -485,6 +529,7 @@ def _counting_class():
             self.copied: list = []
             self.events: list = []  # (batch, change types, commits, ords)
             self.arrivals: list = []  # (commit LSN, perf_counter)
+            self.decoded_rows: list = []  # rows of each decoded event
             self.other_events = 0
 
         async def startup(self):
@@ -496,22 +541,45 @@ def _counting_class():
             return WriteAck.durable()
 
         async def write_events(self, events):
+            rows: list = []
             for e in events:
+                if isinstance(e, InsertEvent):
+                    rows.append(e)
+                    continue
+                self._keep_rows(rows)
                 if not isinstance(e, DecodedBatchEvent):
                     self.other_events += 1
                     continue
                 b = e.batch  # resolves the decode
-                now = time.perf_counter()
-                self.rows_delivered += b.num_rows
-                self.events.append((b, e.change_types,
-                                    np.asarray(e.commit_lsns),
-                                    np.asarray(e.tx_ordinals)))
-                for lsn in np.unique(e.commit_lsns).tolist():
-                    self.arrivals.append((int(lsn), now))
+                self.decoded_rows.append(b.num_rows)
+                self._keep(b, e.change_types, np.asarray(e.commit_lsns),
+                           np.asarray(e.tx_ordinals))
+            self._keep_rows(rows)
             return WriteAck.durable()
 
+        def _keep(self, b, change_types, commits, ordinals) -> None:
+            now = time.perf_counter()
+            self.rows_delivered += b.num_rows
+            self.events.append((b, change_types, commits, ordinals))
+            for lsn in np.unique(commits).tolist():
+                self.arrivals.append((int(lsn), now))
+
+        def _keep_rows(self, rows: list) -> None:
+            if not rows:
+                return
+            b = ColumnarBatch.from_rows(rows[0].schema,
+                                        [e.row for e in rows])
+            self._keep(b, np.full(len(rows), int(ChangeType.INSERT),
+                                  dtype=np.uint8),
+                       np.asarray([int(e.commit_lsn) for e in rows],
+                                  dtype=np.uint64),
+                       np.asarray([e.tx_ordinal for e in rows],
+                                  dtype=np.uint64))
+            rows.clear()
+
         async def drop_table(self, table_id, schema=None):
-            return None
+            self.rows_delivered -= sum(b.num_rows for b in self.copied)
+            self.copied.clear()
 
         async def truncate_table(self, table_id):
             return None
@@ -546,6 +614,7 @@ def _tsv_destination():
         async def write_event_batches(self, events):
             for e in events:
                 if isinstance(e, DecodedBatchEvent):
+                    self.decoded_rows.append(e.batch.num_rows)
                     self.decoded.append((e.batch.num_rows,
                                          e.batch.device_egress is not None))
             for op in sequential_batch_program(events):
@@ -611,33 +680,65 @@ def tsv_checks(dest, device_min_rows: int) -> dict:
     }
 
 
-def _pipeline(db, dest, device: str, max_fill_ms: int = 40):
+def _pipeline(db, dest, device: str, max_fill_ms: int = 40, *,
+              subsystems: str = "off", store=None, **overrides):
     """The port's Pipeline on the fake walsender, CUDA engine on
-    `device`, with the subsystems the port has not ported passed off."""
+    `device`. `subsystems="off"` passes supervision and poison-pill
+    isolation off (the runtime by itself); `"default"` keeps
+    PipelineConfig's defaults for every field but the pipeline id, the
+    publication and the batch (both on). `overrides` replace config
+    fields (`poison=`, `supervision=`); `store` defaults to a
+    NotifyingStore."""
     from .config import (BatchConfig, BatchEngine, PipelineConfig,
                          PoisonConfig, SupervisionConfig)
     from .postgres.fake import FakeSource
     from .runtime import Pipeline
     from .store import NotifyingStore
 
-    store = NotifyingStore()
-    config = PipelineConfig(
-        pipeline_id=1, publication_name="pub",
-        batch=BatchConfig(max_fill_ms=max_fill_ms,
-                          batch_engine=BatchEngine.CUDA, device=device),
+    if store is None:
+        store = NotifyingStore()
+    fields = {} if subsystems == "default" else dict(
         supervision=SupervisionConfig(enabled=False),
         poison=PoisonConfig(enabled=False))
+    fields.update(overrides)
+    config = PipelineConfig(
+        pipeline_id=1, publication_name="pub",
+        batch=fields.pop("batch", None) or BatchConfig(
+            max_fill_ms=max_fill_ms, batch_engine=BatchEngine.CUDA,
+            device=device),
+        **fields)
     return Pipeline(config=config, store=store, destination=dest,
                     source_factory=lambda: FakeSource(db)), store
 
 
+async def _wait_ready(store, tid: int, timeout: float) -> None:
+    """Until the table is READY: the NotifyingStore's notification, or a
+    poll of a durable store's state."""
+    from .models.table_state import TableStateType
+
+    if hasattr(store, "notify_on"):
+        await asyncio.wait_for(store.notify_on(tid, TableStateType.READY),
+                               timeout)
+        return
+
+    async def poll():
+        while True:
+            st = await store.get_table_state(tid)
+            if st is not None and st.type is TableStateType.READY:
+                return
+            await asyncio.sleep(0.01)
+
+    await asyncio.wait_for(poll(), timeout)
+
+
 def _counters() -> dict:
     """Snapshot of the runtime's decode counters and stage sums."""
-    from .ops import decode_kernel, egress_kernel
+    from .ops import decode_kernel, egress_kernel, engine
     from .telemetry import metrics as m
 
     r = m.registry
-    out = {"k1_launches": decode_kernel.launches,
+    out = {"device_batches": engine.routed_device_batches,
+           "k1_launches": decode_kernel.launches,
            "k2c_launches": decode_kernel.fused_launches,
            "k2_launches": decode_kernel.filter_launches,
            "epilogue_launches": decode_kernel.compact_launches,
@@ -771,7 +872,9 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
                               device: str = "cuda",
                               row_filter: str | None = None,
                               seed: int = 8, warmup_events: int = 17_000,
-                              tsv: bool = False) -> dict:
+                              tsv: bool = False, subsystems: str = "off",
+                              poison_rate: float = 0.0,
+                              store_dir: str | None = None) -> dict:
     """CDC throughput and end-to-end replication lag: the port of the
     reference's `harness.run_table_streaming` (its defaults: 500,000
     insert events, 500-row transactions, a 30 ms fill window) on the
@@ -796,16 +899,33 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
     produced row it is); 512 sampled rows equal the CPU oracle's
     decode. With `tsv`: every body equals the columnar oracle's, device
     runs carry device text and their writes use it, and the render kernel
-    launched once per device run (as often as K1)."""
-    from .models.table_state import TableStateType
+    launched once per device run (as often as K1).
+
+    `subsystems="default"` runs PipelineConfig's defaults (supervision and
+    poison-pill isolation on; see `_pipeline`) and adds checks: the
+    supervisor started, the destination is wrapped in a
+    SupervisedDestination, no degrade event, health `healthy` at the end,
+    and K1 launched once per device run. `poison_rate` > 0 (with the
+    defaults) marks that share of the rows poison (`poison_rows`), wraps
+    the destination in a PoisonRejectingDestination and keeps the state in
+    a SqliteStore under `store_dir`, with `PoisonConfig(budget_rows=
+    1_000_000)`, the reference harness's poison settings: the poison rows
+    are the ones not delivered, and the checks add that each is on the
+    dead-letter store exactly once under its WAL key, that every
+    isolation's probe writes are within `bisection_bound`, and that
+    `python -m etl_tpu_torch.dlq --sqlite ... list` in another process
+    lists the same entries."""
     from .ops.engine import DeviceDecoder
     from .ops.pipeline import global_admission
     from .postgres.fake import FakeDatabase
+    from .runtime import poison as poison_mod
 
     t = pgbench_table(n_events, seed, first_aid=1)
+    poisoned = poison_rows(t, poison_rate, seed + 2)
     payloads = table_payloads(t)
     keep = np.ones(n_events, dtype=bool) if row_filter is None \
         else _filter_truth(row_filter, t)
+    keep &= ~poisoned
     warm = pgbench_table(warmup_events, seed + 1, first_aid=n_events + 1)
     warm_payloads = table_payloads(warm)
     db = FakeDatabase()
@@ -816,10 +936,26 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
         db.server_row_filtering = False
     db.create_publication("pub", [PGBENCH_TID], row_filters=row_filters)
     dest = _tsv_destination() if tsv else _counting_destination()
-    pipeline, store = _pipeline(db, dest, device, max_fill_ms)
+    sink, store, overrides = dest, None, {}
+    if poison_rate > 0:
+        from .config import PoisonConfig
+        from .destinations import PoisonRejectingDestination
+        from .store import SqliteStore
+
+        sink = PoisonRejectingDestination(dest)
+        store = SqliteStore(os.path.join(store_dir, "state.db"), 1)
+        await store.connect()
+        overrides["poison"] = PoisonConfig(budget_rows=1_000_000)
+    pipeline, store = _pipeline(db, sink, device, max_fill_ms,
+                                subsystems=subsystems, store=store,
+                                **overrides)
+    degrades: list = []
+    if pipeline.supervisor is not None:
+        pipeline.supervisor.add_listener(
+            lambda ev: degrades.append(ev) if ev.kind == "degrade" else None)
+    poison_mod.reset_isolation_trace()
     await pipeline.start()
-    await asyncio.wait_for(
-        store.notify_on(PGBENCH_TID, TableStateType.READY), 60)
+    await _wait_ready(store, PGBENCH_TID, 60)
 
     async def wait_rows(n: int) -> None:
         while dest.rows_delivered < n:
@@ -842,6 +978,7 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
         await asyncio.wait_for(wait_rows(int(warm_keep[:w].sum())), 120)
     dest.events.clear()
     dest.arrivals.clear()
+    dest.decoded_rows.clear()
     if tsv:
         dest.writes.clear()
         dest.decoded.clear()
@@ -875,6 +1012,24 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
     t_e2e = time.perf_counter()
     d = _delta(c0, _counters())
     sizes1 = _run_sizes()
+    supervised = None
+    if pipeline.supervisor is not None:
+        from .supervision import SupervisedDestination
+
+        pipeline.supervisor.sweep_once()
+        snap = pipeline.health_snapshot()
+        supervised = {
+            "started": pipeline.supervisor.started,
+            "wrapped": isinstance(pipeline.active_destination,
+                                  SupervisedDestination),
+            "health": snap["health"]["state"],
+            "reasons": snap["health"]["reasons"],
+            "events": [{"kind": e.kind, "component": e.component}
+                       for e in pipeline.supervisor.events],
+            "degrade_events": len(degrades)}
+    dlq = None
+    if poison_rate > 0:
+        dlq = await _dlq_checks(store, commits, poisoned, t, n_events)
     await pipeline.shutdown_and_wait()
     window = t_e2e - t_prod0
     lags = sorted((at - commit_times[lsn]) * 1e3
@@ -948,6 +1103,24 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
                           and not out["after_shutdown"]["admission_tenants"])
     out["ok"] = bool(out["count_ok"] and out["digest_ok"] and out["order_ok"]
                      and out["identity_ok"] and out["oracle_sample_ok"])
+    # device runs of the window: the decoded batches of at least the
+    # device threshold (smaller runs take the oracle route)
+    out["device_runs"] = sum(1 for n in dest.decoded_rows
+                             if n >= DeviceDecoder.DEVICE_MIN_ROWS)
+    out["k1_per_device_run_ok"] = \
+        out["k1_launches"] == out["device_runs"]
+    if supervised is not None:
+        out["supervision"] = supervised
+        out["supervision_ok"] = bool(
+            supervised["started"] and supervised["wrapped"]
+            and supervised["degrade_events"] == 0
+            and "device-degraded" not in supervised["reasons"]
+            and supervised["health"] == "healthy"
+            and (device != "cuda" or out["k1_per_device_run_ok"]))
+        out["ok"] = bool(out["ok"] and out["supervision_ok"])
+    if dlq is not None:
+        out["dlq"] = dlq
+        out["ok"] = bool(out["ok"] and dlq["ok"])
     if tsv:
         out.update(egress_launches=int(d["egress_launches"]),
                    egress_s=d["egress_s"], d2h_egress_s=d["d2h_egress_s"],
@@ -959,6 +1132,291 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
             and out["tsv"]["used_device_when_carried"]
             and out["egress_launches"] == out["k1_launches"]
             and (device != "cuda" or out["egress_launches"] > 0))
+    return out
+
+
+#: `run_device_degrade`: how long the held fetch blocks (past the 0.5 s
+#: stall deadline), and the degrade's cooldown
+DEGRADE_STALL_S = 1.0
+DEGRADE_COOLDOWN_S = 3.0
+#: the poisoned stream's share of poison rows (BENCH_FLOOR.json
+#: `poison_rate`)
+POISON_RATE = 0.001
+
+
+async def run_device_degrade(copy_rows: int = 200_000,
+                             n_events: int = 100_000,
+                             device: str = "cuda") -> dict:
+    """The supervisor's host-oracle degrade, driven by a real stall: the
+    reference's default config with `SupervisionConfig(check_interval_s=
+    0.1, stall_deadline_s=0.5, device_degrade_threshold=1,
+    device_degrade_cooldown_s=3)` copies a seeded pgbench_accounts table
+    of `copy_rows` rows in 256 KiB chunks while the `PIPELINE_FETCH`
+    failpoint holds the third chunk's fetch for `DEGRADE_STALL_S` (longer
+    than the stall deadline). The fetch blocks its thread (copy fetches run in
+    `asyncio.to_thread`, off the event loop the supervisor sweeps on), the
+    partition's `decode:copy:...` heartbeat stays busy with its progress
+    frozen, and the supervisor degrades every decoder to the host oracle.
+    After READY and the degrade, `n_events // 5` insert events stream
+    while the degrade holds; once the cooldown lapses, the rest.
+
+    Checks: a `degrade` event fired; from the event (emitted after the
+    engine is forced, which no routing decision can straddle) until the
+    last moment the degrade held, the device-routed rows and batches
+    stayed flat while the oracle-routed rows rose; K1 launched once per
+    device-routed batch over the whole run (batches routed before the
+    degrade may launch after it, behind the held fetch's window slot and
+    admission ticket, and are reported); the degrade lifted (the engine
+    no longer forced, the `device-degraded` health reason gone) and the
+    events streamed after it launched K1; the copied rows (a restarted
+    table sync drops and recopies) and the streamed rows equal the
+    written ones by count and digest, the streamed ones once each in
+    (commit LSN, ordinal) order. Restarts the supervisor made are
+    reported, not refused."""
+    from .chaos import failpoints
+    from .config import BatchConfig, BatchEngine, SupervisionConfig
+    from .ops import engine
+    from .postgres.fake import FakeDatabase
+
+    stall_s, cooldown_s = DEGRADE_STALL_S, DEGRADE_COOLDOWN_S
+    t = pgbench_table(copy_rows, 9)
+    cdc = pgbench_table(n_events, 10, first_aid=copy_rows + 1)
+    payloads = table_payloads(cdc)
+    db = FakeDatabase()
+    db.create_table(make_schema().table_schema, rows=table_text_rows(t))
+    db.create_publication("pub", [PGBENCH_TID])
+    dest = _counting_destination()
+    sup = SupervisionConfig(check_interval_s=0.1, stall_deadline_s=0.5,
+                            device_degrade_threshold=1,
+                            device_degrade_cooldown_s=cooldown_s)
+    pipeline, store = _pipeline(
+        db, dest, device, subsystems="default", supervision=sup,
+        batch=BatchConfig(max_size_bytes=256 * 1024, max_fill_ms=30,
+                          batch_engine=BatchEngine.CUDA, device=device))
+    marks: dict = {}
+
+    def snap() -> dict:
+        c = _counters()
+        return {"k1": int(c["k1_launches"]), "oracle": int(c["oracle_rows"]),
+                "device": int(c["device_rows"]),
+                "batches": int(c["device_batches"]),
+                "at": time.perf_counter()}
+
+    def on_event(ev) -> None:
+        if ev.kind == "degrade" and "degrade" not in marks:
+            marks["degrade"] = snap()
+            marks["component"] = ev.component
+
+    async def watch() -> None:
+        # the last sample taken while the degrade still held
+        while True:
+            if "degrade" in marks and engine.host_oracle_forced():
+                marks["last_forced"] = snap()
+            await asyncio.sleep(0.02)
+
+    pipeline.supervisor.add_listener(on_event)
+    engine.clear_forced_oracle()
+    failpoints.arm_stall(failpoints.PIPELINE_FETCH, duration_s=stall_s,
+                         times=1, after_hits=2)
+    watcher = asyncio.ensure_future(watch())
+    c0 = _counters()
+    t0 = time.perf_counter()
+    produced = 0
+    commits: list = []
+
+    async def produce(upto: int) -> None:
+        nonlocal produced
+        while produced < upto:
+            tx = db.transaction()
+            hi = min(produced + 500, upto)
+            for p in payloads[produced:hi]:
+                tx.insert_preencoded(PGBENCH_TID, p)
+            commits.append((int(await tx.commit()), produced, hi))
+            produced = hi
+
+    async def delivered(n: int, timeout: float) -> None:
+        async def poll():
+            while dest.rows_delivered < n:
+                if pipeline._apply_task.done():
+                    pipeline._apply_task.result()
+                    raise RuntimeError("pipeline stopped before delivering")
+                await asyncio.sleep(0.01)
+
+        await asyncio.wait_for(poll(), timeout)
+
+    try:
+        await pipeline.start()
+        await _wait_ready(store, PGBENCH_TID, 600)
+        t_ready = time.perf_counter()
+        copied = dest.rows_delivered
+        deadline = time.monotonic() + stall_s + cooldown_s + 10
+        while "degrade" not in marks and time.monotonic() < deadline:
+            await asyncio.sleep(0.01)
+        await produce(n_events // 5)
+        await delivered(copied + produced, 300)
+        # the cooldown lapses on its own: wait for the engine and for the
+        # sweep to lift the health reason
+        deadline = time.monotonic() + cooldown_s + 30
+        while (engine.host_oracle_forced() or "device-degraded"
+               in pipeline.supervisor.health.reasons) \
+                and time.monotonic() < deadline:
+            await asyncio.sleep(0.05)
+        lifted = not engine.host_oracle_forced() \
+            and "device-degraded" not in pipeline.supervisor.health.reasons
+        c_lift = _counters()
+        await produce(n_events)
+        await delivered(copied + n_events, 300)
+        t_done = time.perf_counter()
+        c_end = _counters()
+        health = pipeline.health_snapshot()["health"]
+        events = [{"kind": e.kind, "component": e.component}
+                  for e in pipeline.supervisor.events]
+    finally:
+        watcher.cancel()
+        failpoints.disarm_all()
+        if pipeline._apply_task is not None:
+            await pipeline.shutdown_and_wait()
+        engine.clear_forced_oracle()
+    d = _delta(c0, c_end)
+    after = _delta(c_lift, c_end)
+    streamed = dest.events  # the CDC rows (copied ones are in `copied`)
+    commits_all = np.concatenate([e[2] for e in streamed]) \
+        if streamed else np.zeros(0, np.uint64)
+    ords_all = np.concatenate([e[3] for e in streamed]) \
+        if streamed else np.zeros(0, np.uint64)
+    key = commits_all.astype(np.uint64) * np.uint64(1 << 20) \
+        + ords_all.astype(np.uint64)
+    # a restarted apply worker re-streams from durable progress: rows past
+    # it arrive again (at-least-once), so the streamed rows are held to
+    # the truth by key, and to once-each order only without a restart
+    uniq, first = np.unique(key, return_index=True)
+    rows = _rows_arrays([e[0] for e in streamed])
+    restarts = [e for e in events if e["kind"] == "restart"]
+    at, last = marks.get("degrade"), marks.get("last_forced")
+    out = {
+        "mode": "device_degrade", "copy_rows": copy_rows,
+        "events": n_events, "device": device, "stall_s": stall_s,
+        "cooldown_s": cooldown_s,
+        "degrade_fired": "degrade" in marks,
+        "degrade_component": marks.get("component"),
+        "degrade_at_s": marks["degrade"]["at"] - t0
+        if "degrade" in marks else None,
+        "ready_at_s": t_ready - t0, "done_at_s": t_done - t0,
+        # K1 launches here are of batches routed before the degrade
+        "while_degraded": None if last is None else {
+            "seconds": last["at"] - at["at"],
+            "k1_launches": last["k1"] - at["k1"],
+            "device_batches": last["batches"] - at["batches"],
+            "device_rows": last["device"] - at["device"],
+            "oracle_rows": last["oracle"] - at["oracle"]},
+        "lifted": bool(lifted),
+        "after_lift": {"k1_launches": int(after["k1_launches"]),
+                       "device_rows": int(after["device_rows"]),
+                       "oracle_rows": int(after["oracle_rows"])},
+        "k1_launches": int(d["k1_launches"]),
+        "device_batches": int(d["device_batches"]),
+        "device_rows": int(d["device_rows"]),
+        "oracle_rows": int(d["oracle_rows"]),
+        "restarts": restarts,
+        "supervision_events": events, "health_at_end": health["state"],
+        "copy_ok": bool(
+            sum(b.num_rows for b in dest.copied) == copy_rows
+            and sum(batch_rows_digest(b) for b in dest.copied) % (1 << 64)
+            == table_digest(t)),
+        "cdc_rows_delivered": len(key),
+        "cdc_once_in_order": bool(len(key) == n_events
+                                  and np.all(np.diff(key) > 0)),
+        "cdc_ok": bool(
+            len(uniq) == n_events
+            and _rows_digest(*(a[first] for a in rows[:5]),
+                             [v[first] for v in rows[5]])
+            == table_digest(cdc)),
+    }
+    out["cdc_ok"] = bool(out["cdc_ok"] and (
+        out["cdc_once_in_order"]
+        or any(r["component"] == "apply" for r in restarts)))
+    wd = out["while_degraded"]
+    out["device_flat_while_degraded"] = bool(
+        wd is not None and wd["device_batches"] == 0
+        and wd["device_rows"] == 0)
+    out["oracle_rose_while_degraded"] = bool(wd is not None
+                                             and wd["oracle_rows"] > 0)
+    # the plain versions on the CPU launch nothing
+    out["k1_per_device_batch"] = out["k1_launches"] == (
+        out["device_batches"] if device == "cuda" else 0)
+    out["k1_after_lift"] = out["after_lift"]["k1_launches"] > 0 \
+        if device == "cuda" else out["after_lift"]["oracle_rows"] == 0
+    out["ok"] = bool(out["degrade_fired"]
+                     and out["device_flat_while_degraded"]
+                     and out["k1_per_device_batch"]
+                     and out["oracle_rose_while_degraded"] and out["lifted"]
+                     and out["k1_after_lift"] and out["copy_ok"]
+                     and out["cdc_ok"])
+    return out
+
+
+async def _dlq_checks(store, commits: list, poisoned: np.ndarray, t: dict,
+                      n_events: int) -> dict:
+    """The dead-letter side of a poisoned stream, read once the healthy
+    rows are delivered: every poison row is on the store exactly once
+    under its WAL key (commit LSN, ordinal) with its own values, every
+    isolation's probe writes are within `bisection_bound`, and the DLQ
+    CLI in another process (`python -m etl_tpu_torch.dlq --sqlite ...
+    list`) lists the same entries while the pipeline still holds the
+    file open."""
+    from .dlq.codec import decode_cell
+    from .runtime import poison as poison_mod
+
+    want = int(poisoned.sum())
+    deadline = time.monotonic() + 60
+    entries = await store.list_dead_letters(status=None)
+    while len(entries) < want and time.monotonic() < deadline:
+        await asyncio.sleep(0.05)
+        entries = await store.list_dead_letters(status=None)
+    first_of = {lsn: lo for lsn, lo, _ in commits}
+    src = np.asarray([first_of.get(e.commit_lsn, -10**12) + e.tx_ordinal
+                      for e in entries], dtype=np.int64)
+    known = bool(((src >= 0) & (src < n_events)).all())
+    values_ok = known and all(
+        decode_cell(json.loads(e.payload)["values"][0]) == int(t["aid"][i])
+        and decode_cell(json.loads(e.payload)["values"][3]).startswith(
+            "POISON")
+        for e, i in zip(entries, src.tolist()))
+    traces = list(poison_mod.ISOLATION_TRACE)
+    probe_writes = sum(tr["probe_writes"] for tr in traces)
+    bound_ok = all(tr["probe_writes"] <= poison_mod.bisection_bound(
+        tr["rows"], tr["tables"], tr["poison_rows"]) for tr in traces)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "etl_tpu_torch.dlq", "--sqlite", store.path,
+         "--pipeline-id", str(store.pipeline_id), "list", "--status",
+         "all"],
+        capture_output=True, text=True, timeout=300, cwd=root,
+        env={**os.environ, "PYTHONPATH": root})
+    cli_s = time.perf_counter() - t0
+    listed = json.loads(proc.stdout) if proc.returncode == 0 else {}
+    cli_ok = proc.returncode == 0 and sorted(
+        (d["commit_lsn"], d["tx_ordinal"], d["entry_id"])
+        for d in listed.get("entries", [])) == sorted(
+        (e.commit_lsn, e.tx_ordinal, e.entry_id) for e in entries)
+    out = {
+        "poison_rows": want, "entries": len(entries),
+        "exactly_once": bool(
+            known and len(entries) == want
+            and set(src.tolist()) == set(np.flatnonzero(poisoned).tolist())
+            and all(e.attempts == 1 for e in entries)),
+        "values_ok": bool(values_ok),
+        "isolations": len(traces), "probe_writes": probe_writes,
+        "probe_bound": sum(poison_mod.bisection_bound(
+            tr["rows"], tr["tables"], tr["poison_rows"]) for tr in traces),
+        "bound_ok": bool(bound_ok and traces),
+        "isolated_poison_rows": sum(tr["poison_rows"] for tr in traces),
+        "cli_ok": bool(cli_ok), "cli_s": cli_s,
+        "cli_stderr": proc.stderr[-2000:] if proc.returncode else "",
+    }
+    out["ok"] = bool(out["exactly_once"] and out["values_ok"]
+                     and out["bound_ok"] and out["cli_ok"])
     return out
 
 

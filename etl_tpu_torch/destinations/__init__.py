@@ -4,4 +4,5 @@ ported yet)."""
 from .base import (CommitRange, Destination, WriteAck, event_coordinate,
                    expand_batch_events)
 from .memory import (FaultAction, FaultInjectingDestination, FaultKind,
-                     MemoryDestination, TransactionalMemoryDestination)
+                     MemoryDestination, PoisonRejectingDestination,
+                     TransactionalMemoryDestination)

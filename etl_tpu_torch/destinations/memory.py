@@ -6,9 +6,7 @@ Reference parity: `MemoryDestination` (crates/etl/src/test_utils) and
 ambiguity") / hold / delay — the machinery behind the faulty-destination
 integration suite (SURVEY §4.3).
 
-Copy of the reference's `etl_tpu/destinations/memory.py` without
-`PoisonRejectingDestination`, whose trigger (poison-pill isolation) is
-not ported yet.
+Copy of the reference's `etl_tpu/destinations/memory.py`.
 """
 
 from __future__ import annotations
@@ -324,3 +322,94 @@ class FaultInjectingDestination(Destination):
             return WriteAck.durable()
 
         await self._apply_fault("truncate_table", run)
+
+
+class PoisonRejectingDestination(Destination):
+    """Wraps a destination with content-based rejection: any CDC write
+    whose rows contain a marked poison value fails with
+    `DESTINATION_REJECTED` — the deterministic analogue of an
+    unencodable value / schema-drift row a real destination 4xxes. The
+    trigger the isolation protocol (runtime/poison.py) bisects on.
+
+    Rejection is CONTENT-keyed, not call-keyed (unlike the scripted
+    FaultInjectingDestination FIFO): re-writing the same poisoned batch
+    fails again, a sub-batch without the poison row succeeds — exactly
+    the semantics binary bisection needs. The initial-copy path passes
+    through untouched (poison-pill isolation is a streaming-CDC
+    boundary; copy failures keep the per-table error states)."""
+
+    def __init__(self, inner: Destination, marker: str = "POISON",
+                 is_poison=None):
+        self.inner = inner
+        # egress/billing labels must name the REAL sink, not the wrapper
+        self.telemetry_name = getattr(inner, "telemetry_name",
+                                      type(inner).__name__)
+        self.marker = marker
+        self._is_poison = is_poison or (
+            lambda v: isinstance(v, str) and v.startswith(marker))
+        self.rejections = 0
+        self.rejected_values: list = []
+
+    def _scan(self, events: Sequence[Event]) -> None:
+        from ..models.event import (DecodedBatchEvent, DeleteEvent,
+                                    InsertEvent, UpdateEvent)
+
+        for ev in events:
+            if isinstance(ev, (InsertEvent, UpdateEvent)):
+                rows = [ev.row]
+                tid = ev.schema.id
+            elif isinstance(ev, DeleteEvent):
+                rows = [ev.old_row]
+                tid = ev.schema.id
+            elif isinstance(ev, DecodedBatchEvent):
+                rows = ev.batch.to_rows()
+                tid = ev.schema.id
+            else:
+                continue
+            for row in rows:
+                for v in row.values:
+                    if self._is_poison(v):
+                        self.rejections += 1
+                        self.rejected_values.append(v)
+                        raise EtlError(
+                            ErrorKind.DESTINATION_REJECTED,
+                            f"unencodable value in table {tid}: {v!r}")
+
+    async def startup(self) -> None:
+        await self.inner.startup()
+
+    async def shutdown(self) -> None:
+        await self.inner.shutdown()
+
+    async def write_table_rows(self, schema: ReplicatedTableSchema,
+                               batch: ColumnarBatch) -> WriteAck:
+        return await self.inner.write_table_rows(schema, batch)
+
+    async def write_table_batch(self, schema: ReplicatedTableSchema,
+                                batch: ColumnarBatch) -> WriteAck:
+        return await self.inner.write_table_batch(schema, batch)
+
+    async def write_events(self, events: Sequence[Event]) -> WriteAck:
+        self._scan(events)
+        return await self.inner.write_events(events)
+
+    async def write_event_batches(self, events: Sequence[Event]) -> WriteAck:
+        self._scan(events)
+        return await self.inner.write_event_batches(events)
+
+    def supports_transactional_commit(self) -> bool:
+        return self.inner.supports_transactional_commit()
+
+    async def write_event_batches_committed(self, events: Sequence[Event],
+                                            commit) -> WriteAck:
+        self._scan(events)
+        return await self.inner.write_event_batches_committed(events, commit)
+
+    async def recover_high_water(self):
+        return await self.inner.recover_high_water()
+
+    async def drop_table(self, table_id: TableId, schema=None) -> None:
+        await self.inner.drop_table(table_id, schema)
+
+    async def truncate_table(self, table_id: TableId) -> None:
+        await self.inner.truncate_table(table_id)

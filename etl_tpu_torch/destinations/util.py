@@ -4,18 +4,25 @@ Copy of the parts of the reference's `etl_tpu/destinations/util.py` that
 the ported destinations and encoders use: the background task set, the
 order-preserving event program row-oriented writers consume, and the
 batch-granularity CDC metadata of the columnar encoders (`_CHANGE_TYPE`
-labels, `_CHANGE_SEQUENCE_NUMBER` keys) with the egress write counter.
-The naming, HTTP retry and Arrow helpers of the other destinations come
-with them, in a later slice.
+labels, `_CHANGE_SEQUENCE_NUMBER` keys) with the egress write counter,
+and the error classification the poison-pill isolation keys on (the HTTP
+status map, transport-exception wrapping, `with_retries`). The naming and
+Arrow helpers of the other destinations come with them, in a later
+slice.
 """
 
 from __future__ import annotations
 
 import asyncio
+from typing import Awaitable, Callable, TypeVar
 
 import numpy as np
 
+from ..models.errors import ErrorKind, EtlError
 from ..models.event import ChangeType
+from ..retry import RetryPolicy
+
+T = TypeVar("T")
 
 # `_CHANGE_TYPE` labels (reference bigquery/core.rs:42-45)
 CDC_UPSERT = "UPSERT"
@@ -78,6 +85,115 @@ def count_egress_write(used_device: bool) -> None:
     registry.counter_inc(ETL_EGRESS_WRITES_TOTAL,
                          labels={"path": "device" if used_device
                                  else "host"})
+
+
+# transient classification (reference retry.rs)
+_RETRYABLE_HTTP = frozenset({408, 409, 429, 500, 502, 503, 504})
+
+
+def http_status_retryable(status: int) -> bool:
+    return status in _RETRYABLE_HTTP
+
+
+def classify_http_error(destination: str, status: int,
+                        text: str = "") -> "EtlError":
+    """HTTP status → concrete ErrorKind — ONE classification shared by
+    every HTTP destination, so permanent-vs-transient can never drift
+    per sink (docs/dead-letter.md: this is the trigger signal the
+    poison-isolation protocol keys on).
+
+      retryable statuses (408/409/429/5xx)  → DESTINATION_THROTTLED
+                                              (transient: writer retries
+                                              in place, then the worker
+                                              re-streams)
+      401 / 403                             → DESTINATION_AUTH_FAILED
+      404 / 410                             → DESTINATION_SCHEMA_FAILED
+                                              (the table/dataset/channel
+                                              the write names is gone —
+                                              schema drift)
+      413                                   → DESTINATION_PAYLOAD_TOO_LARGE
+      every other 4xx                       → DESTINATION_REJECTED
+                                              (the payload was refused:
+                                              permanent for these bytes,
+                                              the poison-pill kind)
+    """
+    if http_status_retryable(status) or status >= 500:
+        kind = ErrorKind.DESTINATION_THROTTLED
+    elif status in (401, 403):
+        kind = ErrorKind.DESTINATION_AUTH_FAILED
+    elif status in (404, 410):
+        kind = ErrorKind.DESTINATION_SCHEMA_FAILED
+    elif status == 413:
+        kind = ErrorKind.DESTINATION_PAYLOAD_TOO_LARGE
+    elif 400 <= status < 500:
+        kind = ErrorKind.DESTINATION_REJECTED
+    else:
+        kind = ErrorKind.DESTINATION_FAILED
+    return EtlError(kind, f"{destination} {status}: {text[:300]}")
+
+
+def classify_write_exception(destination: str,
+                             exc: BaseException) -> "EtlError":
+    """Any non-EtlError escaping a destination write path → a concrete
+    ErrorKind, so nothing unclassified ever reaches the retry layer
+    (etl-lint rule 18 `unclassified-destination-error` enforces the
+    call-site discipline). Transport failures are transient connection
+    kinds; everything else is the ambiguous DESTINATION_FAILED."""
+    if isinstance(exc, EtlError):
+        return exc
+    if isinstance(exc, (asyncio.TimeoutError, TimeoutError)):
+        return EtlError(ErrorKind.TIMEOUT,
+                        f"{destination}: {exc!r}")
+    if isinstance(exc, (ConnectionError, OSError, EOFError,
+                        asyncio.IncompleteReadError)):
+        return EtlError(ErrorKind.DESTINATION_CONNECTION_FAILED,
+                        f"{destination}: {exc!r}")
+    try:
+        import aiohttp
+
+        if isinstance(exc, aiohttp.ClientError):
+            return EtlError(ErrorKind.DESTINATION_CONNECTION_FAILED,
+                            f"{destination}: {exc!r}")
+    except ImportError:  # aiohttp-less deployments (lake/iceberg only)
+        pass
+    return EtlError(ErrorKind.DESTINATION_FAILED,
+                    f"{destination}: {exc!r}")
+
+
+class DestinationRetryPolicy(RetryPolicy):
+    """Writer-scoped alias of the unified RetryPolicy (retry.py):
+    in-place retries for transient transport/capacity errors only
+    (DESTINATION_TRANSIENT_KINDS) — rejected payloads escalate to the
+    worker retry loop, which re-streams from durable progress."""
+
+
+async def with_retries(op: Callable[[], Awaitable[T]],
+                       policy: RetryPolicy,
+                       retryable: "Callable[[BaseException], bool] | None"
+                       = None, destination: str = "destination") -> T:
+    """Classify-and-backoff retry wrapper (reference retry.rs:classify).
+    Delegates to RetryPolicy.execute; `retryable=None` uses the policy's
+    own per-ErrorKind classification. Whatever finally escapes is
+    GUARANTEED to be an EtlError with a concrete kind: a raw transport
+    exception surviving the in-place retries wraps through
+    `classify_write_exception` instead of reaching the worker retry
+    layer bare (the poison-isolation trigger contract)."""
+    try:
+        return await policy.execute(op, retryable)
+    except (asyncio.CancelledError, EtlError):
+        raise
+    except Exception as e:
+        # Exception, NOT BaseException: KeyboardInterrupt/SystemExit
+        # must terminate the process, not become retryable
+        # destination failures
+        if type(e).__module__.partition(".")[0] == "etl_tpu_torch":
+            # internal control-flow exceptions (runtime.shutdown.
+            # ShutdownRequested, and those of destinations to come) are
+            # caught-and-handled by their own call sites — wrapping them
+            # would break those protocols, and they never reach the
+            # worker retry layer
+            raise
+        raise classify_write_exception(destination, e) from e
 
 
 class TaskSet:

@@ -56,6 +56,12 @@ nothing to share. The decoded batch is the same either way.
 parse_and_pack_plain, egress.render_plain) on CPU tensors: the tests'
 path. On `"cuda"` there is no fallback: no card, a failed build or a
 failed launch raises, the render kernel's included.
+
+The one way off the kernel is the supervisor's escalation (supervision/
+supervisor.py `_detected`): after `device_degrade_threshold` stalls or
+hangs of a `decode:` heartbeat it calls `force_host_oracle`, and until the
+cooldown lapses `_route` sends every batch of every decoder to the host
+oracle, counted in the oracle-routed rows, as the reference's engine does.
 """
 
 from __future__ import annotations
@@ -296,6 +302,38 @@ class _PendingDecode:
         if self._done is None:
             self._done = self._decoder._complete(self)
         return self._done
+
+
+# -- supervision degrade hook -------------------------------------------------
+
+# monotonic deadline until which EVERY decoder routes to the host oracle
+# (supervision escalation after repeated device-side stalls); process-
+# global on purpose: a sick device is a process-level condition
+_ORACLE_FORCED_UNTIL = 0.0
+# held by `_route` across its check of the forced state and the routing
+# counters, and by `force_host_oracle`: once the latter returns, no batch
+# is counted device-routed until the degrade lapses
+_ROUTE_LOCK = threading.Lock()
+#: batches `_route` sent to the device in this process; each launches one
+#: decode kernel (K1, or K2c / K2 and the epilogue under a filter)
+routed_device_batches = 0
+
+
+def force_host_oracle(duration_s: float) -> None:
+    """Route all decode batches to the host oracle for `duration_s`."""
+    global _ORACLE_FORCED_UNTIL
+    with _ROUTE_LOCK:
+        _ORACLE_FORCED_UNTIL = time.monotonic() + duration_s
+
+
+def clear_forced_oracle() -> None:
+    global _ORACLE_FORCED_UNTIL
+    _ORACLE_FORCED_UNTIL = 0.0
+
+
+def host_oracle_forced() -> bool:
+    return _ORACLE_FORCED_UNTIL > 0.0 \
+        and time.monotonic() < _ORACLE_FORCED_UNTIL
 
 
 class DeviceDecoder:
@@ -937,12 +975,20 @@ class DeviceDecoder:
             raise ValueError(
                 f"staged batch has {staged.n_cols} cols, schema expects "
                 f"{len(cols)}")
-        if self._dense and staged.n_rows >= self.device_min_rows:
-            registry.counter_inc(ETL_DECODE_ROUTED_DEVICE_ROWS_TOTAL,
-                                 staged.n_rows)
+        global routed_device_batches
+        with _ROUTE_LOCK:
+            # supervision escalation (supervisor._detected): repeated
+            # device-side stalls park EVERY batch on the host oracle until
+            # the degrade cooldown lapses
+            device = not host_oracle_forced() and self._dense \
+                and staged.n_rows >= self.device_min_rows
+            if device:
+                routed_device_batches += 1
+            registry.counter_inc(
+                ETL_DECODE_ROUTED_DEVICE_ROWS_TOTAL if device
+                else ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL, staged.n_rows)
+        if device:
             return "device", self._specs(staged, self._widths(staged))
-        registry.counter_inc(ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL,
-                             staged.n_rows)
         return "oracle", ()
 
     def decode_async(self, staged: StagedBatch) -> _PendingDecode:

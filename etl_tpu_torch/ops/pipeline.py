@@ -550,10 +550,16 @@ class DecodePipeline:
     def __init__(self, *, window: int = DEFAULT_WINDOW,
                  monitor: "MemoryMonitor | None" = None,
                  arena_pool: StagingArenaPool | None = None,
-                 name: str = "decode",
+                 name: str = "decode", heartbeat=None,
                  admission: "TenantAdmission | None" = None):
         from ..runtime.backpressure import InFlightWindow
 
+        # supervision.Heartbeat | None: the worker thread publishes
+        # liveness + a completed-batch progress token; a frozen token
+        # with batches in flight is a device-side stall the supervisor
+        # escalates (host-oracle degrade). A fetch blocked on a CUDA
+        # event does not beat: that is what the stall detection reads
+        self._hb = heartbeat
         # TenantAdmission | None: this pipeline's seat at the shared
         # AdmissionScheduler. Ownership transfers here — close() closes
         # it, releasing any tickets still held by undrained handles
@@ -640,6 +646,9 @@ class DecodePipeline:
             # still resolvable after close release into the closed
             # tenant, which is a guarded no-op.
             self._admission.close()
+        if self._hb is not None:
+            self._hb.close()
+            self._hb = None
 
     def join(self, timeout: float | None = None) -> bool:
         """Wait up to `timeout` s for the worker to exit after `close()`;
@@ -679,6 +688,13 @@ class DecodePipeline:
                     with self._lock:
                         if handle in self._undispatched:
                             self._undispatched.remove(handle)
+                    hb = self._hb
+                    if hb is not None:
+                        # busy while batches are in flight: a frozen
+                        # completed-count past the stall deadline then
+                        # reads as a device-side stall
+                        hb.beat(progress=("completed", self._completed),
+                                busy=len(self.window) > 0)
         finally:
             # however the worker leaves (close, or a fault outside the
             # per-batch handler), nothing queued behind it stays pending
@@ -855,6 +871,10 @@ class DecodePipeline:
                 if iv in self._inflight:
                     self._inflight.remove(iv)
                 self._completed += 1
+            hb = self._hb
+            if hb is not None:
+                hb.beat(progress=("completed", self._completed),
+                        busy=len(self.window) > 1)
             arena.release()
             if handle._admitted:
                 handle._admitted = False

@@ -29,9 +29,7 @@ Exit intents (apply.rs:139): PAUSE (shutdown; resumable) or COMPLETE
 (table-sync context reached its catchup target).
 
 Copy of the reference's `etl_tpu/runtime/apply_loop.py`: the CUDA engine
-takes the place of the reference's TPU engine, and the supervision
-heartbeats, the destination circuit breaker and poison-pill isolation
-are not ported yet (ROADMAP.md, queue 1).
+takes the place of the reference's TPU engine.
 """
 
 from __future__ import annotations
@@ -141,7 +139,8 @@ class ApplyLoop:
                  stream: ReplicationStream, store: PipelineStore,
                  destination: Destination, table_cache: SharedTableCache,
                  config: PipelineConfig, shutdown: ShutdownSignal,
-                 start_lsn: Lsn, monitor=None, budget=None):
+                 start_lsn: Lsn, monitor=None, budget=None,
+                 heartbeat=None, supervisor=None):
         self.ctx = ctx
         self.stream = stream
         self.store = store
@@ -150,6 +149,12 @@ class ApplyLoop:
         self.config = config
         self.shutdown = shutdown
         self.monitor = monitor  # MemoryMonitor | None
+        # supervision wiring: this loop beats its owner's heartbeat on
+        # every select wakeup, progress token = (durable, received) LSNs;
+        # busy while a write is in flight or events are assembled — the
+        # supervisor reads a frozen token under busy as a stall
+        self._hb = heartbeat  # supervision.Heartbeat | None
+        self._supervisor = supervisor  # for the decode pipeline's beat
         self._lease = budget.register_stream() if budget is not None else None
         # the assembler owns this loop's decode pipeline; the monitor
         # shrinks its in-flight window to 1 under memory pressure. The
@@ -161,6 +166,7 @@ class ApplyLoop:
         self.assembler = EventAssembler(
             config.batch.batch_engine, monitor=monitor,
             decode_window=config.batch.decode_window,
+            supervisor=supervisor,
             lag_bytes=lambda: max(
                 0, int(self.state.received_lsn) - int(self.state.durable_lsn)),
             admission_capacity=config.batch.admission_capacity,
@@ -182,6 +188,20 @@ class ApplyLoop:
             max_bytes=config.batch.write_window_max_bytes,
             pressure=(lambda: monitor.pressure)
             if monitor is not None else None)
+        # poison-pill isolation boundary (runtime/poison.py): flush
+        # submits route through it so a permanent destination error
+        # bisects down to the poison row(s) and dead-letters them
+        # instead of killing the worker. Apply context only — initial
+        # sync keeps the reference's per-table error states
+        # (table_retry), and a sync worker's batches cover one table
+        # anyway.
+        self._poison = None
+        if config.poison.enabled and isinstance(ctx, ApplyContext):
+            from .poison import PoisonIsolator
+
+            self._poison = PoisonIsolator(store=store,
+                                          destination=destination,
+                                          config=config)
         self._batch_deadline: float | None = None
         # True while the CURRENT drain keeps coming back full: flush
         # pacing defers to mega-batching only during a live backlog
@@ -286,8 +306,9 @@ class ApplyLoop:
                     # is done, so nothing in `waits` would wake us)
                     timeout = 0.0
                 # the batch deadline only matters when a flush could actually
-                # dispatch — honoring it while the window is full would
-                # busy-spin with a zero timeout until an ack settles
+                # dispatch — honoring it while the window is full (or the
+                # breaker holds dispatch) would busy-spin with a zero
+                # timeout until an ack settles
                 elif self._batch_deadline is not None \
                         and not self._dispatch_blocked():
                     timeout = min(max(0.0, self._batch_deadline - now),
@@ -297,6 +318,16 @@ class ApplyLoop:
                 done, _ = await asyncio.wait(
                     waits, timeout=timeout,
                     return_when=asyncio.FIRST_COMPLETED)
+                if self._hb is not None:
+                    # one beat per wakeup (≤ keepalive cadence when idle):
+                    # cheap enough for the hot path, fresh enough for the
+                    # hang deadline. Progress = the durability frontier.
+                    self._hb.beat(
+                        progress=(int(self.state.durable_lsn),
+                                  int(self.state.received_lsn)),
+                        busy=not self._ack_window.is_empty
+                        or self.state.batch_commit_end is not None
+                        or len(self.assembler) > 0)
 
                 # priority 1: shutdown
                 if shutdown_task in done:
@@ -411,8 +442,8 @@ class ApplyLoop:
                     await self._run_schema_cleanup()
         finally:
             # an error/cancellation exit can leave in-flight writes
-            # running (a cancel of THIS loop while a write sits in a
-            # stalled destination call for seconds more)
+            # running (a supervision restart cancels THIS loop while a
+            # write sits in a stalled destination call for seconds more)
             # — cancel the whole window with the select tasks; resume
             # re-streams from durable progress (which only ever covered
             # the contiguous acked prefix). drain_cancelled keeps a
@@ -667,6 +698,14 @@ class ApplyLoop:
         return self.config.batch.max_size_bytes \
             * max(1, self.assembler.seal_rows // RUN_SEAL_ROWS)
 
+    def _breaker_open(self) -> bool:
+        """True when the destination's circuit breaker is OPEN (shedding).
+        Reads through the SupervisedDestination wrapper when present;
+        plain destinations have no breaker."""
+        from ..supervision.breaker import breaker_is_open
+
+        return breaker_is_open(self.destination)
+
     def _flush_threshold(self) -> int:
         """The size bound of the NEXT flush: the scaled cap, shrunk by
         the per-stream budget share (batch_budget.rs:72-96)."""
@@ -677,13 +716,20 @@ class ApplyLoop:
 
     def _dispatch_blocked(self) -> bool:
         """A new flush must not dispatch right now: the write window is
-        at capacity. The byte-cap check sees the PROSPECTIVE
+        at capacity, or the breaker is open while earlier acks are still
+        settling — in-flight writes may yet succeed, so the window drains
+        before the breaker sheds a fresh call (which would fail the
+        worker and cancel them). Once the window is empty the dispatch
+        proceeds and the breaker's fast-fail becomes worker backoff, the
+        existing shedding path. The byte-cap check sees the PROSPECTIVE
         flush size (≤ threshold — flush_bounded cuts there), not the
         whole assembler backlog: judging a 60 MiB backlog against the
         window's byte cap would collapse the window to one-in-flight
         exactly when the backlog is largest."""
         nbytes = min(self.assembler.size_bytes, self._flush_threshold())
-        return not self._ack_window.can_dispatch(nbytes)
+        if not self._ack_window.can_dispatch(nbytes):
+            return True
+        return not self._ack_window.is_empty and self._breaker_open()
 
     @flush_path
     def _maybe_dispatch_flush(self, force: bool = False) -> None:
@@ -770,7 +816,14 @@ class ApplyLoop:
             # column-at-a-time; others fall back to the row path via the
             # base-class shim). The ack window owns the durability wait
             # (etl-lint rule 17): submissions stay in WAL order, only the
-            # ack round trips overlap.
+            # ack round trips overlap. The poison isolator sits between
+            # the flush and the destination: a PERMANENT (poison-kind)
+            # write failure bisects to the poison rows and dead-letters
+            # them, quarantined tables' events park — transient failures
+            # pass through to the worker-retry path unchanged.
+            if self._poison is not None:
+                return await self._poison.submit(events,
+                                                 commit=commit_range)
             if commit_range is not None:
                 return await self.destination.write_event_batches_committed(
                     events, commit_range)
@@ -922,7 +975,14 @@ class ApplyLoop:
             if st.type is TableStateType.SYNC_WAIT:
                 target = max(st.lsn or Lsn.ZERO, current_lsn)
                 await coord.set_catchup(tid, target)
-                result = await coord.wait_for_sync_done_or_errored(tid)
+                # the handoff wait parks this loop for as long as the
+                # sync worker needs to reach its catchup target — keep
+                # beating so the park never reads as a hang (the SYNC
+                # WORKER's own watchdog covers a stall inside it)
+                from ..supervision import beat_while_waiting
+
+                result = await beat_while_waiting(
+                    self._hb, coord.wait_for_sync_done_or_errored(tid))
                 if result.type is TableStateType.SYNC_DONE:
                     # became SyncDone; Ready happens after a durable flush
                     # covering its LSN (or immediately if already covered)

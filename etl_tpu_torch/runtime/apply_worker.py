@@ -6,8 +6,7 @@ invalidated-slot handling per InvalidatedSlotBehavior (Error vs
 Recreate+reset-all-tables, worker.rs:476-527); policy-driven timed retry
 loop (worker.rs:148-207,237-281).
 
-Copy of the reference's `etl_tpu/runtime/apply_worker.py` without the
-supervision watchdog (not ported yet).
+Copy of the reference's `etl_tpu/runtime/apply_worker.py`.
 """
 
 from __future__ import annotations
@@ -35,7 +34,8 @@ class ApplyWorker:
     def __init__(self, *, config: PipelineConfig, store: PipelineStore,
                  destination: Destination, source_factory,
                  pool: TableSyncWorkerPool, table_cache: SharedTableCache,
-                 shutdown: ShutdownSignal, monitor=None, budget=None):
+                 shutdown: ShutdownSignal, monitor=None, budget=None,
+                 supervisor=None):
         self.config = config
         self.store = store
         self.destination = destination
@@ -45,6 +45,9 @@ class ApplyWorker:
         self.shutdown = shutdown
         self.monitor = monitor
         self.budget = budget
+        self.supervisor = supervisor  # supervision.Supervisor | None
+        self._restart_requested: asyncio.Event | None = None
+        self._hb = None  # registered in _guarded_run (loop must be live)
         # sharded pods stream through their own `_s{shard}` slot: the
         # durable-progress key AND the replication stream are per-shard
         self.slot_name = apply_slot_name(config.pipeline_id, config.shard)
@@ -56,14 +59,28 @@ class ApplyWorker:
 
     async def _guarded_run(self) -> None:
         """Timed-retry wrapper (reference worker.rs:237-281), backoff via
-        the unified worker-scoped RetryPolicy (retry.py)."""
+        the unified worker-scoped RetryPolicy (retry.py). Under
+        supervision each attempt races the supervisor's restart request:
+        a detected stall/hang cancels the attempt and funnels into the
+        SAME retry loop as any transient error."""
         policy = RetryPolicy.from_config(self.config.apply_retry)
-        await self._retry_loop(policy, 0)
+        if self.supervisor is not None:
+            self._restart_requested = asyncio.Event()
+            self._hb = self.supervisor.register(
+                "apply", restartable=True,
+                on_restart=self._restart_requested.set)
+        attempt = 0
+        try:
+            await self._retry_loop(policy, attempt)
+        finally:
+            if self._hb is not None:
+                self._hb.close()
+                self._hb = None
 
     async def _retry_loop(self, policy: RetryPolicy, attempt: int) -> None:
         while not self.shutdown.is_triggered:
             try:
-                await self._run_once()
+                await self._run_once_supervised()
                 return  # clean pause
             except ShutdownRequested:
                 return
@@ -93,6 +110,37 @@ class ApplyWorker:
                 except ShutdownRequested:
                     return
 
+    async def _run_once_supervised(self) -> None:
+        """Race one attempt against the supervisor's restart request; a
+        won race cancels the wedged attempt (the stall sites are all
+        cancellable awaits) and raises a TIMED-retryable stall error."""
+        if self._restart_requested is None:
+            return await self._run_once()
+        if self._hb is not None:
+            self._hb.reset_clocks()  # fresh deadlines per attempt
+        # a restart request that landed while the previous attempt was
+        # already failing on its own must not instantly abort THIS fresh
+        # attempt with a fabricated stall
+        self._restart_requested.clear()
+        run = asyncio.ensure_future(self._run_once())
+        trip = asyncio.ensure_future(self._restart_requested.wait())
+        try:
+            done, _ = await asyncio.wait({run, trip},
+                                         return_when=asyncio.FIRST_COMPLETED)
+            if run in done:
+                return run.result()
+            self._restart_requested.clear()
+            raise EtlError(
+                ErrorKind.STALL_DETECTED,
+                "apply worker cancelled by the supervision watchdog "
+                "(stalled or hung); restarting from durable progress")
+        finally:
+            # drain_cancelled, NOT try/await/except: a hard-kill cancel
+            # landing in this finally must still kill us
+            from .shutdown import drain_cancelled
+
+            await drain_cancelled(run, trip)
+
     async def _run_once(self) -> None:
         source: ReplicationSource = self.source_factory()
         await source.connect()
@@ -107,7 +155,8 @@ class ApplyWorker:
                              destination=self.destination,
                              table_cache=self.cache, config=self.config,
                              shutdown=self.shutdown, start_lsn=start_lsn,
-                             monitor=self.monitor, budget=self.budget)
+                             monitor=self.monitor, budget=self.budget,
+                             heartbeat=self._hb, supervisor=self.supervisor)
             sampler = asyncio.ensure_future(self._lag_sampler(loop)) \
                 if self.config.lag_sample_interval_s > 0 else None
             try:

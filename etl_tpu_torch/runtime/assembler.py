@@ -65,14 +65,14 @@ RUN_SEAL_ROWS = 16384
 MEGA_SEAL_ROWS = 262_144
 
 
-#: distinguishes concurrent assemblers' admission tenants (apply loop +
+#: distinguishes concurrent assemblers' decode heartbeats (apply loop +
 #: table-sync catchup loops each own one)
 _ASSEMBLER_SEQ = [0]
 
 
 class EventAssembler:
     def __init__(self, engine: BatchEngine, monitor=None,
-                 decode_window: int = 3, lag_bytes=None,
+                 decode_window: int = 3, supervisor=None, lag_bytes=None,
                  admission_capacity: int = 0, seal_bytes: int = 0,
                  device: str = "cuda", egress_encoder: "str | None" = None):
         self.engine = engine
@@ -126,6 +126,7 @@ class EventAssembler:
         self._seq = _ASSEMBLER_SEQ[0]
         self._pipeline: DecodePipeline | None = None
         self._closed = False
+        self._supervisor = supervisor  # supervision.Supervisor | None
         # dynamic: the apply loop grows it ×4 (one row bucket per step)
         # under sustained backlog and resets it when the stream idles
         self.seal_rows = RUN_SEAL_ROWS
@@ -298,6 +299,15 @@ class EventAssembler:
                            "event assembler is closed: a resumed apply loop "
                            "builds a new one")
         if self._pipeline is None:
+            hb = None
+            if self._supervisor is not None:
+                # decode components are observe-only: recovery of a stuck
+                # pipeline rides the owning worker's restart, and repeated
+                # detections escalate to the host-oracle degrade
+                from ..supervision import DECODE_PREFIX
+
+                hb = self._supervisor.register(
+                    f"{DECODE_PREFIX}cdc-{self._seq}")
             from ..ops.pipeline import global_admission
 
             admission = global_admission(
@@ -306,7 +316,7 @@ class EventAssembler:
                     monitor=self._monitor)
             self._pipeline = DecodePipeline(window=self._decode_window,
                                             monitor=self._monitor,
-                                            name="cdc",
+                                            name="cdc", heartbeat=hb,
                                             admission=admission)
         # publication row-filter eligibility: the fused device filter
         # compacts INSERT-only runs (and the COPY path); runs carrying

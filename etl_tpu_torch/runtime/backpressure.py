@@ -1,7 +1,6 @@
 """Memory backpressure: monitor, budgets, and pausable streams.
 
-Copy of the reference's `etl_tpu/runtime/backpressure.py` (without the
-supervision heartbeat, not ported yet).
+Copy of the reference's `etl_tpu/runtime/backpressure.py`.
 
 Reference parity:
   - `MemoryMonitor` (crates/etl/src/runtime/memory_monitor.rs:84): samples
@@ -122,7 +121,8 @@ class MemoryMonitor:
 
     def __init__(self, config: MemoryBackpressureConfig,
                  limit_bytes: int | None = None,
-                 rss_reader: Callable[[], int] = read_rss_bytes):
+                 rss_reader: Callable[[], int] = read_rss_bytes,
+                 heartbeat=None):
         self.config = config
         self.limit_bytes = limit_bytes or read_memory_limit_bytes()
         self._rss_reader = rss_reader
@@ -135,6 +135,11 @@ class MemoryMonitor:
         self._resumed = asyncio.Event()
         self._resumed.set()
         self._task: asyncio.Task | None = None
+        # supervision.Heartbeat | None: each sample beats with a sample
+        # counter — a stale monitor heartbeat means the sampler died and
+        # backpressure is blind
+        self._hb = heartbeat
+        self._samples = 0
 
     def set_external_pause(self, paused: bool) -> None:
         """Pause/resume intake for a non-memory reason (external
@@ -164,6 +169,9 @@ class MemoryMonitor:
             except asyncio.CancelledError:
                 pass
             self._task = None
+        if self._hb is not None:
+            self._hb.close()
+            self._hb = None
 
     def sample_once(self) -> bool:
         """One sample + hysteresis update; returns current pressure. The
@@ -175,6 +183,9 @@ class MemoryMonitor:
             ETL_MEMORY_BACKPRESSURE_ACTIVE, registry)
 
         self.last_rss = self._rss_reader()
+        self._samples += 1
+        if self._hb is not None:
+            self._hb.beat(progress=("samples", self._samples))
         ratio = self.last_rss / max(1, self.limit_bytes)
         if not self._mem_pressure and ratio >= self.config.activate_ratio:
             self._mem_pressure = True

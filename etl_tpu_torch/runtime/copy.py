@@ -12,8 +12,10 @@ device decode (`batch_engine=cuda`: one `DecodePipeline` per partition, a
 worker thread with a CUDA stream of its own) or the CPU oracle, producing
 ColumnarBatches for the destination.
 
-Copy of the reference's `etl_tpu/runtime/copy.py` (without the
-supervision heartbeats, not ported yet).
+Copy of the reference's `etl_tpu/runtime/copy.py`. Under supervision each
+partition's decode pipeline beats a `decode:copy:<table>:p<page>`
+heartbeat from its worker thread, and the owning table-sync worker's
+heartbeat follows the bytes and rows copied.
 """
 
 from __future__ import annotations
@@ -94,7 +96,8 @@ async def _copy_partition(source: ReplicationSource,
                           progress: CopyProgress,
                           max_batch_bytes: int, monitor=None,
                           lease=None, pipeline_id: int = 0,
-                          decode_window: int = 3,
+                          decode_window: int = 3, heartbeat=None,
+                          supervisor=None,
                           admission_capacity: int = 0,
                           write_window: int = 4) -> None:
     failpoints.fail_point(failpoints.COPY_PARTITION_START)
@@ -138,6 +141,12 @@ async def _copy_partition(source: ReplicationSource,
     in_flight: list = []
     # name carries the partition identity so concurrent partitions get
     # distinct gauge series instead of last-writer-winning one label
+    pipe_hb = None
+    if supervisor is not None and decoder is not None:
+        from ..supervision import DECODE_PREFIX
+
+        pipe_hb = supervisor.register(
+            f"{DECODE_PREFIX}copy:{schema.id}:p{part.start_page}")
     pipe = None
     if decoder is not None:
         # every copy partition is one tenant on the process-wide
@@ -151,7 +160,7 @@ async def _copy_partition(source: ReplicationSource,
             f"copy:{schema.id}:p{part.start_page}", monitor=monitor)
         pipe = DecodePipeline(window=decode_window, monitor=monitor,
                               name=f"copy-p{part.start_page}",
-                              admission=admission)
+                              heartbeat=pipe_hb, admission=admission)
 
     async def drain_one() -> None:
         handle = in_flight.pop(0)
@@ -163,6 +172,9 @@ async def _copy_partition(source: ReplicationSource,
         # row-oriented destinations fall back via the base-class shim
         await acks.add(await destination.write_table_batch(schema, batch))
         progress.total_rows += batch.num_rows
+        if heartbeat is not None:
+            heartbeat.beat(progress=("copy_rows", progress.total_rows),
+                           busy=True)
         registry.counter_inc(ETL_TABLE_COPY_ROWS_TOTAL, batch.num_rows)
 
     # per-PARTITION byte counter: progress.bytes_written is shared across
@@ -178,6 +190,11 @@ async def _copy_partition(source: ReplicationSource,
         failpoints.fail_point(failpoints.DURING_COPY)
         progress.bytes_written += len(chunk)
         partition_bytes += len(chunk)
+        if heartbeat is not None:
+            # the owning table-sync worker's liveness: bytes copied IS
+            # the progress token; a frozen counter mid-copy is a stall
+            heartbeat.beat(progress=("copy_bytes", progress.bytes_written),
+                           busy=True)
         registry.counter_inc(ETL_TABLE_COPY_BYTES_TOTAL, len(chunk))
         if decoder is not None:
             staged = stage_copy_chunk(chunk, len(oids))
@@ -220,6 +237,11 @@ async def _copy_partition(source: ReplicationSource,
         await write_chunk(b"".join(pending))
         while in_flight:
             await drain_one()
+        if heartbeat is not None:
+            # the chunk beats carry busy=True; without this the LAST
+            # chunk's frozen byte count reads as a stall while the
+            # worker legitimately sits in the durability barrier / park
+            heartbeat.beat(busy=False)
     finally:
         if pipe is not None:
             pipe.close()
@@ -246,7 +268,8 @@ async def parallel_table_copy(*, source_factory, primary_source,
                               snapshot_id: str, config: PipelineConfig,
                               destination: Destination,
                               shutdown: ShutdownSignal, monitor=None,
-                              budget=None) -> CopyProgress:
+                              budget=None, heartbeat=None,
+                              supervisor=None) -> CopyProgress:
     """Copy one table through N snapshot-sharing connections."""
     leaves = await primary_source.get_partition_leaves(schema.id)
     if leaves:
@@ -292,6 +315,7 @@ async def parallel_table_copy(*, source_factory, primary_source,
                     config.batch.max_size_bytes, monitor=monitor,
                     lease=lease, pipeline_id=config.pipeline_id,
                     decode_window=config.batch.decode_window,
+                    heartbeat=heartbeat, supervisor=supervisor,
                     admission_capacity=config.batch.admission_capacity,
                     write_window=config.batch.write_window))
         finally:

@@ -6,13 +6,16 @@ Reference parity: `Pipeline` (crates/etl/src/pipeline.rs:74) —
 Init states if absent; tables no longer published are purged (state,
 schemas, destination metadata, slot).
 
-Copy of the reference's `etl_tpu/runtime/pipeline.py`. Supervision,
-sharding and poison-pill isolation are not ported yet (ROADMAP.md, queue
-1): a config that enables any of them is refused at construction. The
-reference's autotune and program-store prewarm have no counterpart until
-queue 1 item 6 (the program store and autotune); with `BatchEngine.CUDA`
-on a CUDA device, `start()` builds the kernel library instead, and raises
-when there is no card.
+Copy of the reference's `etl_tpu/runtime/pipeline.py`, with the
+supervision tree (`supervision/`: heartbeats, the health state machine,
+the destination's circuit breaker and op-timeout wrapper, the host-oracle
+degrade) and poison-pill isolation (runtime/poison.py, through the apply
+loop) on by default, as in the reference. Sharding is not ported yet
+(ROADMAP.md, queue 1): a config that sets `shard` is refused at
+construction. The reference's autotune and program-store prewarm have no
+counterpart until queue 1 item 6 (the program store and autotune); with
+`BatchEngine.CUDA` on a CUDA device, `start()` builds the kernel library
+instead, and raises when there is no card.
 """
 
 from __future__ import annotations
@@ -57,6 +60,29 @@ class Pipeline:
         self._apply_task: asyncio.Task | None = None
         self.memory_monitor: MemoryMonitor | None = None
         self.batch_budget: BatchBudgetController | None = None
+        # supervision tree (docs/supervision.md): liveness watchdogs over
+        # every long-running component + the pipeline health state
+        # machine a health endpoint serves. Built here (not in start) so
+        # the health surface can answer "starting" before start() runs.
+        self.supervisor = None
+        if config.supervision.enabled:
+            from ..supervision import Supervisor
+
+            self.supervisor = Supervisor(config.supervision)
+        # what the workers actually write through: the configured
+        # destination behind the supervision wrapper (per-op timeout
+        # bound + circuit breaker + heartbeat); `destination` stays the
+        # raw inner for tests
+        self.active_destination: Destination = destination
+        if self.supervisor is not None:
+            from ..supervision import SupervisedDestination
+
+            self.active_destination = SupervisedDestination(
+                destination,
+                timeout_s=config.destination_op_timeout_s,
+                breaker=self.supervisor.breaker(
+                    type(destination).__name__),
+                heartbeat=self.supervisor.register("destination"))
 
     async def start(self) -> None:
         batch = self.config.batch
@@ -71,7 +97,8 @@ class Pipeline:
                                f"{batch.device!r}: no CUDA device is "
                                "available")
             await asyncio.to_thread(decode_kernel.load)
-            if egress_encoder(self.config, self.destination) is not None:
+            if egress_encoder(self.config,
+                              self.active_destination) is not None:
                 from ..ops import egress_kernel
 
                 await asyncio.to_thread(egress_kernel.load)
@@ -91,29 +118,35 @@ class Pipeline:
             await self._install_row_filters(source)
         finally:
             await source.close()
-        await self.destination.startup()
+        if self.supervisor is not None:
+            self.supervisor.start()
+        await self.active_destination.startup()
         # memory defense (reference pipeline.rs:168 MemoryMonitor::new +
         # batch_budget.rs): the monitor pauses WAL/COPY intake under RSS
         # pressure; the budget controller sizes batches by the active
         # stream count so concurrent copies don't multiply peak memory
+        monitor_hb = self.supervisor.register("memory_monitor") \
+            if self.supervisor is not None else None
         self.memory_monitor = MemoryMonitor(  # etl-lint: ignore[blocking-call-in-async]
-            self.config.backpressure)
+            self.config.backpressure, heartbeat=monitor_hb)
         self.memory_monitor.start()
         self.batch_budget = BatchBudgetController(
             self.config.backpressure, self.config.batch.max_size_bytes)
         self.pool = TableSyncWorkerPool(
             config=self.config, store=self.store,
-            destination=self.destination,
+            destination=self.active_destination,
             source_factory=self.source_factory,
             table_cache=self.table_cache, shutdown=self.shutdown_signal,
-            monitor=self.memory_monitor, budget=self.batch_budget)
+            monitor=self.memory_monitor, budget=self.batch_budget,
+            supervisor=self.supervisor)
         await self.pool.refresh_states()
         self.apply_worker = ApplyWorker(
             config=self.config, store=self.store,
-            destination=self.destination,
+            destination=self.active_destination,
             source_factory=self.source_factory, pool=self.pool,
             table_cache=self.table_cache, shutdown=self.shutdown_signal,
-            monitor=self.memory_monitor, budget=self.batch_budget)
+            monitor=self.memory_monitor, budget=self.batch_budget,
+            supervisor=self.supervisor)
         self._apply_task = self.apply_worker.spawn()
 
     async def _install_row_filters(self, source: ReplicationSource) -> None:
@@ -173,6 +206,14 @@ class Pipeline:
         assert self._apply_task is not None, "pipeline not started"
         try:
             await self._apply_task
+        except BaseException as e:
+            # the apply worker exhausted its retries (or died on a
+            # permanent error): the health surface must say FAULTED, not
+            # keep serving the last degraded/healthy state
+            if self.supervisor is not None \
+                    and not isinstance(e, asyncio.CancelledError):
+                self.supervisor.health.fault(f"apply worker failed: {e}")
+            raise
         finally:
             # a fatal apply error must release table-sync workers parked on
             # catchup futures only the apply worker could resolve — trigger
@@ -182,12 +223,17 @@ class Pipeline:
                 await self.pool.wait_all()
             if self.memory_monitor is not None:
                 await self.memory_monitor.stop()
-            await self.destination.shutdown()
+            if self.supervisor is not None:
+                await self.supervisor.stop()
+            await self.active_destination.shutdown()
 
     def health_snapshot(self) -> dict:
-        """The minimal health shape of an unsupervised pipeline."""
-        return {"state": "unsupervised",
-                "started": self._apply_task is not None}
+        """The live supervision surface a health endpoint serves; minimal
+        shape when supervision is disabled."""
+        if self.supervisor is None:
+            return {"state": "unsupervised",
+                    "started": self._apply_task is not None}
+        return self.supervisor.snapshot()
 
     async def shutdown(self) -> None:
         self.shutdown_signal.trigger()
@@ -198,17 +244,10 @@ class Pipeline:
 
 
 def _refuse_unported(config: PipelineConfig) -> None:
-    """Supervision, poison-pill isolation and sharding are not ported
-    yet: a config that enables one is refused, never run without it."""
-    for on, what in ((config.supervision.enabled,
-                      "supervision.enabled (the supervision tree)"),
-                     (config.poison.enabled,
-                      "poison.enabled (poison-pill isolation and the "
-                      "dead-letter store)"),
-                     (config.shard is not None,
-                      "shard (sharded scale-out)")):
-        if on:
-            raise EtlError(
-                ErrorKind.CONFIG_INVALID,
-                f"{what} is not ported to etl_tpu_torch yet (ROADMAP.md, "
-                f"queue 1: still to port); pass it off explicitly")
+    """Sharding is not ported yet: a config that sets `shard` is refused,
+    never run without it."""
+    if config.shard is not None:
+        raise EtlError(
+            ErrorKind.CONFIG_INVALID,
+            "shard (sharded scale-out) is not ported to etl_tpu_torch yet "
+            "(ROADMAP.md, queue 1: still to port); leave it unset")

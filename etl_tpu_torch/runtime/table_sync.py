@@ -16,8 +16,7 @@ The pool implements `SyncCoordination` for the apply loop: the merged
 store+memory state view (SyncWait/Catchup live only in memory,
 lifecycle.rs:218-229), catchup fencing, and ready transitions.
 
-Copy of the reference's `etl_tpu/runtime/table_sync.py` without the
-supervision watchdog (not ported yet).
+Copy of the reference's `etl_tpu/runtime/table_sync.py`.
 """
 
 from __future__ import annotations
@@ -60,7 +59,7 @@ class TableSyncWorkerPool:
     def __init__(self, *, config: PipelineConfig, store: PipelineStore,
                  destination: Destination, source_factory,
                  table_cache: SharedTableCache, shutdown: ShutdownSignal,
-                 monitor=None, budget=None):
+                 monitor=None, budget=None, supervisor=None):
         self.config = config
         self.store = store
         self.destination = destination
@@ -69,6 +68,7 @@ class TableSyncWorkerPool:
         self.shutdown = shutdown
         self.monitor = monitor  # MemoryMonitor | None
         self.budget = budget  # BatchBudgetController | None
+        self.supervisor = supervisor  # supervision.Supervisor | None
         self._permits = asyncio.Semaphore(config.max_table_sync_workers)
         # unified worker-scoped backoff (etl_tpu/retry.py), built once:
         # same schedule as the apply worker, jitter decorrelates herds
@@ -211,6 +211,8 @@ class TableSyncWorker:
         self.tid = handle.table_id
         self.config = pool.config
         self.store = pool.store
+        self.hb = None  # supervision.Heartbeat | None
+        self._restart_requested: asyncio.Event | None = None
 
     # -- top level: permit + panic containment + retry -----------------------------
 
@@ -227,14 +229,47 @@ class TableSyncWorker:
             await self._mark_errored(e)
         finally:
             self.h.done_event.set()
+            if self.hb is not None:
+                self.hb.close()
+                self.hb = None
 
     async def _run_guarded(self) -> None:
         try:
-            await self._run_sync()
+            await self._run_sync_supervised()
         except ShutdownRequested:
             raise
         except EtlError as e:
             await self._mark_errored(e)
+
+    async def _run_sync_supervised(self) -> None:
+        """Race the sync flow against the supervisor's restart request
+        (same shape as ApplyWorker._run_once_supervised): a stall/hang
+        detection cancels the flow mid-copy or mid-catchup and parks the
+        table Errored with a TIMED retry — rollback + recopy rides the
+        existing state machine."""
+        if self.pool.supervisor is None:
+            return await self._run_sync()
+        self._restart_requested = asyncio.Event()
+        self.hb = self.pool.supervisor.register(
+            f"table_sync:{self.tid}", restartable=True,
+            on_restart=self._restart_requested.set)
+        run = asyncio.ensure_future(self._run_sync())
+        trip = asyncio.ensure_future(self._restart_requested.wait())
+        try:
+            done, _ = await asyncio.wait({run, trip},
+                                         return_when=asyncio.FIRST_COMPLETED)
+            if run in done:
+                return run.result()
+            raise EtlError(
+                ErrorKind.STALL_DETECTED,
+                f"table-sync worker for table {self.tid} cancelled by the "
+                f"supervision watchdog (stalled or hung)")
+        finally:
+            # drain_cancelled, NOT try/await/except: a hard-kill cancel
+            # landing in this finally must still kill us
+            from .shutdown import drain_cancelled
+
+            await drain_cancelled(run, trip)
 
     async def _mark_errored(self, e: BaseException) -> None:
         if isinstance(e, EtlError):
@@ -308,11 +343,17 @@ class TableSyncWorker:
                         self.tid, self.config.publication_name)
                     self.pool.cache.set(schema)
 
-            # FinishedCopy → SyncWait (memory-only) → wait for Catchup
+            # FinishedCopy → SyncWait (memory-only) → wait for Catchup.
+            # The park can last until the apply loop's next commit or
+            # keepalive — keep beating so it never reads as a hang
+            from ..supervision import beat_while_waiting
+
             self.h.memory_state = TableState.sync_wait(consistent_point)
             pool._cache_state(self.tid, self.h.memory_state)
             target = await or_shutdown(
-                shutdown, asyncio.shield(self.h.catchup_target))
+                shutdown,
+                beat_while_waiting(self.hb,
+                                   asyncio.shield(self.h.catchup_target)))
             self.h.memory_state = TableState.catchup(target)
             pool._cache_state(self.tid, self.h.memory_state)
 
@@ -332,7 +373,8 @@ class TableSyncWorker:
                     destination=pool.destination, table_cache=pool.cache,
                     config=self.config, shutdown=shutdown,
                     start_lsn=consistent_point,
-                    monitor=pool.monitor, budget=pool.budget)
+                    monitor=pool.monitor, budget=pool.budget,
+                    heartbeat=self.hb, supervisor=pool.supervisor)
                 intent = await loop.run()
                 if intent is ExitIntent.PAUSE:
                     raise ShutdownRequested()
@@ -408,4 +450,5 @@ class TableSyncWorker:
             source_factory=self.pool.source_factory, primary_source=source,
             schema=schema, snapshot_id=snapshot_id, config=self.config,
             destination=self.pool.destination, shutdown=self.pool.shutdown,
-            monitor=self.pool.monitor, budget=self.pool.budget)
+            monitor=self.pool.monitor, budget=self.pool.budget,
+            heartbeat=self.hb, supervisor=self.pool.supervisor)

@@ -1,0 +1,712 @@
+"""Durable SQL store: the reference `etl` schema on sqlite.
+
+Reference parity: `PostgresStore` (crates/etl/src/store/both/postgres.rs,
+829 LoC) against the `etl` schema
+(migrations/postgres_store/20250827000000_base.up.sql +
+20260511090000_replication_progress.up.sql):
+
+  - `replication_state`: per-table state rows with a prev-pointer history
+    chain and a partial unique `is_current` index;
+  - `table_schemas`: versioned by snapshot id;
+  - `table_mappings`: destination metadata;
+  - `replication_progress`: monotonic per-worker durable LSN.
+
+Cache-first reads like the reference (postgres.rs): all lookups hit an
+in-memory cache warmed at `connect()`; writes go through to the database
+synchronously. The statement set lives in `_SqlStoreBase`; `SqliteStore`
+executes it on a file with `?` placeholders and synchronous sqlite3.
+
+Copy of the reference's `etl_tpu/store/sql.py` with the sqlite dialect
+only: its `PostgresStore` runs the same statements over the Postgres wire
+client, which is not ported yet (ROADMAP.md, queue 1).
+"""
+
+from __future__ import annotations
+
+import abc
+import json
+import sqlite3
+import time
+from pathlib import Path
+
+from ..chaos import failpoints
+from ..models.errors import ErrorKind, EtlError
+from ..models.lsn import Lsn
+from ..models.schema import ReplicatedTableSchema, SnapshotId, TableId
+from ..models.table_state import TableState
+from ..sharding.shardmap import ShardAssignment
+from .base import (DeadLetterEntry, DestinationTableMetadata, PipelineStore,
+                   ProgressKey, QuarantineRecord)
+
+MIGRATIONS: list[tuple[str, str]] = [
+    ("20250827000000_base", """
+CREATE TABLE IF NOT EXISTS etl_replication_state (
+    id {bigserial} PRIMARY KEY,
+    pipeline_id BIGINT NOT NULL,
+    table_id BIGINT NOT NULL,
+    state TEXT NOT NULL,
+    prev BIGINT,
+    is_current INTEGER NOT NULL DEFAULT 1
+);
+CREATE UNIQUE INDEX IF NOT EXISTS etl_replication_state_current
+    ON etl_replication_state (pipeline_id, table_id) WHERE is_current = 1;
+CREATE TABLE IF NOT EXISTS etl_table_schemas (
+    pipeline_id BIGINT NOT NULL,
+    table_id BIGINT NOT NULL,
+    snapshot_id BIGINT NOT NULL,
+    schema_json TEXT NOT NULL,
+    PRIMARY KEY (pipeline_id, table_id, snapshot_id)
+);
+CREATE TABLE IF NOT EXISTS etl_table_mappings (
+    pipeline_id BIGINT NOT NULL,
+    table_id BIGINT NOT NULL,
+    destination_table_name TEXT NOT NULL,
+    generation BIGINT NOT NULL DEFAULT 0,
+    PRIMARY KEY (pipeline_id, table_id)
+);
+"""),
+    ("20260511090000_replication_progress", """
+CREATE TABLE IF NOT EXISTS etl_replication_progress (
+    pipeline_id BIGINT NOT NULL,
+    progress_key TEXT NOT NULL,
+    lsn BIGINT NOT NULL,
+    PRIMARY KEY (pipeline_id, progress_key)
+);
+"""),
+    ("20260803000000_shard_assignment", """
+CREATE TABLE IF NOT EXISTS etl_shard_assignment (
+    pipeline_id BIGINT NOT NULL,
+    assignment_json TEXT NOT NULL,
+    PRIMARY KEY (pipeline_id)
+);
+"""),
+    ("20260804000000_autoscale_journal", """
+CREATE TABLE IF NOT EXISTS etl_autoscale_journal (
+    pipeline_id BIGINT NOT NULL,
+    journal_json TEXT NOT NULL,
+    PRIMARY KEY (pipeline_id)
+);
+"""),
+    ("20260805000000_dead_letter", """
+CREATE TABLE IF NOT EXISTS etl_dead_letter (
+    id {bigserial} PRIMARY KEY,
+    pipeline_id BIGINT NOT NULL,
+    table_id BIGINT NOT NULL,
+    commit_lsn BIGINT NOT NULL,
+    tx_ordinal BIGINT NOT NULL,
+    change_type BIGINT NOT NULL,
+    payload TEXT NOT NULL,
+    error_kind TEXT NOT NULL,
+    detail TEXT NOT NULL,
+    attempts BIGINT NOT NULL DEFAULT 1,
+    status TEXT NOT NULL DEFAULT 'dead'
+);
+CREATE UNIQUE INDEX IF NOT EXISTS etl_dead_letter_key
+    ON etl_dead_letter (pipeline_id, table_id, commit_lsn, tx_ordinal,
+                        change_type);
+CREATE TABLE IF NOT EXISTS etl_quarantine (
+    pipeline_id BIGINT NOT NULL,
+    table_id BIGINT NOT NULL,
+    record_json TEXT NOT NULL,
+    PRIMARY KEY (pipeline_id, table_id)
+);
+"""),
+    # per-column poison attribution + the TTL-compaction clock. One
+    # ADD COLUMN per statement: sqlite's ALTER TABLE accepts exactly
+    # one action, and the runner splits on ";" anyway.
+    ("20260806000000_dead_letter_ttl", """
+ALTER TABLE etl_dead_letter ADD COLUMN poison_columns TEXT NOT NULL DEFAULT '';
+ALTER TABLE etl_dead_letter ADD COLUMN updated_at BIGINT NOT NULL DEFAULT 0;
+"""),
+    # fleet control plane (docs/fleet.md): one desired-state spec row
+    # per fleet (keyed by the coordinator's pipeline_id) and one
+    # actuation journal row PER PIPELINE so concurrent rolls never
+    # contend on a single document
+    ("20260807000000_fleet", """
+CREATE TABLE IF NOT EXISTS etl_fleet_spec (
+    pipeline_id BIGINT NOT NULL,
+    spec_json TEXT NOT NULL,
+    PRIMARY KEY (pipeline_id)
+);
+CREATE TABLE IF NOT EXISTS etl_fleet_journal (
+    pipeline_id BIGINT NOT NULL,
+    member_id BIGINT NOT NULL,
+    journal_json TEXT NOT NULL,
+    PRIMARY KEY (pipeline_id, member_id)
+);
+"""),
+]
+
+
+def _opt_int(v) -> int | None:
+    return None if v is None else int(v)
+
+
+class _SqlStoreBase(PipelineStore, abc.ABC):
+    """Shared statements + caches; subclasses provide execution."""
+
+    def __init__(self, pipeline_id: int):
+        self.pipeline_id = pipeline_id
+        # cache-first reads (reference postgres.rs cache strategy)
+        self._states: dict[TableId, TableState] = {}
+        self._schemas: dict[TableId, list[tuple[SnapshotId, ReplicatedTableSchema]]] = {}
+        self._progress: dict[ProgressKey, Lsn] = {}
+        self._meta: dict[TableId, DestinationTableMetadata] = {}
+        self._shard_assignment: ShardAssignment | None = None
+
+    # -- execution seam ------------------------------------------------------
+
+    @abc.abstractmethod
+    async def _run(self, sql: str, params: tuple = ()) -> list[tuple]:
+        """Execute one statement (auto-committed); return rows."""
+
+    @abc.abstractmethod
+    async def _txn(self, statements: list[tuple[str, tuple]]) -> None:
+        """Execute several statements atomically."""
+
+    # -- lifecycle -----------------------------------------------------------
+
+    async def _migrate_and_warm(self, bigserial: str) -> None:
+        for _name, ddl in MIGRATIONS:
+            for stmt in ddl.format(bigserial=bigserial).split(";"):
+                if not stmt.strip():
+                    continue
+                try:
+                    await self._run(stmt)
+                except Exception as e:
+                    # there is no applied-migrations ledger — every
+                    # connect re-runs the list and relies on
+                    # idempotency. CREATEs carry IF NOT EXISTS; ALTER
+                    # TABLE ADD COLUMN has no portable spelling of
+                    # that (sqlite), so a duplicate-column error IS
+                    # the already-applied signal, in both dialects
+                    msg = str(e).lower()
+                    if stmt.lstrip().upper().startswith("ALTER TABLE") \
+                            and ("duplicate column" in msg
+                                 or "already exists" in msg):
+                        continue
+                    raise
+        await self._load_caches()
+
+    async def _load_caches(self) -> None:
+        pid = self.pipeline_id
+        self._states = {
+            int(tid): TableState.from_json(raw) for tid, raw in await self._run(
+                "SELECT table_id, state FROM etl_replication_state "
+                "WHERE pipeline_id = ? AND is_current = 1", (pid,))}
+        self._schemas = {}
+        for tid, sid, raw in await self._run(
+                "SELECT table_id, snapshot_id, schema_json FROM "
+                "etl_table_schemas WHERE pipeline_id = ? "
+                "ORDER BY snapshot_id", (pid,)):
+            self._schemas.setdefault(int(tid), []).append(
+                (int(sid), ReplicatedTableSchema.from_json(json.loads(raw))))
+        self._progress = {
+            key: Lsn(int(lsn)) for key, lsn in await self._run(
+                "SELECT progress_key, lsn FROM etl_replication_progress "
+                "WHERE pipeline_id = ?", (pid,))}
+        self._meta = {
+            int(tid): DestinationTableMetadata(int(tid), name, int(gen))
+            for tid, name, gen in await self._run(
+                "SELECT table_id, destination_table_name, generation "
+                "FROM etl_table_mappings WHERE pipeline_id = ?", (pid,))}
+        rows = await self._run(
+            "SELECT assignment_json FROM etl_shard_assignment "
+            "WHERE pipeline_id = ?", (pid,))
+        self._shard_assignment = \
+            ShardAssignment.from_json(json.loads(rows[0][0])) if rows \
+            else None
+
+    # -- StateStore ----------------------------------------------------------
+
+    async def get_table_states(self) -> dict[TableId, TableState]:
+        return dict(self._states)
+
+    async def get_table_state(self, table_id: TableId) -> TableState | None:
+        return self._states.get(table_id)
+
+    async def update_table_state(self, table_id: TableId,
+                                 state: TableState) -> None:
+        if not state.is_persistent:
+            raise EtlError(ErrorKind.STORE_SERIALIZATION_FAILED,
+                           f"{state.type.value} is memory-only, not storable")
+        failpoints.fail_point(failpoints.STORE_STATE_COMMIT)
+        await failpoints.stall_point(failpoints.STORE_STATE_COMMIT)
+        pid = self.pipeline_id
+        # prev-pointer history chain (reference base.up.sql semantics)
+        cur = await self._run(
+            "SELECT id FROM etl_replication_state WHERE pipeline_id = ? "
+            "AND table_id = ? AND is_current = 1", (pid, table_id))
+        prev_id = _opt_int(cur[0][0]) if cur else None
+        await self._txn([
+            ("UPDATE etl_replication_state SET is_current = 0 "
+             "WHERE pipeline_id = ? AND table_id = ? AND is_current = 1",
+             (pid, table_id)),
+            ("INSERT INTO etl_replication_state "
+             "(pipeline_id, table_id, state, prev, is_current) "
+             "VALUES (?, ?, ?, ?, 1)",
+             (pid, table_id, state.to_json(), prev_id)),
+        ])
+        self._states[table_id] = state
+
+    async def delete_table_state(self, table_id: TableId) -> None:
+        await self._run(
+            "DELETE FROM etl_replication_state WHERE pipeline_id = ? "
+            "AND table_id = ?", (self.pipeline_id, table_id))
+        self._states.pop(table_id, None)
+
+    async def get_durable_progress(self, key: ProgressKey) -> Lsn | None:
+        return self._progress.get(key)
+
+    async def update_durable_progress(self, key: ProgressKey,
+                                      lsn: Lsn) -> bool:
+        failpoints.fail_point(failpoints.STORE_PROGRESS_COMMIT)
+        await failpoints.stall_point(failpoints.STORE_PROGRESS_COMMIT)
+        cur = self._progress.get(key)
+        if cur is not None and lsn < cur:
+            return False
+        await self._run(
+            "INSERT INTO etl_replication_progress "
+            "(pipeline_id, progress_key, lsn) VALUES (?, ?, ?) "
+            "ON CONFLICT (pipeline_id, progress_key) DO UPDATE SET "
+            "lsn = excluded.lsn WHERE excluded.lsn >= "
+            "etl_replication_progress.lsn",
+            (self.pipeline_id, key, int(lsn)))
+        self._progress[key] = lsn
+        return True
+
+    async def delete_durable_progress(self, key: ProgressKey) -> None:
+        await self._run(
+            "DELETE FROM etl_replication_progress WHERE "
+            "pipeline_id = ? AND progress_key = ?",
+            (self.pipeline_id, key))
+        self._progress.pop(key, None)
+
+    async def get_destination_metadata(
+            self, table_id: TableId) -> DestinationTableMetadata | None:
+        return self._meta.get(table_id)
+
+    async def update_destination_metadata(
+            self, meta: DestinationTableMetadata) -> None:
+        await self._run(
+            "INSERT INTO etl_table_mappings "
+            "(pipeline_id, table_id, destination_table_name, generation) "
+            "VALUES (?, ?, ?, ?) ON CONFLICT (pipeline_id, table_id) "
+            "DO UPDATE SET destination_table_name = excluded."
+            "destination_table_name, generation = excluded.generation",
+            (self.pipeline_id, meta.table_id, meta.destination_table_name,
+             meta.generation))
+        self._meta[meta.table_id] = meta
+
+    async def delete_destination_metadata(self, table_id: TableId) -> None:
+        await self._run(
+            "DELETE FROM etl_table_mappings WHERE pipeline_id = ? "
+            "AND table_id = ?", (self.pipeline_id, table_id))
+        self._meta.pop(table_id, None)
+
+    # -- shard assignment ----------------------------------------------------
+
+    async def get_shard_assignment(self) -> ShardAssignment | None:
+        """Always read THROUGH to the database, unlike the cache-first
+        table-state reads: the assignment is the one row another PROCESS
+        (the coordinator) rewrites underneath a running pod, and the
+        ShardScopedStore epoch fence exists precisely to observe that
+        flip — a connect-time cache would never refuse a stale pod."""
+        rows = await self._run(
+            "SELECT assignment_json FROM etl_shard_assignment "
+            "WHERE pipeline_id = ?", (self.pipeline_id,))
+        self._shard_assignment = \
+            ShardAssignment.from_json(json.loads(rows[0][0])) if rows \
+            else None
+        return self._shard_assignment
+
+    async def update_shard_assignment(self,
+                                      assignment: ShardAssignment) -> None:
+        cur = await self.get_shard_assignment()  # read-through (above)
+        if cur is not None and assignment.epoch < cur.epoch:
+            raise EtlError(
+                ErrorKind.PROGRESS_REGRESSION,
+                f"shard assignment epoch regression: {cur.epoch} -> "
+                f"{assignment.epoch}")
+        failpoints.fail_point(failpoints.STORE_SHARD_COMMIT)
+        await failpoints.stall_point(failpoints.STORE_SHARD_COMMIT)
+        await self._run(
+            "INSERT INTO etl_shard_assignment "
+            "(pipeline_id, assignment_json) VALUES (?, ?) "
+            "ON CONFLICT (pipeline_id) DO UPDATE SET "
+            "assignment_json = excluded.assignment_json",
+            (self.pipeline_id, json.dumps(assignment.to_json())))
+        self._shard_assignment = assignment
+
+    # -- autoscale decision journal ------------------------------------------
+
+    async def get_autoscale_journal(self) -> dict | None:
+        """Read-through like the shard assignment (not cache-first): the
+        journal is rewritten by the CONTROLLER process underneath running
+        pods, and a crashed controller's successor must see the latest
+        persisted decision, not a connect-time snapshot."""
+        rows = await self._run(
+            "SELECT journal_json FROM etl_autoscale_journal "
+            "WHERE pipeline_id = ?", (self.pipeline_id,))
+        return json.loads(rows[0][0]) if rows else None
+
+    async def update_autoscale_journal(self, journal: dict) -> None:
+        cur = await self.get_autoscale_journal()
+        if cur is not None and int(journal.get("next_id", 0)) \
+                < int(cur.get("next_id", 0)):
+            raise EtlError(
+                ErrorKind.PROGRESS_REGRESSION,
+                f"autoscale journal id regression: {cur.get('next_id')} "
+                f"-> {journal.get('next_id')}")
+        failpoints.fail_point(failpoints.STORE_AUTOSCALE_COMMIT)
+        await failpoints.stall_point(failpoints.STORE_AUTOSCALE_COMMIT)
+        await self._run(
+            "INSERT INTO etl_autoscale_journal "
+            "(pipeline_id, journal_json) VALUES (?, ?) "
+            "ON CONFLICT (pipeline_id) DO UPDATE SET "
+            "journal_json = excluded.journal_json",
+            (self.pipeline_id, json.dumps(journal)))
+
+    # -- fleet spec / actuation journals -------------------------------------
+    # Read-through like the autoscale journal: the spec is rewritten by
+    # the OPERATOR (API process) and the journals by the COORDINATOR,
+    # both underneath whoever reads next — a hard-killed coordinator's
+    # successor must see the latest persisted decision, never a
+    # connect-time snapshot. `pipeline_id` here is the FLEET id (the
+    # coordinator opens the store with it); `member_id` is the managed
+    # pipeline's id.
+
+    async def get_fleet_spec(self) -> dict | None:
+        rows = await self._run(
+            "SELECT spec_json FROM etl_fleet_spec "
+            "WHERE pipeline_id = ?", (self.pipeline_id,))
+        return json.loads(rows[0][0]) if rows else None
+
+    async def update_fleet_spec(self, spec: dict) -> None:
+        cur = await self.get_fleet_spec()
+        if cur is not None and int(spec.get("spec_version", 0)) \
+                < int(cur.get("spec_version", 0)):
+            raise EtlError(
+                ErrorKind.PROGRESS_REGRESSION,
+                f"fleet spec version regression: {cur.get('spec_version')} "
+                f"-> {spec.get('spec_version')}")
+        failpoints.fail_point(failpoints.STORE_FLEET_COMMIT)
+        await failpoints.stall_point(failpoints.STORE_FLEET_COMMIT)
+        await self._run(
+            "INSERT INTO etl_fleet_spec "
+            "(pipeline_id, spec_json) VALUES (?, ?) "
+            "ON CONFLICT (pipeline_id) DO UPDATE SET "
+            "spec_json = excluded.spec_json",
+            (self.pipeline_id, json.dumps(spec)))
+
+    async def get_fleet_journal(self, pipeline_id: int) -> dict | None:
+        rows = await self._run(
+            "SELECT journal_json FROM etl_fleet_journal "
+            "WHERE pipeline_id = ? AND member_id = ?",
+            (self.pipeline_id, int(pipeline_id)))
+        return json.loads(rows[0][0]) if rows else None
+
+    async def get_fleet_journals(self) -> dict[int, dict]:
+        rows = await self._run(
+            "SELECT member_id, journal_json FROM etl_fleet_journal "
+            "WHERE pipeline_id = ?", (self.pipeline_id,))
+        return {int(mid): json.loads(raw) for mid, raw in rows}
+
+    async def update_fleet_journal(self, pipeline_id: int,
+                                   journal: dict) -> None:
+        cur = await self.get_fleet_journal(pipeline_id)
+        if cur is not None and int(journal.get("next_id", 0)) \
+                < int(cur.get("next_id", 0)):
+            raise EtlError(
+                ErrorKind.PROGRESS_REGRESSION,
+                f"fleet journal id regression for pipeline {pipeline_id}: "
+                f"{cur.get('next_id')} -> {journal.get('next_id')}")
+        failpoints.fail_point(failpoints.STORE_FLEET_COMMIT)
+        await failpoints.stall_point(failpoints.STORE_FLEET_COMMIT)
+        await self._run(
+            "INSERT INTO etl_fleet_journal "
+            "(pipeline_id, member_id, journal_json) VALUES (?, ?, ?) "
+            "ON CONFLICT (pipeline_id, member_id) DO UPDATE SET "
+            "journal_json = excluded.journal_json",
+            (self.pipeline_id, int(pipeline_id), json.dumps(journal)))
+
+    # -- dead-letter / quarantine surface ------------------------------------
+    # Read-THROUGH like the shard assignment, not cache-first: the
+    # operator CLI (python -m etl_tpu.dlq) mutates these rows from
+    # another process while a replicator runs, and replay/discard/
+    # unquarantine must be visible to whichever process reads next.
+
+    _DLQ_COLS = ("id, table_id, commit_lsn, tx_ordinal, change_type, "
+                 "payload, error_kind, detail, attempts, status, "
+                 "poison_columns, updated_at")
+
+    @staticmethod
+    def _dlq_row(r) -> DeadLetterEntry:
+        return DeadLetterEntry(
+            entry_id=int(r[0]), table_id=int(r[1]), commit_lsn=int(r[2]),
+            tx_ordinal=int(r[3]), change_type=int(r[4]), payload=r[5],
+            error_kind=r[6], detail=r[7], attempts=int(r[8]), status=r[9],
+            columns=r[10], updated_at=int(r[11]))
+
+    #: rows per multi-row upsert statement: fixed-size chunks keep the
+    #: `?`→`$n` placeholder rewrite cache small (≤ _DLQ_CHUNK distinct
+    #: statement widths) while a quarantine parking a whole flush costs
+    #: O(rows/chunk) round trips instead of 2·rows
+    _DLQ_CHUNK = 64
+
+    async def append_dead_letters(self, entries) -> list[int]:
+        failpoints.fail_point(failpoints.STORE_DLQ_COMMIT)
+        await failpoints.stall_point(failpoints.STORE_DLQ_COMMIT)
+        pid = self.pipeline_id
+        # in-batch dedup (defensive: Postgres refuses ON CONFLICT
+        # affecting one row twice in a single statement) — merge
+        # duplicate WAL keys, accumulating attempts like the upsert does
+        merged: dict[tuple, object] = {}
+        order: list[tuple] = []
+        for e in entries:
+            cur = merged.get(e.key())
+            if cur is None:
+                merged[e.key()] = e
+                order.append(e.key())
+            else:
+                from dataclasses import replace as _replace
+
+                merged[e.key()] = _replace(
+                    cur, attempts=cur.attempts + e.attempts,
+                    error_kind=e.error_kind, detail=e.detail or cur.detail)
+        todo = [merged[k] for k in order]
+        now = int(time.time())  # the compaction clock, store-stamped
+        row_sql = "(?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?, ?)"
+        for i in range(0, len(todo), self._DLQ_CHUNK):
+            chunk = todo[i:i + self._DLQ_CHUNK]
+            params: list = []
+            for e in chunk:
+                params += [pid, e.table_id, e.commit_lsn, e.tx_ordinal,
+                           e.change_type, e.payload, e.error_kind,
+                           e.detail, e.attempts, e.status, e.columns,
+                           now]
+            # idempotent keyed upsert on the WAL coordinates: a crash
+            # between bisection and ack re-streams the batch and
+            # re-appends the same rows — attempts accumulate, no dup row
+            await self._run(
+                "INSERT INTO etl_dead_letter "
+                "(pipeline_id, table_id, commit_lsn, tx_ordinal, "
+                "change_type, payload, error_kind, detail, attempts, "
+                "status, poison_columns, updated_at) VALUES "
+                + ", ".join([row_sql] * len(chunk))
+                + " ON CONFLICT (pipeline_id, table_id, commit_lsn, "
+                "tx_ordinal, change_type) DO UPDATE SET "
+                "attempts = etl_dead_letter.attempts + excluded.attempts, "
+                "error_kind = excluded.error_kind, "
+                "detail = excluded.detail, "
+                "poison_columns = excluded.poison_columns, "
+                "updated_at = excluded.updated_at",
+                tuple(params))
+        if not todo:
+            return []
+        # ONE read-back for the assigned ids, keyed client-side (the
+        # batch's commit range bounds the scan)
+        lo = min(e.commit_lsn for e in todo)
+        hi = max(e.commit_lsn for e in todo)
+        rows = await self._run(
+            "SELECT id, table_id, commit_lsn, tx_ordinal, change_type "
+            "FROM etl_dead_letter WHERE pipeline_id = ? "
+            "AND commit_lsn >= ? AND commit_lsn <= ?", (pid, lo, hi))
+        by_key = {(int(t), int(c), int(o), int(ch)): int(i)
+                  for i, t, c, o, ch in rows}
+        return [by_key[e.key()] for e in entries]
+
+    async def list_dead_letters(self, table_id=None,
+                                status="dead") -> list[DeadLetterEntry]:
+        sql = (f"SELECT {self._DLQ_COLS} FROM etl_dead_letter "
+               f"WHERE pipeline_id = ?")
+        params: list = [self.pipeline_id]
+        if table_id is not None:
+            sql += " AND table_id = ?"
+            params.append(table_id)
+        if status is not None:
+            sql += " AND status = ?"
+            params.append(status)
+        sql += " ORDER BY id"
+        return [self._dlq_row(r) for r in await self._run(sql,
+                                                          tuple(params))]
+
+    async def get_dead_letter(self, entry_id: int) -> DeadLetterEntry | None:
+        rows = await self._run(
+            f"SELECT {self._DLQ_COLS} FROM etl_dead_letter "
+            f"WHERE pipeline_id = ? AND id = ?",
+            (self.pipeline_id, entry_id))
+        return self._dlq_row(rows[0]) if rows else None
+
+    async def set_dead_letter_status(self, entry_id: int,
+                                     status: str) -> None:
+        rows = await self._run(
+            "SELECT id FROM etl_dead_letter WHERE pipeline_id = ? "
+            "AND id = ?", (self.pipeline_id, entry_id))
+        if not rows:
+            raise EtlError(ErrorKind.STATE_STORE_FAILED,
+                           f"no dead-letter entry {entry_id}")
+        await self._run(
+            "UPDATE etl_dead_letter SET status = ?, updated_at = ? "
+            "WHERE pipeline_id = ? AND id = ?",
+            (status, int(time.time()), self.pipeline_id, entry_id))
+
+    async def purge_dead_letters(self, older_than_s, statuses=(
+            "replayed", "discarded")) -> int:
+        """TTL compaction (operator CLI): delete terminal entries whose
+        last transition predates the cutoff. Two statements instead of
+        relying on a DELETE rowcount — the execution seam returns rows,
+        not counts, and portably so."""
+        cutoff = int(time.time() - older_than_s)
+        marks = ", ".join(["?"] * len(statuses))
+        where = (f"pipeline_id = ? AND status IN ({marks}) "
+                 f"AND updated_at < ?")
+        params = (self.pipeline_id, *statuses, cutoff)
+        rows = await self._run(
+            f"SELECT id FROM etl_dead_letter WHERE {where}", params)
+        if rows:
+            await self._run(
+                f"DELETE FROM etl_dead_letter WHERE {where}", params)
+        return len(rows)
+
+    async def get_quarantined_tables(self) -> dict[TableId, QuarantineRecord]:
+        rows = await self._run(
+            "SELECT table_id, record_json FROM etl_quarantine "
+            "WHERE pipeline_id = ?", (self.pipeline_id,))
+        return {int(tid): QuarantineRecord.from_json(json.loads(raw))
+                for tid, raw in rows}
+
+    async def set_table_quarantine(self, table_id: TableId,
+                                   record: QuarantineRecord | None) -> None:
+        failpoints.fail_point(failpoints.STORE_DLQ_COMMIT)
+        await failpoints.stall_point(failpoints.STORE_DLQ_COMMIT)
+        if record is None:
+            await self._run(
+                "DELETE FROM etl_quarantine WHERE pipeline_id = ? "
+                "AND table_id = ?", (self.pipeline_id, table_id))
+            return
+        await self._run(
+            "INSERT INTO etl_quarantine (pipeline_id, table_id, "
+            "record_json) VALUES (?, ?, ?) "
+            "ON CONFLICT (pipeline_id, table_id) DO UPDATE SET "
+            "record_json = excluded.record_json",
+            (self.pipeline_id, table_id, json.dumps(record.to_json())))
+
+    # -- SchemaStore ---------------------------------------------------------
+
+    async def store_table_schema(self, schema: ReplicatedTableSchema,
+                                 snapshot_id: SnapshotId) -> None:
+        failpoints.fail_point(failpoints.STORE_SCHEMA_COMMIT)
+        await failpoints.stall_point(failpoints.STORE_SCHEMA_COMMIT)
+        await self._run(
+            "INSERT INTO etl_table_schemas "
+            "(pipeline_id, table_id, snapshot_id, schema_json) "
+            "VALUES (?, ?, ?, ?) ON CONFLICT "
+            "(pipeline_id, table_id, snapshot_id) DO UPDATE SET "
+            "schema_json = excluded.schema_json",
+            (self.pipeline_id, schema.id, snapshot_id,
+             json.dumps(schema.to_json())))
+        versions = self._schemas.setdefault(schema.id, [])
+        versions[:] = [(s, v) for s, v in versions if s != snapshot_id]
+        versions.append((snapshot_id, schema))
+        versions.sort(key=lambda p: p[0])
+
+    async def get_table_schema(
+            self, table_id: TableId,
+            at_snapshot: SnapshotId | None = None
+    ) -> ReplicatedTableSchema | None:
+        versions = self._schemas.get(table_id)
+        if not versions:
+            return None
+        if at_snapshot is None:
+            return versions[-1][1]
+        best = None
+        for s, v in versions:
+            if s <= at_snapshot:
+                best = v
+            else:
+                break
+        return best
+
+    async def get_schema_versions(self, table_id: TableId) -> list[SnapshotId]:
+        return [s for s, _ in self._schemas.get(table_id, [])]
+
+    async def get_table_ids_with_schemas(self) -> list[TableId]:
+        return [tid for tid, v in self._schemas.items() if v]
+
+    async def prune_schema_versions(self, table_id: TableId,
+                                    older_than: SnapshotId) -> int:
+        versions = self._schemas.get(table_id)
+        if not versions:
+            return 0
+        keep_from = 0
+        for i, (s, _) in enumerate(versions):
+            if s <= older_than:
+                keep_from = i
+        removed_ids = [s for s, _ in versions[:keep_from]]
+        if removed_ids:
+            await self._txn([
+                ("DELETE FROM etl_table_schemas WHERE pipeline_id = ? AND "
+                 "table_id = ? AND snapshot_id = ?",
+                 (self.pipeline_id, table_id, s)) for s in removed_ids])
+        versions[:] = versions[keep_from:]
+        return len(removed_ids)
+
+    async def delete_table_schemas(self, table_id: TableId) -> None:
+        await self._run(
+            "DELETE FROM etl_table_schemas WHERE pipeline_id = ? "
+            "AND table_id = ?", (self.pipeline_id, table_id))
+        self._schemas.pop(table_id, None)
+
+    # -- history inspection (reference prev-pointer chain) --------------------
+
+    async def state_history(self, table_id: TableId) -> list[TableState]:
+        """Oldest→newest chain of states for a table."""
+        rows = await self._run(
+            "SELECT state FROM etl_replication_state WHERE pipeline_id = ? "
+            "AND table_id = ? ORDER BY id", (self.pipeline_id, table_id))
+        return [TableState.from_json(r[0]) for r in rows]
+
+
+class SqliteStore(_SqlStoreBase):
+    """File-backed store. `connect()` runs migrations and warms caches."""
+
+    def __init__(self, path: str | Path, pipeline_id: int):
+        super().__init__(pipeline_id)
+        self.path = str(path)
+        self._db: sqlite3.Connection | None = None
+
+    async def connect(self) -> None:
+        self._db = sqlite3.connect(self.path)
+        self._db.execute("PRAGMA journal_mode=WAL")
+        self._db.execute("PRAGMA synchronous=NORMAL")
+        await self._migrate_and_warm(bigserial="INTEGER")
+        self._db.commit()
+
+    def _conn(self) -> sqlite3.Connection:
+        if self._db is None:
+            raise EtlError(ErrorKind.STATE_STORE_FAILED,
+                           "store not connected")
+        return self._db
+
+    async def _run(self, sql: str, params: tuple = ()) -> list[tuple]:
+        db = self._conn()
+        rows = db.execute(sql, params).fetchall()
+        db.commit()
+        return rows
+
+    async def _txn(self, statements: list[tuple[str, tuple]]) -> None:
+        db = self._conn()
+        try:
+            for sql, params in statements:
+                db.execute(sql, params)
+            db.commit()
+        except BaseException:
+            db.rollback()
+            raise
+
+    async def close(self) -> None:
+        if self._db is not None:
+            self._db.close()
+            self._db = None
+

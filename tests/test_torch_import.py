@@ -57,7 +57,14 @@ PORT_MODULES = [
     "etl_tpu_torch.runtime.copy", "etl_tpu_torch.runtime.failpoints",
     "etl_tpu_torch.runtime.pipeline", "etl_tpu_torch.runtime.shutdown",
     "etl_tpu_torch.runtime.state", "etl_tpu_torch.runtime.table_cache",
-    "etl_tpu_torch.runtime.table_sync", "chip_smoke",
+    "etl_tpu_torch.runtime.table_sync", "etl_tpu_torch.runtime.poison",
+    "etl_tpu_torch.supervision", "etl_tpu_torch.supervision.breaker",
+    "etl_tpu_torch.supervision.destination",
+    "etl_tpu_torch.supervision.health",
+    "etl_tpu_torch.supervision.heartbeat",
+    "etl_tpu_torch.supervision.supervisor", "etl_tpu_torch.dlq",
+    "etl_tpu_torch.dlq.codec", "etl_tpu_torch.dlq.__main__",
+    "etl_tpu_torch.store.sql", "chip_smoke",
 ]
 
 

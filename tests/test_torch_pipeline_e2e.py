@@ -3,8 +3,10 @@ walsender: the scenarios of tests/test_pipeline_e2e.py on
 `etl_tpu_torch.runtime.Pipeline` — fake walsender → replication stream →
 apply loop → EventAssembler → DecodePipeline → DeviceDecoder →
 MemoryDestination — with the CUDA engine on `device="cpu"` (the kernels'
-plain versions) and the CPU engine. Supervision and poison-pill isolation
-are not ported, so every pipeline here passes them off explicitly."""
+plain versions) and the CPU engine. The scenarios pass supervision and
+poison-pill isolation off, as the reference's own e2e file does not need
+them; `TestPortRules` runs each at the reference default (on), and
+tests/test_torch_supervision.py and test_torch_poison_dlq.py hold them."""
 
 import asyncio
 
@@ -27,7 +29,7 @@ from etl_tpu_torch.store import NotifyingStore
 ACCOUNTS = 16384
 ORDERS = 16385
 
-#: the unported subsystems, off (the port's Pipeline refuses them on)
+#: supervision and poison-pill isolation off: the runtime by itself
 OFF = dict(supervision=SupervisionConfig(enabled=False),
            poison=PoisonConfig(enabled=False))
 
@@ -508,21 +510,56 @@ class TestBackpressure:
 class TestPortRules:
     """What the port refuses, and the route its batches take."""
 
-    @pytest.mark.parametrize("field", ["supervision", "poison", "shard"])
+    @pytest.mark.parametrize("field", ["shard"])
     def test_unported_subsystems_refused_at_construction(self, field):
         from etl_tpu_torch.models.errors import EtlError
 
         kw = dict(OFF)
-        if field == "shard":
-            kw["shard"], kw["shard_count"] = 0, 2
-        else:
-            kw.pop(field)  # the reference default: enabled
+        kw["shard"], kw["shard_count"] = 0, 2
         config = PipelineConfig(pipeline_id=1, publication_name="pub",
                                 batch=BatchConfig(device="cpu"), **kw)
         with pytest.raises(EtlError, match="not ported"):
             Pipeline(config=config, store=NotifyingStore(),
                      destination=MemoryDestination(),
                      source_factory=lambda: FakeSource(make_db()))
+
+    @pytest.mark.parametrize("field", ["supervision", "poison"])
+    async def test_reference_default_constructs_and_reaches_ready(
+            self, field):
+        """The reference's default for the subsystem (enabled) constructs,
+        copies to READY and streams CDC on the port."""
+        from etl_tpu_torch.supervision import SupervisedDestination
+
+        kw = dict(OFF)
+        kw.pop(field)  # the reference default: enabled
+        db = make_db()
+        config = PipelineConfig(
+            pipeline_id=1, publication_name="pub",
+            batch=BatchConfig(max_size_bytes=256 * 1024, max_fill_ms=50,
+                              batch_engine=BatchEngine.CUDA, device="cpu"),
+            **kw)
+        assert getattr(config, field).enabled
+        store, dest = NotifyingStore(), MemoryDestination()
+        pipeline = Pipeline(config=config, store=store, destination=dest,
+                            source_factory=lambda: FakeSource(db))
+        await pipeline.start()
+        try:
+            await wait_ready(store, ACCOUNTS)
+            async with db.transaction() as tx:
+                tx.insert(ACCOUNTS, ["4", "carol", "7"])
+            await asyncio.wait_for(
+                _wait_for(lambda: 4 in _account_ids(dest)), 5.0)
+            if field == "supervision":
+                assert pipeline.supervisor.started
+                assert isinstance(pipeline.active_destination,
+                                  SupervisedDestination)
+                assert pipeline.health_snapshot()["health"]["state"] \
+                    == "healthy"
+            else:
+                assert pipeline.supervisor is None
+                assert pipeline.active_destination is dest
+        finally:
+            await pipeline.shutdown_and_wait()
 
     async def test_cuda_engine_without_card_raises_at_start(self):
         import torch

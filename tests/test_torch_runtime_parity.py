@@ -3,14 +3,17 @@
 The same seeded FakeDatabase workload runs through
 `etl_tpu.runtime.Pipeline` (BatchEngine.TPU, JAX on the CPU) and through
 `etl_tpu_torch.runtime.Pipeline` (BatchEngine.CUDA on `device="cpu"`, the
-kernels' plain versions), both with supervision and poison-pill isolation
-off. The two MemoryDestination end states, reduced to plain tuples (event
-type, table id, LSNs, ordinal, values), must be equal with no tolerance.
-Scenarios: initial copy + CDC inserts, updates and deletes with REPLICA
-IDENTITY FULL old tuples; a truncate; a pgbench table with initial rows
-under the publication row filter `bid <= 5` in offload mode (the walsender
-ships every row, the client filters); a restart that resumes from durable
-progress."""
+kernels' plain versions), with supervision and poison-pill isolation off
+unless a scenario runs the reference's defaults. The two MemoryDestination
+end states, reduced to plain tuples (event type, table id, LSNs, ordinal,
+values), must be equal with no tolerance. Scenarios: initial copy + CDC
+inserts, updates and deletes with REPLICA IDENTITY FULL old tuples (also
+under the default PipelineConfig: supervision and poison on); a truncate;
+a pgbench table with initial rows under the publication row filter
+`bid <= 5` in offload mode (the walsender ships every row, the client
+filters); a restart that resumes from durable progress; a stream with
+poison rows into a PoisonRejectingDestination over a SqliteStore, where
+the dead-letter entries (WAL keys, payload bytes) must be equal too."""
 
 import asyncio
 import importlib
@@ -39,16 +42,19 @@ def _pkg(name: str) -> SimpleNamespace:
         engine=cfg.BatchEngine.CUDA if port else cfg.BatchEngine.TPU)
 
 
-def _pipeline(pkg, db, store, dest):
+def _pipeline(pkg, db, store, dest, defaults: bool = False, **fields):
+    """`defaults` keeps PipelineConfig's defaults (supervision and poison
+    on); `fields` override config fields."""
     batch = dict(max_size_bytes=256 * 1024, max_fill_ms=50,
                  batch_engine=pkg.engine)
     if pkg.port:
         batch["device"] = "cpu"
+    if not defaults:
+        fields = dict(supervision=pkg.cfg.SupervisionConfig(enabled=False),
+                      poison=pkg.cfg.PoisonConfig(enabled=False), **fields)
     config = pkg.cfg.PipelineConfig(
         pipeline_id=1, publication_name="pub",
-        batch=pkg.cfg.BatchConfig(**batch),
-        supervision=pkg.cfg.SupervisionConfig(enabled=False),
-        poison=pkg.cfg.PoisonConfig(enabled=False))
+        batch=pkg.cfg.BatchConfig(**batch), **fields)
     return pkg.runtime.Pipeline(config=config, store=store, destination=dest,
                                 source_factory=lambda: pkg.fake.FakeSource(db))
 
@@ -141,14 +147,16 @@ def _make_db(pkg, seed, n_accounts=150, n_orders=80):
     return db, rng
 
 
-async def scenario_copy_cdc(pkg):
+async def scenario_copy_cdc(pkg, defaults: bool = False):
     """Copy, then CDC inserts, updates (key-changing and not) and deletes,
     with REPLICA IDENTITY FULL old tuples on `orders`."""
     db, rng = _make_db(pkg, seed=11)
     db.create_publication("pub", [ACCOUNTS, ORDERS])
     db.set_replica_identity(ORDERS, "f")
     store, dest = pkg.store.NotifyingStore(), pkg.dest.MemoryDestination()
-    p = _pipeline(pkg, db, store, dest)
+    p = _pipeline(pkg, db, store, dest, defaults=defaults)
+    if defaults:
+        assert p.supervisor is not None
     await p.start()
     await _ready(pkg, store, ACCOUNTS)
     await _ready(pkg, store, ORDERS)
@@ -269,7 +277,71 @@ async def scenario_restart(pkg):
     return reduce_state(dest)
 
 
+async def scenario_default_config(pkg):
+    """scenario_copy_cdc under the reference's default PipelineConfig:
+    supervision (the destination behind SupervisedDestination) and
+    poison-pill isolation on."""
+    return await scenario_copy_cdc(pkg, defaults=True)
+
+
+async def scenario_poison_sqlite(pkg):
+    """Copy, then CDC with poison rows (names starting `POISON`) into a
+    PoisonRejectingDestination, under the default config with the
+    reference harness's PoisonConfig(budget_rows=1_000_000), the state in
+    a SqliteStore: the healthy rows' end state and the dead-letter entries
+    (WAL keys, change type, payload bytes, error) of both runtimes."""
+    import tempfile
+
+    from importlib import import_module
+
+    sql = import_module(("etl_tpu_torch" if pkg.port else "etl_tpu")
+                        + ".store.sql")
+    db, rng = _make_db(pkg, seed=15)
+    db.create_publication("pub", [ACCOUNTS, ORDERS])
+    inner = pkg.dest.MemoryDestination()
+    dest = pkg.dest.PoisonRejectingDestination(inner)
+    with tempfile.TemporaryDirectory() as tmp:
+        store = sql.SqliteStore(f"{tmp}/state.db", 1)
+        await store.connect()
+        p = _pipeline(pkg, db, store, dest, defaults=True,
+                      poison=pkg.cfg.PoisonConfig(budget_rows=1_000_000))
+        await p.start()
+        for tid in (ACCOUNTS, ORDERS):
+            await _wait_for(lambda: (store._states.get(tid) is not None
+                                     and store._states[tid].type
+                                     is pkg.runtime.TableStateType.READY))
+        healthy = poison = 0
+        for k in range(4):
+            async with db.transaction() as tx:
+                for r in _accounts_rows(rng, range(6000 + 100 * k,
+                                                   6100 + 100 * k)):
+                    if int(r[0]) % 37 == 0:
+                        r[1] = f"POISON-{r[0]}"
+                        poison += 1
+                    else:
+                        healthy += 1
+                    tx.insert(ACCOUNTS, r)
+        await _wait_for(lambda: len(_row_events(inner)) >= healthy)
+        await _wait_for(lambda: dest.rejections > 0)
+        deadline = asyncio.get_running_loop().time() + 60
+        while len(await store.list_dead_letters()) < poison \
+                and asyncio.get_running_loop().time() < deadline:
+            await asyncio.sleep(0.02)
+        await p.shutdown_and_wait()
+        entries = await store.list_dead_letters(status=None)
+        await store.close()
+    state = reduce_state(inner)
+    state["dlq"] = sorted(
+        (e.table_id, e.commit_lsn, e.tx_ordinal, e.change_type, e.payload,
+         e.error_kind, e.detail, e.attempts, e.status, e.columns)
+        for e in entries)
+    state["poison"] = poison
+    return state
+
+
 SCENARIOS = {"copy_cdc_identity_full": scenario_copy_cdc,
+             "default_config": scenario_default_config,
+             "poison_sqlite_dlq": scenario_poison_sqlite,
              "truncate": scenario_truncate,
              "offload_row_filter": scenario_offload_filter,
              "restart_resume": scenario_restart}
@@ -299,6 +371,8 @@ async def test_port_end_state_equals_reference(name):
         assert a == b, (i, a, b)
     assert port == ref
     assert ref["events"], "the scenario delivered no CDC"
+    if "dlq" in ref:
+        assert len(ref["dlq"]) == ref["poison"] > 0
 
 
 async def test_offload_filter_keeps_exactly_the_matching_rows():

@@ -664,7 +664,9 @@ class TestDispatchBlockedByteCap:
         ns = SimpleNamespace(
             _ack_window=w,
             assembler=SimpleNamespace(size_bytes=10**9),  # huge backlog
-            _flush_threshold=lambda: 30)  # the next flush is ≤ 30 bytes
+            destination=SimpleNamespace(breaker=None),
+            _flush_threshold=lambda: 30,  # the next flush is ≤ 30 bytes
+            _breaker_open=lambda: False)
         # 60 in flight + a 30-byte prospective flush ≤ 100: must dispatch
         assert not ApplyLoop._dispatch_blocked(ns)
         ns._flush_threshold = lambda: 50
