@@ -1038,6 +1038,158 @@ def default_config_phase(args, cdc: dict) -> dict:
     return out
 
 
+#: phase 11: the inserts across 11(a)'s restart; 11(c)'s table and stream
+#: (the binary as a process proves the process, not a rate)
+RESTART_EVENTS = 20_000
+BINARY_COPY_ROWS = 100_000
+BINARY_EVENTS = 10_000
+
+
+def wire_phase(args, runtime: dict, device: str = "cuda") -> dict:
+    """Phase 11: the replicator binary over the Postgres wire protocol,
+    against a fake server with SCRAM auth in a child process. (a)
+    `replicator.run_replicator(config_dir)` in this process at phases 6
+    and 7's sizes, with a PostgresStore and a restart; (b) the same
+    stream from a publication whose catalog row filter is `bid <= 5`, in
+    offload mode; (c) `python -m etl_tpu_torch.replicator` as a process
+    with a SqliteStore, and the DLQ CLI's `--postgres` and `replay
+    --destination-json`. (a) and (b) set the launch counts to 0 just
+    before and read them just after; `runtime` holds phases 6-8, printed
+    beside them. Returns (a) and (b)."""
+    import asyncio
+
+    from etl_tpu_torch import bench
+
+    out = {}
+    r6, r7, r8 = runtime["6_copy"], runtime["7_cdc"], runtime["8_cdc_filtered"]
+    print(f"[11a] the replicator over the wire, in process: COPY "
+          f"{args.copy_rows} rows, CDC {args.cdc_events} events, then "
+          f"{RESTART_EVENTS} more across a restart (PostgresStore, SCRAM, "
+          f"the server in a child process)", flush=True)
+    oracle_clear("phase 11(a)")
+    _reset_launch_counts()
+    r = asyncio.run(bench.run_wire_replicator(
+        args.copy_rows, args.cdc_events, device=device, seed=args.seed,
+        restart_events=RESTART_EVENTS))
+    r.update(_launch_counts())
+    _wire_lines(r, r6, r7, "phase 6", "phase 7")
+    rr = r["restart"]
+    print(f"  restart: health {json.dumps(rr['health'])} rows={rr['rows']} "
+          f"copied_again={rr['copied_again']} once_each={rr['ok']}",
+          flush=True)
+    _wire_checks(r, "11(a)")
+    check(rr["ok"], "the restart from the PostgresStore re-copied, lost or "
+          "duplicated rows")
+    print("  parity: copy count/digest/512 oracle rows, CDC count/digest/"
+          "order/identity/512 oracle rows, restart once each, K1 == "
+          "device-routed batches, clean SIGTERM", flush=True)
+    out["11a_wire"] = r
+
+    print(f"[11b] the same stream from a publication with the catalog row "
+          f"filter bid <= 5 (offload mode, {args.cdc_events} events)",
+          flush=True)
+    oracle_clear("phase 11(b)")
+    _reset_launch_counts()
+    r = asyncio.run(bench.run_wire_replicator(
+        0, args.cdc_events, device=device, seed=args.seed,
+        row_filter="bid <= 5", restart_events=0))
+    r.update(_launch_counts())
+    _wire_lines(r, None, r8, None, "phase 8")
+    _wire_checks(r, "11(b)")
+    print("  parity: delivered == the filter's truth (count/digest), order/"
+          "identity/512 oracle rows, K2c (+ K2) == device-routed batches, "
+          "clean SIGTERM", flush=True)
+    out["11b_wire_filtered"] = r
+
+    print(f"[11c] python -m etl_tpu_torch.replicator as a process "
+          f"({BINARY_COPY_ROWS} rows, {BINARY_EVENTS} events, SqliteStore), "
+          f"then the DLQ CLI over the wire", flush=True)
+    oracle_clear("phase 11(c)")
+    r = asyncio.run(bench.run_replicator_binary(
+        BINARY_COPY_ROWS, BINARY_EVENTS, device=device, seed=args.seed))
+    cli = r["dlq_cli"]
+    print(f"  /health {json.dumps(r['health'])} after {r['health_s']:.2f} s, "
+          f"slot confirmed after {r['confirmed_s']:.2f} s, SIGTERM exit "
+          f"code {r['exit_code']}, stopped cleanly {r['stopped_cleanly']}",
+          flush=True)
+    print("  dlq cli: " + " ".join(
+        f"{name} rc={c['rc']} {c['s']:.2f}s" for name, c in cli.items()),
+        flush=True)
+    if r["exit_code"] != 0:
+        print(r.get("stderr_tail", ""), file=sys.stderr, flush=True)
+    check(r["health"] == [200, {"status": "healthy"}],
+          "the binary's /health did not answer 200 healthy")
+    check(r["exit_code"] == 0 and r["stopped_cleanly"],
+          "the binary did not exit 0 on SIGTERM")
+    check(r["dlq_ok"], "the DLQ CLI over --postgres or replay "
+          "--destination-json failed")
+    return out
+
+
+def _wire_lines(r: dict, copy_ref, cdc_ref, copy_name, cdc_name) -> None:
+    from etl_tpu_torch import bench
+
+    print(f"  health: {json.dumps(r['health'])}", flush=True)
+    if copy_ref is not None:
+        cs = r["copy_stages"]
+        print(f"  copy rows/s={r['rows_per_second']:.0f} MiB/s="
+              f"{r['mib_per_second']:.2f} ({copy_name}: "
+              f"{copy_ref['rows_per_second']:.0f} / "
+              f"{copy_ref['mib_per_second']:.2f}) copy_wait_ms="
+              f"{r['copy_wait_ms']:.1f} pipeline_start_ms="
+              f"{r['pipeline_start_ms']:.1f} device_busy_share="
+              f"{cs['device_busy_share']:.5f} ({copy_name}: "
+              f"{copy_ref['device_busy_share']:.5f}) k1={cs['k1_launches']} "
+              f"device_batches={cs['device_batches']} oracle_rows="
+              f"{cs['oracle_rows']:.0f}", flush=True)
+    print(f"  events/s={r['events_per_second']:.0f} ({cdc_name}: "
+          f"{cdc_ref['events_per_second']:.0f}) producer_events/s="
+          f"{r['producer_events_per_second']:.0f} lag_p50_ms="
+          f"{r['lag_p50_ms']:.2f} lag_p95_ms={r['lag_p95_ms']:.2f} "
+          f"({cdc_name}: {cdc_ref['lag_p50_ms']:.2f} / "
+          f"{cdc_ref['lag_p95_ms']:.2f}) device_busy_share="
+          f"{r['device_busy_share']:.5f} ({cdc_name}: "
+          f"{cdc_ref['device_busy_share']:.5f}) delivered="
+          f"{r['delivered_rows']} keep_share={r['keep_share']:.4f}",
+          flush=True)
+    print(f"  {_stage_line(r)}", flush=True)
+    print(f"  launches: k1={r['k1_launches']} k2c={r['k2c_launches']} "
+          f"k2={r['k2_launches']} epilogue={r['epilogue_launches']}; run: "
+          f"{json.dumps(r['run'])}; CDC window device_rows="
+          f"{r['device_rows']} oracle_rows={r['oracle_rows']} (below the "
+          f"size floor: {r['small_oracle_rows']}; at most "
+          f"{bench.WIRE_CDC_ORACLE_SHARE_MAX:.0%} of the window)",
+          flush=True)
+    print(f"  /metrics decode counters: {r['metrics_ok']}; after SIGTERM: "
+          f"{json.dumps(r['after_shutdown'])}", flush=True)
+
+
+def _wire_checks(r: dict, phase: str) -> None:
+    from etl_tpu_torch import bench
+
+    check(r["health_ok"], f"{phase}: /health did not go 503 starting -> "
+          "200 healthy")
+    check(r["copy_count_ok"] and r["copy_digest_ok"]
+          and r.get("copy_oracle_sample_ok", True) and r["copy_oracle_free"],
+          f"{phase}: copied rows differ from the written rows, or a copy "
+          "chunk took the oracle route")
+    check(r["count_ok"] and r["digest_ok"], f"{phase}: streamed rows "
+          "differ from the produced rows (count or digest)")
+    check(r["order_ok"] and r["identity_ok"], f"{phase}: streamed rows not "
+          "once each in (commit LSN, ordinal) order with their rows")
+    check(r["oracle_sample_ok"], f"{phase}: a sampled row differs from "
+          "the CPU oracle")
+    check(r["launches_ok"], f"{phase}: the launches differ from the "
+          "device-routed batches")
+    check(r["cdc_oracle_ok"], f"{phase}: the CDC window routed rows to the "
+          "oracle other than runs below the size floor, or more than "
+          f"{bench.WIRE_CDC_ORACLE_SHARE_MAX:.0%} of its rows")
+    check(r["metrics_ok"], f"{phase}: /metrics lacks the decode counters")
+    check(r["shutdown_ok"], f"{phase}: a decode thread, an admission "
+          "ticket or a tenant outlived SIGTERM")
+    check(r["ok"], f"{phase}: a check failed")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--seed", type=int, default=7)
@@ -1325,6 +1477,7 @@ def main() -> int:
     eph = egress_phase(args, main_specs, runtime["7_cdc"])
     runtime["9_cdc_tsv"] = eph["cdc_tsv"]
     runtime.update(default_config_phase(args, runtime["7_cdc"]))
+    runtime.update(wire_phase(args, runtime))
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs

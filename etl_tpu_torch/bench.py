@@ -738,6 +738,7 @@ def _counters() -> dict:
 
     r = m.registry
     out = {"device_batches": engine.routed_device_batches,
+           "small_oracle_rows": engine.routed_small_rows,
            "k1_launches": decode_kernel.launches,
            "k2c_launches": decode_kernel.fused_launches,
            "k2_launches": decode_kernel.filter_launches,
@@ -1592,6 +1593,623 @@ def run_egress(n_rows: int = N_ROWS, n_iters: int = 3,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the replicator binary over the Postgres wire protocol
+# ---------------------------------------------------------------------------
+
+#: the SCRAM password of the fake server the wire runs start
+WIRE_PASSWORD = "wire-scram-secret"
+#: the largest share of a wire CDC window's rows that may go to the
+#: oracle, each in a run of fewer than the decoder's `device_min_rows`
+#: rows: the fill timer cuts runs between row frames, more often the
+#: slower the host (PERF.md §6)
+WIRE_CDC_ORACLE_SHARE_MAX = 0.01
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def http_get(port: int, path: str) -> tuple:
+    """(status, body) of one HTTP/1.1 GET to 127.0.0.1:`port`."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                     "Connection: close\r\n\r\n".encode())
+        await writer.drain()
+        raw = await reader.read()
+    finally:
+        writer.close()
+    head, _, body = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), body
+
+
+def write_replicator_config(config_dir: str, *, server_port: int,
+                            metrics_port: int, device: str,
+                            store: dict, max_fill_ms: int = 30) -> None:
+    """The replicator's `base.yaml`, written in YAML's JSON subset: the
+    reference's default PipelineConfig (supervision and poison on) but for
+    the pipeline id, the publication, the connection and the batch (the
+    CUDA engine on `device`, the runtime phases' 30 ms fill window); a
+    memory destination; `store`; `/metrics` and `/health` on
+    `metrics_port`. The password comes from APP_PG_CONNECTION__PASSWORD."""
+    os.makedirs(config_dir, exist_ok=True)
+    doc = {"pipeline_id": 1, "publication_name": "pub",
+           "pg_connection": {"host": "127.0.0.1", "port": server_port,
+                             "name": "postgres", "username": "etl"},
+           "batch": {"max_fill_ms": max_fill_ms, "batch_engine": "cuda",
+                     "device": device},
+           "destination": {"type": "memory"}, "store": store,
+           "metrics_port": metrics_port}
+    with open(os.path.join(config_dir, "base.yaml"), "w") as f:
+        json.dump(doc, f, indent=2)
+
+
+class _ReplicatorTap:
+    """What a run reads of `replicator.run_replicator` without an option of
+    its own: each destination the registry builds, with its writes counted
+    and stamped on arrival (the commit LSNs of the inserts of each write,
+    at `time.perf_counter()` after it), and the time the replicator logs
+    `pipeline started`."""
+
+    def __init__(self):
+        self.dests: list = []
+        self.inserts = 0
+        self.copied = 0
+        self.arrivals: dict = {}  # commit LSN → first arrival
+        self.started_at: "float | None" = None
+
+    def __enter__(self):
+        import logging
+
+        from . import replicator
+
+        tap = self
+
+        def build(doc):
+            dest = tap._real_build(doc)
+            tap._stamp(dest)
+            tap.dests.append(dest)
+            return dest
+
+        class _Started(logging.Handler):
+            def emit(self, record):
+                if record.getMessage() == "pipeline started":
+                    tap.started_at = time.perf_counter()
+
+        self._real_build = replicator.build_destination
+        replicator.build_destination = build
+        self._logger = logging.getLogger("etl_tpu_torch.replicator")
+        self._level = self._logger.level
+        self._handler = _Started()
+        self._logger.addHandler(self._handler)
+        self._logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        from . import replicator
+
+        replicator.build_destination = self._real_build
+        self._logger.removeHandler(self._handler)
+        self._logger.setLevel(self._level)
+
+    def _stamp(self, dest) -> None:
+        from .models.event import InsertEvent
+
+        write_events, write_rows = dest.write_events, dest.write_table_rows
+        tap = self
+
+        async def stamped_events(events):
+            n0 = len(dest.events)
+            ack = await write_events(events)
+            now = time.perf_counter()
+            new = [e for e in dest.events[n0:] if type(e) is InsertEvent]
+            tap.inserts += len(new)
+            for lsn in {int(e.commit_lsn) for e in new}:
+                tap.arrivals.setdefault(lsn, now)
+            return ack
+
+        async def stamped_rows(schema, batch):
+            ack = await write_rows(schema, batch)
+            tap.copied += batch.num_rows
+            return ack
+
+        dest.write_events = stamped_events
+        dest.write_table_rows = stamped_rows
+
+
+def _rows_of(values: list) -> tuple:
+    """`_rows_digest` inputs of decoded pgbench rows given as value lists."""
+    n = len(values)
+    if n == 0:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z, z, z, z, [np.zeros(0, dtype=bool)] * 4
+    aid, bid, abal, filler = zip(*values)
+    enc = [f.encode() for f in filler]
+    offsets = np.zeros(n + 1, dtype=np.int64)
+    offsets[1:] = np.cumsum([len(b) for b in enc])
+    text = np.frombuffer(b"".join(enc), dtype=np.uint8)
+    return (np.asarray(aid, dtype=np.int64), np.asarray(bid, dtype=np.int64),
+            np.asarray(abal, dtype=np.int64), _text_hash(offsets, text),
+            np.diff(offsets), [np.ones(n, dtype=bool)] * 4)
+
+
+def _sample_batch(values: list, n: int, seed: int):
+    """`n` of the rows, picked with `seed`, as one ColumnarBatch."""
+    from .models.table_row import ColumnarBatch, TableRow
+
+    rng = np.random.default_rng(seed)
+    picks = rng.choice(len(values), size=min(n, len(values)), replace=False)
+    return ColumnarBatch.from_rows(make_schema(),
+                                   [TableRow(list(values[i])) for i in picks])
+
+
+async def _until(cond, timeout_s: float, what: str, interval: float = 0.01):
+    """Poll `cond` (a function, or a coroutine function) until it returns
+    something true; raise after `timeout_s`."""
+    deadline = time.perf_counter() + timeout_s
+    while True:
+        got = cond()
+        if asyncio.iscoroutine(got):
+            got = await got
+        if got:
+            return got
+        if time.perf_counter() > deadline:
+            raise RuntimeError(f"timed out waiting for {what}")
+        await asyncio.sleep(interval)
+
+
+async def run_wire_replicator(copy_rows: int = 1_000_000,
+                              n_events: int = 500_000, *,
+                              device: str = "cuda",
+                              row_filter: str | None = None, seed: int = 7,
+                              warmup_events: int = 17_000,
+                              restart_events: int = 20_000) -> dict:
+    """The replicator binary's main path over the Postgres wire protocol,
+    in process: `replicator.run_replicator(config_dir)`, the function
+    `python -m etl_tpu_torch.replicator` runs, on this thread's event loop
+    (its SIGTERM handler needs the main thread), against a fake server
+    with SCRAM auth in a child process (`testing.pg_process`) that owns
+    the database and the producer. The config is
+    `write_replicator_config`'s, with the store in a PostgresStore on the
+    same server. The run:
+
+    - `/health` polled from the start: 503 `starting` until the pipeline
+      starts, then 200 `healthy`;
+    - the initial copy of `copy_rows` seeded pgbench_accounts rows
+      (phase 6's table) over COPY until the table is READY in the
+      PostgresStore (read on the server): rows/s and MiB/s from the
+      replicator's `pipeline started` to READY;
+    - warm-up transactions off the clock, then `n_events` inserts in
+      500-row transactions committed as fast as the child can
+      (phase 7's stream), until every row arrived: events/s over the
+      producer's first commit to the last arrival, and the lag of each
+      commit (its arrival at the destination minus the child's commit
+      time, one clock);
+    - the slot's confirmed flush reaching the last commit's LSN,
+      `/metrics` with the decode counters, then SIGTERM to this process:
+      `run_replicator` returns, and no decode worker, admission ticket or
+      tenant is left;
+    - with `restart_events`, a second lifetime on the same store after
+      that many inserts: no copy again, exactly those rows once each.
+
+    With `row_filter` the publication carries it in the catalog and the
+    walsender ships every row (offload mode): the client reads the filter
+    from pg_publication_tables and its fused filter keeps the matching
+    rows. Checks (each a key, `ok` all of them): counts and digests of the
+    copied and streamed rows against the written rows (the filter's truth
+    with one), each insert once in (commit LSN, ordinal) order with its
+    row, 512 sampled rows against the CPU oracle, and the launches of the
+    run (both lifetimes) against its device-routed batches."""
+    import signal
+    import tempfile
+
+    from . import replicator
+    from .ops.engine import DeviceDecoder
+    from .ops.pipeline import global_admission
+    from .testing.pg_process import PgServerProcess
+
+    tx_size = 500
+    out: dict = {"mode": "wire_replicator", "copy_rows": copy_rows,
+                 "events": n_events, "tx_size": tx_size, "device": device,
+                 "row_filter": row_filter, "store": "postgres"}
+    first_aid = copy_rows + 1
+    t_cdc = pgbench_table(n_events, seed + 1, first_aid=first_aid)
+    keep = np.ones(n_events, dtype=bool) if row_filter is None \
+        else _filter_truth(row_filter, t_cdc)
+
+    def kept(t: dict) -> int:
+        return len(t["aid"]) if row_filter is None \
+            else int(_filter_truth(row_filter, t).sum())
+
+    env_key = "APP_PG_CONNECTION__PASSWORD"
+    env_before = os.environ.get(env_key)
+    os.environ[env_key] = WIRE_PASSWORD
+    server = PgServerProcess(password=WIRE_PASSWORD)
+    call = server.call
+
+    async def acall(cmd, **kw):
+        return await asyncio.to_thread(call, cmd, **kw)
+
+    tmp = tempfile.TemporaryDirectory()
+    config_dir = os.path.join(tmp.name, "config")
+    try:
+        copy_bytes = call("table", n_rows=copy_rows, seed=seed)["copy_bytes"]
+        call("publication", name="pub", row_filter=row_filter,
+             offload=row_filter is not None)
+        metrics_port = free_port()
+        write_replicator_config(config_dir, server_port=server.port,
+                                metrics_port=metrics_port, device=device,
+                                store={"type": "postgres"})
+        c_start = _counters()
+        with _ReplicatorTap() as tap:
+            # -- lifetime 1 ----------------------------------------------------
+            t0 = time.perf_counter()
+            task = asyncio.ensure_future(
+                replicator.run_replicator(config_dir))
+            health: list = []
+
+            async def healthy():
+                if task.done():
+                    task.result()
+                    raise RuntimeError("the replicator stopped")
+                try:
+                    status, body = await http_get(metrics_port, "/health")
+                except OSError:
+                    return False
+                doc = json.loads(body)
+                if not health or health[-1] != (status, doc):
+                    health.append((status, doc))
+                return status == 200
+
+            await _until(healthy, 600, "/health 200", interval=0.002)
+            out["health"] = [[s, d] for s, d in health]
+            out["health_ok"] = bool(
+                health[0] == (503, {"status": "starting"})
+                and health[-1] == (200, {"status": "healthy"}))
+            dest = tap.dests[0]
+
+            async def ready():
+                raw = await acall("state", pipeline_id=1,
+                                  table_id=PGBENCH_TID)
+                return raw is not None and json.loads(raw)["state"] \
+                    == "ready"
+
+            await _until(ready, 900, "READY in the PostgresStore")
+            t_ready = time.perf_counter()
+            c_copied = _counters()
+            copy_s = t_ready - tap.started_at
+            out.update({
+                "pipeline_start_ms": (tap.started_at - t0) * 1e3,
+                "copy_wait_ms": copy_s * 1e3, "copy_bytes": copy_bytes,
+                "rows_per_second": copy_rows / copy_s,
+                "mib_per_second": copy_bytes / (1 << 20) / copy_s,
+                "rows_delivered": tap.copied})
+            dc = _delta(c_start, c_copied)
+            out["copy_stages"] = {k: dc[k] for k in (
+                "device_rows", "oracle_rows", "device_batches",
+                "k1_launches", "k2c_launches", "device_s", "kernel_s")}
+            out["copy_stages"]["device_busy_share"] = dc["device_s"] / copy_s
+
+            # warm-up off the clock: 200, 800, 3000 and the rest, rows of
+            # other aids, each wave seeded on its own
+            w = want = 0
+            for k, wave in enumerate((200, 800, 3000, warmup_events - 4000)):
+                wave_first = first_aid + n_events + w
+                want += kept(pgbench_table(wave, seed + 10 + k,
+                                           first_aid=wave_first))
+                await acall("prepare", n_events=wave, seed=seed + 10 + k,
+                            first_aid=wave_first)
+                await acall("produce", tx_size=tx_size)
+                w += wave
+                await _until(lambda: tap.inserts >= want, 120,
+                             "warm-up rows")
+            base = tap.inserts
+            n_events_before = len(dest.events)
+            tap.arrivals.clear()
+            await acall("prepare", n_events=n_events, seed=seed + 1,
+                        first_aid=first_aid)
+            c0 = _counters()
+            prod = await acall("produce", tx_size=tx_size)
+            want_rows = int(keep.sum())
+            await _until(lambda: tap.inserts >= base + want_rows, 900,
+                         "the CDC rows")
+            t_e2e = time.perf_counter()
+            d = _delta(c0, _counters())
+            last_lsn = prod["commits"][-1][0]
+
+            async def confirmed():
+                s = await acall("slot", name="supabase_etl_apply_1")
+                return s is not None and s["confirmed_flush"] >= last_lsn
+
+            await _until(confirmed, 120, "the slot's confirmed flush")
+            status, metrics = await http_get(metrics_port, "/metrics")
+            lines = metrics.decode().splitlines()
+            out["metrics_ok"] = status == 200 and any(
+                ln.startswith("etl_decode_routed_device_rows_total ")
+                and float(ln.split()[-1]) > 0 for ln in lines)
+            os.kill(os.getpid(), signal.SIGTERM)
+            await asyncio.wait_for(task, 120)
+            sched = global_admission()
+            threads = _pipeline_threads(timeout_s=5.0)
+            out["after_shutdown"] = {
+                "pipeline_threads": threads,
+                "admission_in_flight": sched.in_flight,
+                "admission_tenants": sorted(sched.stats()["tenants"])}
+            out["shutdown_ok"] = (not threads and sched.in_flight == 0
+                                  and not sched.stats()["tenants"])
+            cdc_events = [e for e in dest.events[n_events_before:]
+                          if type(e).__name__ == "InsertEvent"]
+            copied_values = [r.values for r in dest.table_rows[PGBENCH_TID]]
+
+            # -- lifetime 2 ----------------------------------------------------
+            restart = None
+            if restart_events:
+                r_first = first_aid + n_events + warmup_events
+                t_r = pgbench_table(restart_events, seed + 3,
+                                    first_aid=r_first)
+                await acall("prepare", n_events=restart_events,
+                            seed=seed + 3, first_aid=r_first)
+                await acall("produce", tx_size=tx_size)
+                task = asyncio.ensure_future(
+                    replicator.run_replicator(config_dir))
+                health.clear()
+                await _until(healthy, 600, "/health 200 after the restart",
+                             interval=0.005)
+                dest2 = tap.dests[1]
+                r_keep = np.ones(restart_events, dtype=bool) \
+                    if row_filter is None else _filter_truth(row_filter, t_r)
+                r_want = base + want_rows + int(r_keep.sum())
+                await _until(lambda: tap.inserts >= r_want, 120,
+                             "the rows inserted while the replicator was "
+                             "down")
+                await asyncio.sleep(0.3)  # a duplicate would land here
+                os.kill(os.getpid(), signal.SIGTERM)
+                await asyncio.wait_for(task, 120)
+                got = sorted(e.row.values[0] for e in dest2.events
+                             if type(e).__name__ == "InsertEvent")
+                restart = {
+                    "rows": len(got), "copied_again": len(
+                        dest2.table_rows.get(PGBENCH_TID, [])),
+                    "health": [[s, d] for s, d in health],
+                    "ok": bool(got == t_r["aid"][r_keep].tolist()
+                               and not dest2.table_rows.get(PGBENCH_TID))}
+        c_end = _counters()
+    finally:
+        server.close()
+        tmp.cleanup()
+        if env_before is None:
+            os.environ.pop(env_key, None)
+        else:
+            os.environ[env_key] = env_before
+
+    # -- checks, off the clock ----------------------------------------------
+    t_copy = pgbench_table(copy_rows, seed)
+    copy_keep = np.ones(copy_rows, dtype=bool) if row_filter is None \
+        else _filter_truth(row_filter, t_copy)
+    out["copy_count_ok"] = len(copied_values) == int(copy_keep.sum())
+    out["copy_digest_ok"] = _rows_digest(*_rows_of(copied_values)) \
+        == table_digest(t_copy, np.flatnonzero(copy_keep))
+    window = t_e2e - prod["t0"]
+    commit_times = {lsn: t for (lsn, _, _), t in
+                    zip(prod["commits"], prod["times"])}
+    lags = sorted((at - commit_times[lsn]) * 1e3
+                  for lsn, at in tap.arrivals.items() if lsn in commit_times)
+
+    def pct(q):
+        return lags[min(len(lags) - 1, int(q * len(lags)))] if lags else None
+
+    values = [e.row.values for e in cdc_events]
+    first_of = {lsn: lo for lsn, lo, _ in prod["commits"]}
+    src = np.asarray([first_of.get(int(e.commit_lsn), -1) + e.tx_ordinal
+                      for e in cdc_events], dtype=np.int64)
+    known = (src >= 0) & (src < n_events)
+    aids = np.asarray([v[0] for v in values], dtype=np.int64)
+    key = [(int(e.commit_lsn), e.tx_ordinal) for e in cdc_events]
+    out.update({
+        "producer_events_per_second": n_events / (prod["t1"] - prod["t0"]),
+        "events_per_second": n_events / window,
+        "delivered_rows": len(cdc_events), "want_rows": want_rows,
+        "keep_share": len(cdc_events) / n_events,
+        "lag_p50_ms": pct(0.5), "lag_p95_ms": pct(0.95),
+        "lag_max_ms": lags[-1] if lags else None,
+        "device_rows": int(d["device_rows"]),
+        "oracle_rows": int(d["oracle_rows"]),
+        "small_oracle_rows": int(d["small_oracle_rows"]),
+        "device_batches": int(d["device_batches"]),
+        "pack_s": d["pack_s"], "dispatch_s": d["dispatch_s"],
+        "fetch_s": d["fetch_s"], "overlap_s": d["overlap_s"],
+        "device_s": d["device_s"], "kernel_s": d["kernel_s"],
+        "device_busy_share": d["device_s"] / window,
+        "count_ok": len(cdc_events) == want_rows,
+        "digest_ok": _rows_digest(*_rows_of(values))
+        == table_digest(t_cdc, np.flatnonzero(keep)),
+        "order_ok": bool(key == sorted(set(key))),
+        "identity_ok": bool(known.all() and np.array_equal(
+            aids, t_cdc["aid"][src[known]]) and keep[src[known]].all()),
+        "restart": restart,
+    })
+    out["oracle_sample_ok"] = _oracle_sample_ok(
+        [_sample_batch(values, 512, seed)], t_cdc, 512, seed, first_aid)
+    if copied_values:
+        out["copy_oracle_sample_ok"] = _oracle_sample_ok(
+            [_sample_batch(copied_values, 512, seed)], t_copy, 512, seed, 1)
+    # the launches of the whole run (both lifetimes) against its
+    # device-routed batches: K1 for each unfiltered one, K2c (or K2 and
+    # the epilogue) for each filtered one
+    run = _delta(c_start, c_end)
+    out["run"] = {k: int(run[k]) for k in (
+        "device_batches", "k1_launches", "k2c_launches", "k2_launches",
+        "epilogue_launches", "device_rows", "oracle_rows")}
+    r = out["run"]
+    if device != "cuda":  # the plain versions count no launch
+        out["launches_ok"] = r["device_batches"] > 0
+    elif row_filter is None:
+        out["launches_ok"] = (r["k1_launches"] == r["device_batches"] > 0
+                              and r["k2c_launches"] == r["k2_launches"] == 0)
+    else:
+        out["launches_ok"] = (
+            r["k2c_launches"] + r["k2_launches"] == r["device_batches"] > 0
+            and r["k1_launches"] == 0
+            and r["epilogue_launches"] == r["k2_launches"])
+    out["copy_oracle_free"] = out["copy_stages"]["oracle_rows"] == 0
+    # the CDC window routes to the oracle only runs below the decoder's
+    # size floor (the reference's routing rule), and few of them: a
+    # degrade or any other host route fails the run
+    out["cdc_oracle_ok"] = (
+        out["small_oracle_rows"] == out["oracle_rows"]
+        <= WIRE_CDC_ORACLE_SHARE_MAX * n_events)
+    out["ok"] = bool(
+        out["health_ok"] and out["copy_count_ok"] and out["copy_digest_ok"]
+        and out.get("copy_oracle_sample_ok", True) and out["count_ok"]
+        and out["digest_ok"] and out["order_ok"] and out["identity_ok"]
+        and out["oracle_sample_ok"] and out["metrics_ok"]
+        and out["shutdown_ok"] and out["launches_ok"]
+        and out["copy_oracle_free"] and out["cdc_oracle_ok"]
+        and (restart is None or restart["ok"]))
+    return out
+
+
+async def run_replicator_binary(copy_rows: int = 100_000,
+                                n_events: int = 10_000, *,
+                                device: str = "cuda",
+                                seed: int = 7) -> dict:
+    """`python -m etl_tpu_torch.replicator --config-dir DIR` as a process,
+    with a SqliteStore, against the fake server in a child process: its
+    `/health` answers 200 over HTTP, the slot's confirmed flush reaches the
+    last commit of `n_events` inserts, SIGTERM exits 0; then the DLQ CLI
+    as processes on dead letters a PostgresStore appended on the same
+    server: `--postgres ... list` and `replay --destination-json` (a
+    memory destination) exit 0 and name the same entries."""
+    import signal
+    import tempfile
+
+    from .config import PgConnectionConfig
+    from .dlq.codec import encode_row_event
+    from .models.event import InsertEvent
+    from .models.lsn import Lsn
+    from .models.table_row import TableRow
+    from .store import DeadLetterEntry, PostgresStore
+    from .testing.pg_process import PgServerProcess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root,
+           "APP_PG_CONNECTION__PASSWORD": WIRE_PASSWORD}
+    out: dict = {"mode": "replicator_binary", "copy_rows": copy_rows,
+                 "events": n_events, "store": "sqlite"}
+    with tempfile.TemporaryDirectory() as tmp, \
+            PgServerProcess(password=WIRE_PASSWORD) as server:
+        config_dir = os.path.join(tmp, "config")
+        server.call("table", n_rows=copy_rows, seed=seed)
+        server.call("publication", name="pub", row_filter=None,
+                    offload=False)
+        metrics_port = free_port()
+        write_replicator_config(
+            config_dir, server_port=server.port, metrics_port=metrics_port,
+            device=device, store={"type": "sqlite",
+                                  "path": os.path.join(tmp, "state.db")})
+        t0 = time.perf_counter()
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "etl_tpu_torch.replicator",
+            "--config-dir", config_dir, cwd=root, env=env,
+            stdout=asyncio.subprocess.DEVNULL,
+            stderr=asyncio.subprocess.PIPE)
+        stderr_task = asyncio.ensure_future(proc.stderr.read())
+        try:
+            async def healthy():
+                if proc.returncode is not None:
+                    raise RuntimeError(
+                        f"the replicator exited {proc.returncode}: "
+                        f"{(await stderr_task).decode()[-3000:]}")
+                try:
+                    status, body = await http_get(metrics_port, "/health")
+                except OSError:
+                    return False
+                out["health"] = [status, json.loads(body)]
+                return status == 200
+
+            await _until(healthy, 600, "the binary's /health 200", 0.05)
+            out["health_s"] = time.perf_counter() - t0
+            server.call("prepare", n_events=n_events, seed=seed + 1,
+                        first_aid=copy_rows + 1)
+            prod = await asyncio.to_thread(server.call, "produce",
+                                           tx_size=500)
+            last_lsn = prod["commits"][-1][0]
+
+            async def confirmed():
+                s = await asyncio.to_thread(server.call, "slot",
+                                            name="supabase_etl_apply_1")
+                return s is not None and s["confirmed_flush"] >= last_lsn
+
+            await _until(confirmed, 600, "the slot's confirmed flush", 0.05)
+            out["confirmed_s"] = time.perf_counter() - t0
+            proc.send_signal(signal.SIGTERM)
+            out["exit_code"] = await asyncio.wait_for(proc.wait(), 120)
+        finally:
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+        err = (await stderr_task).decode()
+        out["stopped_cleanly"] = "pipeline stopped cleanly" in err
+        if out["exit_code"] != 0:
+            out["stderr_tail"] = err[-3000:]
+
+        # the DLQ CLI over the wire
+        store = PostgresStore(PgConnectionConfig(
+            host="127.0.0.1", port=server.port, name="postgres",
+            username="etl", password=WIRE_PASSWORD), 7)
+        await store.connect()
+        schema = make_schema()
+        await store.store_table_schema(schema, 1)
+        entries = []
+        for i in range(3):
+            ev = InsertEvent(Lsn(99 + i), Lsn(100 + i), i, schema,
+                             TableRow([i, 1, -i, "x" * FILLER_WIDTH]))
+            change, payload = encode_row_event(ev)
+            entries.append(DeadLetterEntry(
+                entry_id=0, table_id=PGBENCH_TID, commit_lsn=100 + i,
+                tx_ordinal=i, change_type=change, payload=payload,
+                error_kind="DESTINATION_REJECTED", detail="smoke"))
+        ids = await store.append_dead_letters(entries)
+        await store.close()
+        dest_json = os.path.join(tmp, "dest.json")
+        with open(dest_json, "w") as f:
+            json.dump({"type": "memory"}, f)
+        dsn = (f"host=127.0.0.1 port={server.port} dbname=postgres "
+               f"user=etl password={WIRE_PASSWORD}")
+        cli = {}
+        for name, argv in (("list", ["list"]),
+                           ("replay", ["replay", "--destination-json",
+                                       dest_json]),
+                           ("list_after", ["list"])):
+            t = time.perf_counter()
+            p = await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "etl_tpu_torch.dlq", "--postgres", dsn,
+                "--pipeline-id", "7", *argv, cwd=root, env=env,
+                stdout=asyncio.subprocess.PIPE,
+                stderr=asyncio.subprocess.PIPE)
+            so, se = await asyncio.wait_for(p.communicate(), 120)
+            cli[name] = {"rc": p.returncode, "s": time.perf_counter() - t,
+                         "out": json.loads(so) if p.returncode == 0
+                         else so.decode()[-500:],
+                         "stderr": se.decode()[-500:]}
+        out["dlq_cli"] = cli
+        out["dlq_ok"] = bool(
+            all(c["rc"] == 0 for c in cli.values())
+            and [e["entry_id"] for e in cli["list"]["out"]["entries"]] == ids
+            and cli["replay"]["out"]["replayed"] == ids
+            and cli["list_after"]["out"]["count"] == 0)
+    out["ok"] = bool(out["exit_code"] == 0 and out["stopped_cleanly"]
+                     and out["health"] == [200, {"status": "healthy"}]
+                     and out["dlq_ok"])
+    return out
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1608,17 +2226,24 @@ def main(argv=None) -> int:
     mode.add_argument("--egress", action="store_true",
                       help="each destination encoder in isolation, with "
                            "and without device-rendered text")
+    mode.add_argument("--wire", action="store_true",
+                      help="the replicator over the Postgres wire protocol "
+                           "(run_wire_replicator: COPY, CDC, a restart)")
     ap.add_argument("--rows", type=int, default=None,
-                    help="--copy: rows of the table (1,000,000); --egress: "
-                         f"rows of the batch ({N_ROWS})")
+                    help="--copy, --wire: rows of the table (1,000,000); "
+                         f"--egress: rows of the batch ({N_ROWS})")
     ap.add_argument("--events", type=int, default=500_000,
-                    help="--streaming: insert events")
+                    help="--streaming, --wire: insert events")
     ap.add_argument("--arrival-rate", type=int, default=None,
                     help="--streaming: paced events/s (default: as fast "
                          "as possible)")
     ap.add_argument("--row-filter", default=None,
-                    help="--streaming: a publication row filter applied "
-                         "by the client (offload mode), e.g. 'bid <= 5'")
+                    help="--streaming, --wire: a publication row filter "
+                         "applied by the client (offload mode), e.g. "
+                         "'bid <= 5'")
+    ap.add_argument("--profile", default=None, metavar="PATH",
+                    help="--wire: profile the event loop's thread "
+                         "(cProfile) and write its top functions to PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("etl_tpu_torch.bench: no CUDA device; nothing measured",
@@ -1626,6 +2251,27 @@ def main(argv=None) -> int:
         return 1
     if args.egress:
         res = run_egress(args.rows or N_ROWS)
+        res["device_name"] = torch.cuda.get_device_name(0)
+        res["power_limit"] = card_info().split(",")[-1].strip()
+        print(json.dumps(res))
+        return 0 if res["ok"] else 1
+    if args.wire:
+        import cProfile
+        import pstats
+
+        prof = cProfile.Profile() if args.profile else None
+        if prof is not None:
+            prof.enable()
+        res = asyncio.run(run_wire_replicator(
+            1_000_000 if args.rows is None else args.rows, args.events,
+            row_filter=args.row_filter))
+        if prof is not None:
+            prof.disable()
+            with open(args.profile, "w") as f:
+                st = pstats.Stats(prof, stream=f)
+                st.sort_stats("tottime").print_stats(45)
+                st.sort_stats("cumulative").print_stats(45)
+        res.pop("health", None)
         res["device_name"] = torch.cuda.get_device_name(0)
         res["power_limit"] = card_info().split(",")[-1].strip()
         print(json.dumps(res))

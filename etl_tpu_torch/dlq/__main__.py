@@ -11,12 +11,13 @@
     python -m etl_tpu_torch.dlq --sqlite state.db --pipeline-id 1 \
         unquarantine 16384
 
-`replay` pushes entries through the REAL destination seam
-(`destinations.registry.build_destination` on the given JSON config →
-`write_event_batches`, durably awaited) in WAL order and marks them
-`replayed`; it is idempotent — replayed entries are skipped on a re-run,
-and re-pushed rows are at-least-once duplicates destinations already
-collapse. The
+`--postgres "host=.. port=.. dbname=.. user=.. password=.."` targets the
+shared PostgresStore instead of a sqlite file. `replay` pushes entries
+through the REAL destination seam (`destinations.registry
+.build_destination` on the given JSON config → `write_event_batches`,
+durably awaited) in WAL order and marks them `replayed`; it is
+idempotent — replayed entries are skipped on a re-run, and re-pushed
+rows are at-least-once duplicates destinations already collapse. The
 runbook (docs/dead-letter.md): fix the root cause → replay → verify →
 unquarantine — a running replicator adopts the lift live at its next
 quarantine poll (PoisonConfig.quarantine_poll_s, default 30 s).
@@ -26,13 +27,7 @@ retention window; `dead` entries never expire.
 Output is one JSON document (sorted keys) per invocation; exit 0 on
 success, 1 on a typed failure.
 
-Copy of the reference's `etl_tpu/dlq/__main__.py`. Two of its surfaces
-wait for modules that are not ported yet (ROADMAP.md, queue 1) and fail
-with a typed CONFIG_INVALID error (exit 1) that says so: `--postgres`
-(the shared PostgresStore needs the Postgres client) and `replay
---destination-json` (it builds the destination through
-`destinations/registry.py`). `DeadLetterQueue.replay(destination)` in
-process is whole.
+Copy of the reference's `etl_tpu/dlq/__main__.py`.
 """
 
 from __future__ import annotations
@@ -42,21 +37,34 @@ import asyncio
 import json
 import sys
 
-from ..models.errors import ErrorKind, EtlError
+from ..models.errors import EtlError
 
 
-def _not_ported(what: str, needs: str) -> EtlError:
-    return EtlError(ErrorKind.CONFIG_INVALID,
-                    f"{what} needs {needs}, which is not ported to "
-                    f"etl_tpu_torch yet (ROADMAP.md, queue 1)")
+def _parse_pg_dsn(dsn: str):
+    from ..config import PgConnectionConfig
+
+    fields = {}
+    for part in dsn.split():
+        k, _, v = part.partition("=")
+        fields[k] = v
+    return PgConnectionConfig(
+        host=fields.get("host", "localhost"),
+        port=int(fields.get("port", 5432)),
+        name=fields.get("dbname", fields.get("name", "postgres")),
+        username=fields.get("user", fields.get("username", "postgres")),
+        password=fields.get("password"))
 
 
 async def _open_store(args):
-    if not args.sqlite:
-        raise _not_ported("--postgres", "the Postgres store and client")
-    from ..store import SqliteStore
+    if args.sqlite:
+        from ..store import SqliteStore
 
-    store = SqliteStore(args.sqlite, args.pipeline_id)
+        store = SqliteStore(args.sqlite, args.pipeline_id)
+        await store.connect()
+        return store
+    from ..store import PostgresStore
+
+    store = PostgresStore(_parse_pg_dsn(args.postgres), args.pipeline_id)
     await store.connect()
     return store
 
@@ -75,8 +83,18 @@ async def _run(args) -> dict:
         if args.cmd == "inspect":
             return await dlq.inspect(args.entry_id)
         if args.cmd == "replay":
-            raise _not_ported("replay --destination-json",
-                              "destinations/registry.py")
+            from ..destinations import build_destination
+
+            with open(args.destination_json) as f:
+                dest = build_destination(json.load(f))
+            await dest.startup()
+            try:
+                return await dlq.replay(
+                    dest, entry_ids=args.ids or None,
+                    table_id=args.table,
+                    include_replayed=args.include_replayed)
+            finally:
+                await dest.shutdown()
         if args.cmd == "discard":
             return {"discarded": await dlq.discard(args.entry_ids)}
         if args.cmd == "compact":

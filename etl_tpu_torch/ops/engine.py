@@ -317,6 +317,9 @@ _ROUTE_LOCK = threading.Lock()
 #: batches `_route` sent to the device in this process; each launches one
 #: decode kernel (K1, or K2c / K2 and the epilogue under a filter)
 routed_device_batches = 0
+#: rows `_route` sent to the oracle only for their batch's size (fewer
+#: than `device_min_rows`, the device free and the layout dense)
+routed_small_rows = 0
 
 
 def force_host_oracle(duration_s: float) -> None:
@@ -975,15 +978,17 @@ class DeviceDecoder:
             raise ValueError(
                 f"staged batch has {staged.n_cols} cols, schema expects "
                 f"{len(cols)}")
-        global routed_device_batches
+        global routed_device_batches, routed_small_rows
         with _ROUTE_LOCK:
             # supervision escalation (supervisor._detected): repeated
             # device-side stalls park EVERY batch on the host oracle until
             # the degrade cooldown lapses
-            device = not host_oracle_forced() and self._dense \
-                and staged.n_rows >= self.device_min_rows
+            free = not host_oracle_forced() and self._dense
+            device = free and staged.n_rows >= self.device_min_rows
             if device:
                 routed_device_batches += 1
+            elif free:
+                routed_small_rows += staged.n_rows
             registry.counter_inc(
                 ETL_DECODE_ROUTED_DEVICE_ROWS_TOTAL if device
                 else ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL, staged.n_rows)

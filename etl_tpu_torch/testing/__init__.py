@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .models.pgtypes import CellKind
+from ..models.pgtypes import CellKind
 
 # framer.c's nibble alphabet: byte → symbol code, 15 = padding
 _NIBBLE_CODE = np.full(256, 15, dtype=np.uint8)
@@ -256,7 +256,7 @@ def egress_words(specs: tuple, n_rows: int, rng: np.random.Generator,
     values no parse gives (and rows that failed to parse keep theirs)."""
     import torch
 
-    from .ops.bitpack import parse_and_pack_plain
+    from ..ops.bitpack import parse_and_pack_plain
 
     bm, ln = field_matrix(specs, n_rows, rng, nibble)
     edge_rows = np.arange(0, n_rows, 10)

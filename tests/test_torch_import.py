@@ -65,6 +65,14 @@ PORT_MODULES = [
     "etl_tpu_torch.supervision.supervisor", "etl_tpu_torch.dlq",
     "etl_tpu_torch.dlq.codec", "etl_tpu_torch.dlq.__main__",
     "etl_tpu_torch.store.sql", "chip_smoke",
+    "etl_tpu_torch.postgres.version", "etl_tpu_torch.postgres.wire",
+    "etl_tpu_torch.postgres.lag", "etl_tpu_torch.postgres.client",
+    "etl_tpu_torch.testing.fake_pg_server",
+    "etl_tpu_torch.testing.chaos_proxy", "etl_tpu_torch.testing.tls",
+    "etl_tpu_torch.testing.pg_process",
+    "etl_tpu_torch.telemetry.tracing", "etl_tpu_torch.telemetry.notify",
+    "etl_tpu_torch.config.load", "etl_tpu_torch.destinations.registry",
+    "etl_tpu_torch.replicator",
 ]
 
 

@@ -7,9 +7,9 @@ classification, the operator verbs through `DeadLetterQueue` and the CLI
 (in process and as a subprocess over a sqlite file another connection
 holds open), live quarantine lifts, column attribution and compaction.
 
-Waiting for later slices (ROADMAP.md, queue 1): the Postgres dialect of
-the store surface and `--postgres` (the Postgres client), CLI `replay
---destination-json` (`destinations/registry.py`; both fail typed here),
+The CLI's `--postgres` and `replay --destination-json` are here too; the
+Postgres dialect of the store surface is in test_torch_sql_store.py.
+Waiting for later slices (ROADMAP.md, queue 1):
 `TestShardScopedDlqFence` (sharding), `TestDlqChaosScenarios` (the chaos
 runner), and the classification tests that need the HTTP destinations,
 BigQuery and Iceberg.
@@ -18,6 +18,7 @@ BigQuery and Iceberg.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import datetime as dt
 import json
 import uuid
@@ -890,6 +891,30 @@ class TestErrorClassification:
 # -- operator CLI -------------------------------------------------------------
 
 
+@contextlib.contextmanager
+def server_in_thread(server):
+    """`server` (a FakePgServer) started on an event loop of its own in a
+    thread, for the CLI's `asyncio.run` in this one; yields the server
+    and a function that runs a coroutine on its loop."""
+    import threading
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, daemon=True)
+    thread.start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(60)
+
+    run(server.start())
+    try:
+        yield server, run
+    finally:
+        run(server.stop())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(10)
+        loop.close()
+
+
 class TestDlqCli:
     def run_cli(self, *argv) -> dict:
         from etl_tpu_torch.dlq.__main__ import main
@@ -948,25 +973,64 @@ class TestDlqCli:
     def test_replay_via_registry_destination_waits_typed(self, seeded_db,
                                                          tmp_path):
         """`replay --destination-json` builds the destination through
-        `destinations/registry.py`, not ported yet: a typed failure (exit
-        1) that names it, and nothing is marked replayed. The in-process
-        `DeadLetterQueue.replay(destination)` is whole
-        (TestSqliteQuarantinePersistence)."""
+        `destinations/registry.py`: a type the port has not ported yet
+        fails typed (exit 1), naming it, and marks nothing replayed;
+        `memory` replays every dead entry, and a second run none."""
+        base = ["--sqlite", seeded_db, "--pipeline-id", "1"]
+        unported = tmp_path / "clickhouse.json"
+        unported.write_text('{"type": "clickhouse"}')
+        out = self.run_cli_failing(*base, "replay", "--destination-json",
+                                   str(unported))
+        assert "clickhouse" in out["error"] and "not ported" in out["error"]
+        assert self.run_cli(*base, "list")["count"] == 3
         dest_json = tmp_path / "dest.json"
         dest_json.write_text('{"type": "memory"}')
-        base = ["--sqlite", seeded_db, "--pipeline-id", "1"]
-        out = self.run_cli_failing(*base, "replay", "--destination-json",
-                                   str(dest_json))
-        assert "registry" in out["error"] and "not ported" in out["error"]
-        assert self.run_cli(*base, "list")["count"] == 3
+        ids = [e["entry_id"] for e in self.run_cli(*base, "list")["entries"]]
+        out = self.run_cli(*base, "replay", "--destination-json",
+                           str(dest_json))
+        assert out == {"replayed": ids, "skipped": []}
+        assert self.run_cli(*base, "list")["count"] == 0
+        out = self.run_cli(*base, "replay", "--destination-json",
+                           str(dest_json))
+        assert out["replayed"] == []
         out = self.run_cli(*base, "unquarantine", "16384")
         assert out["lifted"] is True
 
     def test_postgres_store_waits_typed(self):
+        """`--postgres` opens the shared PostgresStore over the wire: with
+        nothing listening the CLI fails typed (exit 1, the connection
+        error); against a server it lists what a PostgresStore wrote."""
         out = self.run_cli_failing("--postgres", "host=127.0.0.1 port=1",
                                    "--pipeline-id", "1", "list")
-        assert "--postgres" in out["error"]
-        assert "not ported" in out["error"]
+        assert "127.0.0.1:1" in out["error"]
+        from etl_tpu_torch.postgres.fake import FakeDatabase
+        from etl_tpu_torch.store import PostgresStore
+        from etl_tpu_torch.testing.fake_pg_server import FakePgServer
+
+        with server_in_thread(FakePgServer(FakeDatabase(),
+                                           password="pw")) as (srv, run):
+            from etl_tpu_torch.config import PgConnectionConfig
+
+            async def seed():
+                s = PostgresStore(PgConnectionConfig(
+                    host="127.0.0.1", port=srv.port, name="postgres",
+                    username="etl", password="pw"), 1)
+                await s.connect()
+                schema = make_schema()
+                await s.store_table_schema(schema, 1)
+                await s.append_dead_letters(
+                    [make_entry(insert_event(schema, i, f"v{i}",
+                                             commit=100 + i))
+                     for i in range(2)])
+                await s.close()
+
+            run(seed())
+            dsn = f"host=127.0.0.1 port={srv.port} dbname=postgres " \
+                  "user=etl password=pw"
+            out = self.run_cli("--postgres", dsn, "--pipeline-id", "1",
+                               "list")
+            assert out["count"] == 2
+            assert [e["commit_lsn"] for e in out["entries"]] == [100, 101]
 
     def test_subprocess_reads_what_an_open_store_wrote(self, tmp_path):
         """`python -m etl_tpu_torch.dlq --sqlite` in another process lists

@@ -27,6 +27,20 @@ ORDERS = 16385
 PGBENCH = 16390
 
 
+def _fresh_reference_programs() -> None:
+    """Reference caveat (ROADMAP.md): the reference's red
+    `test_program_store.py::TestPersistence` leaves executables in its
+    process-wide program cache that expect 8 shards, and a reference
+    pipeline run later in the same pytest worker fails on them (seen
+    when the two files share a worker). Each reference run here starts
+    from an empty program cache and no program store."""
+    from etl_tpu.ops import engine, program_store
+
+    program_store.configure(None)
+    program_store.reset_for_tests()
+    engine._SHARED_FN_CACHE.clear()
+
+
 def _pkg(name: str) -> SimpleNamespace:
     m = lambda sub: importlib.import_module(f"{name}.{sub}")  # noqa: E731
     cfg = m("config")
@@ -35,6 +49,8 @@ def _pkg(name: str) -> SimpleNamespace:
         from etl_tpu_torch.ops.pipeline import reset_global_admission
 
         reset_global_admission()
+    else:
+        _fresh_reference_programs()
     return SimpleNamespace(
         port=port, cfg=cfg, models=m("models"), fake=m("postgres.fake"),
         runtime=m("runtime"), store=m("store"),

@@ -290,6 +290,26 @@ class TestEscalation:
             assert np.array_equal(a.data, b.data)
             assert np.array_equal(a.validity, b.validity)
 
+    def test_small_rows_counted_only_when_the_device_is_free(self):
+        """`routed_small_rows` counts the rows routed to the oracle for
+        their batch's size alone: a batch below `device_min_rows` adds
+        its rows, a batch at the floor and a forced batch add none."""
+        from etl_tpu_torch.telemetry.metrics import (
+            ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL, registry)
+
+        dec = engine.DeviceDecoder(_schema(), device="cpu")
+        small = engine.routed_small_rows
+        oracle = registry.get_counter(ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL)
+        assert dec._route(_staged(63))[0] == "oracle"
+        assert dec._route(_staged(64))[0] == "device"
+        assert engine.routed_small_rows == small + 63
+        engine.force_host_oracle(30.0)
+        assert dec._route(_staged(63))[0] == "oracle"
+        assert dec._route(_staged(64))[0] == "oracle"
+        assert engine.routed_small_rows == small + 63
+        assert registry.get_counter(
+            ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL) == oracle + 63 + 63 + 64
+
     def test_no_device_route_counted_after_the_force(self):
         """`_route` holds the routing lock across its check of the forced
         state and its counters: once `force_host_oracle` returns, the
