@@ -130,6 +130,33 @@ the final result line:
    7's. The engine's forced-oracle state is checked clear before phases
    4-9, 9(c) and each of 10, and after 10(c).
 
+11. the replicator binary over the Postgres wire protocol, against the
+   port's fake server (SCRAM) in a child process: (a)
+   `replicator.run_replicator` in this process at phases 6 and 7's sizes,
+   a PostgresStore on the same server, the `memory` destination, then
+   20,000 inserts across a restart; (b) phase 8's stream from a
+   publication whose catalog row filter is `bid <= 5`; (c) `python -m
+   etl_tpu_torch.replicator` as a process and the DLQ CLI.
+
+12. the binary delivering to the warehouse destinations over HTTP, each
+   against its fake in a child process (`testing.http_process`): (a)
+   ClickHouse at 11(a)'s sizes with its restart: delivered rows equal the
+   written ones (count and digest), every `_CHANGE_SEQUENCE_NUMBER` once
+   across the restart (the `_etl_commit_log` seam), 512 seeded rows'
+   delivered TSV lines byte for byte the host encoder's on the written
+   rows, the render kernel once per device-routed batch (as K1) and
+   device-rendered writes counted, the DDL once a lifetime; then 100,000
+   events under the catalog's `bid <= 5` (K2c, no device text: the host
+   encoder by routing). (b) BigQuery Storage Write at 200,000 rows and
+   100,000 events (cut for time): rows decoded by `StorageWriteFake` and
+   by `pb_reader` equal the written ones, each sequence number once,
+   render launches as K1. Each is printed beside 11(a) of the same call;
+   then a whole run without a copy (start, warm-up, CDC, checks) per
+   destination (memory, ClickHouse, BigQuery) under cProfile gives its
+   share of the main thread's own time. Snowflake is held on the CPU
+   only: its Snowpipe row batches need zstandard, which the GPU host
+   lacks.
+
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -1126,6 +1153,150 @@ def wire_phase(args, runtime: dict, device: str = "cuda") -> dict:
     return out
 
 
+#: phase 12: 12(a)'s filtered sub-run; 12(b)'s depth (cut for time: the
+#: BigQuery fake decodes every proto row twice, in Python); the copy-less
+#: runs under cProfile that give each destination's share of the loop
+WAREHOUSE_FILTERED_EVENTS = 100_000
+BIGQUERY_COPY_ROWS = 200_000
+BIGQUERY_EVENTS = 100_000
+PROFILE_EVENTS = 50_000
+
+
+def warehouse_phase(args, runtime: dict, device: str = "cuda") -> dict:
+    """Phase 12: the replicator binary delivering to the warehouse
+    destinations over HTTP, each against its fake in a child process
+    (`testing.http_process`), the source as in phase 11(a). (a)
+    ClickHouse at 11(a)'s sizes with a restart, then a filtered sub-run
+    under the catalog's `bid <= 5` (offload mode: K2c, no device text,
+    the host encoder by routing); (b) BigQuery Storage Write at a cut
+    depth. Snowflake (Snowpipe Streaming) is held on the CPU only: its
+    row batches are zstd-compressed and the GPU host has no zstandard.
+    Each run sets the launch counts to 0 just before and reads them just
+    after; 11(a) of this call is printed beside each. Then a run without
+    a copy per destination under cProfile: the destination's share of
+    the loop's own time."""
+    import asyncio
+    import cProfile
+
+    from etl_tpu_torch import bench
+
+    out = {}
+    ref = runtime["11a_wire"]
+    print(f"[12a] ClickHouse over HTTP: COPY {args.copy_rows} rows, CDC "
+          f"{args.cdc_events} events, then {RESTART_EVENTS} more across a "
+          f"restart (the fake in a child process)", flush=True)
+    oracle_clear("phase 12(a)")
+    _reset_launch_counts()
+    r = asyncio.run(bench.run_wire_replicator(
+        args.copy_rows, args.cdc_events, device=device, seed=args.seed,
+        restart_events=RESTART_EVENTS, destination="clickhouse"))
+    r.update(_launch_counts())
+    _wire_lines(r, ref, ref, "11(a)", "11(a)")
+    _warehouse_lines(r)
+    _wire_checks(r, "12(a)")
+    _warehouse_checks(r, "12(a)")
+    check(r["restart"]["ok"], "12(a): the restart re-copied, lost or "
+          "duplicated rows")
+    check(r["ddl_ok"], "12(a): CREATE DATABASE, CREATE TABLE or the "
+          "current view not issued once a lifetime")
+    print("  parity: copy/CDC count and digest, 512 delivered TSV lines == "
+          "the host encoder on the written rows, each sequence number once "
+          "across the restart (_etl_commit_log, recover_high_water), K1 == "
+          "render == device-routed batches, DDL once a lifetime, clean "
+          "SIGTERM", flush=True)
+    out["12a_clickhouse"] = r
+
+    print(f"[12a] ClickHouse, filtered: {WAREHOUSE_FILTERED_EVENTS} events "
+          f"under the catalog's bid <= 5 (offload mode)", flush=True)
+    oracle_clear("phase 12(a), filtered")
+    _reset_launch_counts()
+    r = asyncio.run(bench.run_wire_replicator(
+        0, WAREHOUSE_FILTERED_EVENTS, device=device, seed=args.seed,
+        row_filter="bid <= 5", restart_events=0, destination="clickhouse"))
+    r.update(_launch_counts())
+    _wire_lines(r, None, runtime["11b_wire_filtered"], None, "11(b)")
+    _warehouse_lines(r)
+    _wire_checks(r, "12(a) filtered")
+    _warehouse_checks(r, "12(a) filtered")
+    check(r["run"]["egress_launches"] == 0 and r["run"]["host_writes"] > 0
+          and r["run"]["device_writes"] == 0,
+          "12(a) filtered: a filtered batch carried device text, or no "
+          "write was rendered host-side")
+    print("  parity: delivered == the filter's truth, 256 TSV lines == the "
+          "host encoder, K2c == device-routed batches, render 0, every "
+          "write rendered host-side by routing", flush=True)
+    out["12a_clickhouse_filtered"] = r
+
+    print(f"[12b] BigQuery Storage Write over HTTP: COPY "
+          f"{BIGQUERY_COPY_ROWS} rows, CDC {BIGQUERY_EVENTS} events",
+          flush=True)
+    oracle_clear("phase 12(b)")
+    _reset_launch_counts()
+    r = asyncio.run(bench.run_wire_replicator(
+        BIGQUERY_COPY_ROWS, BIGQUERY_EVENTS, device=device, seed=args.seed,
+        restart_events=0, destination="bigquery"))
+    r.update(_launch_counts())
+    _wire_lines(r, ref, ref, "11(a)", "11(a)")
+    _warehouse_lines(r)
+    _wire_checks(r, "12(b)")
+    _warehouse_checks(r, "12(b)")
+    check(r["pb_mismatches"] == 0, "12(b): pb_reader decoded a request's "
+          "rows differently from StorageWriteFake")
+    print("  parity: copy/CDC count and digest (StorageWriteFake and "
+          "pb_reader agree on every request), 512 decoded rows == the "
+          "written rows, each sequence number once, marker high-water, "
+          "K1 == render == device-routed batches", flush=True)
+    out["12b_bigquery"] = r
+
+    print(f"[12p] each destination's share of the loop: a run of "
+          f"{PROFILE_EVENTS} events (no copy) under cProfile", flush=True)
+    shares = {}
+    for dest in ("memory", "clickhouse", "bigquery"):
+        oracle_clear(f"phase 12 profile ({dest})")
+        profiler = cProfile.Profile()
+        profiler.enable()
+        p = asyncio.run(bench.run_wire_replicator(
+            0, PROFILE_EVENTS, device=device, seed=args.seed,
+            restart_events=0, destination=dest))
+        profiler.disable()
+        check(p["ok"], f"12 profile ({dest}): a check failed")
+        prof = bench.destination_share(profiler)
+        shares[dest] = {"events_per_second": p["events_per_second"],
+                        **prof}
+        print(f"  {dest}: destination_share="
+              f"{prof['destination_share']:.4f} ({prof['destination_s']:.3f}"
+              f" s of {prof['profiled_s']:.3f} s profiled) events/s="
+              f"{p['events_per_second']:.0f} (profiled) top: "
+              + "; ".join(f"{n} {t:.3f}s" for n, t in prof["top"]),
+              flush=True)
+    out["12a_clickhouse"]["destination_profile"] = shares
+    return out
+
+
+def _warehouse_lines(r: dict) -> None:
+    run = r["run"]
+    print(f"  warehouse: watched {r['watched_rows']} rows, bad "
+          f"{r['watched_bad']}; sequence numbers by arrivals "
+          f"{json.dumps(r['seq_arrivals'])}; ddl {json.dumps(r['ddl'])}; "
+          f"commit seam {json.dumps(r['commit_log'])}; dedup_inserts="
+          f"{r['dedup_inserts']}; fake requests={r['fake_requests']} "
+          f"bytes={r['fake_body_bytes']}; egress writes device="
+          f"{run['device_writes']} host={run['host_writes']}; egress_s="
+          f"{r['egress_s']:.4f} d2h_egress_s={r['d2h_egress_s']:.4f}",
+          flush=True)
+
+
+def _warehouse_checks(r: dict, phase: str) -> None:
+    check(r["watched_ok"], f"{phase}: a watched row's delivered text "
+          f"differs from the host encoder's, or arrived not once: "
+          f"{r['watched_bad']}")
+    check(r["seq_once_ok"], f"{phase}: a sequence number arrived more than "
+          f"once: {r['seq_arrivals']}")
+    check(r["seam_ok"], f"{phase}: the commit seam's records are missing "
+          f"or short of the last commit: {r['commit_log']}")
+    check(r["warehouse_ok"], f"{phase}: a warehouse check failed")
+
+
 def _wire_lines(r: dict, copy_ref, cdc_ref, copy_name, cdc_name) -> None:
     from etl_tpu_torch import bench
 
@@ -1179,8 +1350,9 @@ def _wire_checks(r: dict, phase: str) -> None:
           "once each in (commit LSN, ordinal) order with their rows")
     check(r["oracle_sample_ok"], f"{phase}: a sampled row differs from "
           "the CPU oracle")
-    check(r["launches_ok"], f"{phase}: the launches differ from the "
-          "device-routed batches")
+    check(r["launches_ok"], f"{phase}: the launches (K1, K2c, the render "
+          "for a warehouse) differ from the device-routed batches, or no "
+          "warehouse write used the card's text")
     check(r["cdc_oracle_ok"], f"{phase}: the CDC window routed rows to the "
           "oracle other than runs below the size floor, or more than "
           f"{bench.WIRE_CDC_ORACLE_SHARE_MAX:.0%} of its rows")
@@ -1478,6 +1650,7 @@ def main() -> int:
     runtime["9_cdc_tsv"] = eph["cdc_tsv"]
     runtime.update(default_config_phase(args, runtime["7_cdc"]))
     runtime.update(wire_phase(args, runtime))
+    runtime.update(warehouse_phase(args, runtime))
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs
@@ -1551,6 +1724,10 @@ def main() -> int:
         "launches": cdc_tsv["egress_launches"],
         "runtime_launches": {phase: res["egress_launches"]
                              for phase, res in runtime.items()},
+        "runtime": {phase: {key: res[key] for key in (
+            "rows_per_second", "events_per_second", "lag_p50_ms",
+            "lag_p95_ms", "device_busy_share") if key in res}
+            for phase, res in runtime.items() if res["egress_launches"]},
         "max_abs_err": max(c["max_abs_err"] for c in eph["cases"]),
         "ms": ecase["ms"], "plain_ms": ecase["plain_ms"],
         "bound_ms": ecase["bound_ms"], "bound_by": ecase["bound_by"],

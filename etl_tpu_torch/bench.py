@@ -49,6 +49,16 @@ and Snowpipe NDJSON encoders, and of the TSV and NDJSON fast paths on
 batches whose decode launched the egress render kernel. It exits 0 only
 when both fast paths used the device text and equal the columnar oracle
 byte for byte. Parquet is left out: its writer needs pyarrow.
+
+    python -m etl_tpu_torch.bench --wire [--rows N] [--events N]
+        [--row-filter SQL] [--destination memory|clickhouse|bigquery|
+        snowflake] [--profile PATH]
+
+runs the replicator binary over the Postgres wire protocol
+(`run_wire_replicator`): COPY, CDC and a restart against the fake server
+in a child process, into the named destination (a warehouse one against
+its HTTP fake in another child process); with `--profile`, cProfile of
+the event loop into PATH and the destination's share of it.
 """
 
 from __future__ import annotations
@@ -753,6 +763,9 @@ def _counters() -> dict:
                       ("overlap_s",
                        m.ETL_DECODE_PIPELINE_OVERLAP_SECONDS_TOTAL)):
         out[key] = r.get_counter(name)
+    for path in ("device", "host"):  # columnar wire writes, by text source
+        out[f"{path}_writes"] = r.get_counter(m.ETL_EGRESS_WRITES_TOTAL,
+                                              {"path": path})
     for key, name in (("pack", m.ETL_DECODE_PACK_SECONDS),
                       ("dispatch", m.ETL_DECODE_DISPATCH_SECONDS),
                       ("fetch", m.ETL_DECODE_FETCH_SECONDS)):
@@ -1631,20 +1644,23 @@ async def http_get(port: int, path: str) -> tuple:
 
 def write_replicator_config(config_dir: str, *, server_port: int,
                             metrics_port: int, device: str,
-                            store: dict, max_fill_ms: int = 30) -> None:
+                            store: dict, max_fill_ms: int = 30,
+                            destination: dict | None = None) -> None:
     """The replicator's `base.yaml`, written in YAML's JSON subset: the
     reference's default PipelineConfig (supervision and poison on) but for
     the pipeline id, the publication, the connection and the batch (the
-    CUDA engine on `device`, the runtime phases' 30 ms fill window); a
-    memory destination; `store`; `/metrics` and `/health` on
-    `metrics_port`. The password comes from APP_PG_CONNECTION__PASSWORD."""
+    CUDA engine on `device`, the runtime phases' 30 ms fill window);
+    `destination` (a memory one by default); `store`; `/metrics` and
+    `/health` on `metrics_port`. The password comes from
+    APP_PG_CONNECTION__PASSWORD."""
     os.makedirs(config_dir, exist_ok=True)
     doc = {"pipeline_id": 1, "publication_name": "pub",
            "pg_connection": {"host": "127.0.0.1", "port": server_port,
                              "name": "postgres", "username": "etl"},
            "batch": {"max_fill_ms": max_fill_ms, "batch_engine": "cuda",
                      "device": device},
-           "destination": {"type": "memory"}, "store": store,
+           "destination": destination or {"type": "memory"},
+           "store": store,
            "metrics_port": metrics_port}
     with open(os.path.join(config_dir, "base.yaml"), "w") as f:
         json.dump(doc, f, indent=2)
@@ -1699,7 +1715,12 @@ class _ReplicatorTap:
         self._logger.setLevel(self._level)
 
     def _stamp(self, dest) -> None:
+        """Count and stamp a memory destination's writes (a warehouse
+        destination's arrivals are stamped by its fake)."""
         from .models.event import InsertEvent
+
+        if not hasattr(dest, "events"):
+            return
 
         write_events, write_rows = dest.write_events, dest.write_table_rows
         tap = self
@@ -1769,7 +1790,8 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
                               device: str = "cuda",
                               row_filter: str | None = None, seed: int = 7,
                               warmup_events: int = 17_000,
-                              restart_events: int = 20_000) -> dict:
+                              restart_events: int = 20_000,
+                              destination: str = "memory") -> dict:
     """The replicator binary's main path over the Postgres wire protocol,
     in process: `replicator.run_replicator(config_dir)`, the function
     `python -m etl_tpu_torch.replicator` runs, on this thread's event loop
@@ -1798,28 +1820,44 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
     - with `restart_events`, a second lifetime on the same store after
       that many inserts: no copy again, exactly those rows once each.
 
+    `destination` is `memory` (the rows are read in process), or
+    `clickhouse`, `bigquery` or `snowflake`: the registry builds that
+    destination against its HTTP fake in a child process of its own
+    (`testing.http_process`), which tallies what arrives; arrivals are
+    stamped there.
+
     With `row_filter` the publication carries it in the catalog and the
     walsender ships every row (offload mode): the client reads the filter
     from pg_publication_tables and its fused filter keeps the matching
     rows. Checks (each a key, `ok` all of them): counts and digests of the
     copied and streamed rows against the written rows (the filter's truth
-    with one), each insert once in (commit LSN, ordinal) order with its
-    row, 512 sampled rows against the CPU oracle, and the launches of the
-    run (both lifetimes) against its device-routed batches."""
+    with one), each insert once (in (commit LSN, ordinal) order with the
+    memory destination) with its row, 512 sampled rows against the CPU
+    oracle, and the launches of the run (both lifetimes) against its
+    device-routed batches. A warehouse destination adds: the delivered
+    text of 512 seeded rows (256 copied, 256 streamed) byte for byte
+    against the host encoder on the written row (BigQuery: the decoded
+    row, read by both decoders), the render kernel once per unfiltered
+    device-routed batch with device-rendered writes counted, its DDL once
+    a lifetime, and its commit seam's records."""
     import signal
     import tempfile
 
     from . import replicator
-    from .ops.engine import DeviceDecoder
     from .ops.pipeline import global_admission
     from .testing.pg_process import PgServerProcess
 
     tx_size = 500
+    http = destination != "memory"
     out: dict = {"mode": "wire_replicator", "copy_rows": copy_rows,
                  "events": n_events, "tx_size": tx_size, "device": device,
-                 "row_filter": row_filter, "store": "postgres"}
+                 "row_filter": row_filter, "store": "postgres",
+                 "destination": destination}
     first_aid = copy_rows + 1
+    t_copy = pgbench_table(copy_rows, seed)
     t_cdc = pgbench_table(n_events, seed + 1, first_aid=first_aid)
+    copy_keep = np.ones(copy_rows, dtype=bool) if row_filter is None \
+        else _filter_truth(row_filter, t_copy)
     keep = np.ones(n_events, dtype=bool) if row_filter is None \
         else _filter_truth(row_filter, t_cdc)
 
@@ -1832,21 +1870,49 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
     os.environ[env_key] = WIRE_PASSWORD
     server = PgServerProcess(password=WIRE_PASSWORD)
     call = server.call
+    fake = None
 
     async def acall(cmd, **kw):
         return await asyncio.to_thread(call, cmd, **kw)
 
+    async def fcall(cmd, **kw):
+        return await asyncio.to_thread(fake.call, cmd, **kw)
+
     tmp = tempfile.TemporaryDirectory()
     config_dir = os.path.join(tmp.name, "config")
     try:
+        dest_doc = {"type": "memory"}
+        watch = None
+        if http:
+            from .testing.http_process import HttpServerProcess
+
+            fake = HttpServerProcess(destination)
+            dest_doc = fake.destination_doc()
+            watch = _watch_aids(t_copy, copy_keep, t_cdc, keep, seed)
+            fake.call("watch", aids=watch)
         copy_bytes = call("table", n_rows=copy_rows, seed=seed)["copy_bytes"]
         call("publication", name="pub", row_filter=row_filter,
              offload=row_filter is not None)
         metrics_port = free_port()
         write_replicator_config(config_dir, server_port=server.port,
                                 metrics_port=metrics_port, device=device,
-                                store={"type": "postgres"})
+                                store={"type": "postgres"},
+                                destination=dest_doc)
         c_start = _counters()
+
+        async def delivered() -> int:
+            """CDC rows delivered so far, over both lifetimes."""
+            if http:
+                return (await fcall("count"))["cdc_rows"]
+            return tap.inserts
+
+        async def until_delivered(want: int, timeout_s: float, what: str):
+            async def done():
+                return await delivered() >= want
+
+            await _until(done, timeout_s, what,
+                         interval=0.02 if http else 0.01)
+
         with _ReplicatorTap() as tap:
             # -- lifetime 1 ----------------------------------------------------
             t0 = time.perf_counter()
@@ -1889,11 +1955,13 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
                 "copy_wait_ms": copy_s * 1e3, "copy_bytes": copy_bytes,
                 "rows_per_second": copy_rows / copy_s,
                 "mib_per_second": copy_bytes / (1 << 20) / copy_s,
-                "rows_delivered": tap.copied})
+                "rows_delivered": (await fcall("count"))["copy_rows"]
+                if http else tap.copied})
             dc = _delta(c_start, c_copied)
             out["copy_stages"] = {k: dc[k] for k in (
                 "device_rows", "oracle_rows", "device_batches",
-                "k1_launches", "k2c_launches", "device_s", "kernel_s")}
+                "k1_launches", "k2c_launches", "egress_launches",
+                "device_s", "kernel_s")}
             out["copy_stages"]["device_busy_share"] = dc["device_s"] / copy_s
 
             # warm-up off the clock: 200, 800, 3000 and the rest, rows of
@@ -1907,18 +1975,16 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
                             first_aid=wave_first)
                 await acall("produce", tx_size=tx_size)
                 w += wave
-                await _until(lambda: tap.inserts >= want, 120,
-                             "warm-up rows")
-            base = tap.inserts
-            n_events_before = len(dest.events)
+                await until_delivered(want, 120, "warm-up rows")
+            base = await delivered()
+            n_events_before = 0 if http else len(dest.events)
             tap.arrivals.clear()
             await acall("prepare", n_events=n_events, seed=seed + 1,
                         first_aid=first_aid)
             c0 = _counters()
             prod = await acall("produce", tx_size=tx_size)
             want_rows = int(keep.sum())
-            await _until(lambda: tap.inserts >= base + want_rows, 900,
-                         "the CDC rows")
+            await until_delivered(base + want_rows, 900, "the CDC rows")
             t_e2e = time.perf_counter()
             d = _delta(c0, _counters())
             last_lsn = prod["commits"][-1][0]
@@ -1943,9 +2009,13 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
                 "admission_tenants": sorted(sched.stats()["tenants"])}
             out["shutdown_ok"] = (not threads and sched.in_flight == 0
                                   and not sched.stats()["tenants"])
-            cdc_events = [e for e in dest.events[n_events_before:]
-                          if type(e).__name__ == "InsertEvent"]
-            copied_values = [r.values for r in dest.table_rows[PGBENCH_TID]]
+            if http:
+                report1 = await fcall("report")
+            else:
+                cdc_events = [e for e in dest.events[n_events_before:]
+                              if type(e).__name__ == "InsertEvent"]
+                copied_values = [r.values
+                                 for r in dest.table_rows[PGBENCH_TID]]
 
             # -- lifetime 2 ----------------------------------------------------
             restart = None
@@ -1955,7 +2025,7 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
                                     first_aid=r_first)
                 await acall("prepare", n_events=restart_events,
                             seed=seed + 3, first_aid=r_first)
-                await acall("produce", tx_size=tx_size)
+                r_prod = await acall("produce", tx_size=tx_size)
                 task = asyncio.ensure_future(
                     replicator.run_replicator(config_dir))
                 health.clear()
@@ -1965,23 +2035,34 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
                 r_keep = np.ones(restart_events, dtype=bool) \
                     if row_filter is None else _filter_truth(row_filter, t_r)
                 r_want = base + want_rows + int(r_keep.sum())
-                await _until(lambda: tap.inserts >= r_want, 120,
-                             "the rows inserted while the replicator was "
-                             "down")
+                await until_delivered(r_want, 120, "the rows inserted while "
+                                      "the replicator was down")
                 await asyncio.sleep(0.3)  # a duplicate would land here
                 os.kill(os.getpid(), signal.SIGTERM)
                 await asyncio.wait_for(task, 120)
-                got = sorted(e.row.values[0] for e in dest2.events
-                             if type(e).__name__ == "InsertEvent")
+                want_aids = t_r["aid"][r_keep].tolist()
+                if http:
+                    report2 = await fcall("report")
+                    r_lsns = {lsn for lsn, _, _ in r_prod["commits"]}
+                    got = sorted(_cdc_keys(report2, r_lsns)[2].tolist())
+                    copied_again = _copy_tally(report2)[0] \
+                        - _copy_tally(report1)[0]
+                else:
+                    got = sorted(e.row.values[0] for e in dest2.events
+                                 if type(e).__name__ == "InsertEvent")
+                    copied_again = len(dest2.table_rows.get(PGBENCH_TID,
+                                                            []))
                 restart = {
-                    "rows": len(got), "copied_again": len(
-                        dest2.table_rows.get(PGBENCH_TID, [])),
+                    "rows": len(got), "copied_again": copied_again,
                     "health": [[s, d] for s, d in health],
-                    "ok": bool(got == t_r["aid"][r_keep].tolist()
-                               and not dest2.table_rows.get(PGBENCH_TID))}
+                    "ok": bool(got == want_aids and copied_again == 0)}
         c_end = _counters()
+        if http:
+            report = await fcall("report")
     finally:
         server.close()
+        if fake is not None:
+            fake.close()
         tmp.cleanup()
         if env_before is None:
             os.environ.pop(env_key, None)
@@ -1989,33 +2070,48 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
             os.environ[env_key] = env_before
 
     # -- checks, off the clock ----------------------------------------------
-    t_copy = pgbench_table(copy_rows, seed)
-    copy_keep = np.ones(copy_rows, dtype=bool) if row_filter is None \
-        else _filter_truth(row_filter, t_copy)
-    out["copy_count_ok"] = len(copied_values) == int(copy_keep.sum())
-    out["copy_digest_ok"] = _rows_digest(*_rows_of(copied_values)) \
-        == table_digest(t_copy, np.flatnonzero(copy_keep))
-    window = t_e2e - prod["t0"]
     commit_times = {lsn: t for (lsn, _, _), t in
                     zip(prod["commits"], prod["times"])}
-    lags = sorted((at - commit_times[lsn]) * 1e3
-                  for lsn, at in tap.arrivals.items() if lsn in commit_times)
+    first_of = {lsn: lo for lsn, lo, _ in prod["commits"]}
+    if http:
+        n_copied, copy_digest = _copy_tally(report1)
+        lsn, ordinal, aids = _cdc_keys(report1, set(commit_times))
+        cdc_digest = _cdc_digest(report1, set(commit_times))
+        arrivals = {}
+        for tab in report1["tables"].values():
+            for u, at in tab["arrivals"].items():
+                arrivals[u] = min(at, arrivals.get(u, at))
+    else:
+        n_copied = len(copied_values)
+        copy_digest = _rows_digest(*_rows_of(copied_values))
+        values = [e.row.values for e in cdc_events]
+        lsn = np.asarray([int(e.commit_lsn) for e in cdc_events],
+                         dtype=np.uint64)
+        ordinal = np.asarray([e.tx_ordinal for e in cdc_events],
+                             dtype=np.uint64)
+        aids = np.asarray([v[0] for v in values], dtype=np.int64)
+        cdc_digest = _rows_digest(*_rows_of(values))
+        arrivals = tap.arrivals
+    out["copy_count_ok"] = n_copied == int(copy_keep.sum())
+    out["copy_digest_ok"] = copy_digest \
+        == table_digest(t_copy, np.flatnonzero(copy_keep))
+    window = t_e2e - prod["t0"]
+    lags = sorted((at - commit_times[u]) * 1e3
+                  for u, at in arrivals.items() if u in commit_times)
 
     def pct(q):
         return lags[min(len(lags) - 1, int(q * len(lags)))] if lags else None
 
-    values = [e.row.values for e in cdc_events]
-    first_of = {lsn: lo for lsn, lo, _ in prod["commits"]}
-    src = np.asarray([first_of.get(int(e.commit_lsn), -1) + e.tx_ordinal
-                      for e in cdc_events], dtype=np.int64)
+    src = np.asarray([first_of.get(int(u), -1) for u in lsn.tolist()],
+                     dtype=np.int64) + ordinal.astype(np.int64)
     known = (src >= 0) & (src < n_events)
-    aids = np.asarray([v[0] for v in values], dtype=np.int64)
-    key = [(int(e.commit_lsn), e.tx_ordinal) for e in cdc_events]
+    key = list(zip(lsn.tolist(), ordinal.tolist()))
+    once = len(set(key)) == len(key)
     out.update({
         "producer_events_per_second": n_events / (prod["t1"] - prod["t0"]),
         "events_per_second": n_events / window,
-        "delivered_rows": len(cdc_events), "want_rows": want_rows,
-        "keep_share": len(cdc_events) / n_events,
+        "delivered_rows": len(key), "want_rows": want_rows,
+        "keep_share": len(key) / n_events,
         "lag_p50_ms": pct(0.5), "lag_p95_ms": pct(0.95),
         "lag_max_ms": lags[-1] if lags else None,
         "device_rows": int(d["device_rows"]),
@@ -2025,37 +2121,54 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
         "pack_s": d["pack_s"], "dispatch_s": d["dispatch_s"],
         "fetch_s": d["fetch_s"], "overlap_s": d["overlap_s"],
         "device_s": d["device_s"], "kernel_s": d["kernel_s"],
+        "egress_s": d["egress_s"], "d2h_egress_s": d["d2h_egress_s"],
         "device_busy_share": d["device_s"] / window,
-        "count_ok": len(cdc_events) == want_rows,
-        "digest_ok": _rows_digest(*_rows_of(values))
-        == table_digest(t_cdc, np.flatnonzero(keep)),
-        "order_ok": bool(key == sorted(set(key))),
+        "count_ok": len(key) == want_rows,
+        "digest_ok": cdc_digest == table_digest(t_cdc, np.flatnonzero(keep)),
+        # the memory destination keeps WAL order; a warehouse orders by
+        # `_CHANGE_SEQUENCE_NUMBER`, so there each key once is the check
+        "order_ok": bool(once and (http or key == sorted(key))),
         "identity_ok": bool(known.all() and np.array_equal(
             aids, t_cdc["aid"][src[known]]) and keep[src[known]].all()),
         "restart": restart,
     })
-    out["oracle_sample_ok"] = _oracle_sample_ok(
-        [_sample_batch(values, 512, seed)], t_cdc, 512, seed, first_aid)
-    if copied_values:
-        out["copy_oracle_sample_ok"] = _oracle_sample_ok(
-            [_sample_batch(copied_values, 512, seed)], t_copy, 512, seed, 1)
+    if http:
+        _warehouse_checks(out, destination, report, watch, t_copy, t_cdc,
+                          first_aid, prod, seed)
+    else:
+        out["oracle_sample_ok"] = _oracle_sample_ok(
+            [_sample_batch(values, 512, seed)], t_cdc, 512, seed, first_aid)
+        if copied_values:
+            out["copy_oracle_sample_ok"] = _oracle_sample_ok(
+                [_sample_batch(copied_values, 512, seed)], t_copy, 512,
+                seed, 1)
     # the launches of the whole run (both lifetimes) against its
     # device-routed batches: K1 for each unfiltered one, K2c (or K2 and
-    # the epilogue) for each filtered one
+    # the epilogue) for each filtered one; a destination that declares an
+    # encoder, the render after each K1
     run = _delta(c_start, c_end)
     out["run"] = {k: int(run[k]) for k in (
         "device_batches", "k1_launches", "k2c_launches", "k2_launches",
-        "epilogue_launches", "device_rows", "oracle_rows")}
+        "epilogue_launches", "egress_launches", "device_rows",
+        "oracle_rows")}
+    out["run"]["device_writes"] = int(run["device_writes"])
+    out["run"]["host_writes"] = int(run["host_writes"])
     r = out["run"]
+    renders = http and row_filter is None
     if device != "cuda":  # the plain versions count no launch
-        out["launches_ok"] = r["device_batches"] > 0
+        out["launches_ok"] = r["device_batches"] > 0 and (
+            not renders or r["device_writes"] > 0)
     elif row_filter is None:
-        out["launches_ok"] = (r["k1_launches"] == r["device_batches"] > 0
-                              and r["k2c_launches"] == r["k2_launches"] == 0)
+        out["launches_ok"] = (
+            r["k1_launches"] == r["device_batches"] > 0
+            and r["k2c_launches"] == r["k2_launches"] == 0
+            and r["egress_launches"] == (r["k1_launches"] if renders
+                                         else 0)
+            and (not renders or r["device_writes"] > 0))
     else:
         out["launches_ok"] = (
             r["k2c_launches"] + r["k2_launches"] == r["device_batches"] > 0
-            and r["k1_launches"] == 0
+            and r["k1_launches"] == 0 and r["egress_launches"] == 0
             and r["epilogue_launches"] == r["k2_launches"])
     out["copy_oracle_free"] = out["copy_stages"]["oracle_rows"] == 0
     # the CDC window routes to the oracle only runs below the decoder's
@@ -2071,8 +2184,213 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
         and out["oracle_sample_ok"] and out["metrics_ok"]
         and out["shutdown_ok"] and out["launches_ok"]
         and out["copy_oracle_free"] and out["cdc_oracle_ok"]
+        and out.get("warehouse_ok", True)
         and (restart is None or restart["ok"]))
     return out
+
+
+#: rows whose delivered text a warehouse run holds against the host
+#: encoder: this many seeded aids of the copy, as many of the CDC window
+WIRE_WATCH_ROWS = 256
+
+
+def _watch_aids(t_copy: dict, copy_keep, t_cdc: dict, keep, seed: int):
+    """Seeded aids of delivered rows: WIRE_WATCH_ROWS of the copied ones
+    and as many of the streamed ones."""
+    rng = np.random.default_rng(seed + 5)
+    out = []
+    for t, k in ((t_copy, copy_keep), (t_cdc, keep)):
+        aids = t["aid"][k]
+        if len(aids):
+            out += rng.choice(aids, size=min(WIRE_WATCH_ROWS, len(aids)),
+                              replace=False).tolist()
+    return sorted(int(a) for a in out)
+
+
+def _copy_tally(report: dict) -> tuple:
+    """(rows, digest) of the copied rows a fake received."""
+    n = digest = 0
+    for tab in report["tables"].values():
+        rows, d = tab["by_lsn"].get(0, (0, 0))
+        n += rows
+        digest = (digest + d) % (1 << 64)
+    return n, digest
+
+
+def _cdc_keys(report: dict, lsns: set) -> tuple:
+    """(commit LSN, ordinal, aid) of the CDC rows of the commits `lsns`
+    that a fake received, in arrival order."""
+    parts = [(t["lsn"], t["ordinal"], t["aid"])
+             for t in report["tables"].values()]
+    if not parts:
+        z = np.zeros(0, dtype=np.uint64)
+        return z, z, np.zeros(0, dtype=np.int64)
+    lsn, ordinal, aid = (np.concatenate(p) for p in zip(*parts))
+    sel = np.isin(lsn, np.fromiter(lsns, dtype=np.uint64, count=len(lsns)))
+    return lsn[sel], ordinal[sel], aid[sel]
+
+
+def _cdc_digest(report: dict, lsns: set) -> int:
+    digest = 0
+    for tab in report["tables"].values():
+        for u, (_, d) in tab["by_lsn"].items():
+            if u in lsns:
+                digest = (digest + d) % (1 << 64)
+    return digest
+
+
+def _warehouse_checks(out: dict, destination: str, report: dict,
+                      watch: list, t_copy: dict, t_cdc: dict,
+                      first_aid: int, prod: dict, seed: int) -> None:
+    """A warehouse run's own checks, from its fake's report after every
+    lifetime: the watched rows' delivered text against the host encoder
+    on the written row, once each, and through the CPU oracle; each
+    sequence key once; the DDL once a lifetime; the commit seam's
+    records."""
+    from .models.table_row import ColumnarBatch, TableRow
+
+    schema = make_schema()
+    seq_of = {}
+    for lsn, lo, hi in prod["commits"]:
+        for i in range(lo, hi):
+            seq_of[first_aid + i] = (lsn, i - lo)
+
+    def written(aid: int) -> list:
+        t, i = (t_copy, aid - 1) if aid < first_aid \
+            else (t_cdc, aid - first_aid)
+        return [int(t["aid"][i]), int(t["bid"][i]), int(t["abalance"][i]),
+                t["filler"][i].tobytes().decode()]
+
+    def want_item(aid: int, got):
+        """What the host encoder sends for the written row of `aid`, with
+        the sequence key the destination gives it."""
+        batch = ColumnarBatch.from_rows(schema, [TableRow(written(aid))])
+        cdc = aid >= first_aid
+        lsn, txo = seq_of[aid] if cdc else (0, 0)
+        if destination == "clickhouse":
+            from .destinations.clickhouse import render_batch_tsv_columnar
+
+            # the copy's third key is the row's place in its batch
+            third = got.rstrip(b"\n").rsplit(b"/", 1)[-1].decode() \
+                if not cdc else f"{0:016x}"
+            seq = f"{lsn:016x}/{txo:016x}/{third}"
+            return render_batch_tsv_columnar(schema, batch, "UPSERT", [seq])
+        if destination == "snowflake":
+            from .destinations.snowflake import encode_batch_ndjson
+            from .destinations.snowpipe import ZERO_OFFSET, offset_token
+
+            seq = offset_token(lsn, txo) if cdc else ZERO_OFFSET
+            return encode_batch_ndjson(schema, batch, "insert", [seq])[0]
+        doc = dict(zip(("aid", "bid", "abalance", "filler"), written(aid)))
+        doc["_CHANGE_TYPE"] = "UPSERT"
+        third = got["_CHANGE_SEQUENCE_NUMBER"][34:]
+        doc["_CHANGE_SEQUENCE_NUMBER"] = f"{lsn:016x}/{txo:016x}/{third}"
+        return doc
+
+    delivered = report["watched"]
+    bad = [a for a in watch if len(delivered.get(a, [])) != 1
+           or delivered[a][0] != want_item(a, delivered[a][0])]
+    out["watched_rows"] = len(watch)
+    out["watched_bad"] = bad[:8]
+    out["watched_ok"] = bool(watch) and not bad
+    # the watched rows as decoded values, through the CPU oracle
+    rows = [written(a) for a in watch if a not in bad]
+    copy_rows = [r for r in rows if r[0] < first_aid]
+    cdc_rows = [r for r in rows if r[0] >= first_aid]
+    out["oracle_sample_ok"] = bool(cdc_rows) and _oracle_sample_ok(
+        [_sample_batch(cdc_rows, len(cdc_rows), seed)], t_cdc,
+        len(cdc_rows), seed, first_aid)
+    if copy_rows:
+        out["copy_oracle_sample_ok"] = _oracle_sample_ok(
+            [_sample_batch(copy_rows, len(copy_rows), seed)], t_copy,
+            len(copy_rows), seed, 1)
+    # every CDC row's sequence key once, over both lifetimes
+    lsn, ordinal, _ = _cdc_keys(report, {
+        u for t in report["tables"].values() for u in t["by_lsn"] if u})
+    keys = np.stack([lsn, ordinal], axis=1) if len(lsn) \
+        else np.zeros((0, 2), dtype=np.uint64)
+    _, counts = np.unique(keys, axis=0, return_counts=True)
+    out["seq_arrivals"] = {str(k): int(v) for k, v in zip(
+        *np.unique(counts, return_counts=True))}
+    out["seq_once_ok"] = bool(len(lsn)) and bool((counts == 1).all())
+    out["dedup_inserts"] = report["dedup_inserts"]
+    out["fake_requests"] = report["requests"]
+    out["fake_body_bytes"] = report["body_bytes"]
+    lifetimes = 2 if out["restart"] is not None else 1
+    if destination == "clickhouse":
+        st = report["statements"]
+        data = [q for q in st if q.startswith("CREATE TABLE")
+                and "_etl_commit_log" not in q]
+        views = [q for q in st if q.startswith("CREATE OR REPLACE VIEW")]
+        dbs = [q for q in st if q.startswith("CREATE DATABASE")]
+        out["ddl"] = {"create_database": len(dbs), "create_table": len(data),
+                      "create_view": len(views)}
+        out["ddl_ok"] = len(dbs) == len(data) == len(views) == lifetimes
+        log = report["commit_log"]
+        high = max((r[1], r[2]) for r in log) if log else None
+        last = prod["commits"][-1][0]
+        out["commit_log"] = {"records": len(log), "high": high}
+        # the seam recorded every flush, up to the window's last commit
+        out["seam_ok"] = bool(log) and all(r[4] == 0 for r in log) \
+            and high is not None and high[0] >= last
+    elif destination == "bigquery":
+        out["pb_mismatches"] = report["pb_mismatches"]
+        st = [q for q in report["statements"]
+              if q.startswith("POST ") and q.split()[1].endswith("/tables")
+              and "_etl_commit_marker" not in q]
+        out["ddl"] = {"create_table": len(st)}
+        out["ddl_ok"] = len(st) == lifetimes
+        marker = json.loads(report["commit_log"][-1]) \
+            if report["commit_log"] else {}
+        out["commit_log"] = {"records": len(report["commit_log"]),
+                             "high": marker.get("high")}
+        out["seam_ok"] = bool(marker.get("high")) \
+            and marker["high"][0] >= prod["commits"][-1][0] \
+            and report["pb_mismatches"] == 0
+    else:
+        tokens = [t for ts in report["committed_tokens"].values()
+                  for t in ts]
+        cdc_tokens = [t for t in tokens if not t.startswith("0" * 16)]
+        out["commit_log"] = {"records": len(tokens),
+                             "cdc_tokens": len(cdc_tokens)}
+        out["ddl"] = {}
+        out["ddl_ok"] = True
+        # each offset token committed once, in order on its channel
+        out["seam_ok"] = bool(cdc_tokens) and all(
+            ts == sorted(set(ts)) for ts in
+            report["committed_tokens"].values())
+    out["warehouse_ok"] = bool(out["watched_ok"] and out["ddl_ok"]
+                               and out["seam_ok"] and out["seq_once_ok"])
+
+
+#: where a destination's work on the loop lives: its module, the wire-text
+#: assembly it calls, the HTTP client
+_DESTINATION_CODE = (os.sep + os.path.join("etl_tpu_torch", "destinations")
+                     + os.sep,
+                     os.sep + os.path.join("etl_tpu_torch", "ops",
+                                           "egress.py"),
+                     os.sep + "aiohttp" + os.sep, os.sep + "yarl" + os.sep,
+                     os.sep + "multidict" + os.sep)
+
+
+def destination_share(prof) -> dict:
+    """The destination's share of the profiled loop: the own time of the
+    functions in `_DESTINATION_CODE` over the own time of all, and its
+    five largest."""
+    import pstats
+
+    st = pstats.Stats(prof)
+    total = dest = 0.0
+    top = []
+    for (path, line, name), (_, _, tt, _, _) in st.stats.items():
+        total += tt
+        if any(part in path for part in _DESTINATION_CODE):
+            dest += tt
+            top.append((tt, f"{os.path.basename(path)}:{line}:{name}"))
+    top.sort(reverse=True)
+    return {"profiled_s": total, "destination_s": dest,
+            "destination_share": dest / total if total else 0.0,
+            "top": [[n, t] for t, n in top[:5]]}
 
 
 async def run_replicator_binary(copy_rows: int = 100_000,
@@ -2241,9 +2559,16 @@ def main(argv=None) -> int:
                     help="--streaming, --wire: a publication row filter "
                          "applied by the client (offload mode), e.g. "
                          "'bid <= 5'")
+    ap.add_argument("--destination", default="memory",
+                    choices=("memory", "clickhouse", "bigquery",
+                             "snowflake"),
+                    help="--wire: the replicator's destination; a "
+                         "warehouse one writes over HTTP to its fake in a "
+                         "child process (testing.http_process)")
     ap.add_argument("--profile", default=None, metavar="PATH",
                     help="--wire: profile the event loop's thread "
-                         "(cProfile) and write its top functions to PATH")
+                         "(cProfile), write its top functions to PATH and "
+                         "report the destination's share of it")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("etl_tpu_torch.bench: no CUDA device; nothing measured",
@@ -2264,9 +2589,10 @@ def main(argv=None) -> int:
             prof.enable()
         res = asyncio.run(run_wire_replicator(
             1_000_000 if args.rows is None else args.rows, args.events,
-            row_filter=args.row_filter))
+            row_filter=args.row_filter, destination=args.destination))
         if prof is not None:
             prof.disable()
+            res["profile"] = destination_share(prof)
             with open(args.profile, "w") as f:
                 st = pstats.Stats(prof, stream=f)
                 st.sort_stats("tottime").print_stats(45)

@@ -1,5 +1,6 @@
-"""Destination implementations (the in-memory ones; the others are not
-ported yet) and the registry that builds one from configuration."""
+"""Destination implementations (the in-memory ones here; ClickHouse,
+BigQuery and Snowflake in their modules) and the registry that builds one
+from configuration."""
 
 from .base import (CommitRange, Destination, WriteAck, event_coordinate,
                    expand_batch_events)

@@ -1,12 +1,17 @@
-"""BigQuery Storage Write API row encoding: the encoder half.
+"""BigQuery Storage Write API wire format.
 
-Copy of the encoder half of the reference's
-`etl_tpu/destinations/bq_proto.py` (from `_varint` to `encode_batch`):
-the protobuf primitives, the row descriptor, the per-row `encode_row`
+Copy of the reference's `etl_tpu/destinations/bq_proto.py`: the protobuf
+primitives, the row descriptor, the per-row `encode_row`
 and the columnar `encode_batch`, byte-identical to it, whose string-typed
 DATE cells take the device-rendered text where a `DeviceEgress` rode the
-batch. Text columns are read from the port's `TextArray`. The
-AppendRows request/response framing and the client are not ported yet.
+batch. Text columns are read from the port's `TextArray`. Also the
+generic TLV parse and the AppendRows request/response framing (encode and
+decode, `google.rpc.Status` with embedded `StorageError` details) that the
+BigQuery destination posts and the Storage Write fake decodes.
+
+Transport note (as in the reference): no gRPC stack, so the client POSTs
+the serialized AppendRowsRequest as `application/x-protobuf` and receives
+a serialized AppendRowsResponse.
 
 Scalar encodings mirror the reference's encoding.rs:120-186: bool→varint,
 i16/i32→int32 varint, i64→int64 varint, u32→uint32 varint, f32→fixed32,
@@ -18,6 +23,7 @@ from __future__ import annotations
 
 import datetime as dt
 import struct
+from dataclasses import dataclass, field
 
 from ..analysis.annotations import hot_loop
 from ..models.cell import (JSON_NULL, PgInterval, PgNumeric, PgSpecialDate,
@@ -89,6 +95,73 @@ def f_double(field_no: int, v: float) -> bytes:
 
 def f_float(field_no: int, v: float) -> bytes:
     return _key(field_no, _WIRE_FIXED32) + struct.pack("<f", v)
+
+
+def parse_message(data: bytes) -> dict[int, list[tuple[int, object]]]:
+    """Generic TLV parse: field_no → [(wire_type, value)]. LEN fields give
+    bytes; varints give ints; fixed32/64 give raw 4/8 bytes."""
+    out: dict[int, list[tuple[int, object]]] = {}
+    i, n = 0, len(data)
+    while i < n:
+        tag = 0
+        shift = 0
+        while True:
+            b = data[i]
+            i += 1
+            tag |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                break
+        field_no, wire = tag >> 3, tag & 7
+        if wire == _WIRE_VARINT:
+            v = 0
+            shift = 0
+            while True:
+                b = data[i]
+                i += 1
+                v |= (b & 0x7F) << shift
+                shift += 7
+                if not b & 0x80:
+                    break
+            value: object = v
+        elif wire == _WIRE_LEN:
+            ln = 0
+            shift = 0
+            while True:
+                b = data[i]
+                i += 1
+                ln |= (b & 0x7F) << shift
+                shift += 7
+                if not b & 0x80:
+                    break
+            value = data[i : i + ln]
+            i += ln
+        elif wire == _WIRE_FIXED64:
+            value = data[i : i + 8]
+            i += 8
+        elif wire == _WIRE_FIXED32:
+            value = data[i : i + 4]
+            i += 4
+        else:
+            raise EtlError(ErrorKind.SERIALIZATION_FAILED,
+                           f"unsupported protobuf wire type {wire}")
+        out.setdefault(field_no, []).append((wire, value))
+    return out
+
+
+def _first_bytes(msg: dict, field_no: int, default: bytes = b"") -> bytes:
+    vals = msg.get(field_no)
+    return vals[0][1] if vals else default  # type: ignore[return-value]
+
+
+def _first_int(msg: dict, field_no: int, default: int = 0) -> int:
+    vals = msg.get(field_no)
+    return vals[0][1] if vals else default  # type: ignore[return-value]
+
+
+def _to_i64(v: int) -> int:
+    """Undo 64-bit two's complement from a decoded varint."""
+    return v - (1 << 64) if v >= (1 << 63) else v
 
 
 # -- descriptor (ProtoSchema) ------------------------------------------------
@@ -438,3 +511,237 @@ def encode_batch(schema: ReplicatedTableSchema, batch,
         b += seq_key + _varint(len(seq)) + seq
         out.append(bytes(b))
     return out
+
+
+# -- AppendRows request/response ---------------------------------------------
+
+STORAGE_ERROR_TYPE_URL = (
+    "type.googleapis.com/google.cloud.bigquery.storage.v1.StorageError")
+
+# google.cloud.bigquery.storage.v1.StorageError.StorageErrorCode
+STORAGE_ERROR_TABLE_NOT_FOUND = 1
+STORAGE_ERROR_SCHEMA_MISMATCH_EXTRA_FIELDS = 7
+
+# gRPC status codes (google.rpc.Code)
+GRPC_OK = 0
+GRPC_CANCELLED = 1
+GRPC_INVALID_ARGUMENT = 3
+GRPC_DEADLINE_EXCEEDED = 4
+GRPC_NOT_FOUND = 5
+GRPC_PERMISSION_DENIED = 7
+GRPC_RESOURCE_EXHAUSTED = 8
+GRPC_FAILED_PRECONDITION = 9
+GRPC_ABORTED = 10
+GRPC_INTERNAL = 13
+GRPC_UNAVAILABLE = 14
+GRPC_UNAUTHENTICATED = 16
+
+
+def append_rows_request(write_stream: str, descriptor: bytes,
+                        rows: list[bytes], trace_id: str,
+                        offset: int | None = None) -> bytes:
+    """Serialized AppendRowsRequest: write_stream=1, offset=2 (Int64Value),
+    proto_rows=4 (writer_schema.proto_descriptor + rows.serialized_rows),
+    trace_id=6."""
+    proto_schema = f_bytes(1, descriptor)  # ProtoSchema.proto_descriptor=1
+    proto_rows = b"".join(f_bytes(1, r) for r in rows)  # ProtoRows
+    proto_data = f_bytes(1, proto_schema) + f_bytes(2, proto_rows)
+    out = f_string(1, write_stream)
+    if offset is not None:
+        out += f_bytes(2, f_int(1, offset))  # google.protobuf.Int64Value
+    out += f_bytes(4, proto_data)
+    out += f_string(6, trace_id)
+    return out
+
+
+@dataclass
+class DecodedAppendRequest:
+    """Fake-server view of one AppendRowsRequest."""
+
+    write_stream: str
+    trace_id: str
+    descriptor_fields: list[tuple[str, int, int, int]]  # name, number, label, type
+    serialized_rows: list[bytes]
+    offset: int | None = None
+
+    def decode_rows(self) -> list[dict[str, object]]:
+        """Decode each row against the carried descriptor — the framing
+        validation a real Storage Write backend performs."""
+        by_number = {num: (name, label, ftype)
+                     for name, num, label, ftype in self.descriptor_fields}
+        rows = []
+        for raw in self.serialized_rows:
+            msg = parse_message(raw)
+            doc: dict[str, object] = {}
+            for num, entries in msg.items():
+                if num not in by_number:
+                    raise EtlError(
+                        ErrorKind.SERIALIZATION_FAILED,
+                        f"append row has field {num} absent from the "
+                        "writer schema")
+                name, label, ftype = by_number[num]
+                vals = []
+                for wire, value in entries:
+                    if ftype in (_T_STRING,):
+                        vals.append(value.decode("utf-8"))  # type: ignore
+                    elif ftype is _T_BYTES:
+                        if label == _L_REPEATED and wire == _WIRE_LEN:
+                            vals.append(value)
+                        else:
+                            vals.append(value)
+                    elif ftype in (_T_INT32, _T_INT64):
+                        if label == _L_REPEATED and wire == _WIRE_LEN:
+                            vals.extend(_unpack_varints(value, signed=True))
+                        else:
+                            vals.append(_to_i64(value))  # type: ignore
+                    elif ftype is _T_UINT32:
+                        if label == _L_REPEATED and wire == _WIRE_LEN:
+                            vals.extend(_unpack_varints(value, signed=False))
+                        else:
+                            vals.append(value)
+                    elif ftype is _T_BOOL:
+                        if label == _L_REPEATED and wire == _WIRE_LEN:
+                            vals.extend(bool(x) for x in
+                                        _unpack_varints(value, signed=False))
+                        else:
+                            vals.append(bool(value))
+                    elif ftype is _T_DOUBLE:
+                        if wire == _WIRE_LEN:  # packed
+                            vals.extend(struct.unpack(
+                                f"<{len(value)//8}d", value))
+                        else:
+                            vals.append(struct.unpack("<d", value)[0])
+                    elif ftype is _T_FLOAT:
+                        if wire == _WIRE_LEN:
+                            vals.extend(struct.unpack(
+                                f"<{len(value)//4}f", value))
+                        else:
+                            vals.append(struct.unpack("<f", value)[0])
+                    else:
+                        vals.append(value)
+                doc[name] = vals if label == _L_REPEATED or len(vals) > 1 \
+                    else vals[0]
+            rows.append(doc)
+        return rows
+
+
+def _unpack_varints(data: bytes, signed: bool) -> list[int]:
+    out = []
+    i, n = 0, len(data)
+    while i < n:
+        v = 0
+        shift = 0
+        while True:
+            b = data[i]
+            i += 1
+            v |= (b & 0x7F) << shift
+            shift += 7
+            if not b & 0x80:
+                break
+        out.append(_to_i64(v) if signed else v)
+    return out
+
+
+def decode_append_rows_request(data: bytes) -> DecodedAppendRequest:
+    msg = parse_message(data)
+    write_stream = _first_bytes(msg, 1).decode("utf-8")
+    trace_id = _first_bytes(msg, 6).decode("utf-8")
+    offset = None
+    if 2 in msg:
+        offset = _to_i64(_first_int(parse_message(_first_bytes(msg, 2)), 1))
+    fields: list[tuple[str, int, int, int]] = []
+    serialized: list[bytes] = []
+    if 4 in msg:
+        proto_data = parse_message(_first_bytes(msg, 4))
+        if 1 in proto_data:  # writer_schema
+            schema_msg = parse_message(_first_bytes(proto_data, 1))
+            descriptor = parse_message(_first_bytes(schema_msg, 1))
+            for _, fd in descriptor.get(2, []):
+                f = parse_message(fd)  # type: ignore[arg-type]
+                fields.append((
+                    _first_bytes(f, 1).decode("utf-8"),
+                    _to_i64(_first_int(f, 3)),
+                    _first_int(f, 4, _L_OPTIONAL),
+                    _first_int(f, 5, _T_STRING)))
+        if 2 in proto_data:  # rows
+            rows_msg = parse_message(_first_bytes(proto_data, 2))
+            serialized = [v for _, v in rows_msg.get(1, [])]  # type: ignore
+    return DecodedAppendRequest(write_stream=write_stream, trace_id=trace_id,
+                                descriptor_fields=fields,
+                                serialized_rows=serialized, offset=offset)
+
+
+@dataclass
+class RowError:
+    index: int
+    code: int
+    message: str
+
+
+@dataclass
+class RpcStatus:
+    code: int
+    message: str
+    storage_error_codes: list[int] = field(default_factory=list)
+
+
+@dataclass
+class AppendResponse:
+    offset: int | None = None
+    error: RpcStatus | None = None
+    row_errors: list[RowError] = field(default_factory=list)
+
+
+def encode_rpc_status(code: int, message: str,
+                      storage_error_code: int | None = None) -> bytes:
+    out = f_int(1, code) + f_string(2, message)
+    if storage_error_code is not None:
+        detail = f_varint(1, storage_error_code) + f_string(3, message)
+        any_msg = f_string(1, STORAGE_ERROR_TYPE_URL) + f_bytes(2, detail)
+        out += f_bytes(3, any_msg)
+    return out
+
+
+def encode_append_rows_response(offset: int | None = None,
+                                error: bytes | None = None,
+                                row_errors: list[RowError] | None = None
+                                ) -> bytes:
+    out = b""
+    if offset is not None:
+        out += f_bytes(1, f_bytes(1, f_int(1, offset)))  # AppendResult
+    if error is not None:
+        out += f_bytes(2, error)
+    for re in row_errors or []:
+        out += f_bytes(4, f_int(1, re.index) + f_varint(2, re.code)
+                       + f_string(3, re.message))
+    return out
+
+
+def decode_append_rows_response(data: bytes) -> AppendResponse:
+    msg = parse_message(data)
+    resp = AppendResponse()
+    if 1 in msg:
+        result = parse_message(_first_bytes(msg, 1))
+        if 1 in result:
+            resp.offset = _to_i64(
+                _first_int(parse_message(_first_bytes(result, 1)), 1))
+    if 2 in msg:
+        status = parse_message(_first_bytes(msg, 2))
+        codes = []
+        for _, any_bytes in status.get(3, []):
+            any_msg = parse_message(any_bytes)  # type: ignore[arg-type]
+            if _first_bytes(any_msg, 1).decode("utf-8") \
+                    == STORAGE_ERROR_TYPE_URL:
+                storage_err = parse_message(_first_bytes(any_msg, 2))
+                codes.append(_first_int(storage_err, 1))
+        resp.error = RpcStatus(
+            code=_to_i64(_first_int(status, 1)),
+            message=_first_bytes(status, 2).decode("utf-8"),
+            storage_error_codes=codes)
+    for _, re_bytes in msg.get(4, []):
+        re_msg = parse_message(re_bytes)  # type: ignore[arg-type]
+        resp.row_errors.append(RowError(
+            index=_to_i64(_first_int(re_msg, 1)),
+            code=_first_int(re_msg, 2),
+            message=_first_bytes(re_msg, 3).decode("utf-8")))
+    return resp

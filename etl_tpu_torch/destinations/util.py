@@ -5,10 +5,13 @@ the ported destinations and encoders use: the background task set, the
 order-preserving event program row-oriented writers consume, and the
 batch-granularity CDC metadata of the columnar encoders (`_CHANGE_TYPE`
 labels, `_CHANGE_SEQUENCE_NUMBER` keys) with the egress write counter,
-and the error classification the poison-pill isolation keys on (the HTTP
-status map, transport-exception wrapping, `with_retries`). The naming and
-Arrow helpers of the other destinations come with them, in a later
-slice.
+the row-level CDC helpers and table naming the HTTP warehouse
+destinations share (`change_type_label`, `require_full_row`,
+`require_full_batch`, `sequence_number`, `escaped_table_name`,
+`versioned_table_name`), and the error classification the poison-pill
+isolation keys on (the HTTP status map, transport-exception wrapping,
+`with_retries`). The reference's pyarrow helpers (`*_arrow`) are left
+out: no ported destination builds Arrow arrays.
 """
 
 from __future__ import annotations
@@ -19,14 +22,95 @@ from typing import Awaitable, Callable, TypeVar
 import numpy as np
 
 from ..models.errors import ErrorKind, EtlError
-from ..models.event import ChangeType
+from ..models.event import ChangeType, EventSequenceKey
+from ..models.schema import TableName
 from ..retry import RetryPolicy
 
 T = TypeVar("T")
 
-# `_CHANGE_TYPE` labels (reference bigquery/core.rs:42-45)
+# CDC metadata column names (reference bigquery/core.rs:42-45)
+CHANGE_TYPE_COLUMN = "_CHANGE_TYPE"
+CHANGE_SEQUENCE_COLUMN = "_CHANGE_SEQUENCE_NUMBER"
+
 CDC_UPSERT = "UPSERT"
 CDC_DELETE = "DELETE"
+
+
+def change_type_label(ct: ChangeType) -> str:
+    return CDC_DELETE if ct is ChangeType.DELETE else CDC_UPSERT
+
+
+def require_full_row(destination: str, schema, row) -> None:
+    """Full-row UPSERT destinations cannot preserve omitted columns: an
+    update row still carrying TOAST_UNCHANGED values (source has default
+    replica identity and didn't ship the old image) must fail typed rather
+    than overwrite stored values with NULL (reference
+    bigquery/core.rs:1477-1495 bigquery_update_new_row).
+    Remedy: ALTER TABLE ... REPLICA IDENTITY FULL on the source."""
+    from ..models.cell import TOAST_UNCHANGED
+
+    if any(v is TOAST_UNCHANGED for v in row.values):
+        missing = [c.name for c, v in zip(schema.replicated_columns,
+                                          row.values)
+                   if v is TOAST_UNCHANGED]
+        raise EtlError(
+            ErrorKind.SOURCE_REPLICA_IDENTITY,
+            f"{destination}: update for {schema.name} omits TOASTed "
+            f"column(s) {missing} (unchanged-TOAST without an old image); "
+            f"full-row upsert would overwrite them with NULL. Set REPLICA "
+            f"IDENTITY FULL on the source table.")
+
+
+def require_full_batch(destination: str, schema, batch,
+                       change_types=None) -> None:
+    """Columnar-path variant of `require_full_row`: reject TOAST-unchanged
+    cells in non-DELETE rows of a ColumnarBatch."""
+    for c in batch.columns:
+        if c.toast_unchanged is None or not c.toast_unchanged.any():
+            continue
+        for i in range(batch.num_rows):
+            if not c.toast_unchanged[i]:
+                continue
+            if change_types is not None \
+                    and int(change_types[i]) == int(ChangeType.DELETE):
+                continue
+            raise EtlError(
+                ErrorKind.SOURCE_REPLICA_IDENTITY,
+                f"{destination}: update for {schema.name} omits TOASTed "
+                f"column {c.schema.name} (unchanged-TOAST without an old "
+                f"image); full-row upsert would overwrite it with NULL. "
+                f"Set REPLICA IDENTITY FULL on the source table.")
+
+
+def sequence_number(key: EventSequenceKey, ordinal: int) -> str:
+    """Hex ordering key commit_lsn/tx_ordinal/ordinal
+    (reference bigquery/core.rs:980-996)."""
+    return key.with_ordinal(ordinal)
+
+
+def fast_render_error(destination: str, exc: Exception) -> EtlError:
+    """A failed columnar fast render (the assembly of device-rendered
+    text into a request body) as a typed error. The port's destinations
+    post nothing then, where the reference's re-render host-side (ROADMAP
+    caveat "Device egress is best effort in the reference, not in the
+    port"); the host encoders stay a routing decision for batches that
+    carry no device text."""
+    return EtlError(ErrorKind.DEVICE_DECODE_FAILED,
+                    f"{destination}: columnar render failed: "
+                    f"{type(exc).__name__}: {exc}")
+
+
+def escaped_table_name(name: TableName) -> str:
+    """`schema_table` with underscores in parts doubled so the mapping is
+    injective (reference table_name.rs)."""
+    return (name.schema.replace("_", "__") + "_"
+            + name.name.replace("_", "__"))
+
+
+def versioned_table_name(base: str, generation: int) -> str:
+    """Truncate-versioned successor tables `base`, `base_1`, `base_2`…
+    (reference bigquery/core.rs:55-106)."""
+    return base if generation == 0 else f"{base}_{generation}"
 
 
 # -- batch-granularity CDC metadata (columnar egress) -------------------------

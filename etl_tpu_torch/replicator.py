@@ -6,8 +6,9 @@ signal-driven graceful shutdown; plus the /metrics HTTP endpoint the
 reference exposes through etl-telemetry.
 
 Extra config keys consumed here (beyond PipelineConfig):
-  destination: {type: memory} (the reference's other types are refused
-               typed until they are ported: destinations/registry.py)
+  destination: {type: memory|clickhouse|bigquery|snowflake, …params}
+               (destinations/registry.py; `lake` and `iceberg` are refused
+               typed until a Parquet writer without pyarrow exists)
   store:       {type: memory|sqlite|postgres, path: …, connection: …}
   metrics_port: 0 disables the endpoint
 

@@ -65,41 +65,42 @@ class _Channel:
         self._sock.close()
 
 
-class PgServerProcess:
-    """The child process (`python -m etl_tpu_torch.testing.pg_process`,
-    which imports nothing of its parent's main module) and its channel;
-    `port` is the server's TCP port on 127.0.0.1."""
+class ServerProcess:
+    """A fake server in a child process (`python -m <module> PORT TOKEN
+    ARGS…`, which imports nothing of its parent's main module) and its
+    channel; `port` is the server's TCP port on 127.0.0.1. The child
+    connects back to PORT, sends TOKEN and then the port it serves on."""
 
-    def __init__(self, *, password: str | None = None,
+    def __init__(self, module: str, args: list, *, what: str,
                  start_timeout_s: float = 120.0):
         root = os.path.dirname(os.path.dirname(os.path.dirname(
             os.path.abspath(__file__))))
         token = secrets.token_hex(16)
+        self._what = what
         self._lock = threading.Lock()
         self._chan = None
         with socket.create_server(("127.0.0.1", 0)) as listener:
             listener.settimeout(start_timeout_s)
             self.process = subprocess.Popen(
-                [sys.executable, "-m", "etl_tpu_torch.testing.pg_process",
-                 str(listener.getsockname()[1]), token,
-                 json.dumps(password)],
+                [sys.executable, "-m", module,
+                 str(listener.getsockname()[1]), token, *args],
                 cwd=root, env={**os.environ, "PYTHONPATH": root})
             try:
                 sock, _ = listener.accept()
             except OSError:
                 self.close()
-                raise RuntimeError("the fake server process did not start")
+                raise RuntimeError(f"the {what} process did not start")
         sock.settimeout(None)
         self._chan = _Channel(sock)
         if self._recv() != token:
             self.close()
-            raise RuntimeError("the fake server process did not answer")
+            raise RuntimeError(f"the {what} process did not answer")
         self.port = self._recv()
 
     def _recv(self):
         kind, value = self._chan.recv()
         if kind == "error":
-            raise RuntimeError(f"fake server process: {value}")
+            raise RuntimeError(f"{self._what} process: {value}")
         return value
 
     def call(self, cmd: str, **kwargs):
@@ -122,11 +123,22 @@ class PgServerProcess:
         if self._chan is not None:
             self._chan.close()
 
-    def __enter__(self) -> "PgServerProcess":
+    def __enter__(self):
         return self
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+class PgServerProcess(ServerProcess):
+    """The fake Postgres server's child process
+    (`python -m etl_tpu_torch.testing.pg_process`)."""
+
+    def __init__(self, *, password: str | None = None,
+                 start_timeout_s: float = 120.0):
+        super().__init__("etl_tpu_torch.testing.pg_process",
+                         [json.dumps(password)], what="fake server",
+                         start_timeout_s=start_timeout_s)
 
 
 def _child_main(argv: list) -> None:

@@ -73,6 +73,14 @@ PORT_MODULES = [
     "etl_tpu_torch.telemetry.tracing", "etl_tpu_torch.telemetry.notify",
     "etl_tpu_torch.config.load", "etl_tpu_torch.destinations.registry",
     "etl_tpu_torch.replicator",
+    "etl_tpu_torch.models.default_expression",
+    "etl_tpu_torch.destinations.bigquery",
+    "etl_tpu_torch.destinations.snowpipe",
+    "etl_tpu_torch.destinations.delay",
+    "etl_tpu_torch.testing.fake_http", "etl_tpu_torch.testing.fake_bq",
+    "etl_tpu_torch.testing.pb_reader",
+    "etl_tpu_torch.testing.fake_snowpipe",
+    "etl_tpu_torch.testing.http_process",
 ]
 
 

@@ -801,6 +801,68 @@ def test_egress_launch_failure_fails_the_batch(egress_cuda, monkeypatch):
         dec.decode(staged)
 
 
+def test_egress_clickhouse_write_over_http(egress_cuda):
+    """A batch the card rendered, written through `ClickHouseDestination`
+    into `RecordingHttpServer`: one INSERT whose TSV body equals the host
+    encoder's on the same batch and the body of the CPU decoder's batch,
+    the write counted as device-rendered, the render launched once."""
+    import asyncio
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.destinations.clickhouse import (
+        ClickHouseConfig, ClickHouseDestination, render_batch_tsv_columnar)
+    from etl_tpu_torch.models import DecodedBatchEvent, Lsn
+    from etl_tpu_torch.ops import egress_kernel
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch
+    from etl_tpu_torch.telemetry.metrics import (ETL_EGRESS_WRITES_TOTAL,
+                                                 registry)
+    from etl_tpu_torch.testing.fake_http import RecordingHttpServer
+
+    schema = bench.make_schema()
+    staged = stage_wal_batch(*concat_payloads(bench.build_workload(5000)),
+                             4).staged
+    before = egress_kernel.launches
+    batch = DeviceDecoder(schema, device="cuda", egress="tsv").decode(staged)
+    assert egress_kernel.launches == before + 1
+    assert batch.device_egress is not None
+    cpu = DeviceDecoder(schema, device="cpu", egress="tsv").decode(staged)
+
+    def event(b):
+        n = b.num_rows
+        return DecodedBatchEvent(
+            Lsn(0x10), Lsn(0x10 + n), schema,
+            change_types=np.zeros(n, dtype=np.int8),
+            commit_lsns=np.full(n, 0x4000, dtype=np.uint64),
+            tx_ordinals=np.arange(n, dtype=np.uint64), batch=b)
+
+    async def write(b) -> bytes:
+        server = RecordingHttpServer()
+        await server.start()
+        try:
+            d = ClickHouseDestination(ClickHouseConfig(url=server.url(),
+                                                       database="etl"))
+            await d.startup()
+            await d.write_event_batches([event(b)])
+            await d.shutdown()
+            bodies = [r.body for r in server.requests
+                      if r.query.get("query", "").startswith("INSERT INTO")]
+            assert len(bodies) == 1
+            return bodies[0]
+        finally:
+            await server.stop()
+
+    device_writes = registry.get_counter(ETL_EGRESS_WRITES_TOTAL,
+                                         {"path": "device"})
+    got = asyncio.run(write(batch))
+    assert registry.get_counter(ETL_EGRESS_WRITES_TOTAL,
+                                {"path": "device"}) == device_writes + 1
+    n = batch.num_rows
+    seqs = [f"{0x4000:016x}/{i:016x}/{0:016x}" for i in range(n)]
+    assert got == render_batch_tsv_columnar(schema, batch, "UPSERT", seqs)
+    assert got == asyncio.run(write(cpu))
+
+
 @pytest.mark.parametrize("n_cols", [100, 260])
 def test_very_wide_tables(cuda, n_cols):
     """100 and 260 dense columns through the kernel wrapper: the walk and

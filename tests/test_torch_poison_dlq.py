@@ -977,11 +977,11 @@ class TestDlqCli:
         fails typed (exit 1), naming it, and marks nothing replayed;
         `memory` replays every dead entry, and a second run none."""
         base = ["--sqlite", seeded_db, "--pipeline-id", "1"]
-        unported = tmp_path / "clickhouse.json"
-        unported.write_text('{"type": "clickhouse"}')
+        unported = tmp_path / "lake.json"
+        unported.write_text('{"type": "lake"}')
         out = self.run_cli_failing(*base, "replay", "--destination-json",
                                    str(unported))
-        assert "clickhouse" in out["error"] and "not ported" in out["error"]
+        assert "lake" in out["error"] and "not ported" in out["error"]
         assert self.run_cli(*base, "list")["count"] == 3
         dest_json = tmp_path / "dest.json"
         dest_json.write_text('{"type": "memory"}')

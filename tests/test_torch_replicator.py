@@ -230,14 +230,39 @@ class TestRegistryAndRefusals:
                                                 build_destination)
         from etl_tpu_torch.models.errors import ErrorKind, EtlError
 
+        from etl_tpu_torch.destinations.bigquery import BigQueryDestination
+        from etl_tpu_torch.destinations.clickhouse import (
+            ClickHouseDestination, ClickHouseEngine)
+        from etl_tpu_torch.destinations.snowflake import SnowflakeDestination
+
         assert isinstance(build_destination({"type": "memory"}),
                           MemoryDestination)
-        for kind in ("clickhouse", "bigquery", "lake", "iceberg",
-                     "snowflake"):
+        ch = build_destination({"type": "clickhouse", "url": "http://x",
+                                "engine": "ReplicatedReplacingMergeTree"})
+        assert isinstance(ch, ClickHouseDestination)
+        assert ch.config.engine is \
+            ClickHouseEngine.REPLICATED_REPLACING_MERGE_TREE
+        assert isinstance(build_destination(
+            {"type": "bigquery", "project_id": "p", "dataset_id": "d",
+             "base_url": "http://x"}), BigQueryDestination)
+        assert isinstance(build_destination(
+            {"type": "snowflake", "base_url": "http://x", "account": "a",
+             "user": "u", "database": "db"}), SnowflakeDestination)
+        for kind in ("lake", "iceberg"):
             with pytest.raises(EtlError) as ei:
                 build_destination({"type": kind, "url": "http://x"})
             assert ei.value.kind is ErrorKind.CONFIG_INVALID
             assert kind in str(ei.value) and "ROADMAP" in str(ei.value)
+            assert "Parquet" in str(ei.value)
+        for bad in ({"type": "clickhouse", "url": "http://x",
+                     "engine": "MergeTree"},
+                    {"type": "bigquery", "project_id": "p"},
+                    {"type": "snowflake", "base_url": "http://x",
+                     "warehouse": "w"}):
+            with pytest.raises(EtlError) as ei:
+                build_destination(bad)
+            assert ei.value.kind is ErrorKind.CONFIG_INVALID
+            assert bad["type"] in str(ei.value)
         with pytest.raises(EtlError, match="unknown destination"):
             build_destination({"type": "kafka"})
 
