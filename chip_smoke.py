@@ -1273,6 +1273,165 @@ def warehouse_phase(args, runtime: dict, device: str = "cuda") -> dict:
     return out
 
 
+#: phase 13: the fleet's tables (8 × 125,000 rows: phase 6's 1,000,000)
+#: and stream (phase 7's shape, 400,000 inserts over the 8 tables)
+SHARD_TABLES = 8
+
+
+def sharded_phase(args, runtime: dict, device: str = "cuda") -> dict:
+    """Phase 13: sharded replication on the card
+    (`bench_sharded.run_sharded_replication`): K = 2 shard pods split one
+    publication of SHARD_TABLES pgbench_accounts tables over one fake
+    source and one shared store, each pod with its own pipelines and CUDA
+    streams; shard 1's tables carry `bid <= 5` in offload mode (K2c); the
+    pods copy `--shard-copy-rows`, then `--shard-events` inserts stream in
+    500-row transactions, and halfway `ShardCoordinator` adds a shard
+    (2 → 3) while the stream goes on and the fleet rolls to K = 3. The
+    launch counts are set to 0 just before and read just after; each pod's
+    own launches and device-routed batches are counted under its decode
+    tag. Phases 6 and 7 of this call are printed beside it."""
+    import asyncio
+
+    from etl_tpu_torch import bench_sharded
+
+    print(f"[13] sharded replication: {SHARD_TABLES} tables, COPY "
+          f"{args.shard_copy_rows} rows, CDC {args.shard_events} events in "
+          f"500-row transactions, K = 2 -> 3 midway, bid <= 5 on shard 1's "
+          f"tables (offload mode)", flush=True)
+    oracle_clear("phase 13")
+    _reset_launch_counts()
+    r = asyncio.run(bench_sharded.run_sharded_replication(
+        args.shard_copy_rows, args.shard_events, tables=SHARD_TABLES,
+        device=device, seed=args.seed + 2))
+    r.update(_launch_counts())
+    r6, r7 = runtime["6_copy"], runtime["7_cdc"]
+    print(f"  tables per shard: K=2 {json.dumps(r['tables_per_shard']['k2'])}"
+          f" K=3 {json.dumps(r['tables_per_shard']['k3'])}; filtered "
+          f"{r['filtered_tables']}; moved {r['moved_tables']}", flush=True)
+    print(f"  rows/s={r['rows_per_second']:.0f} (phase 6: "
+          f"{r6['rows_per_second']:.0f}) events/s={r['events_per_second']:.0f}"
+          f" (phase 7: {r7['events_per_second']:.0f}; producer "
+          f"{r['producer_events_per_second']:.0f}) lag_p50_ms="
+          f"{r['lag_p50_ms']:.2f} lag_p95_ms={r['lag_p95_ms']:.2f} (phase 7:"
+          f" {r7['lag_p50_ms']:.2f} / {r7['lag_p95_ms']:.2f}); before the "
+          f"rebalance {r['steady_lag_p50_ms']:.2f} / "
+          f"{r['steady_lag_p95_ms']:.2f}", flush=True)
+    print(f"  rebalance_s={r['rebalance_s']:.4f} roll_s={r['roll_s']:.4f} "
+          f"{json.dumps(r['rebalance'])}; duplicates={r['duplicates']}",
+          flush=True)
+    print(f"  launches: k1={r['k1_launches']} k2c={r['k2c_launches']} "
+          f"k2={r['k2_launches']} epilogue={r['epilogue_launches']} "
+          f"device_batches={r['device_batches']} device_rows="
+          f"{r['device_rows']} oracle_rows={r['oracle_rows']} (in runs "
+          f"below the floor: {r['small_oracle_rows']}); per pod "
+          f"{json.dumps(r['pod_launches'])}", flush=True)
+    print(f"  device_s={r['device_s']:.4f} kernel_s={r['kernel_s']:.5f} "
+          f"device_busy_share={r['device_busy_share']:.5f}; after shutdown "
+          f"{json.dumps(r['after_shutdown'])}", flush=True)
+    check(r["union_ok"], f"13: the pods' union differs from the written "
+          f"rows (count or digest): {json.dumps(r['per_table'])}")
+    check(r["identity_ok"], "13: a streamed row's aid is not the one its "
+          "(commit LSN, ordinal) names")
+    check(r["dup_ok"], "13: a row arrived more than twice, or twice outside "
+          "the rebalance's funded window")
+    check(r["isolation_ok"], "13: a pod delivered a table it does not own")
+    check(r["oracle_sample_ok"], "13: a sampled row differs from the CPU "
+          "oracle")
+    check(r["launches_ok"], f"13: a pod's K1 + K2c launches differ from its "
+          f"device-routed batches: {json.dumps(r['pod_launches'])}")
+    check(r["stale_epoch_ok"], f"13: a stale-epoch write was not refused "
+          f"({r['stale_epoch_refusal']})")
+    check(r["monotonic_ok"], "13: a slot's durable progress went back")
+    check(r["shutdown_ok"], "13: a decode thread, an admission ticket or a "
+          "tenant outlived shutdown")
+    check(r["copy_oracle_free"], "13: a copy chunk took the oracle route")
+    check(r["ok"], "13: a check failed")
+    print("  parity: per table the union's copy and distinct CDC rows == "
+          "written rows (count and digest, bid <= 5 on filtered tables), "
+          "aids == their (commit LSN, ordinal), duplicates only on moved "
+          "tables past the fence and at most twice, no foreign table "
+          "delivered, 512 oracle rows, each pod's K1 + K2c == its "
+          "device-routed batches, stale epoch refused, clean shutdown",
+          flush=True)
+    return {"13_sharded": r}
+
+
+def chaos_phase(args, device: str = "cuda") -> dict:
+    """Phase 14: the chaos corpus through the kernels. `run_scenario` over
+    every scenario of the corpus and its workload matrix with the CUDA
+    engine on the card and the decoder's floor at one row (at the corpus's
+    few-row transactions every batch would otherwise take the oracle), the
+    two program-cache scenarios printed as refused (the program store is
+    not ported); then the sharded pod kill, the multi-pipeline crash and
+    the DLQ scenarios. Each must hold its invariants and launch K1 (the
+    per-tuple engine's scenario launches none, by design). The launch
+    counts are set to 0 just before the phase and read just after."""
+    import asyncio
+
+    from etl_tpu_torch.chaos.corpus import SCENARIOS, WORKLOAD_MATRIX
+    from etl_tpu_torch.chaos.dlq import run_dlq_scenarios
+    from etl_tpu_torch.chaos.multi import run_multi_pipeline_scenario
+    from etl_tpu_torch.chaos.runner import (device_floor, refuse_unported,
+                                            run_scenario)
+    from etl_tpu_torch.chaos.sharded import run_sharded_scenario
+    from etl_tpu_torch.models.errors import EtlError
+    from etl_tpu_torch.ops import decode_kernel as dk
+
+    print(f"[14] the chaos corpus through K1 ({len(SCENARIOS)} scenarios + "
+          f"{len(WORKLOAD_MATRIX)} of the workload matrix, seed "
+          f"{args.seed}), then the sharded pod kill, the multi-pipeline "
+          f"crash and the DLQ scenarios", flush=True)
+    oracle_clear("phase 14")
+    _reset_launch_counts()
+    runs, refused = [], []
+    t0 = time.perf_counter()
+    with device_floor(1):
+        for scenario in SCENARIOS + WORKLOAD_MATRIX:
+            try:
+                refuse_unported(scenario)
+            except EtlError as e:
+                refused.append(scenario.name)
+                print(f"  {scenario.name}: refused ({e})", flush=True)
+                continue
+            k1 = dk.launches
+            run = asyncio.run(run_scenario(scenario, args.seed,
+                                           device=device))
+            runs.append((scenario.name, run, dk.launches - k1,
+                         scenario.engine))
+        for name, fn in (("sharded_pod_kill", run_sharded_scenario),
+                         ("multi_pipeline_crash_one_stream",
+                          run_multi_pipeline_scenario)):
+            k1 = dk.launches
+            run = asyncio.run(fn(seed=args.seed, device=device))
+            runs.append((name, run, dk.launches - k1, "cuda"))
+        k1 = dk.launches
+        dlq = asyncio.run(run_dlq_scenarios(seed=args.seed, device=device))
+        for run in dlq:  # the two share one count
+            runs.append((run.scenario, run, dk.launches - k1, "cuda"))
+    wall = time.perf_counter() - t0
+    out = {"scenarios": {}, "refused": refused, "wall_s": wall}
+    for name, run, k1, engine in runs:
+        d = run.describe()
+        inv = d["invariants"]
+        print(f"  {name}: ok={run.ok} k1={k1} duration_s={d['duration_s']}"
+              f" stats={json.dumps(inv.get('stats', {}))}"
+              + (f" violations={inv['violations']}" if not run.ok else ""),
+              flush=True)
+        out["scenarios"][name] = {"ok": run.ok, "k1_launches": k1,
+                                  "duration_s": d["duration_s"]}
+        check(run.ok, f"14: {name} broke an invariant: {inv['violations']}")
+        check(k1 > 0 if engine == "cuda" else k1 == 0,
+              f"14: {name} launched K1 {k1} times (engine {engine})")
+    out.update(_launch_counts())
+    check(sorted(refused) == ["crash_restart_corrupt_program_cache",
+                              "crash_restart_warm_programs"],
+          f"14: refused {refused}, not the two program-cache scenarios")
+    print(f"  {len(runs)} runs green in {wall:.1f} s; refused until the "
+          f"program store: {refused}; launches: k1={out['k1_launches']} "
+          f"k2c={out['k2c_launches']}", flush=True)
+    return {"14_chaos": out}
+
+
 def _warehouse_lines(r: dict) -> None:
     run = r["run"]
     print(f"  warehouse: watched {r['watched_rows']} rows, bad "
@@ -1368,6 +1527,8 @@ def main() -> int:
     ap.add_argument("--batches", type=int, default=6)
     ap.add_argument("--copy-rows", type=int, default=1_000_000)
     ap.add_argument("--cdc-events", type=int, default=500_000)
+    ap.add_argument("--shard-copy-rows", type=int, default=1_000_000)
+    ap.add_argument("--shard-events", type=int, default=400_000)
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -1651,6 +1812,8 @@ def main() -> int:
     runtime.update(default_config_phase(args, runtime["7_cdc"]))
     runtime.update(wire_phase(args, runtime))
     runtime.update(warehouse_phase(args, runtime))
+    runtime.update(sharded_phase(args, runtime))
+    runtime.update(chaos_phase(args))
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs

@@ -16,7 +16,15 @@ written on the same functions:
   - `@flush_path`: a destination flush/dispatch path — durability waits
     belong to the ack window, not to an inline `await ack.wait_durable()`;
   - `@transactional_commit`: a transactional-commit write path — data
-    ships with its `CommitRange`.
+    ships with its `CommitRange`;
+  - `@shard_scoped`: code acting for ONE shard of a sharded publication —
+    it reads table states through the shard view
+    (`ShardScopedStore.owned_table_states()`), never the shared store's
+    full list;
+  - `@domain(name)`: pins a function to one execution domain (`loop`,
+    `worker`, `executor`, `sweep`, `coordinator`);
+  - `@handoff`: a deliberate cross-domain ownership-transfer seam (the
+    shard coordinator's persist of the assignment record).
 """
 
 from __future__ import annotations
@@ -29,6 +37,13 @@ HOT_LOOP_ATTR = "__etl_hot_loop__"
 ADMISSION_PATH_ATTR = "__etl_admission_path__"
 FLUSH_PATH_ATTR = "__etl_flush_path__"
 TRANSACTIONAL_COMMIT_ATTR = "__etl_transactional_commit__"
+SHARD_SCOPED_ATTR = "__etl_shard_scoped__"
+DOMAIN_ATTR = "__etl_domain__"
+HANDOFF_ATTR = "__etl_handoff__"
+
+#: the execution domains `@domain` accepts (a typo'd pin raises)
+KNOWN_DOMAINS = frozenset({"loop", "worker", "executor", "sweep",
+                           "coordinator"})
 
 
 def hot_loop(fn: _F) -> _F:
@@ -48,4 +63,27 @@ def flush_path(fn: _F) -> _F:
 
 def transactional_commit(fn: _F) -> _F:
     setattr(fn, TRANSACTIONAL_COMMIT_ATTR, True)
+    return fn
+
+
+def shard_scoped(fn: _F) -> _F:
+    setattr(fn, SHARD_SCOPED_ATTR, True)
+    return fn
+
+
+def domain(name: str) -> "Callable[[_F], _F]":
+    if name not in KNOWN_DOMAINS:
+        raise ValueError(
+            f"unknown execution domain {name!r}; expected one of "
+            f"{sorted(KNOWN_DOMAINS)}")
+
+    def mark(fn: _F) -> _F:
+        setattr(fn, DOMAIN_ATTR, name)
+        return fn
+
+    return mark
+
+
+def handoff(fn: _F) -> _F:
+    setattr(fn, HANDOFF_ATTR, True)
     return fn

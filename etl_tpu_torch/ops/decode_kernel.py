@@ -28,7 +28,10 @@ The kernels are compiled with nvcc at first use into
 plain C interface that this module loads with ctypes: a source that
 includes no PyTorch header builds in seconds. `launches`,
 `filter_launches`, `compact_launches` and `fused_launches` count the
-launches of K1, K2, the epilogue and K2c in this process.
+launches of K1, K2, the epilogue and K2c in this process;
+`tag_launches` counts them again under the decode tag of the launching
+context (`DECODE_TAG`: a shard pod's, say), so that pods sharing the
+process are each held to their own launches.
 
 K1 and K2 stage each block's 256 rows through shared memory. `tile_rows`
 picks, by shape, how: 256-row tiles where they fit SMEM_BUDGET ("tile"),
@@ -43,6 +46,7 @@ integer parse in a tile (`rows_per_thread`), one otherwise; K2 one.
 
 from __future__ import annotations
 
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -101,6 +105,14 @@ filter_launches = 0
 compact_launches = 0
 fused_launches = 0
 path_launches = {"tile": 0, "subtile": 0, "direct": 0}
+#: (decode tag, "k1" | "k2" | "epilogue" | "k2c") → launches under it
+tag_launches: dict = {}
+#: the decode tag of the calling context. A `DecodePipeline` takes the
+#: tag of the context that builds it onto its worker thread, so the
+#: launches (and routed batches) of everything a tagged task spawns count
+#: under the tag; None counts nowhere but in the totals
+DECODE_TAG: contextvars.ContextVar = contextvars.ContextVar(
+    "etl_decode_tag", default=None)
 build_seconds: float | None = None
 build_log = ""
 
@@ -113,6 +125,20 @@ _DESC_CACHE_MAX = 64
 # one after the other, so each stream has its own status buffer
 _scan_states: dict = {}
 EPOCH_LIMIT = 1 << 30  # epochs are 30 bits of a status word
+
+
+def current_tag():
+    """The decode tag launches and routed batches count under here: the
+    calling worker thread's (see `DECODE_TAG`), else the context's."""
+    tag = getattr(threading.current_thread(), "decode_tag", None)
+    return tag if tag is not None else DECODE_TAG.get()
+
+
+def _count_tag(kernel: str) -> None:
+    tag = current_tag()
+    if tag is not None:
+        key = (tag, kernel)
+        tag_launches[key] = tag_launches.get(key, 0) + 1
 
 
 def _nvcc() -> str:
@@ -303,6 +329,7 @@ def prepare_decode_pack(bmat: torch.Tensor, lengths: torch.Tensor,
         with _lock:
             launches += 1
             path_launches[path_of(rows)] += 1
+            _count_tag("k1")
         return out.view(torch.uint32)
 
     launch.outputs = (out,)
@@ -511,6 +538,7 @@ def prepare_filter_pack(bmat: torch.Tensor, lengths: torch.Tensor,
         with _lock:
             filter_launches += 1
             path_launches[path_of(rows)] += 1
+            _count_tag("k2")
         return words.view(torch.uint32), mask.view(torch.uint32), counts
 
     launch.outputs = (words, mask, counts)
@@ -561,6 +589,7 @@ def prepare_compact_packed(words: torch.Tensor, keep_mask: torch.Tensor,
         _raise_on(lib, lib.etl_compact_packed(*args), "compaction kernel")
         with _lock:
             compact_launches += 1
+            _count_tag("epilogue")
         return out.view(torch.uint32), counts
 
     return launch
@@ -709,6 +738,7 @@ def prepare_filter_pack_compact(bmat: torch.Tensor, lengths: torch.Tensor,
             st.tickets += blocks
             fused_launches += 1
             path_launches[path_of(rows)] += 1
+            _count_tag("k2c")
         return out.view(torch.uint32), mask.view(torch.uint32), counts
 
     return launch

@@ -317,6 +317,8 @@ _ROUTE_LOCK = threading.Lock()
 #: batches `_route` sent to the device in this process; each launches one
 #: decode kernel (K1, or K2c / K2 and the epilogue under a filter)
 routed_device_batches = 0
+#: decode tag (`decode_kernel.DECODE_TAG`) → its device-routed batches
+tag_device_batches: dict = {}
 #: rows `_route` sent to the oracle only for their batch's size (fewer
 #: than `device_min_rows`, the device free and the layout dense)
 routed_small_rows = 0
@@ -987,6 +989,10 @@ class DeviceDecoder:
             device = free and staged.n_rows >= self.device_min_rows
             if device:
                 routed_device_batches += 1
+                tag = decode_kernel.current_tag()
+                if tag is not None:
+                    tag_device_batches[tag] = \
+                        tag_device_batches.get(tag, 0) + 1
             elif free:
                 routed_small_rows += staged.n_rows
             registry.counter_inc(

@@ -58,6 +58,7 @@ from typing import TYPE_CHECKING
 import torch
 
 from ..analysis.annotations import admission_path, hot_loop
+from . import decode_kernel
 from .staging import ARENA_POOL, StagedBatch, StagingArenaPool
 
 if TYPE_CHECKING:  # import cycle: runtime -> ops at module import time
@@ -588,6 +589,9 @@ class DecodePipeline:
         self._streams: dict[torch.device, torch.cuda.Stream] = {}
         self._worker = _WorkerThread(
             target=self._run, name=f"etl-{name}-pipeline", daemon=True)
+        # the building context's decode tag (a shard pod's): the worker's
+        # routed batches and launches count under it
+        self._worker.decode_tag = decode_kernel.DECODE_TAG.get()
         self._worker.start()
 
     # -- producer side ------------------------------------------------------
@@ -743,9 +747,13 @@ class DecodePipeline:
         # (before routing, so small oracle-routed batches hit it too)
         failpoints.fail_point(failpoints.PIPELINE_PACK)
         # no degrade to the oracle here: a device batch that cannot pack,
-        # upload or launch fails (the reference's simulated-OOM degrade,
-        # ENGINE_DEVICE_OOM, has no counterpart in the port)
+        # upload or launch fails. The reference's simulated-OOM site fires
+        # on the device route as there, but a firing fails the batch like
+        # any other device error (the stream re-streams it); the port has
+        # no per-batch oracle fallback
         mode, specs = decoder._route(staged)
+        if mode != "oracle":
+            failpoints.fail_point(failpoints.ENGINE_DEVICE_OOM)
         if mode == "oracle":
             # no device work: nothing to overlap, no window slot — the
             # consumer's result() runs the per-row oracle as before

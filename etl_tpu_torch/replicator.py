@@ -15,9 +15,10 @@ Extra config keys consumed here (beyond PipelineConfig):
 Copy of the reference's `etl_tpu/replicator.py`. The decoder runs where
 `batch.batch_engine` and `batch.device` say: `cuda` on the card by
 default (no card raises at start), `batch: {device: cpu}` for the tests.
-`--shard`/`--shard-count` stay; `Pipeline` refuses a shard until sharding
-is ported, so the health surfaces carry no shard fields. A `maintenance`
-block needs the lake destination and is refused typed.
+`--shard`/`--shard-count` (or the document's `shard`/`shard_count` keys)
+run the binary as one shard pod, and `/health` and `/health/detail` carry
+the pod's shard identity. A `maintenance` block needs the lake destination
+and is refused typed.
 """
 
 from __future__ import annotations
@@ -61,19 +62,32 @@ def build_observability_app(pipeline=None) -> web.Application:
     def _supervisor():
         return pipeline.supervisor if pipeline is not None else None
 
+    def _shard_fields() -> dict:
+        # sharded pods identify their slice on every health surface so a
+        # fleet dashboard can tell WHICH shard is unhealthy
+        if pipeline is None or pipeline.config.shard is None:
+            return {}
+        ident = pipeline.shard_identity
+        return {"shard": ident.describe() if ident is not None else {
+            "shard": pipeline.config.shard,
+            "shard_count": pipeline.config.shard_count,
+            "epoch": None}}
+
     async def health(_request: web.Request) -> web.Response:
         sup = _supervisor()
         if sup is None:
             # supervision disabled: liveness of the process is all we
             # can honestly attest
             return web.json_response({"status": "ok",
-                                      "supervision": "disabled"})
+                                      "supervision": "disabled",
+                                      **_shard_fields()})
         if not sup.started:
-            return web.json_response({"status": "starting"}, status=503)
+            return web.json_response(
+                {"status": "starting", **_shard_fields()}, status=503)
         from .supervision import HealthState
 
         state = sup.health.state
-        body = {"status": state.value}
+        body = {"status": state.value, **_shard_fields()}
         if state is HealthState.FAULTED:
             body["fatal"] = sup.health.fatal
             return web.json_response(body, status=503)
@@ -243,8 +257,7 @@ def main(argv: list[str] | None = None) -> int:
     parser.add_argument("--shard", type=int, default=None,
                         help="this pod's shard index in a K-way split of "
                              "the publication; overrides the config "
-                             "document's `shard` key. Sharding is not "
-                             "ported yet: the pipeline refuses it.")
+                             "document's `shard` key")
     parser.add_argument("--shard-count", dest="shard_count", type=int,
                         default=None,
                         help="total shard count K of the deployment; "

@@ -23,6 +23,7 @@ the card.
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -318,6 +319,12 @@ class EventAssembler:
                                             monitor=self._monitor,
                                             name="cdc", heartbeat=hb,
                                             admission=admission)
+            # an assembler dropped without close() (a caller that never
+            # ran the apply loop's teardown) still stops its worker and
+            # frees its admission seat when it is collected: the worker
+            # holds the pipeline, never the assembler, so nothing else
+            # would ever close it
+            weakref.finalize(self, self._pipeline.close)
         # publication row-filter eligibility: the fused device filter
         # compacts INSERT-only runs (and the COPY path); runs carrying
         # updates/deletes keep the server-side filtering contract — the
@@ -422,8 +429,22 @@ class EventAssembler:
         Already-flushed DecodedBatchEvents stay resolvable — close only
         fences new submits. A closed assembler seals no more runs: a
         resumed apply loop builds a fresh one. `join` then waits for the
-        worker to exit."""
+        worker to exit.
+
+        Runs sealed (and submitted) but not flushed yet can never be
+        delivered from this incarnation — the resumed loop re-streams
+        them — so their pending decodes are abandoned here: a hard-killed
+        loop would otherwise leave their staging arenas leased."""
         self._closed = True
+        for ev in self._events:
+            abandon = getattr(ev, "abandon", None)
+            if abandon is not None:
+                abandon()
+        self._events = []
+        self._meta = []
+        self._commit_marks = []
+        self.size_bytes = 0
+        self.row_events = 0
         if self._pipeline is not None:
             self._pipeline.close()
 

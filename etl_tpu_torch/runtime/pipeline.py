@@ -10,9 +10,11 @@ Copy of the reference's `etl_tpu/runtime/pipeline.py`, with the
 supervision tree (`supervision/`: heartbeats, the health state machine,
 the destination's circuit breaker and op-timeout wrapper, the host-oracle
 degrade) and poison-pill isolation (runtime/poison.py, through the apply
-loop) on by default, as in the reference. Sharding is not ported yet
-(ROADMAP.md, queue 1): a config that sets `shard` is refused at
-construction. The reference's autotune and program-store prewarm have no
+loop) on by default, as in the reference. A config that sets `shard` runs
+one shard pod: `start()` adopts the store's shard assignment and swaps the
+store for the pod's fenced view (sharding/runtime.py), and the pod keeps
+its own `DecodePipeline`s and CUDA streams on the one card. The
+reference's autotune and program-store prewarm have no
 counterpart until queue 1 item 6 (the program store and autotune); with
 `BatchEngine.CUDA` on a CUDA device, `start()` builds the kernel library
 instead, and raises when there is no card.
@@ -48,9 +50,12 @@ class Pipeline:
     def __init__(self, *, config: PipelineConfig, store: PipelineStore,
                  destination: Destination, source_factory):
         config.validate()
-        _refuse_unported(config)
         self.config = config
         self.store = store
+        # set at start() for sharded pods: the adopted ShardIdentity
+        # (shard, shard_count, epoch) — the raw store stays reachable
+        # through `self.store._inner` only via the scoped view
+        self.shard_identity = None
         self.destination = destination
         self.source_factory = source_factory  # () -> ReplicationSource
         self.shutdown_signal = ShutdownSignal()
@@ -85,6 +90,17 @@ class Pipeline:
                 heartbeat=self.supervisor.register("destination"))
 
     async def start(self) -> None:
+        if self.config.shard is not None and self.shard_identity is None:
+            # adopt the authoritative shard assignment and swap the store
+            # for this pod's filtered, write-fenced view BEFORE anything
+            # reads table states — init, the pool, and the apply worker
+            # must all see only this shard's slice
+            from ..sharding.runtime import resolve_shard_scope
+
+            scoped = await resolve_shard_scope(self.store, self.config)
+            self.store = scoped
+            self.shard_identity = scoped.identity
+            logger.info("shard scope: %s", scoped.identity.describe())
         batch = self.config.batch
         if batch.batch_engine is BatchEngine.CUDA \
                 and batch.device.split(":")[0] == "cuda":
@@ -190,6 +206,13 @@ class Pipeline:
         if not await source.publication_exists(pub):
             raise EtlError(ErrorKind.PUBLICATION_NOT_FOUND, pub)
         published = set(await source.get_publication_table_ids(pub))
+        if self.shard_identity is not None:
+            # this pod initialises (and may purge) only ITS slice of the
+            # publication; sibling shards own the rest. The store view is
+            # already filtered, so `known` below is owned tables only.
+            smap = self.shard_identity.shard_map()
+            published = {tid for tid in published
+                         if smap.owns(tid, self.shard_identity.shard)}
         known = await self.store.get_table_states()
         for tid in published:
             if tid not in known:
@@ -229,11 +252,21 @@ class Pipeline:
 
     def health_snapshot(self) -> dict:
         """The live supervision surface a health endpoint serves; minimal
-        shape when supervision is disabled."""
+        shape when supervision is disabled. Sharded pods always report
+        their identity (shard/shard_count/epoch) so an operator can tell
+        WHICH slice a degraded pod owns."""
         if self.supervisor is None:
-            return {"state": "unsupervised",
+            snap = {"state": "unsupervised",
                     "started": self._apply_task is not None}
-        return self.supervisor.snapshot()
+        else:
+            snap = self.supervisor.snapshot()
+        if self.config.shard is not None:
+            snap["shard"] = self.shard_identity.describe() \
+                if self.shard_identity is not None else {
+                    "shard": self.config.shard,
+                    "shard_count": self.config.shard_count,
+                    "epoch": None}  # not adopted yet (before start())
+        return snap
 
     async def shutdown(self) -> None:
         self.shutdown_signal.trigger()
@@ -242,12 +275,3 @@ class Pipeline:
         await self.shutdown()
         await self.wait()
 
-
-def _refuse_unported(config: PipelineConfig) -> None:
-    """Sharding is not ported yet: a config that sets `shard` is refused,
-    never run without it."""
-    if config.shard is not None:
-        raise EtlError(
-            ErrorKind.CONFIG_INVALID,
-            "shard (sharded scale-out) is not ported to etl_tpu_torch yet "
-            "(ROADMAP.md, queue 1: still to port); leave it unset")

@@ -81,6 +81,13 @@ PORT_MODULES = [
     "etl_tpu_torch.testing.pb_reader",
     "etl_tpu_torch.testing.fake_snowpipe",
     "etl_tpu_torch.testing.http_process",
+    "etl_tpu_torch.sharding.runtime", "etl_tpu_torch.sharding.coordinator",
+    "etl_tpu_torch.chaos.scenario", "etl_tpu_torch.chaos.invariants",
+    "etl_tpu_torch.chaos.runner", "etl_tpu_torch.chaos.corpus",
+    "etl_tpu_torch.chaos.sharded", "etl_tpu_torch.chaos.multi",
+    "etl_tpu_torch.chaos.dlq", "etl_tpu_torch.chaos.__main__",
+    "etl_tpu_torch.workloads", "etl_tpu_torch.workloads.generator",
+    "etl_tpu_torch.workloads.profiles", "etl_tpu_torch.bench_sharded",
 ]
 
 

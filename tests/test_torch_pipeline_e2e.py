@@ -512,16 +512,19 @@ class TestPortRules:
 
     @pytest.mark.parametrize("field", ["shard"])
     def test_unported_subsystems_refused_at_construction(self, field):
-        from etl_tpu_torch.models.errors import EtlError
-
+        """`shard` was the last subsystem the port refused here; sharding
+        is ported, so a sharded config constructs, and its identity waits
+        for start() to adopt the store's assignment."""
         kw = dict(OFF)
         kw["shard"], kw["shard_count"] = 0, 2
         config = PipelineConfig(pipeline_id=1, publication_name="pub",
                                 batch=BatchConfig(device="cpu"), **kw)
-        with pytest.raises(EtlError, match="not ported"):
-            Pipeline(config=config, store=NotifyingStore(),
+        p = Pipeline(config=config, store=NotifyingStore(),
                      destination=MemoryDestination(),
                      source_factory=lambda: FakeSource(make_db()))
+        assert p.shard_identity is None
+        assert p.health_snapshot()[field] == {
+            "shard": 0, "shard_count": 2, "epoch": None}
 
     @pytest.mark.parametrize("field", ["supervision", "poison"])
     async def test_reference_default_constructs_and_reaches_ready(

@@ -9,10 +9,11 @@ holds open), live quarantine lifts, column attribution and compaction.
 
 The CLI's `--postgres` and `replay --destination-json` are here too; the
 Postgres dialect of the store surface is in test_torch_sql_store.py.
-Waiting for later slices (ROADMAP.md, queue 1):
-`TestShardScopedDlqFence` (sharding), `TestDlqChaosScenarios` (the chaos
-runner), and the classification tests that need the HTTP destinations,
-BigQuery and Iceberg.
+`TestShardScopedDlqFence` holds the shard fence over the dead-letter and
+quarantine writes (memory and sqlite), and `TestDlqChaosScenarios` the
+port's DLQ chaos scenarios on its own pipeline (`device="cpu"`), held to
+the thread-leak invariant. Waiting for later slices (ROADMAP.md, queue
+1): the classification tests that need Iceberg.
 """
 
 from __future__ import annotations
@@ -414,6 +415,125 @@ class TestSqliteQuarantinePersistence:
         assert out["skipped"][0]["entry_id"] == entries[0].entry_id
         assert "replayed" in out["skipped"][0]["reason"]
         await s.close()
+
+
+# -- the shard fence over dead letters and quarantines ------------------------
+
+
+class TestShardScopedDlqFence:
+    async def _scoped(self, env, shard: int, epoch: int = 0,
+                      count: int = 2):
+        from etl_tpu_torch.sharding.runtime import (ShardIdentity,
+                                                    ShardScopedStore)
+        from etl_tpu_torch.sharding.shardmap import ShardAssignment
+
+        inner = await env.make()
+        await inner.update_shard_assignment(
+            ShardAssignment(epoch=epoch, shard_count=count))
+        return inner, ShardScopedStore(
+            inner, ShardIdentity(pipeline_id=1, shard=shard,
+                                 shard_count=count, epoch=epoch))
+
+    async def test_owned_writes_pass_others_fenced(self, dialect,
+                                                   tmp_path):
+        from etl_tpu_torch.sharding.shardmap import ShardMap
+
+        env = _StoreEnv(dialect, tmp_path)
+        try:
+            inner, scoped = await self._scoped(env, shard=0)
+            smap = ShardMap(2, 0)
+            owned = next(t for t in range(16384, 16500) if smap.owns(t, 0))
+            foreign = next(t for t in range(16384, 16500)
+                           if not smap.owns(t, 0))
+            ev = insert_event(make_schema(owned), 1, "x")
+            await scoped.append_dead_letters([make_entry(ev)])
+            await scoped.set_table_quarantine(
+                owned, QuarantineRecord(owned, 1, 1))
+            with pytest.raises(EtlError) as ei:
+                await scoped.append_dead_letters([make_entry(
+                    insert_event(make_schema(foreign), 1, "x"))])
+            assert ei.value.kind is ErrorKind.SHARD_NOT_OWNED
+            with pytest.raises(EtlError):
+                await scoped.set_table_quarantine(
+                    foreign, QuarantineRecord(foreign, 1, 1))
+            # reads pass through whole (CLI/invariant vantage)
+            assert len(await scoped.list_dead_letters()) == 1
+            assert set(await scoped.get_quarantined_tables()) == {owned}
+        finally:
+            await env.cleanup()
+
+    async def test_epoch_stale_refuses(self, dialect, tmp_path):
+        from etl_tpu_torch.sharding.shardmap import ShardAssignment, ShardMap
+
+        env = _StoreEnv(dialect, tmp_path)
+        try:
+            inner, scoped = await self._scoped(env, shard=0)
+            smap = ShardMap(2, 0)
+            owned = next(t for t in range(16384, 16500) if smap.owns(t, 0))
+            await inner.update_shard_assignment(
+                ShardAssignment(epoch=1, shard_count=2))
+            with pytest.raises(EtlError) as ei:
+                await scoped.set_table_quarantine(
+                    owned, QuarantineRecord(owned, 1, 1))
+            assert ei.value.kind is ErrorKind.SHARD_EPOCH_STALE
+            with pytest.raises(EtlError) as ei:
+                await scoped.append_dead_letters([make_entry(
+                    insert_event(make_schema(owned), 1, "x"))])
+            assert ei.value.kind is ErrorKind.SHARD_EPOCH_STALE
+            assert await inner.list_dead_letters() == []
+        finally:
+            await env.cleanup()
+
+
+# -- the DLQ chaos scenarios on the port's pipeline ---------------------------
+
+
+class TestDlqChaosScenarios:
+    async def test_poison_quarantine_scenario(self):
+        from etl_tpu_torch.chaos.dlq import run_dlq_poison
+
+        run = await run_dlq_poison(seed=7, device="cpu")
+        assert run.ok, run.report.violations
+        assert run.quarantined_tables == [16384]
+        assert run.poison_entries >= 3
+        assert run.parked_entries > 0
+        assert run.probe_writes <= run.probe_bound
+        assert run.replayed == run.dlq_entries
+
+    async def test_bisection_crash_scenario(self):
+        from etl_tpu_torch.chaos.dlq import run_dlq_bisection_crash
+
+        run = await run_dlq_bisection_crash(seed=7, device="cpu")
+        assert run.ok, run.report.violations
+        assert len(run.restarts) == 1
+        assert run.poison_entries >= 1
+
+    def test_cli_determinism(self):
+        """`python -m etl_tpu_torch.chaos --dlq --device cpu` replays
+        bit-identically per seed (timings stripped)."""
+        import os
+        import subprocess
+        import sys
+
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = repo
+        outs = []
+        for _ in range(2):
+            proc = subprocess.run(
+                [sys.executable, "-m", "etl_tpu_torch.chaos", "--dlq",
+                 "--device", "cpu", "--seed", "11"],
+                capture_output=True, text=True, timeout=240, cwd=repo,
+                env=env)
+            assert proc.returncode == 0, proc.stdout + proc.stderr
+            docs = [json.loads(line)
+                    for line in proc.stdout.strip().splitlines()]
+            for d in docs:
+                d.pop("duration_s", None)
+                for r in d.get("restarts", []):
+                    r.pop("recovery_s", None)
+            outs.append(docs)
+        assert outs[0] == outs[1]
 
 
 # -- isolator protocol units --------------------------------------------------

@@ -279,13 +279,16 @@ class TestRegistryAndRefusals:
 
     def test_shard_flags_answered_by_the_pipeline(self, tmp_path,
                                                   root_logging):
-        """`--shard`/`--shard-count` stay on the command line; the port's
-        Pipeline refuses a shard, so main exits 1 before it connects."""
+        """`--shard`/`--shard-count` reach the pipeline's config over the
+        document's keys: a shard index outside the count is refused there,
+        so main exits 1 before it connects (a valid pair runs a shard pod:
+        tests/test_torch_sharding.py)."""
         from etl_tpu_torch.replicator import main
 
         write_docs(tmp_path, {**BASE, "destination": {"type": "memory"},
-                              "store": {"type": "memory"}})
-        assert main(["--config-dir", str(tmp_path), "--shard", "0",
+                              "store": {"type": "memory"}, "shard": 0,
+                              "shard_count": 2})
+        assert main(["--config-dir", str(tmp_path), "--shard", "2",
                      "--shard-count", "2"]) == 1
 
 

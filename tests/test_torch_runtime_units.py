@@ -1199,6 +1199,66 @@ class TestAssemblerBulkPush:
         events = a.flush()
         assert len(events) == 2  # two sealed DecodedBatchEvents
 
+    def test_close_abandons_sealed_unflushed_runs(self):
+        """A run sealed and submitted but never flushed (the loop was
+        hard-killed before its next flush) returns its staging arena
+        when the assembler closes: nothing could consume it any more."""
+        from etl_tpu_torch.config.pipeline import BatchEngine
+        from etl_tpu_torch.models import (ReplicatedTableSchema, TableName,
+                                          TableSchema)
+        from etl_tpu_torch.ops.staging import ARENA_POOL
+        from etl_tpu_torch.postgres.codec import pgoutput
+        from etl_tpu_torch.runtime.assembler import EventAssembler
+
+        s2 = ReplicatedTableSchema.with_all_columns(TableSchema(
+            8, TableName("public", "u"),
+            (ColumnSchema("id", Oid.INT4, nullable=False,
+                          primary_key_ordinal=1),)))
+        before = ARENA_POOL.outstanding
+        a = EventAssembler(BatchEngine.CUDA, device="cpu")
+        n = 128  # past the decoder's 64-row floor: the device route
+        a.push_raw_rows([pgoutput.encode_insert(7, [str(i).encode()])
+                         for i in range(n)], self._schema(),
+                        list(range(n)), 10, 0)
+        # a row of another table seals (and submits) the first run
+        a.push_raw_rows([pgoutput.encode_insert(8, [b"1"])], s2, [n], 10, 1)
+        (ev,) = [e for e in a._events if len(e) == n]
+        ev._pending._future.result(timeout=5.0)  # packed: arena leased
+        assert ARENA_POOL.outstanding > before
+        a.close()
+        assert a.join(5.0)
+        assert ARENA_POOL.outstanding == before
+        assert a._events == []
+
+    def test_dropped_assembler_stops_its_worker(self):
+        """An assembler dropped without close() stops its decode worker
+        and frees its admission seat when it is collected: such a worker
+        outlived its test and failed the wire runs' shutdown check, which
+        counts every decode worker of the process, later on the same
+        pytest worker."""
+        import gc
+
+        from etl_tpu_torch.config.pipeline import BatchEngine
+        from etl_tpu_torch.ops.pipeline import (global_admission,
+                                                worker_threads)
+        from etl_tpu_torch.postgres.codec import pgoutput
+        from etl_tpu_torch.runtime.assembler import EventAssembler
+
+        before = set(worker_threads())
+        a = EventAssembler(BatchEngine.CUDA, device="cpu")
+        a.push_raw_rows([pgoutput.encode_insert(7, [b"1"])], self._schema(),
+                        [1], 10, 0)
+        assert len(a.flush()) == 1
+        assert worker_threads(exclude=before)  # the run's worker, alive
+        tenants = set(global_admission().stats()["tenants"])
+        assert tenants
+        del a
+        gc.collect()
+        for t in worker_threads(exclude=before):
+            t.join(5.0)
+        assert not worker_threads(exclude=before)
+        assert not set(global_admission().stats()["tenants"]) & tenants
+
 
 # ---- from tests/test_runtime_units.py
 class TestIdentityPreservingTableCache:

@@ -836,10 +836,12 @@ class TestNoOomFallback:
         """The reference degrades a batch to the oracle when its
         ENGINE_DEVICE_OOM failpoint fires (ops/pipeline.py:655-668). The
         port does not: the only way off the kernel is the supervisor's
-        degrade, and a failing device step fails its batch."""
+        degrade, and a failing device step fails its batch. The port's
+        OOM site fires on the device route, and a firing fails the batch
+        as any device error does: no oracle route."""
         from etl_tpu_torch.ops import pipeline as port_pipeline
 
-        # the reference's OOM site, armed, changes nothing in the port
+        # the reference's OOM site, armed, degrades nothing in the port
         failpoints.arm_error(failpoints.ENGINE_DEVICE_OOM,
                              ErrorKind.DEVICE_UNAVAILABLE, times=5)
         failpoints.arm_error(failpoints.PIPELINE_DISPATCH,
