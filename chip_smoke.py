@@ -157,6 +157,27 @@ the final result line:
    only: its Snowpipe row batches need zstandard, which the GPU host
    lacks.
 
+13. sharded replication (`bench_sharded`): K = 2 → 3 shard pods over one
+   fake source and one shared store; each pod's K1 + K2c launches equal
+   its device-routed batches.
+
+14. the chaos corpus, the pod kill, the multi-pipeline crash and the DLQ
+   scenarios, every batch through K1 (`device_floor(1)`).
+
+15. exactly-once and the ack window (`exactly_once_phase`): the hard-kill
+   matrix and the K-in-flight crash, the `--ack-latency` (both engines),
+   `--poison` and `--exactly-once` (both engines) modes at their
+   BENCH_FLOOR.json smoke sizes, each ratio beside its floor, and (c) the
+   decoder's leftover parity cases on K1; K1 = device-routed batches in
+   every run on the CUDA engine.
+
+16. the benchmark harness (`harness_phase`): the workload matrix with the
+   three filter profiles (K2c), the multi-pipeline mode, K = 1 and K = 2
+   shard worker processes (each worker's launches = its device-routed
+   batches, beside phase 13), lag at 25 % and 75 % of the maximum, the
+   wide row, and `python -m etl_tpu_torch.bench --smoke` as a process
+   (its exit code, gates and `not_ported` printed).
+
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -1432,6 +1453,500 @@ def chaos_phase(args, device: str = "cuda") -> dict:
     return {"14_chaos": out}
 
 
+def _launch_check(tag: str, d: dict, device: str, kernel: str = "k1",
+                  want_kernel: bool = True) -> None:
+    """On the card every device-routed batch of a run launched one kernel,
+    and (`want_kernel`) `kernel` launched; everywhere the run routed some
+    batch to the device."""
+    check(d["device_batches"] > 0,
+          f"{tag}: no batch took the device route")
+    if device == "cuda":
+        check(d["launches"] == d["device_batches"],
+              f"{tag}: launches {d['launches']} != device-routed batches "
+              f"{d['device_batches']}")
+        if want_kernel:
+            check(d[f"{kernel}_launches"] > 0, f"{tag}: {kernel} launched "
+                  "no time")
+
+
+def _gate_line(tag: str, value, floor, ok: bool) -> None:
+    print(f"  {tag}: {value} against floor {floor}: floor_ok={ok}",
+          flush=True)
+
+
+#: phase 15(c): seeded property cases of the leftover parity on K1
+PROPERTY_CASES = 24
+
+
+def leftover_cases(device: str, seed: int) -> dict:
+    """Phase 15(c): the decoder's leftover parity cases on K1
+    (tests/test_torch_decoder_leftovers.py on the CPU): one descriptor
+    serves 3, 100 and 250 rows, and 1- and 2-digit widths; a 5,000-byte
+    field falls back; 35 dense columns (ok bits past the first word);
+    the bitpack extremes (INT2/4/8 and FLOAT8 limits, long mantissas,
+    the tz offset edges); and seeded random schemas of the dense and text
+    kinds. Each batch equals the port's CPU codec (the oracle route) on
+    the same staged rows."""
+    import random
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.benchmarks.harness import counts_delta, kernel_counts
+    from etl_tpu_torch.models import (ColumnSchema, Oid,
+                                      ReplicatedTableSchema, TableName,
+                                      TableSchema)
+    from etl_tpu_torch.ops import decode_kernel as dk
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.staging import stage_tuples
+    from etl_tpu_torch.postgres.codec.pgoutput import (TUPLE_NULL,
+                                                       TUPLE_TEXT,
+                                                       TupleData)
+
+    def schema_of(oids):
+        return ReplicatedTableSchema.with_all_columns(TableSchema(
+            1, TableName("public", "t"),
+            tuple(ColumnSchema(f"c{i}", o) for i, o in enumerate(oids))))
+
+    def staged_of(rows, n):
+        return stage_tuples([TupleData(
+            [TUPLE_NULL if v is None else TUPLE_TEXT for v in r],
+            [None if v is None else v.encode() for v in r]) for r in rows],
+            n)
+
+    def same_as_oracle(oids, rows, tag):
+        s = schema_of(oids)
+        st = staged_of(rows, len(oids))
+        got = DeviceDecoder(s, device=device, device_min_rows=0).decode(st)
+        want = DeviceDecoder(s, device="cpu",
+                             device_min_rows=10**9).decode(st)
+        check(bench.batches_equal(got, want),
+              f"15(c) {tag}: the device route differs from the CPU codec")
+        return got
+
+    before = kernel_counts()
+    dec = DeviceDecoder(schema_of([Oid.INT4]), device=device,
+                        device_min_rows=0)
+    keys = set()
+    desc0 = len(dk._desc_cache)
+    for n in (3, 100, 250):
+        st = staged_of([[str(100 + i)] for i in range(n)], 1)
+        b = dec.decode(st)
+        check(list(b.columns[0].data) == [100 + i for i in range(n)],
+              f"15(c) buckets: {n} rows decoded wrong")
+        w = dec._widths(st)
+        keys.add((dec._specs(st, w), dec._can_nibble(w)))
+    for hi in (9, 99):
+        st = staged_of([[str(hi)] for _ in range(8)], 1)
+        check(dec.decode(st).columns[0].data[0] == hi,
+              f"15(c) widths: {hi} decoded wrong")
+        w = dec._widths(st)
+        keys.add((dec._specs(st, w), dec._can_nibble(w)))
+    descriptors = len(dk._desc_cache) - desc0
+    check(len(keys) == 2 and (device != "cuda" or descriptors <= 2),
+          f"15(c) descriptor cache: {len(keys)} spec sets, {descriptors} "
+          f"descriptors for 3/100/250 rows and 1/2-digit widths")
+    big = same_as_oracle([Oid.TEXT, Oid.INT4], [["x" * 5000, "7"]],
+                         "5000-byte field")
+    check(big.columns[0].value(0) == "x" * 5000, "15(c) 5000-byte field")
+    wide = same_as_oracle([Oid.INT4] * 35,
+                          [[str(i * 100 + j) for j in range(35)]
+                           for i in range(64)], "35 dense columns")
+    check(all(wide.columns[j].data[5] == 500 + j for j in (0, 30, 31, 34)),
+          "15(c) 35 dense columns decoded wrong")
+    same_as_oracle([Oid.INT2, Oid.INT4, Oid.INT8, Oid.FLOAT8],
+                   [["-32768", "-2147483648", "-9223372036854775808",
+                     "-1.5e22"],
+                    ["32767", "2147483647", "9223372036854775807", "1e-22"],
+                    ["0", "0", "0", "-0"]], "integer and float limits")
+    same_as_oracle([Oid.FLOAT8],
+                   [["123456789012345000000"], ["0.000000000000000012345"],
+                    ["999999999999999000000000"], ["1.5"]], "long mantissas")
+    same_as_oracle([Oid.TIMESTAMPTZ],
+                   [["2024-01-01 00:00:00+09"],
+                    ["2024-06-15 23:59:59.999999-15:59:59"],
+                    ["0001-01-01 00:00:00+15:59:59"],
+                    ["9999-12-31 23:59:59.999999-15:59:59"]],
+                   "tz offset edges")
+    rng = random.Random(seed)
+    gens = {
+        Oid.INT2: lambda: str(rng.randrange(-32768, 32768)),
+        Oid.INT4: lambda: str(rng.randrange(-2**31, 2**31)),
+        Oid.INT8: lambda: str(rng.randrange(-2**63, 2**63)),
+        Oid.FLOAT8: lambda: repr(rng.uniform(-1e9, 1e9)),
+        Oid.BOOL: lambda: rng.choice(["t", "f"]),
+        Oid.DATE: lambda: f"{rng.randrange(1, 10000):04d}-"
+                          f"{rng.randrange(1, 13):02d}-"
+                          f"{rng.randrange(1, 29):02d}",
+        Oid.TIMESTAMPTZ: lambda: f"20{rng.randrange(10, 40)}-0"
+                                 f"{rng.randrange(1, 10)}-1"
+                                 f"{rng.randrange(0, 9)} "
+                                 f"{rng.randrange(24):02d}:"
+                                 f"{rng.randrange(60):02d}:"
+                                 f"{rng.randrange(60):02d}."
+                                 f"{rng.randrange(10**6):06d}"
+                                 f"{rng.choice(['+', '-'])}"
+                                 f"{rng.randrange(16):02d}",
+        Oid.NUMERIC: lambda: f"{rng.randrange(-10**12, 10**12)}."
+                             f"{rng.randrange(100):02d}",
+        Oid.TEXT: lambda: "t-" + str(rng.randrange(10**9)),
+    }
+    kinds = list(gens)
+    for case in range(PROPERTY_CASES):
+        oids = [rng.choice(kinds) for _ in range(rng.randint(1, 6))]
+        rows = [[None if rng.random() < 0.1 else gens[o]() for o in oids]
+                for _ in range(rng.randint(1, 300))]
+        same_as_oracle(oids, rows, f"property case {case} (seed {seed})")
+    d = counts_delta(before)
+    _launch_check("15(c)", d, device)
+    print(f"  15(c) leftover parity on K1: descriptors +{descriptors} for "
+          f"{len(keys)} spec sets, 5000-byte field, 35 dense columns, "
+          f"limits, {PROPERTY_CASES} property cases == the CPU codec; "
+          f"k1={d['k1_launches']} device_batches={d['device_batches']}",
+          flush=True)
+    return d
+
+
+def exactly_once_phase(args, device: str = "cuda") -> dict:
+    """Phase 15: the exactly-once and ack-window scenarios on the card,
+    every batch through K1 (`chaos.runner.device_floor(1)`: at the
+    decoder's 64-row floor these few-row transactions take the oracle).
+    (a) `run_exactly_once_crash` (the mid-write, pre-progress-commit and
+    mid-recovery kills) and `run_ack_window_crash`: invariants green,
+    every row once through the transactional sink; (b) the modes at
+    BENCH_FLOOR.json's smoke sizes: `run_ack_latency` on the per-tuple
+    engine (the reference's gate) and on the CUDA engine,
+    `run_poison_streaming`, and `run_exactly_once` on both engines: each
+    mode's correctness checks (digests identical, one ack at window=1,
+    union, probe bound, dup == 0, seam coverage) must hold, and each
+    ratio prints beside its floor with `floor_ok` (a missed floor is a
+    finding, not a failure); (c) the decoder's leftover parity cases
+    (`leftover_cases`). On the card each run's K1 launches are > 0 and
+    equal its device-routed batches. The launch counts are set to 0 just
+    before the phase and read just after."""
+    import asyncio
+
+    from etl_tpu_torch.benchmarks import harness, smoke
+    from etl_tpu_torch.benchmarks.harness import counts_delta, kernel_counts
+    from etl_tpu_torch.chaos.ack_window import run_ack_window_crash
+    from etl_tpu_torch.chaos.exactly_once import run_exactly_once_crash
+    from etl_tpu_torch.chaos.runner import device_floor
+
+    floors = smoke.load_floors()
+    print("[15] exactly-once and ack-window on the card: the kill matrix, "
+          "the K-in-flight crash, then --ack-latency, --poison and "
+          "--exactly-once at their smoke sizes, every batch through K1",
+          flush=True)
+    oracle_clear("phase 15")
+    _reset_launch_counts()
+    out: dict = {}
+    t0 = time.perf_counter()
+    with device_floor(1):
+        for name, fn in (("exactly_once_crash", run_exactly_once_crash),
+                         ("ack_window_crash", run_ack_window_crash)):
+            before = kernel_counts()
+            run = asyncio.run(fn(seed=args.seed, device=device))
+            d = counts_delta(before)
+            desc = run.describe()
+            print(f"  15(a) {name}: ok={run.ok} duration_s="
+                  f"{desc['duration_s']} k1={d['k1_launches']} "
+                  f"device_batches={d['device_batches']}", flush=True)
+            check(run.ok, f"15(a) {name}: {desc['invariants']['violations']}")
+            if name == "exactly_once_crash":
+                for w in run.windows:
+                    print(f"    window {w['window']}: max_duplication="
+                          f"{w['max_duplication']} delivered="
+                          f"{w['delivered_events']} restarts="
+                          f"{len(w['restarts'])} recover_calls="
+                          f"{w['recover_calls']}", flush=True)
+                    check(w["max_duplication"] <= 1,
+                          f"15(a) {w['window']}: a row twice through the "
+                          "transactional sink")
+            else:
+                check(run.acks_in_flight_at_kill >= 2,
+                      "15(a) the kill landed with < 2 acks in flight")
+            _launch_check(f"15(a) {name}", d, device)
+            out[name] = {"ok": run.ok, "duration_s": desc["duration_s"],
+                         **d}
+
+        modes = (
+            ("ack_latency_cpu_engine", smoke.gate_ack,
+             lambda: harness.run_ack_latency(
+                 ack_ms=floors.get("ack_latency_smoke_ms", 20),
+                 engine="cpu", device=device),
+             "ack_window_speedup", "speedup_floor"),
+            ("ack_latency_cuda_engine", smoke.gate_ack,
+             lambda: harness.run_ack_latency(
+                 ack_ms=floors.get("ack_latency_smoke_ms", 20),
+                 engine="cuda", device=device),
+             "ack_window_speedup", "speedup_floor"),
+            ("poison", smoke.gate_poison,
+             lambda: harness.run_poison_streaming(
+                 rate=floors.get("poison_rate", 0.001), seed=args.seed,
+                 target_ops=floors.get("poison_smoke_ops", 12_000),
+                 device=device),
+             "poison_throughput_ratio", "ratio_floor"),
+            ("exactly_once_cpu_engine", smoke.gate_exactly_once,
+             lambda: harness.run_exactly_once(
+                 n_events=floors.get("exactly_once_smoke_events", 3_000),
+                 engine="cpu", device=device),
+             "exactly_once_overhead_ratio", "ratio_floor"),
+            ("exactly_once_cuda_engine", smoke.gate_exactly_once,
+             lambda: harness.run_exactly_once(
+                 n_events=floors.get("exactly_once_smoke_events", 3_000),
+                 engine="cuda", device=device),
+             "exactly_once_overhead_ratio", "ratio_floor"))
+        for name, gate, fn, ratio_key, floor_key in modes:
+            before = kernel_counts()
+            res = gate(asyncio.run(fn()), floors)
+            d = counts_delta(before)
+            wrong = smoke.correctness_failures(res["failures"])
+            print(f"  15(b) {name}: engine={res['engine']} "
+                  f"k1={d['k1_launches']} device_batches="
+                  f"{d['device_batches']} failures={res['failures']}",
+                  flush=True)
+            _gate_line(f"15(b) {name} {ratio_key}", res[ratio_key],
+                       res[floor_key], res["floor_ok"])
+            check(not wrong, f"15(b) {name}: {wrong}")
+            if res["engine"] == "cuda":
+                _launch_check(f"15(b) {name}", d, device)
+            else:
+                check(d["launches"] == 0,
+                      f"15(b) {name}: the per-tuple engine launched a "
+                      "kernel")
+            summary = {k: res[k] for k in (ratio_key, floor_key,
+                                           "floor_ok", "failures")}
+            if name.startswith("ack_latency"):
+                for leg in ("windowed", "window1"):
+                    summary[f"{leg}_events_per_second"] = \
+                        res[leg]["events_per_second"]
+                    summary[f"{leg}_max_acks_pending"] = \
+                        res[leg]["max_acks_pending"]
+            elif name == "poison":
+                summary.update(
+                    clean_events_per_second=res["clean_events_per_second"],
+                    poisoned_events_per_second=res[
+                        "poisoned_events_per_second"],
+                    poison_rows=res["poisoned"]["poison_rows_committed"],
+                    dlq_entries=res["poisoned"]["dlq_entries"],
+                    probe_writes=res["poisoned"]["probe_writes"],
+                    probe_bound=res["poisoned"]["probe_bound"])
+            else:
+                summary.update(
+                    plain_events_per_second=res["plain_events_per_second"],
+                    transactional_events_per_second=res[
+                        "transactional_events_per_second"],
+                    duplicate_rows=res["restart"]["duplicate_rows"],
+                    restreamed_deduped_rows=res["restart"][
+                        "restreamed_deduped_rows"],
+                    unacked_suffix_rows=res["restart"][
+                        "unacked_suffix_rows"])
+            print(f"    {json.dumps(summary)}", flush=True)
+            out[name] = {**summary, **d}
+    out["15c_leftovers"] = leftover_cases(device, args.seed)
+    out["wall_s"] = time.perf_counter() - t0
+    out.update(_launch_counts())
+    print(f"  phase 15 in {out['wall_s']:.1f} s; launches: "
+          f"k1={out['k1_launches']} k2c={out['k2c_launches']}", flush=True)
+    return {"15_exactly_once": out}
+
+
+def harness_phase(args, runtime: dict, device: str = "cuda") -> dict:
+    """Phase 16: the benchmark harness on the card. (a) `run_workload_
+    matrix` over BENCH_FLOOR.json's `workload_smoke_profiles` and the three
+    `filter_selective_*` profiles (offload mode: K2c), at
+    `workload_smoke_ops`, every batch on the device route: each profile
+    verifies its end state, K2c launches equal the filter profiles'
+    device-routed batches and K1 the others'; (b) `run_multi_pipeline`
+    over `multi_pipeline_smoke_profiles`; (c) `run_sharded_processes` at
+    K = 1 and K = 2 over `sharded_bench_ops` (K worker processes on the
+    card, the library built before them, every batch on the device
+    route): each worker's launches equal its device-routed batches; each
+    worker's events/s and device batches per 1,000 events print beside
+    phase 13's; (d) `run_lag_vs_rate` at 25 % and 75 % of the probed
+    maximum; (e) `run_wide_row`; (f) `python -m etl_tpu_torch.bench
+    --smoke` as a process: its exit code, gates and `not_ported` list
+    print, and its correctness checks must hold. Every floor prints beside
+    its value with `floor_ok`. The launch counts are set to 0 just before
+    the phase and read just after; the worker processes' launches are
+    added from their reports."""
+    import asyncio
+    import subprocess
+
+    from etl_tpu_torch.benchmarks import harness, smoke
+    from etl_tpu_torch.benchmarks.harness import counts_delta, kernel_counts
+    from etl_tpu_torch.chaos.runner import device_floor
+
+    floors = smoke.load_floors()
+    print("[16] the benchmark harness on the card", flush=True)
+    oracle_clear("phase 16")
+    _reset_launch_counts()
+    out: dict = {}
+    t0 = time.perf_counter()
+    filt = ["filter_selective_10", "filter_selective_50",
+            "filter_selective_90"]
+    profiles = list(dict.fromkeys(floors["workload_smoke_profiles"] + filt))
+    with device_floor(1):
+        wm = smoke.gate_workload(asyncio.run(harness.run_workload_matrix(
+            profiles, seed=args.seed,
+            target_ops=floors.get("workload_smoke_ops", 400),
+            device=device)), floors)
+        for name, r in wm["profiles"].items():
+            print(f"  16(a) {name}: events/s={r['events_per_second']} "
+                  f"verified={r['verified']} k1={r['k1_launches']} "
+                  f"k2c={r['k2c_launches']} device_batches="
+                  f"{r['device_batches']} rows_filtered="
+                  f"{r['decode_rows_filtered']}", flush=True)
+            _gate_line(f"16(a) {name} events/s", r["events_per_second"],
+                       wm["floors"].get(name), r["events_per_second"]
+                       >= wm["floors"].get(name, 0))
+            check(r["verified"], f"16(a) {name}: end state not verified")
+            _launch_check(f"16(a) {name}", r, device,
+                          "k2c" if name in filt else "k1")
+            if name in filt and device == "cuda":
+                check(r["k2c_launches"] == r["device_batches"],
+                      f"16(a) {name}: K2c {r['k2c_launches']} != its "
+                      f"device-routed batches {r['device_batches']}")
+        out["16a_workloads"] = {n: {k: r[k] for k in (
+            "events_per_second", "k1_launches", "k2c_launches",
+            "device_batches", "decode_rows_filtered")}
+            for n, r in wm["profiles"].items()}
+
+        mp = smoke.gate_multi(asyncio.run(harness.run_multi_pipeline(
+            profiles=floors.get("multi_pipeline_smoke_profiles"),
+            seed=args.seed,
+            target_ops=floors.get("multi_pipeline_smoke_ops", 500),
+            device=device)), floors)
+        print(f"  16(b) multi-pipeline: {json.dumps(mp['per_stream'])} "
+              f"grants={mp['admission_grants']} drained="
+              f"{mp['scheduler_drained']} k1={mp['k1_launches']} "
+              f"device_batches={mp['device_batches']}", flush=True)
+        _gate_line("16(b) aggregate events/s",
+                   mp["aggregate_events_per_second"],
+                   mp["floor_events_per_second"], mp["floor_ok"])
+        check(not smoke.correctness_failures(mp["failures"]),
+              f"16(b) multi-pipeline: {mp['failures']}")
+        _launch_check("16(b) multi-pipeline", mp, device)
+        out["16b_multi_pipeline"] = {k: mp[k] for k in (
+            "aggregate_events_per_second", "floor_events_per_second",
+            "floor_ok", "per_stream", "k1_launches", "device_batches")}
+
+    ops = floors.get("sharded_bench_ops", 12_000)
+    single = asyncio.run(harness.run_sharded_processes(
+        shards=1, seed=args.seed, target_ops=ops, device=device,
+        device_floor=1))
+    sharded = smoke.gate_sharded(asyncio.run(harness.run_sharded_processes(
+        shards=2, seed=args.seed, target_ops=ops, device=device,
+        device_floor=1)), floors, single=single)
+    r13 = runtime.get("13_sharded", {})
+    worker_k1 = worker_k2c = 0
+    for tag, res in (("K=1", single), ("K=2", sharded)):
+        for s, w in res["per_shard"].items():
+            print(f"  16(c) {tag} worker {s}: tables={w['tables']} "
+                  f"events/s={w['events_per_second']} verified="
+                  f"{w['verified']} k1={w['k1_launches']} k2c="
+                  f"{w['k2c_launches']} device_batches="
+                  f"{w['device_batches']} device batches per 1,000 "
+                  f"events={w['device_batches_per_1000_events']:.2f}",
+                  flush=True)
+            check(w["verified"], f"16(c) {tag} worker {s}: not verified")
+            check(w["launches_ok"] and w["device_batches"] > 0,
+                  f"16(c) {tag} worker {s}: launches {w['launches']} vs "
+                  f"device-routed batches {w['device_batches']}")
+            if device == "cuda":
+                check(w["k1_launches"] > 0,
+                      f"16(c) {tag} worker {s}: K1 launched no time")
+            worker_k1 += w["k1_launches"]
+            worker_k2c += w["k2c_launches"]
+    if r13:
+        print(f"  16(c) phase 13 of this call: events/s="
+              f"{r13['events_per_second']:.0f} over 2 -> 3 pods in one "
+              f"process, device batches per 1,000 events="
+              f"{1000 * r13['device_batches'] / args.shard_events:.2f}",
+              flush=True)
+    _gate_line("16(c) K=2 aggregate events/s",
+               sharded["aggregate_events_per_second"],
+               sharded["floor_events_per_second"], sharded["floor_ok"])
+    print(f"  16(c) K=2 / K=1: {sharded['speedup_vs_single']} (the "
+          f"reference's --sharded asks for > 1)", flush=True)
+    check(sharded["all_verified"] and single["all_verified"]
+          and sharded["union_covers_all_tables"],
+          f"16(c) the sharded processes: {sharded['failures']}")
+    out["16c_sharded"] = {
+        "k1": {s: {k: w[k] for k in (
+            "events_per_second", "device_batches",
+            "device_batches_per_1000_events", "k1_launches")}
+            for s, w in single["per_shard"].items()},
+        "k2": {s: {k: w[k] for k in (
+            "events_per_second", "device_batches",
+            "device_batches_per_1000_events", "k1_launches")}
+            for s, w in sharded["per_shard"].items()},
+        "aggregate_k1": single["aggregate_events_per_second"],
+        "aggregate_k2": sharded["aggregate_events_per_second"],
+        "floor": sharded["floor_events_per_second"],
+        "floor_ok": sharded["floor_ok"],
+        "speedup_vs_single": sharded["speedup_vs_single"]}
+
+    lag = asyncio.run(harness.run_lag_vs_rate(fractions=(0.25, 0.75),
+                                              device=device))
+    for row in lag["rates"]:
+        print(f"  16(d) lag at {row['fraction']} of "
+              f"{lag['max_events_per_second']:.0f} events/s: target "
+              f"{row['target_rate']} events={row['events']} p50_ms="
+              f"{row['p50_ms']:.2f} p95_ms={row['p95_ms']:.2f} k1="
+              f"{row['k1_launches']}", flush=True)
+    check(lag["ok"], "16(d) a lag run's checks failed")
+    check(device != "cuda" or all(r["k1_launches"] > 0
+                                  for r in lag["rates"]),
+          "16(d) a paced run launched no K1")
+    out["16d_lag"] = lag
+
+    before = kernel_counts()
+    wide = harness.run_wide_row(device=device)
+    d = counts_delta(before)
+    print(f"  16(e) wide row: rows/s={wide['rows_per_second']} cells/s="
+          f"{wide['cells_per_second']} dense={wide['dense_columns']} "
+          f"object={wide['object_columns']} words/row="
+          f"{wide['words_per_row']} == oracle route: "
+          f"{wide['equals_oracle']} k1={d['k1_launches']}", flush=True)
+    check(wide["ok"], "16(e) the wide row differs from the oracle route")
+    _launch_check("16(e) wide row", d, device)
+    out["16e_wide_row"] = {k: wide[k] for k in (
+        "rows_per_second", "cells_per_second", "dense_columns",
+        "object_columns", "words_per_row")}
+
+    proc = subprocess.run(
+        [sys.executable, "-m", "etl_tpu_torch.bench", "--smoke",
+         "--device", device], capture_output=True, text=True, timeout=900,
+        cwd=ROOT)
+    try:
+        sm = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        sm = {}
+    print(f"  16(f) bench --smoke: rc={proc.returncode} ok={sm.get('ok')} "
+          f"gates={json.dumps(sm.get('gates'))}", flush=True)
+    print(f"  16(f) not_ported: {json.dumps(sorted(sm.get('not_ported', {})))}",
+          flush=True)
+    for key in ("table_streaming_events_per_second", "ack_window_speedup",
+                "poison_throughput_ratio", "exactly_once_overhead_ratio",
+                "multi_pipeline_events_per_second",
+                "sharded_events_per_second", "workload_events_per_second"):
+        print(f"  16(f) {key}={json.dumps(sm.get(key))}", flush=True)
+    check(bool(sm) and all(sm.get("correctness", {"": False}).values()),
+          f"16(f) bench --smoke: a correctness check failed "
+          f"({json.dumps(sm.get('correctness'))}; stderr "
+          f"{proc.stderr[-600:]})")
+    out["16f_smoke"] = {k: sm.get(k) for k in (
+        "ok", "gates", "correctness", "not_ported")}
+    out["16f_smoke"]["rc"] = proc.returncode
+    out["wall_s"] = time.perf_counter() - t0
+    out.update(_launch_counts())
+    out["k1_launches"] += worker_k1
+    out["k2c_launches"] += worker_k2c
+    print(f"  phase 16 in {out['wall_s']:.1f} s; launches (workers "
+          f"included): k1={out['k1_launches']} k2c={out['k2c_launches']}",
+          flush=True)
+    return {"16_harness": out}
+
+
 def _warehouse_lines(r: dict) -> None:
     run = r["run"]
     print(f"  warehouse: watched {r['watched_rows']} rows, bad "
@@ -1814,6 +2329,8 @@ def main() -> int:
     runtime.update(warehouse_phase(args, runtime))
     runtime.update(sharded_phase(args, runtime))
     runtime.update(chaos_phase(args))
+    runtime.update(exactly_once_phase(args))
+    runtime.update(harness_phase(args, runtime))
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs

@@ -59,6 +59,16 @@ runs the replicator binary over the Postgres wire protocol
 in a child process, into the named destination (a warehouse one against
 its HTTP fake in another child process); with `--profile`, cProfile of
 the event loop into PATH and the destination's share of it.
+
+    python -m etl_tpu_torch.bench [--device cpu] --smoke | --ack-latency
+        MS | --poison | --exactly-once | --workload PROFILE|all |
+        --multi-pipeline | --sharded K | --mode lag|wide_row
+
+are the reference's harness modes (`etl_tpu_torch/benchmarks/`), each
+held to its floor in BENCH_FLOOR.json (`benchmarks/smoke.py`), one JSON
+line each, exit 0 only when the gate holds; `--smoke` runs every gate
+the port has and lists the rest under `not_ported`. They decode on the
+card unless `--device cpu` is given (the kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -2528,6 +2538,68 @@ async def run_replicator_binary(copy_rows: int = 100_000,
     return out
 
 
+def _run_harness_mode(args, ap) -> "dict | None":
+    """The harness mode the flags ask for (etl_tpu_torch/benchmarks), its
+    BENCH_FLOOR.json gate applied; None for the modes of this module."""
+    from .benchmarks import harness, smoke
+
+    device = args.device
+    engine = args.engine
+    if args.smoke:
+        return smoke.run_smoke(device=device)
+    if args.mode == "lag":
+        return asyncio.run(harness.run_lag_vs_rate(device=device))
+    if args.mode == "wide_row":
+        return harness.run_wide_row(device=device)
+    floors = smoke.load_floors()
+    if args.ack_latency is not None:
+        return smoke.gate_ack(asyncio.run(harness.run_ack_latency(
+            ack_ms=args.ack_latency, engine=engine or "cpu",
+            device=device)), floors)
+    if args.poison:
+        return smoke.gate_poison(asyncio.run(harness.run_poison_streaming(
+            rate=floors.get("poison_rate", 0.001), seed=args.seed,
+            target_ops=args.poison_ops
+            or floors.get("poison_smoke_ops", 12_000),
+            device=device)), floors)
+    if args.exactly_once:
+        return smoke.gate_exactly_once(asyncio.run(harness.run_exactly_once(
+            n_events=floors.get("exactly_once_smoke_events", 3_000),
+            engine=engine or "cpu", device=device)), floors)
+    if args.workload is not None:
+        from .workloads import profile_names
+
+        names = profile_names() if args.workload == "all" \
+            else [args.workload]
+        return smoke.gate_workload(asyncio.run(harness.run_workload_matrix(
+            names, seed=args.seed, engine=engine or "cuda",
+            device=device)), floors)
+    if args.multi_pipeline:
+        profiles = args.streams.split(",") if args.streams \
+            else floors.get("multi_pipeline_smoke_profiles")
+        return smoke.gate_multi(asyncio.run(harness.run_multi_pipeline(
+            profiles=profiles, seed=args.seed, engine=engine or "cuda",
+            device=device)), floors)
+    if args.sharded is not None:
+        if args.sharded < 2:
+            ap.error("--sharded needs K >= 2 (the single-shard baseline "
+                     "runs automatically)")
+        target = floors.get("sharded_bench_ops", 12_000)
+
+        async def both():
+            sharded = await harness.run_sharded_processes(
+                shards=args.sharded, seed=args.seed, target_ops=target,
+                engine=engine or "cuda", device=device)
+            single = await harness.run_sharded_processes(
+                shards=1, seed=args.seed, target_ops=target,
+                engine=engine or "cuda", device=device)
+            return sharded, single
+
+        sharded, single = asyncio.run(both())
+        return smoke.gate_sharded(sharded, floors, single=single)
+    return None
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2569,11 +2641,76 @@ def main(argv=None) -> int:
                     help="--wire: profile the event loop's thread "
                          "(cProfile), write its top functions to PATH and "
                          "report the destination's share of it")
+    # the reference's harness modes (etl_tpu_torch/benchmarks), each held
+    # to its floor in BENCH_FLOOR.json
+    mode.add_argument("--mode", default=None,
+                      choices=("decode", "lag", "wide_row"),
+                      help="lag: p50/p95 lag at 25/50/75 %% of the probed "
+                           "maximum; wide_row: 100 columns of 10 kinds "
+                           "through the decoder (decode: the default "
+                           "headline)")
+    mode.add_argument("--ack-latency", dest="ack_latency", type=float,
+                      default=None, metavar="MS",
+                      help="windowed-ack A/B: the same backlog against "
+                           "acks MS ms late, at the default write window "
+                           "and at window=1 (ack_window_speedup_floor)")
+    mode.add_argument("--poison", action="store_true",
+                      help="clean vs 0.1 %%-poisoned CDC with isolation "
+                           "live (poison_ratio_floor)")
+    mode.add_argument("--exactly-once", dest="exactly_once",
+                      action="store_true",
+                      help="plain vs transactional sink drains and a "
+                           "hard-kill restart leg "
+                           "(exactly_once_ratio_floor)")
+    mode.add_argument("--workload", default=None, metavar="PROFILE",
+                      help="a workload profile ('all': every profile) "
+                           "through the full pipeline with end-state "
+                           "verification (workload_floors)")
+    mode.add_argument("--multi-pipeline", dest="multi_pipeline",
+                      action="store_true",
+                      help="verified streams sharing the admission "
+                           "scheduler (multi_pipeline_events_per_sec_floor)")
+    mode.add_argument("--sharded", type=int, default=None, metavar="K",
+                      help="K shard replicator processes and a K = 1 "
+                           "baseline (sharded_events_per_sec_floor, and "
+                           "strictly above the baseline)")
+    mode.add_argument("--smoke", action="store_true",
+                      help="every ported gate of BENCH_FLOOR.json at its "
+                           "smoke size; the rest listed under not_ported")
+    ap.add_argument("--streams", default=None, metavar="P1,P2,...",
+                    help="--multi-pipeline: the workload profiles "
+                         "(default: multi_pipeline_smoke_profiles)")
+    ap.add_argument("--poison-ops", dest="poison_ops", type=int,
+                    default=None, metavar="N",
+                    help="--poison: row ops a pass (default: "
+                         "poison_smoke_ops)")
+    ap.add_argument("--seed", type=int, default=7,
+                    help="the workload seed of the harness modes")
+    ap.add_argument("--engine", default=None, choices=("cuda", "cpu"),
+                    help="--ack-latency, --exactly-once: cpu (their "
+                         "default, the per-tuple path, as in the "
+                         "reference) or cuda; --workload, "
+                         "--multi-pipeline, --sharded: cuda (default) or "
+                         "cpu")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
+                    help="the torch device of the CUDA engine's decoders "
+                         "for the harness modes: cuda (the default; no "
+                         "card fails the run) or cpu (the kernels' plain "
+                         "versions)")
     args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
+    if args.device == "cuda" and not torch.cuda.is_available():
         print("etl_tpu_torch.bench: no CUDA device; nothing measured",
               file=sys.stderr)
         return 1
+    harness_out = _run_harness_mode(args, ap)
+    if harness_out is not None:
+        if args.device == "cuda":
+            harness_out["device_name"] = torch.cuda.get_device_name(0)
+            harness_out["power_limit"] = card_info().split(",")[-1].strip()
+        print(json.dumps(harness_out))
+        return 0 if harness_out["ok"] else 1
+    if args.device == "cpu":
+        ap.error("--device cpu applies to the harness modes only")
     if args.egress:
         res = run_egress(args.rows or N_ROWS)
         res["device_name"] = torch.cuda.get_device_name(0)

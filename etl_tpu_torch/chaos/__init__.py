@@ -16,8 +16,8 @@ Three parts (the reference's docs/chaos.md):
 deterministically.
 
 Copy of the reference's `etl_tpu/chaos`, on the port's pipeline. The
-exactly-once, ack-window, autoscale and fleet scenario families wait for
-their modules (ROADMAP.md, queue 1).
+autoscale and fleet scenario families wait for their modules (ROADMAP.md,
+queue 1).
 
 Only `failpoints` is imported eagerly: the runtime package imports it at
 module-import time, so the heavyweight runner/corpus (which import the

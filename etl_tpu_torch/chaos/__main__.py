@@ -9,10 +9,9 @@ was violated.
 Copy of the reference's `etl_tpu/chaos/__main__.py`. The pipelines decode
 on the card (`--device cuda`, the default; no card fails the run) unless
 `--device cpu` is given. Scenarios that need a module the port does not
-have yet are refused typed (CONFIG_INVALID, exit 2): `--autoscale`,
-`--fleet`, `--exactly-once` and `--ack-window` (their chaos modules), and
-the program-cache scenarios (the program store), which the corpus run
-prints as refused and passes over.
+have yet are refused typed (CONFIG_INVALID, exit 2): `--autoscale` and
+`--fleet` (their chaos modules), and the program-cache scenarios (the
+program store), which the corpus run prints as refused and passes over.
 """
 
 from __future__ import annotations
@@ -157,9 +156,7 @@ def main(argv: list[str] | None = None) -> int:
 #: the reference's scenario families whose modules are not ported yet
 #: (ROADMAP.md, queue 1), by flag
 _UNPORTED = {
-    "exactly_once": "chaos/exactly_once.py (transactional sink commits)",
     "fleet": "chaos/fleet.py and fleet/ (the fleet reconciler)",
-    "ack_window": "chaos/ack_window.py (the windowed destination ack)",
     "autoscale": "chaos/autoscale.py and autoscale/ (the controller)",
 }
 
@@ -191,6 +188,20 @@ def _run(parser, args) -> int:
                        "plain versions)")
     device = args.device
 
+    if args.exactly_once:
+        if args.matrix or args.workload or args.scenario or args.sharded \
+                or args.multi_pipeline or args.ack_window or args.dlq:
+            parser.error("--exactly-once runs its own hard-kill matrix "
+                         "and cannot be combined with --matrix/"
+                         "--workload/--scenario/--sharded/"
+                         "--multi-pipeline/--ack-window/--dlq")
+        from .exactly_once import run_exactly_once_crash
+
+        run = asyncio.run(run_exactly_once_crash(seed=args.seed,
+                                                 device=device))
+        print(json.dumps(run.describe(), sort_keys=True))
+        return 0 if run.ok else 1
+
     if args.multi_pipeline:
         if args.matrix or args.workload or args.scenario or args.sharded:
             parser.error("--multi-pipeline runs its own two-stream "
@@ -203,11 +214,24 @@ def _run(parser, args) -> int:
         print(json.dumps(run.describe(), sort_keys=True))
         return 0 if run.ok else 1
 
-    if args.dlq:
+    if args.ack_window:
         if args.matrix or args.workload or args.scenario or args.sharded:
+            parser.error("--ack-window runs its own K-in-flight crash "
+                         "scenario and cannot be combined with --matrix/"
+                         "--workload/--scenario/--sharded")
+        from .ack_window import run_ack_window_crash
+
+        run = asyncio.run(run_ack_window_crash(seed=args.seed,
+                                               device=device))
+        print(json.dumps(run.describe(), sort_keys=True))
+        return 0 if run.ok else 1
+
+    if args.dlq:
+        if args.matrix or args.workload or args.scenario or args.sharded \
+                or args.ack_window:
             parser.error("--dlq runs its own poison-isolation scenarios "
                          "and cannot be combined with --matrix/"
-                         "--workload/--scenario/--sharded")
+                         "--workload/--scenario/--sharded/--ack-window")
         from .dlq import run_dlq_scenarios
 
         runs = asyncio.run(run_dlq_scenarios(seed=args.seed, device=device))

@@ -8,7 +8,7 @@ Two differ in what they prove on the port: `device_oom_fallback` (the
 port has no per-batch OOM fallback, so each firing fails its batch and
 the worker re-streams it: held to no loss and bounded duplicates), and
 the two program-cache scenarios, which the runner refuses until the
-program store is ported (ROADMAP.md, queue 1 item 6).
+program store is ported (ROADMAP.md, queue 1 entry 8).
 
 Layers covered:
 

@@ -24,7 +24,7 @@ Copy of the reference's `etl_tpu/chaos/runner.py`, on the port's pipeline:
 card, unless the caller asks for "cpu", where the kernels' plain versions
 run). Two departures:
 
-  - the port has no program store yet (ROADMAP.md, queue 1 item 6), so a
+  - the port has no program store yet (ROADMAP.md, queue 1 entry 8), so a
     scenario with `program_cache` set is refused with a typed
     CONFIG_INVALID before anything runs;
   - the port has no per-batch device-OOM fallback: an
@@ -344,7 +344,7 @@ def refuse_unported(scenario: Scenario) -> None:
             ErrorKind.CONFIG_INVALID,
             f"scenario {scenario.name!r} needs the program store "
             f"(program_cache={scenario.program_cache!r}), which is not "
-            "ported to etl_tpu_torch yet (ROADMAP.md, queue 1 item 6)")
+            "ported to etl_tpu_torch yet (ROADMAP.md, queue 1 entry 8)")
 
 
 async def run_scenario(scenario: Scenario, seed: int,

@@ -4,6 +4,7 @@ from configuration."""
 
 from .base import (CommitRange, Destination, WriteAck, event_coordinate,
                    expand_batch_events)
+from .delay import DelayedAckDestination
 from .memory import (FaultAction, FaultInjectingDestination, FaultKind,
                      MemoryDestination, PoisonRejectingDestination,
                      TransactionalMemoryDestination)

@@ -84,7 +84,10 @@ from ..models.table_row import (Column, ColumnarBatch, TextArray, _to_dense,
 from ..postgres.codec.copy_text import unescape_copy_field
 from ..postgres.codec.text import parse_cell_text
 from ..telemetry.metrics import (ETL_DECODE_DEVICE_SECONDS_TOTAL,
+                                 ETL_DECODE_FETCHED_BYTES_TOTAL,
+                                 ETL_DECODE_FILTER_SELECTIVITY,
                                  ETL_DECODE_KERNEL_SECONDS_TOTAL,
+                                 ETL_DECODE_ROWS_FILTERED_TOTAL,
                                  ETL_EGRESS_DEVICE_BATCHES_TOTAL,
                                  ETL_EGRESS_FETCH_SECONDS_TOTAL,
                                  ETL_EGRESS_RENDER_SECONDS_TOTAL,
@@ -836,6 +839,20 @@ class DeviceDecoder:
             self._cpu_fixup(staged, rows, columns)
         return ColumnarBatch(self.schema, columns), rows
 
+    def _filter_telemetry(self, n_in: int, n_out: int,
+                          fetched_bytes: float) -> None:
+        """The reference's fused-filter counters: the bytes a device
+        route fetched, the rows the filter dropped, and the batch's
+        selectivity."""
+        if fetched_bytes:
+            registry.counter_inc(ETL_DECODE_FETCHED_BYTES_TOTAL,
+                                 float(fetched_bytes))
+        if n_in > n_out:
+            registry.counter_inc(ETL_DECODE_ROWS_FILTERED_TOTAL,
+                                 n_in - n_out)
+        if n_in and self._row_filter is not None:
+            registry.gauge_set(ETL_DECODE_FILTER_SELECTIVITY, n_out / n_in)
+
     def _complete(self, p: _PendingDecode) -> ColumnarBatch:
         """Wait for the words of an in-flight decode, assemble the batch,
         record the stage times and return the pinned buffers."""
@@ -884,6 +901,7 @@ class DeviceDecoder:
                 batch.source_rows = surv
             p.timings["assemble_ms"] = (time.perf_counter() - t0) * 1e3
         p.timings["fetched_bytes"] = fetched
+        self._filter_telemetry(p._staged.n_rows, batch.num_rows, fetched)
         if p._events:
             registry.counter_inc(ETL_DECODE_KERNEL_SECONDS_TOTAL,
                                  p.timings["kernel_ms"] / 1e3)

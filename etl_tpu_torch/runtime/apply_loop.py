@@ -450,16 +450,24 @@ class ApplyLoop:
             # hard-kill cancel landing mid-drain lethal.
             from .shutdown import drain_cancelled
 
-            await drain_cancelled(msg_task, shutdown_task, resume_task,
-                                  coord_task, *self._ack_window.tasks())
-            # cancelled window entries will never deliver: abandon their
-            # pending decodes so staging arenas / window slots /
-            # admission tickets return instead of leaking with the
-            # discarded events (the leak probe in chaos counts them)
-            self._ack_window.abandon_payloads()
-            if self._lease is not None:
-                self._lease.release()
-            self.assembler.close()  # stop the decode pipeline's worker
+            try:
+                await drain_cancelled(msg_task, shutdown_task, resume_task,
+                                      coord_task, *self._ack_window.tasks())
+            finally:
+                # a hard kill that lands while the drain is parked (a
+                # loop that was already leaving on an error when the
+                # kill came) raises out of it: the releases below are
+                # synchronous and run either way, or the decode worker
+                # and every arena its window held outlive the loop.
+                # Cancelled window entries will never deliver: abandon
+                # their pending decodes so staging arenas / window
+                # slots / admission tickets return instead of leaking
+                # with the discarded events (the leak probe in chaos
+                # counts them)
+                self._ack_window.abandon_payloads()
+                if self._lease is not None:
+                    self._lease.release()
+                self.assembler.close()  # stop the decode worker
             # and wait for it, bounded and off the event loop
             await asyncio.to_thread(self.assembler.join, WORKER_JOIN_S)
             await self.stream.close()

@@ -15,7 +15,7 @@ one shard pod: `start()` adopts the store's shard assignment and swaps the
 store for the pod's fenced view (sharding/runtime.py), and the pod keeps
 its own `DecodePipeline`s and CUDA streams on the one card. The
 reference's autotune and program-store prewarm have no
-counterpart until queue 1 item 6 (the program store and autotune); with
+counterpart until queue 1 entry 8 (the program store and autotune); with
 `BatchEngine.CUDA` on a CUDA device, `start()` builds the kernel library
 instead, and raises when there is no card.
 """
@@ -119,7 +119,7 @@ class Pipeline:
 
                 await asyncio.to_thread(egress_kernel.load)
         # the reference's autotune and program-store prewarm come here;
-        # they have no counterpart until ROADMAP.md queue 1 item 6
+        # they have no counterpart until ROADMAP.md queue 1 entry 8
         source = self.source_factory()
         await source.connect()
         try:

@@ -135,7 +135,7 @@ class TestCorpus:
         with pytest.raises(EtlError) as e:
             await run_scenario(get_scenario(name), SEED, device="cpu")
         assert e.value.kind is ErrorKind.CONFIG_INVALID
-        assert "item 6" in str(e.value)
+        assert "queue 1 entry 8" in str(e.value)
 
     async def test_device_oom_fails_its_batches_without_an_oracle_route(
             self):
@@ -259,13 +259,36 @@ class TestCli:
         assert outs[0] == outs[1]
 
     @pytest.mark.parametrize("argv", [
-        ["--autoscale"], ["--fleet"], ["--exactly-once"], ["--ack-window"],
+        ["--autoscale"], ["--fleet"],
         ["--scenario", "crash_restart_warm_programs"]])
     def test_unported_refused_typed(self, argv):
         proc = _cli("--device", "cpu", *argv, timeout=120)
         assert proc.returncode == 2, proc.stderr
         assert proc.stderr.startswith("refused: CONFIG_INVALID"), proc.stderr
         assert proc.stdout == ""
+
+    @pytest.mark.parametrize("argv", [
+        ["--exactly-once"], ["--ack-window"],
+        ["--exactly-once", "--device-floor", "1"],
+        ["--ack-window", "--device-floor", "1"]],
+        ids=["exactly_once", "ack_window", "exactly_once_floor1",
+             "ack_window_floor1"])
+    def test_exactly_once_and_ack_window_run(self, argv):
+        """The two families the port now has: each runs on the CPU and
+        prints its run green (they were refused before their modules)."""
+        proc = _cli("--device", "cpu", "--seed", "11", *argv)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        d = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert d["ok"] is True
+        assert d["scenario"] == ("exactly_once_kill_matrix"
+                                 if argv[0] == "--exactly-once"
+                                 else "ack_window_crash_k_inflight")
+
+    def test_exactly_once_combined_is_a_usage_error(self):
+        proc = _cli("--device", "cpu", "--exactly-once", "--dlq",
+                    timeout=120)
+        assert proc.returncode == 2 and proc.stdout == ""
+        assert "cannot be combined" in proc.stderr
 
     def test_no_card_no_fallback(self):
         """The CLI runs on the card by default: with no card it fails and

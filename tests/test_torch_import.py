@@ -88,6 +88,10 @@ PORT_MODULES = [
     "etl_tpu_torch.chaos.dlq", "etl_tpu_torch.chaos.__main__",
     "etl_tpu_torch.workloads", "etl_tpu_torch.workloads.generator",
     "etl_tpu_torch.workloads.profiles", "etl_tpu_torch.bench_sharded",
+    "etl_tpu_torch.chaos.ack_window", "etl_tpu_torch.chaos.exactly_once",
+    "etl_tpu_torch.benchmarks", "etl_tpu_torch.benchmarks.harness",
+    "etl_tpu_torch.benchmarks.shard_worker",
+    "etl_tpu_torch.benchmarks.compare", "etl_tpu_torch.benchmarks.smoke",
 ]
 
 
