@@ -178,6 +178,20 @@ the final result line:
    wide row, and `python -m etl_tpu_torch.bench --smoke` as a process
    (its exit code, gates and `not_ported` printed).
 
+17. the autoscale controller and the control plane
+   (`autoscale_api_phase`): (a) `run_autoscale_surge_drain` and
+   `run_autoscale_controller_crash` (seed 7) on the card, each green,
+   with the decision trace and K trajectory of the same seed on the CPU,
+   K1 launches = the pods' device-routed batches > 0; (b) `bench
+   --autoscale` (reaction ticks ≤ autoscale_reaction_ticks_max, the same
+   trace twice, back to the starting K) and phase 16's `bench --smoke`
+   holding the autoscale gates with rc 0; (c) the API served on
+   localhost starts `python -m etl_tpu_torch.replicator` children through
+   `LocalOrchestrator` (`benchmarks.control_plane`): K = 1 copies and
+   streams through K1 on the card, a shard rebalance and `scale_pipeline`
+   roll it to K = 2, each child's own `/metrics` shows K1 work, every
+   sequence key arrives once and the stop leaves no child.
+
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -1947,6 +1961,116 @@ def harness_phase(args, runtime: dict, device: str = "cuda") -> dict:
     return {"16_harness": out}
 
 
+def autoscale_api_phase(args, runtime: dict, device: str = "cuda") -> dict:
+    """Phase 17: the autoscale controller's two chaos scenarios on the
+    card against the same seed on the CPU, the reaction-time gate, and
+    the control plane's replicator children (module docstring, 17). The
+    launch counts are set to 0 just before the phase and read just after;
+    17(c)'s children count their own, read from their `/metrics`."""
+    import asyncio
+
+    from etl_tpu_torch.benchmarks import harness, smoke
+    from etl_tpu_torch.benchmarks.control_plane import run_control_plane
+    from etl_tpu_torch.chaos.autoscale import (run_autoscale_controller_crash,
+                                               run_autoscale_surge_drain)
+
+    print("[17] the autoscale controller and the control plane",
+          flush=True)
+    oracle_clear("phase 17")
+    t0 = time.perf_counter()
+    out: dict = {}
+    cpu = {fn.__name__: asyncio.run(fn(seed=args.seed, device="cpu"))
+           for fn in (run_autoscale_surge_drain,
+                      run_autoscale_controller_crash)}
+    _reset_launch_counts()
+    for fn in (run_autoscale_surge_drain, run_autoscale_controller_crash):
+        run = asyncio.run(fn(seed=args.seed, device=device))
+        ref = cpu[fn.__name__]
+        d = run.describe()
+        stats = d["invariants"].get("stats", {})
+        print(f"  17(a) {run.scenario}: ok={run.ok} decisions="
+              f"{[x['action'] for x in run.decision_trace]} k_track="
+              f"{run.k_track} rebalance_s="
+              f"{[r['seconds'] for r in run.rebalances]} max_duplication="
+              f"{stats.get('max_duplication')} lost_rows="
+              f"{stats.get('lost_rows')} k1={run.k1_launches} "
+              f"device_batches={run.device_batches} duration_s="
+              f"{d['duration_s']}", flush=True)
+        check(run.ok, f"17(a) {run.scenario} broke an invariant: "
+              f"{d['invariants']['violations']}")
+        check(ref.ok, f"17(a) {run.scenario} on the CPU broke an "
+              f"invariant: {ref.report.violations}")
+        check(run.decision_trace == ref.decision_trace
+              and run.k_track == ref.k_track,
+              f"17(a) {run.scenario}: decision trace {run.decision_trace} "
+              f"differs from the CPU's {ref.decision_trace}")
+        check(0 < run.k1_launches == run.device_batches,
+              f"17(a) {run.scenario}: K1 {run.k1_launches} != device-routed "
+              f"batches {run.device_batches} (or none)")
+        out[f"17a_{run.scenario}"] = {
+            "ok": run.ok, "decisions": run.decision_trace,
+            "k_track": run.k_track, "rebalances": run.rebalances,
+            "k1_launches": run.k1_launches,
+            "device_batches": run.device_batches,
+            "max_duplication": stats.get("max_duplication"),
+            "duration_s": d["duration_s"]}
+    out.update(_launch_counts())
+
+    floors = smoke.load_floors()
+    limit = floors.get("autoscale_reaction_ticks_max", 3)
+    gate = harness.run_autoscale_bench(seed=args.seed,
+                                       reaction_ticks_max=limit)
+    print(f"  17(b) bench --autoscale: reaction_ticks="
+          f"{gate['reaction_ticks']} (max {limit}) decisions="
+          f"{gate['decisions']} deterministic={gate['deterministic']} "
+          f"ok={gate['ok']}", flush=True)
+    check(gate["ok"] and gate["reaction_ticks"] <= limit
+          and gate["deterministic"]
+          and gate["decisions"][-1]["target_k"] == 2,
+          f"17(b) the autoscale gate failed: {gate['failures']}")
+    sm = runtime.get("16_harness", {}).get("16f_smoke", {})
+    print(f"  17(b) phase 16's bench --smoke: rc={sm.get('rc')} autoscale "
+          f"gate={sm.get('gates', {}).get('autoscale')}", flush=True)
+    check(sm.get("rc") == 0 and sm.get("gates", {}).get("autoscale") is True
+          and not any(k.startswith("autoscale_")
+                      for k in sm.get("not_ported", {})),
+          "17(b) bench --smoke did not hold the autoscale gates with rc 0")
+    out["17b_gate"] = {k: gate[k] for k in (
+        "reaction_ticks", "reaction_ticks_max", "scale_up_tick",
+        "scale_down_tick", "deterministic", "ok")}
+
+    cp = asyncio.run(run_control_plane(
+        copy_rows=CONTROL_PLANE_COPY_ROWS, events=CONTROL_PLANE_EVENTS,
+        tables=4, device=device, seed=args.seed))
+    print(f"  17(c) control plane: routes={json.dumps(cp['routes'])} "
+          f"K=1 healthy in {cp['k1_start_s']:.2f} s, copy "
+          f"{cp['tables'] * cp['copy_rows']} rows in {cp['copy_s']:.2f} s, "
+          f"CDC {cp['events']} in {cp['k1_cdc_s']:.2f} s; rebalance "
+          f"{cp['rebalance_s']:.3f} s, roll to K=2 {cp['roll_s']:.2f} s, "
+          f"CDC {cp['events']} in {cp['k2_cdc_s']:.2f} s", flush=True)
+    print(f"  17(c) K=1 child /metrics: {json.dumps(cp['k1_metrics'])}; "
+          f"K=2 children: {json.dumps(cp['k2_metrics'])}", flush=True)
+    print(f"  17(c) per table: {json.dumps(cp['per_table'])}; children "
+          f"{json.dumps(cp['children'])}, left {cp['children_left']}; "
+          f"checks {json.dumps(cp['checks'])}", flush=True)
+    check(cp["ok"], f"17(c) the control plane failed: {cp['checks']}")
+    out["17c_control_plane"] = {k: cp[k] for k in (
+        "routes", "k1_start_s", "copy_s", "k1_cdc_s", "rebalance_s",
+        "roll_s", "k2_start_s", "k2_cdc_s", "k1_metrics", "k2_metrics",
+        "per_table", "checks", "build_s")}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 17 in {out['wall_s']:.1f} s; launches (17(a)): "
+          f"k1={out['k1_launches']}; 17(c)'s children: kernel_s="
+          f"{[m['kernel_s'] for m in [cp['k1_metrics']] + cp['k2_metrics']]}",
+          flush=True)
+    return {"17_autoscale_api": out}
+
+
+#: phase 17(c)'s depth: rows a table (four tables) and inserts at each K
+CONTROL_PLANE_COPY_ROWS = 50_000
+CONTROL_PLANE_EVENTS = 100_000
+
+
 def _warehouse_lines(r: dict) -> None:
     run = r["run"]
     print(f"  warehouse: watched {r['watched_rows']} rows, bad "
@@ -2331,6 +2455,7 @@ def main() -> int:
     runtime.update(chaos_phase(args))
     runtime.update(exactly_once_phase(args))
     runtime.update(harness_phase(args, runtime))
+    runtime.update(autoscale_api_phase(args, runtime))
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs

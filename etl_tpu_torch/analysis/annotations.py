@@ -24,7 +24,11 @@ written on the same functions:
   - `@domain(name)`: pins a function to one execution domain (`loop`,
     `worker`, `executor`, `sweep`, `coordinator`);
   - `@handoff`: a deliberate cross-domain ownership-transfer seam (the
-    shard coordinator's persist of the assignment record).
+    shard coordinator's persist of the assignment record);
+  - `@control_loop`: the autoscale controller's decision path — the pure
+    signal → policy → decision computation between sampling and
+    actuation: no blocking I/O and no device traffic, so shard-count
+    control never waits on an external service or on the card.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ TRANSACTIONAL_COMMIT_ATTR = "__etl_transactional_commit__"
 SHARD_SCOPED_ATTR = "__etl_shard_scoped__"
 DOMAIN_ATTR = "__etl_domain__"
 HANDOFF_ATTR = "__etl_handoff__"
+CONTROL_LOOP_ATTR = "__etl_control_loop__"
 
 #: the execution domains `@domain` accepts (a typo'd pin raises)
 KNOWN_DOMAINS = frozenset({"loop", "worker", "executor", "sweep",
@@ -86,4 +91,9 @@ def domain(name: str) -> "Callable[[_F], _F]":
 
 def handoff(fn: _F) -> _F:
     setattr(fn, HANDOFF_ATTR, True)
+    return fn
+
+
+def control_loop(fn: _F) -> _F:
+    setattr(fn, CONTROL_LOOP_ATTR, True)
     return fn

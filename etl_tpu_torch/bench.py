@@ -118,12 +118,14 @@ def build_workload(n_rows: int) -> list[bytes]:
     return payloads
 
 
-def make_schema():
+def make_schema(table_id: int = 16384, name: str = "pgbench_accounts"):
+    """pgbench_accounts' schema; `table_id` and `name` give a table of
+    the same shape another identity (a publication of several)."""
     from .models import (ColumnSchema, Oid, ReplicatedTableSchema, TableName,
                          TableSchema)
 
     return ReplicatedTableSchema.with_all_columns(TableSchema(
-        16384, TableName("public", "pgbench_accounts"),
+        table_id, TableName("public", name),
         (ColumnSchema("aid", Oid.INT4, nullable=False, primary_key_ordinal=1),
          ColumnSchema("bid", Oid.INT4),
          ColumnSchema("abalance", Oid.INT4),
@@ -418,12 +420,13 @@ def table_text_rows(t: dict) -> list:
                 filler.tolist())]
 
 
-def table_payloads(t: dict) -> list:
-    """pgoutput INSERT payloads of the rows (the CDC producer's stream)."""
+def table_payloads(t: dict, table_id: int = PGBENCH_TID) -> list:
+    """pgoutput INSERT payloads of the rows (the CDC producer's stream)
+    into `table_id`."""
     from .postgres.codec.pgoutput import encode_insert
 
     filler = t["filler"].view(f"S{FILLER_WIDTH}").ravel().tolist()
-    return [encode_insert(PGBENCH_TID, [str(a).encode(), str(b).encode(),
+    return [encode_insert(table_id, [str(a).encode(), str(b).encode(),
                                         str(c).encode(), f])
             for a, b, c, f in zip(t["aid"].tolist(), t["bid"].tolist(),
                                   t["abalance"].tolist(), filler)]
@@ -2677,6 +2680,13 @@ def main(argv=None) -> int:
     mode.add_argument("--smoke", action="store_true",
                       help="every ported gate of BENCH_FLOOR.json at its "
                            "smoke size; the rest listed under not_ported")
+    mode.add_argument("--autoscale", action="store_true",
+                      help="the seeded surge→drain timeline through the "
+                           "scaling policy with the applied K looped back "
+                           "(autoscale_reaction_ticks_max, no scale-down "
+                           "inside the cooldown, back to the starting K, "
+                           "the same trace twice); pure arithmetic, it "
+                           "needs no device")
     ap.add_argument("--streams", default=None, metavar="P1,P2,...",
                     help="--multi-pipeline: the workload profiles "
                          "(default: multi_pipeline_smoke_profiles)")
@@ -2698,6 +2708,16 @@ def main(argv=None) -> int:
                          "card fails the run) or cpu (the kernels' plain "
                          "versions)")
     args = ap.parse_args(argv)
+    if args.autoscale:
+        # the policy's arithmetic over a synthetic timeline: no pipeline
+        # and no device, as in the reference
+        from .benchmarks import harness, smoke
+
+        out = harness.run_autoscale_bench(
+            seed=args.seed, reaction_ticks_max=smoke.load_floors().get(
+                "autoscale_reaction_ticks_max", 3))
+        print(json.dumps(out))
+        return 0 if out["ok"] else 1
     if args.device == "cuda" and not torch.cuda.is_available():
         print("etl_tpu_torch.bench: no CUDA device; nothing measured",
               file=sys.stderr)

@@ -19,6 +19,10 @@ applies the floors of BENCH_FLOOR.json):
   poison_streaming    clean vs poisoned CDC (gate `poison_ratio_floor`)
   exactly_once        plain vs transactional sink drains and a hard-kill
                       restart leg (gate `exactly_once_ratio_floor`)
+  autoscale           the seeded surge→drain timeline through the scaling
+                      policy, the applied K looped back (gate
+                      `autoscale_reaction_ticks_max`; pure arithmetic, no
+                      pipeline and no device)
 
 Engines: the reference's "tpu" engine is the port's `BatchEngine.CUDA`,
 its decoders on `device` ("cuda", the card, unless the caller asks for
@@ -1446,6 +1450,82 @@ async def run_exactly_once(n_events: int = 3_000, tx_size: int = 40,
         "plain_events_per_second": plain["events_per_second"],
         "transactional_events_per_second": txn["events_per_second"],
         "exactly_once_overhead_ratio": round(ratio, 3),
+        "failures": failures,
+        "ok": not failures,
+    }
+
+
+# ---------------------------------------------------------------------------
+# autoscale reaction time
+# ---------------------------------------------------------------------------
+
+
+def run_autoscale_bench(seed: int = 7, reaction_ticks_max: int = 3) -> dict:
+    """Autoscale reaction-time gate: the seeded surge→drain timeline
+    through the scaling policy with the applied-K loop closed. GATED:
+    (a) the scale-up decision lands within `reaction_ticks_max`
+    evaluation ticks of the surge onset; (b) the scale-down must NOT fire
+    before the cooldown expires after the scale-up; (c) the topology
+    returns to the starting K once the backlog drains; (d) the decision
+    trace is bit-identical across two runs of the same seed. Pure policy
+    arithmetic: no pipeline, no device. Copy of the reference's
+    `bench.py::run_autoscale_bench`."""
+    from ..autoscale import (ACTION_DOWN, ACTION_HOLD, ACTION_UP,
+                             AutoscalePolicy, AutoscalePolicyConfig,
+                             seeded_surge_timeline)
+    from ..autoscale.policy import simulate
+
+    surge_at = 10
+    config = AutoscalePolicyConfig(
+        min_shards=2, max_shards=3, drain_slo_s=2.0,
+        up_backlog_bytes=256 * 1024, down_backlog_bytes=64 * 1024,
+        up_ticks=2, down_ticks=3, cooldown_ticks=5)
+    policy = AutoscalePolicy(config)
+
+    def trace():
+        timeline = seeded_surge_timeline(seed, shards=2, ticks=40,
+                                         surge_at=surge_at)
+        return [d.describe()
+                for d in simulate(timeline.frames, policy, 2)]
+
+    first, second = trace(), trace()
+    actions = [(d["tick"], d["action"], d["target_k"]) for d in first
+               if d["action"] != ACTION_HOLD]
+    up_ticks = [t for t, a, _ in actions if a == ACTION_UP]
+    down_ticks = [t for t, a, _ in actions if a == ACTION_DOWN]
+    failures = []
+    if first != second:
+        failures.append("decision trace not deterministic across two "
+                        "runs of the same seed")
+    if not up_ticks:
+        failures.append("the surge never produced a scale-up decision")
+    elif up_ticks[0] - surge_at > reaction_ticks_max:
+        failures.append(
+            f"scale-up reacted in {up_ticks[0] - surge_at} ticks, gate "
+            f"is {reaction_ticks_max}")
+    if not down_ticks:
+        failures.append("the drain never produced a scale-down decision")
+    elif up_ticks and down_ticks[0] - up_ticks[0] < config.cooldown_ticks:
+        failures.append(
+            f"scale-down fired {down_ticks[0] - up_ticks[0]} ticks after "
+            f"the scale-up, inside the {config.cooldown_ticks}-tick "
+            f"cooldown")
+    final_k = actions[-1][2] if actions else 2
+    if final_k != 2:
+        failures.append(f"topology did not return to K=2 after the "
+                        f"drain (final K={final_k})")
+    return {
+        "mode": "autoscale",
+        "seed": seed,
+        "surge_at_tick": surge_at,
+        "scale_up_tick": up_ticks[0] if up_ticks else None,
+        "scale_down_tick": down_ticks[0] if down_ticks else None,
+        "reaction_ticks": (up_ticks[0] - surge_at) if up_ticks else None,
+        "reaction_ticks_max": reaction_ticks_max,
+        "cooldown_ticks": config.cooldown_ticks,
+        "decisions": [{"tick": t, "action": a, "target_k": k}
+                      for t, a, k in actions],
+        "deterministic": first == second,
         "failures": failures,
         "ok": not failures,
     }

@@ -24,7 +24,6 @@ FLOOR_PATH = Path(__file__).resolve().parents[2] / "BENCH_FLOOR.json"
 NOT_PORTED_PREFIXES = {
     "coldstart_": "queue 1 entry 8 (the program store and coldstart "
                   "worker)",
-    "autoscale_": "queue 1 entry 4 (autoscale/)",
     "fleet_": "queue 1 entry 6 (fleet/)",
     "ir_analysis_budget_s": "queue 1 entry 10 (the lint's IR tier)",
     "static_analysis_budget_s": "queue 1 entry 10 (the lint tiers)",
@@ -236,6 +235,7 @@ def run_smoke(device: str = "cuda") -> dict:
     to device-routed batches on the card) fail the gate as the floor
     does."""
     from .. import bench
+    from ..chaos.autoscale import run_autoscale_surge_drain
     from ..chaos.dlq import run_dlq_poison
     from ..chaos.exactly_once import run_exactly_once_crash
     from ..chaos.sharded import run_sharded_scenario
@@ -365,6 +365,23 @@ def run_smoke(device: str = "cuda") -> dict:
     gates["sharded"] = sharded["ok"] and sharded_chaos.ok
     correct["sharded"] = not correctness_failures(sharded["failures"]) \
         and sharded_chaos.ok
+
+    # autoscale: (a) the policy's reaction-time gate over the seeded
+    # surge→drain timeline (pure arithmetic); (b) the surge-drain chaos
+    # run, a live K = 2 fleet scaled to 3 and back by the controller
+    autoscale = harness.run_autoscale_bench(
+        reaction_ticks_max=floors.get("autoscale_reaction_ticks_max", 3))
+    autoscale_chaos = asyncio.run(run_autoscale_surge_drain(seed=7,
+                                                            device=device))
+    out["autoscale_reaction_ticks"] = autoscale["reaction_ticks"]
+    out["autoscale_scale_up_tick"] = autoscale["scale_up_tick"]
+    out["autoscale_scale_down_tick"] = autoscale["scale_down_tick"]
+    out["autoscale_deterministic"] = bool(autoscale["deterministic"])
+    out["autoscale_failures"] = autoscale["failures"]
+    out["autoscale_chaos_ok"] = bool(autoscale_chaos.ok)
+    out["autoscale_chaos"] = autoscale_chaos.describe()
+    gates["autoscale"] = correct["autoscale"] = bool(
+        autoscale["ok"] and autoscale_chaos.ok)
 
     out["gates"] = gates
     out["correctness"] = correct

@@ -9,9 +9,9 @@ was violated.
 Copy of the reference's `etl_tpu/chaos/__main__.py`. The pipelines decode
 on the card (`--device cuda`, the default; no card fails the run) unless
 `--device cpu` is given. Scenarios that need a module the port does not
-have yet are refused typed (CONFIG_INVALID, exit 2): `--autoscale` and
-`--fleet` (their chaos modules), and the program-cache scenarios (the
-program store), which the corpus run prints as refused and passes over.
+have yet are refused typed (CONFIG_INVALID, exit 2): `--fleet` (its
+chaos module), and the program-cache scenarios (the program store), which
+the corpus run prints as refused and passes over.
 """
 
 from __future__ import annotations
@@ -157,7 +157,6 @@ def main(argv: list[str] | None = None) -> int:
 #: (ROADMAP.md, queue 1), by flag
 _UNPORTED = {
     "fleet": "chaos/fleet.py and fleet/ (the fleet reconciler)",
-    "autoscale": "chaos/autoscale.py and autoscale/ (the controller)",
 }
 
 
@@ -190,10 +189,11 @@ def _run(parser, args) -> int:
 
     if args.exactly_once:
         if args.matrix or args.workload or args.scenario or args.sharded \
-                or args.multi_pipeline or args.ack_window or args.dlq:
+                or args.autoscale or args.multi_pipeline \
+                or args.ack_window or args.dlq:
             parser.error("--exactly-once runs its own hard-kill matrix "
                          "and cannot be combined with --matrix/"
-                         "--workload/--scenario/--sharded/"
+                         "--workload/--scenario/--sharded/--autoscale/"
                          "--multi-pipeline/--ack-window/--dlq")
         from .exactly_once import run_exactly_once_crash
 
@@ -203,10 +203,12 @@ def _run(parser, args) -> int:
         return 0 if run.ok else 1
 
     if args.multi_pipeline:
-        if args.matrix or args.workload or args.scenario or args.sharded:
+        if args.matrix or args.workload or args.scenario or args.sharded \
+                or args.autoscale:
             parser.error("--multi-pipeline runs its own two-stream "
                          "scenario and cannot be combined with "
-                         "--matrix/--workload/--scenario/--sharded")
+                         "--matrix/--workload/--scenario/--sharded/"
+                         "--autoscale")
         from .multi import run_multi_pipeline_scenario
 
         run = asyncio.run(run_multi_pipeline_scenario(seed=args.seed,
@@ -215,10 +217,11 @@ def _run(parser, args) -> int:
         return 0 if run.ok else 1
 
     if args.ack_window:
-        if args.matrix or args.workload or args.scenario or args.sharded:
+        if args.matrix or args.workload or args.scenario or args.sharded \
+                or args.autoscale:
             parser.error("--ack-window runs its own K-in-flight crash "
                          "scenario and cannot be combined with --matrix/"
-                         "--workload/--scenario/--sharded")
+                         "--workload/--scenario/--sharded/--autoscale")
         from .ack_window import run_ack_window_crash
 
         run = asyncio.run(run_ack_window_crash(seed=args.seed,
@@ -228,15 +231,34 @@ def _run(parser, args) -> int:
 
     if args.dlq:
         if args.matrix or args.workload or args.scenario or args.sharded \
-                or args.ack_window:
+                or args.autoscale or args.ack_window:
             parser.error("--dlq runs its own poison-isolation scenarios "
                          "and cannot be combined with --matrix/"
-                         "--workload/--scenario/--sharded/--ack-window")
+                         "--workload/--scenario/--sharded/--autoscale/"
+                         "--ack-window")
         from .dlq import run_dlq_scenarios
 
         runs = asyncio.run(run_dlq_scenarios(seed=args.seed, device=device))
         all_ok = True
         for run in runs:
+            print(json.dumps(run.describe(), sort_keys=True))
+            all_ok = all_ok and run.ok
+        return 0 if all_ok else 1
+
+    if args.autoscale:
+        if args.matrix or args.workload or args.scenario or args.sharded \
+                or args.multi_pipeline:
+            parser.error("--autoscale runs its own elasticity scenarios "
+                         "and cannot be combined with --matrix/"
+                         "--workload/--scenario/--sharded/"
+                         "--multi-pipeline")
+        from .autoscale import (run_autoscale_controller_crash,
+                                run_autoscale_surge_drain)
+
+        all_ok = True
+        for runner_fn in (run_autoscale_surge_drain,
+                          run_autoscale_controller_crash):
+            run = asyncio.run(runner_fn(seed=args.seed, device=device))
             print(json.dumps(run.describe(), sort_keys=True))
             all_ok = all_ok and run.ok
         return 0 if all_ok else 1

@@ -633,6 +633,15 @@ class FakeStandby(FakeDatabase):
             await self._snapshot_logged.wait()
 
 
+def _sent_lsn(db: "FakeDatabase", wal_index: int, pos_lsn) -> Lsn:
+    """A walsender's sent position over `db.wal` read up to `wal_index`:
+    the next unread entry's LSN (a restart there re-sends it), or the
+    server's end once every entry is read."""
+    if wal_index < len(db.wal):
+        return Lsn(max(int(db.wal[wal_index][0]), int(pos_lsn)))
+    return db.current_lsn
+
+
 class _FakeReplicationStream(ReplicationStream):
     _ids = 0
 
@@ -783,8 +792,18 @@ class _FakeReplicationStream(ReplicationStream):
                                            timeout=self._keepalive_interval)
             except asyncio.TimeoutError:
                 yield pgoutput.PrimaryKeepalive(
-                    end_lsn=db.current_lsn, clock_us=_now_us(),
+                    end_lsn=self.sent_lsn(), clock_us=_now_us(),
                     reply_requested=True)
+
+    def sent_lsn(self) -> Lsn:
+        """The walsender's sent position, which a keepalive carries: all
+        WAL before the next entry this stream has not read yet, or the
+        server's end once it is caught up. The timeout that yields a
+        keepalive can fire after a commit appended WAL but before the
+        stream read it; the server's end would then report unsent WAL as
+        received, an idle client would confirm it, and a restart would
+        resume past rows it never got."""
+        return _sent_lsn(self.db, self._wal_index, self.pos_lsn)
 
     def _publication_allows(self, payload: bytes,
                             pub_tables: set[TableId]) -> bool:
@@ -803,6 +822,8 @@ class _FakeReplicationStream(ReplicationStream):
     async def send_status_update(self, written: Lsn, flushed: Lsn,
                                  applied: Lsn,
                                  reply_requested: bool = False) -> None:
+        if self._closed:
+            return  # a closed connection carries no feedback to the slot
         self.status_updates.append((written, flushed, applied))
         if flushed > self.slot.confirmed_flush:
             self.slot.confirmed_flush = flushed

@@ -468,9 +468,12 @@ class ApplyLoop:
                 if self._lease is not None:
                     self._lease.release()
                 self.assembler.close()  # stop the decode worker
-            # and wait for it, bounded and off the event loop
+                # and close the stream on every exit, as a crash closes
+                # the socket: a stream left open after a kill keeps its
+                # slot active and its pending read parked
+                await self.stream.close()
+            # then wait for the worker, bounded and off the event loop
             await asyncio.to_thread(self.assembler.join, WORKER_JOIN_S)
-            await self.stream.close()
 
     # -- frame handling ---------------------------------------------------------
 

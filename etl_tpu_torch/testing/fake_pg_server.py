@@ -922,8 +922,11 @@ class FakePgServer:
                 except asyncio.TimeoutError:
                     if slot.invalidated:
                         return
+                    # the sent position, not the server's end: WAL
+                    # appended since the last read is not sent yet
                     ka = pgoutput.encode_primary_keepalive(
-                        int(db.current_lsn), int(time.time() * 1e6), True)
+                        int(fakemod._sent_lsn(db, wal_index, pos)),
+                        int(time.time() * 1e6), True)
                     w.write(_msg(b"d", ka))
                     await w.drain()
         except (ConnectionResetError, BrokenPipeError):

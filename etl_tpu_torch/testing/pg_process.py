@@ -174,23 +174,33 @@ async def _serve(conn, password):
         conn.close()
 
 
-async def _table(db, state, *, n_rows: int, seed: int) -> dict:
-    """pgbench_accounts with `n_rows` seeded rows (`bench.pgbench_table`);
-    returns the COPY text's size in bytes."""
+async def _table(db, state, *, n_rows: int, seed: int,
+                 table_id: int | None = None, name: str | None = None
+                 ) -> dict:
+    """pgbench_accounts with `n_rows` seeded rows (`bench.pgbench_table`),
+    or a table of its shape under `table_id` and `name`; returns the COPY
+    text's size in bytes."""
     from .. import bench
 
     rows = bench.table_text_rows(bench.pgbench_table(n_rows, seed))
-    table = db.create_table(bench.make_schema().table_schema, rows=rows)
+    schema = bench.make_schema() if table_id is None \
+        else bench.make_schema(table_id, name or f"pgbench_{table_id}")
+    table = db.create_table(schema.table_schema, rows=rows)
     return {"copy_bytes": sum(len(line) + 1 for line in table.encoded)}
 
 
 async def _publication(db, state, *, name: str, row_filter: str | None,
-                       offload: bool) -> None:
-    """The publication of the table; with `row_filter`, that filter in the
-    catalog (a COPY that spells it out applies it); with `offload`, the
-    walsender ships every row and leaves the filter to the client."""
+                       offload: bool, table_ids: list | None = None
+                       ) -> None:
+    """The publication of the table (or of `table_ids`, unfiltered);
+    with `row_filter`, that filter in the catalog (a COPY that spells it
+    out applies it); with `offload`, the walsender ships every row and
+    leaves the filter to the client."""
     from .. import bench
 
+    if table_ids is not None:
+        db.create_publication(name, list(table_ids))
+        return
     filters = None
     if row_filter is not None:
         from ..ops.predicate import parse_row_filter
@@ -203,25 +213,28 @@ async def _publication(db, state, *, name: str, row_filter: str | None,
 
 
 async def _prepare(db, state, *, n_events: int, seed: int,
-                   first_aid: int) -> None:
-    """INSERT payloads of `n_events` seeded rows, encoded before the
-    window (`bench.table_payloads`)."""
+                   first_aid: int, table_id: int | None = None) -> None:
+    """INSERT payloads of `n_events` seeded rows into pgbench_accounts
+    (or `table_id`), encoded before the window (`bench.table_payloads`)."""
     from .. import bench
 
+    tid = bench.PGBENCH_TID if table_id is None else table_id
+    state["table_id"] = tid
     state["payloads"] = bench.table_payloads(
-        bench.pgbench_table(n_events, seed, first_aid=first_aid))
+        bench.pgbench_table(n_events, seed, first_aid=first_aid), tid)
 
 
 async def _produce(db, state, *, tx_size: int) -> dict:
     from .. import bench
 
     payloads = state.pop("payloads")
+    tid = state.pop("table_id", bench.PGBENCH_TID)
     commits, times = [], []
     t0 = time.perf_counter()
     for lo in range(0, len(payloads), tx_size):
         tx = db.transaction()
         for p in payloads[lo:lo + tx_size]:
-            tx.insert_preencoded(bench.PGBENCH_TID, p)
+            tx.insert_preencoded(tid, p)
         lsn = int(await tx.commit())
         times.append(time.perf_counter())
         commits.append((lsn, lo, min(lo + tx_size, len(payloads))))

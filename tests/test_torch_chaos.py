@@ -259,7 +259,7 @@ class TestCli:
         assert outs[0] == outs[1]
 
     @pytest.mark.parametrize("argv", [
-        ["--autoscale"], ["--fleet"],
+        ["--scenario", "crash_restart_corrupt_program_cache"], ["--fleet"],
         ["--scenario", "crash_restart_warm_programs"]])
     def test_unported_refused_typed(self, argv):
         proc = _cli("--device", "cpu", *argv, timeout=120)
@@ -283,6 +283,18 @@ class TestCli:
         assert d["scenario"] == ("exactly_once_kill_matrix"
                                  if argv[0] == "--exactly-once"
                                  else "ack_window_crash_k_inflight")
+
+    def test_autoscale_runs(self):
+        """`--autoscale` runs since its modules are ported: the surge-drain
+        arc and the controller crash, each printed green."""
+        proc = _cli("--device", "cpu", "--autoscale", timeout=240)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        runs = [json.loads(line) for line in proc.stdout.splitlines()]
+        assert [r["scenario"] for r in runs] == [
+            "autoscale_surge_drain", "autoscale_controller_crash"]
+        assert all(r["ok"] for r in runs), runs
+        assert all(r["device"] == "cpu" and r["k1_launches"] == 0
+                   and r["device_batches"] > 0 for r in runs)
 
     def test_exactly_once_combined_is_a_usage_error(self):
         proc = _cli("--device", "cpu", "--exactly-once", "--dlq",

@@ -92,6 +92,12 @@ PORT_MODULES = [
     "etl_tpu_torch.benchmarks", "etl_tpu_torch.benchmarks.harness",
     "etl_tpu_torch.benchmarks.shard_worker",
     "etl_tpu_torch.benchmarks.compare", "etl_tpu_torch.benchmarks.smoke",
+    "etl_tpu_torch.autoscale", "etl_tpu_torch.autoscale.signals",
+    "etl_tpu_torch.autoscale.policy", "etl_tpu_torch.autoscale.controller",
+    "etl_tpu_torch.autoscale.__main__", "etl_tpu_torch.chaos.autoscale",
+    "etl_tpu_torch.api", "etl_tpu_torch.api.crypto", "etl_tpu_torch.api.db",
+    "etl_tpu_torch.api.orchestrator", "etl_tpu_torch.api.validation",
+    "etl_tpu_torch.api.app", "etl_tpu_torch.benchmarks.control_plane",
 ]
 
 
