@@ -192,6 +192,33 @@ the final result line:
    roll it to K = 2, each child's own `/metrics` shows K1 work, every
    sequence key arrives once and the stop leaves no child.
 
+18. devtools and the fleet reconciler (`fleet_phase`); (a) and (b)'s
+   processes run beside (c) and (d): (a) `python -m
+   etl_tpu_torch.devtools chaos --scenario all --engine cuda` at the
+   reference's defaults (2,000 rows, 10 s a scenario, 1 s interval,
+   40 ms latency): partition, latency, corruption, copy, destination and
+   slot each pass the reference's checks (no loss; no duplicate but the
+   destination scenario's bounded redeliveries; `copy_severs` > 0 before
+   READY; the slot's resync), each with K1 launches = its device-routed
+   batches > 0; (b) `python -m etl_tpu_torch.chaos --fleet --seed 7` and
+   `bench --fleet`: exit 0 with the converge ticks, actuation counts,
+   resume modes, bus actions and actuation-trace digest of the CPU run
+   (`FLEET_CHAOS_SEED7`, `FLEET_BENCH_SEED7`, which the tests hold to the
+   reference), and phase 16's `bench --smoke` holding the fleet gate;
+   (c) a `FleetReconciler` over `OrchestratorFleetRuntime(
+   LocalOrchestrator)` and a SqliteStore (`benchmarks.fleet.
+   run_fleet_children`): pipelines A (K = 1) and B (K = 2) of two tenants
+   converge from empty, each replicator child healthy with K1 work on its
+   own `/metrics`; one edit deletes B and rolls A to K = 2 while the
+   coordinator is killed in both crash windows of the journal (the
+   successor settles B's delete with no runtime call and re-drives A's
+   resize), a CDC wave into A, `/v1/fleet` desired = observed, every key
+   once, no double actuation, no child left; (d) two pipelines on
+   `global_admission()` under the bus's `AdmissionWeightPolicy`
+   (`run_admission_weights`, 50,000 inserts each): the boosted and the
+   base weight in the scheduler, both streams verified by count and
+   digest, K1 = device-routed batches, the scheduler drained.
+
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -1949,7 +1976,8 @@ def harness_phase(args, runtime: dict, device: str = "cuda") -> dict:
           f"({json.dumps(sm.get('correctness'))}; stderr "
           f"{proc.stderr[-600:]})")
     out["16f_smoke"] = {k: sm.get(k) for k in (
-        "ok", "gates", "correctness", "not_ported")}
+        "ok", "gates", "correctness", "not_ported",
+        "fleet_actuation_digest")}
     out["16f_smoke"]["rc"] = proc.returncode
     out["wall_s"] = time.perf_counter() - t0
     out.update(_launch_counts())
@@ -2069,6 +2097,212 @@ def autoscale_api_phase(args, runtime: dict, device: str = "cuda") -> dict:
 #: phase 17(c)'s depth: rows a table (four tables) and inserts at each K
 CONTROL_PLANE_COPY_ROWS = 50_000
 CONTROL_PLANE_EVENTS = 100_000
+
+#: phase 18(a): `devtools chaos` seconds a scenario (the reference's 10)
+DEVTOOLS_CHAOS_SECONDS = 10
+#: phase 18(c)'s depth: rows a table (two tables a pipeline) and each CDC
+#: wave's inserts into a pipeline; 18(d)'s inserts into each pipeline
+FLEET_COPY_ROWS = 25_000
+FLEET_EVENTS = 20_000
+ADMISSION_EVENTS = 50_000
+
+#: what `python -m etl_tpu_torch.chaos --fleet --seed 7` and `bench
+#: --fleet` print on the CPU (tests/test_torch_fleet.py holds both to the
+#: reference's runs of the same seed)
+FLEET_CHAOS_SEED7 = {
+    "converge_ticks": {"edit": 1, "initial": 1, "kill_after_actuation": 0,
+                       "kill_before_actuation": 0},
+    "actuations": 109, "applied_records": 109, "double_actuations": 0,
+    "resume_modes": ["kill_before_actuation:redrive",
+                     "kill_after_actuation:settle"],
+    "bus_actions": {"ack_depth": 2, "admission_weight": 2, "pid_lag": 3},
+    "fleet_size": 100, "ok": True}
+FLEET_BENCH_SEED7 = {
+    "converge_ticks": 1, "edit_converge_ticks": 1, "actuations": 104,
+    "applied_records": 104, "double_actuations": 0, "deterministic": True,
+    "observed_equals_placement": True,
+    "actuation_digest":
+        "1253f14e33ece0d9778d1d66fa4689f7baaa8024413db5468670c80a2a60f48e",
+    "ok": True}
+#: the reference's `devtools chaos` scenarios, in its order
+DEVTOOLS_SCENARIOS = ["partition", "latency", "corruption", "copy",
+                      "destination", "slot"]
+
+
+def fleet_phase(args, runtime: dict, device: str = "cuda") -> dict:
+    """Phase 18: devtools chaos and the fleet's arithmetic as processes
+    beside the fleet's replicator children and the admission weights on
+    live pipelines (module docstring, 18). The launch counts are set to
+    0 just before 18(d) and read just after; 18(a)'s process and 18(c)'s
+    children count their own."""
+    import asyncio
+    import subprocess
+    import tempfile
+
+    from etl_tpu_torch.benchmarks.fleet import (run_admission_weights,
+                                                run_fleet_children)
+
+    print("[18] devtools and the fleet reconciler", flush=True)
+    oracle_clear("phase 18")
+    t0 = time.perf_counter()
+    out: dict = {}
+    logs = tempfile.TemporaryDirectory()
+    commands = {
+        "18a_devtools_chaos": ["-m", "etl_tpu_torch.devtools", "chaos",
+                               "--scenario", "all", "--engine", "cuda",
+                               "--device", device,
+                               "--seconds", str(DEVTOOLS_CHAOS_SECONDS)],
+        "18b_chaos_fleet": ["-m", "etl_tpu_torch.chaos", "--fleet",
+                            "--seed", "7"],
+        "18b_bench_fleet": ["-m", "etl_tpu_torch.bench", "--fleet"]}
+    procs: dict = {}
+    try:
+        for name, argv in commands.items():
+            with open(os.path.join(logs.name, name + ".out"), "w") as fo, \
+                    open(os.path.join(logs.name, name + ".err"), "w") as fe:
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, *argv], cwd=ROOT, stdout=fo,
+                    stderr=fe), time.perf_counter())
+
+        fc = asyncio.run(run_fleet_children(
+            FLEET_COPY_ROWS, FLEET_EVENTS, device=device, seed=args.seed))
+        ticks = fc["converge_ticks"]
+        print(f"  18(c) fleet from empty: ticks={ticks['initial']} "
+              f"observed={json.dumps(fc['observed_initial'])} slo="
+              f"{json.dumps(fc['slo_weights'])}; 3 children healthy in "
+              f"{fc['start_s']:.2f} s, copy {4 * FLEET_COPY_ROWS} rows in "
+              f"{fc['copy_s']:.2f} s, wave {2 * FLEET_EVENTS} inserts in "
+              f"{fc['wave1_s']:.2f} s; /metrics "
+              f"{json.dumps(fc['metrics_initial'])}", flush=True)
+        for k in fc["kills"]:
+            print(f"  18(c) {k['label']} ({k['window']}, pipeline "
+                  f"{k['pipeline_id']}): pending at kill "
+                  f"{k['pending_at_kill']}, {k['mode']} "
+                  f"{json.dumps(k['settled'])}, resume's runtime calls "
+                  f"{k['resume_runtime_calls']}, second resume "
+                  f"{k['second_resume']}", flush=True)
+        print(f"  18(c) edit (delete B, A 1 -> 2): ticks={ticks['edit']} "
+              f"({ticks['edit_after_kills']} after the kills) in "
+              f"{fc['edit_s']:.2f} s; observed="
+              f"{json.dumps(fc['observed_edit'])}; A's 2 children healthy "
+              f"in {fc['roll_start_s']:.2f} s; wave {FLEET_EVENTS} in "
+              f"{fc['wave2_s']:.2f} s; /metrics "
+              f"{json.dumps(fc['metrics_edit'])}", flush=True)
+        print(f"  18(c) /v1/fleet {json.dumps(fc['fleet_view_edit'])}; "
+              f"actuations {len(fc['actuations'])} = applied "
+              f"{fc['journal']['applied']}, double {fc['double_actuations']};"
+              f" remove ticks {ticks['remove']}, observed "
+              f"{json.dumps(fc['observed_end'])}; per table "
+              f"{json.dumps(fc['per_table'])}; child starts "
+              f"{fc['child_starts']}, left {fc['children_left']}; checks "
+              f"{json.dumps(fc['checks'])}", flush=True)
+        check(fc["ok"], f"18(c) the fleet failed: {fc['checks']}")
+        out["18c_fleet_children"] = {k: fc[k] for k in (
+            "converge_ticks", "start_s", "copy_s", "wave1_s", "edit_s",
+            "roll_start_s", "wave2_s", "metrics_initial", "metrics_edit",
+            "kills", "fleet_view_edit", "per_table", "child_starts",
+            "double_actuations", "checks")}
+
+        _reset_launch_counts()
+        aw = asyncio.run(run_admission_weights(
+            ADMISSION_EVENTS, device=device, seed=args.seed))
+        out.update(_launch_counts())
+        print(f"  18(d) admission weights: applied "
+              f"{json.dumps(aw['applied_weights'])} scheduler "
+              f"{json.dumps(aw['scheduler_slo'])} stats "
+              f"{json.dumps(aw['tenant_stats'])}; "
+              f"{2 * ADMISSION_EVENTS} inserts in {aw['window_s']:.2f} s "
+              f"({aw['events_per_second']:.0f} events/s); verified "
+              f"{json.dumps(aw['verified'])}; k1={out['k1_launches']} "
+              f"device_batches={aw['kernel_counts_whole_run']['device_batches']}"
+              f"; drained {json.dumps(aw['drained'])}; checks "
+              f"{json.dumps(aw['checks'])}", flush=True)
+        check(aw["ok"], f"18(d) the admission weights failed: "
+              f"{aw['checks']}")
+        on_card = device.split(":")[0] == "cuda"
+        check((out["k1_launches"] if on_card else
+               aw["kernel_counts_whole_run"]["device_batches"])
+              == aw["kernel_counts_whole_run"]["device_batches"] > 0,
+              f"18(d): K1 {out['k1_launches']} != device-routed batches "
+              f"{aw['kernel_counts_whole_run']['device_batches']}")
+        out["18d_admission"] = {k: aw[k] for k in (
+            "applied_weights", "scheduler_slo", "tenant_stats", "window_s",
+            "events_per_second", "verified", "kernel_counts_whole_run",
+            "drained", "checks")}
+
+        done: dict = {}
+        for name, (proc, started) in procs.items():
+            rc = proc.wait(timeout=600)
+            with open(os.path.join(logs.name, name + ".out")) as f:
+                lines = [json.loads(x) for x in f.read().splitlines()
+                         if x.startswith("{")]
+            with open(os.path.join(logs.name, name + ".err")) as f:
+                err = f.read()
+            done[name] = (rc, lines, err, time.perf_counter() - started)
+
+        rc, reports, err, secs = done["18a_devtools_chaos"]
+        k1_a = 0
+        for r in reports:
+            print(f"  18(a) devtools chaos {json.dumps(r)}", flush=True)
+            k1_a += r["k1_launches"]
+        print(f"  18(a) rc={rc}, done within {secs:.1f} s of its start "
+              f"(read after 18(d)); stderr tail {err[-300:]!r}", flush=True)
+        check(rc == 0 and [r["scenario"] for r in reports]
+              == DEVTOOLS_SCENARIOS,
+              f"18(a) devtools chaos rc={rc}: {err[-600:]}")
+        by = {r["scenario"]: r for r in reports}
+        check(all(0 < r["device_batches"] and r["launches_ok"]
+                  and (r["k1_launches"] == r["device_batches"] or not on_card)
+                  for r in reports),
+              "18(a) a scenario's K1 launches != its device-routed batches")
+        check(by["copy"]["copy_severs"] > 0, "18(a) copy: no sever "
+              "landed before READY")
+        check(by["corruption"]["corrupted_chunks"] > 0,
+              "18(a) corruption: no chunk corrupted")
+        out["18a_devtools_chaos"] = {"rc": rc, "seconds": secs,
+                                     "reports": reports, "k1_launches": k1_a}
+
+        rc, lines, err, secs = done["18b_chaos_fleet"]
+        got = lines[-1] if lines else {}
+        print(f"  18(b) chaos --fleet: rc={rc} {json.dumps(got)}", flush=True)
+        print(f"  18(b) (both processes done within {secs:.1f} s of their "
+              f"start; read after 18(d))", flush=True)
+        check(rc == 0 and all(got.get(k) == v
+                              for k, v in FLEET_CHAOS_SEED7.items()),
+              f"18(b) chaos --fleet differs from the CPU run: {got} "
+              f"{err[-400:]}")
+        rc_b, lines, err, _ = done["18b_bench_fleet"]
+        gate = lines[-1] if lines else {}
+        print(f"  18(b) bench --fleet: rc={rc_b} {json.dumps(gate)}",
+              flush=True)
+        check(rc_b == 0 and all(gate.get(k) == v
+                                for k, v in FLEET_BENCH_SEED7.items()),
+              f"18(b) bench --fleet differs from the CPU run: {gate} "
+              f"{err[-400:]}")
+        sm = runtime.get("16_harness", {}).get("16f_smoke", {})
+        print(f"  18(b) phase 16's bench --smoke: rc={sm.get('rc')} fleet "
+              f"gate={sm.get('gates', {}).get('fleet')} digest="
+              f"{sm.get('fleet_actuation_digest')}", flush=True)
+        check(sm.get("rc") == 0 and sm.get("gates", {}).get("fleet") is True
+              and sm.get("fleet_actuation_digest")
+              == FLEET_BENCH_SEED7["actuation_digest"]
+              and not any(k.startswith("fleet_")
+                          for k in sm.get("not_ported", {})),
+              "18(b) bench --smoke did not hold the fleet gate with rc 0")
+        out["18b_fleet"] = {"chaos": got, "bench": gate}
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        logs.cleanup()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 18 in {out['wall_s']:.1f} s; launches: 18(a)'s process "
+          f"k1={out['18a_devtools_chaos']['k1_launches']}, 18(d) "
+          f"k1={out['k1_launches']}; 18(c)'s children: kernel_s="
+          f"{[m['kernel_s'] for m in fc['metrics_initial'] + fc['metrics_edit']]}",
+          flush=True)
+    return {"18_fleet": out}
 
 
 def _warehouse_lines(r: dict) -> None:
@@ -2456,6 +2690,7 @@ def main() -> int:
     runtime.update(exactly_once_phase(args))
     runtime.update(harness_phase(args, runtime))
     runtime.update(autoscale_api_phase(args, runtime))
+    runtime.update(fleet_phase(args, runtime))
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs

@@ -12,9 +12,9 @@ wire-client pool, mirroring the reference API owning its own Postgres
 database with sqlx migrations (crates/etl-api/migrations/).
 
 Copy of the reference's `etl_tpu/api/app.py`: the same routes, statements
-and response bodies. `/v1/fleet` is registered (the OpenAPI document
-names it) but answers 501 with a typed refusal: its view is the fleet
-reconciler's (`fleet/`), which ROADMAP.md queue 1 entry 6 ports.
+and response bodies, `/v1/fleet` included: the fleet console reads the
+port's own fleet reconciler (`fleet/`) and the fleet store wired into
+`ApiState`.
 """
 
 from __future__ import annotations
@@ -79,9 +79,16 @@ def _bool(v) -> bool:
 
 class ApiState:
     def __init__(self, db: "str | ApiDb", cipher: ConfigCipher,
-                 orchestrator: Orchestrator, api_key: str | None = None):
+                 orchestrator: Orchestrator, api_key: str | None = None,
+                 fleet_store=None, fleet_lag_of=None):
         self.cipher = cipher
         self.orchestrator = orchestrator
+        # fleet control plane (docs/fleet.md): the StateStore holding the
+        # FleetSpec + actuation journals the /v1/fleet endpoint reports
+        # on (None = this deployment runs no fleet), and an optional
+        # async pipeline_id -> lag-bytes reader (None = lag unreported)
+        self.fleet_store = fleet_store
+        self.fleet_lag_of = fleet_lag_of
         # deployment API key (reference etl-api authentication module):
         # when set, every /v1 route requires `Authorization: Bearer <key>`
         # BEFORE tenant routing — the tenant header alone is an assertion,
@@ -732,16 +739,62 @@ def build_app(state: ApiState) -> web.Application:
     # -- fleet (docs/fleet.md) --------------------------------------------------
 
     async def fleet_status(_req: web.Request):
-        """The fleet console (reference: one aggregated view of every
-        pipeline the fleet reconciler runs). The port has no fleet
-        reconciler yet: a typed refusal, never a partial view."""
-        from ..models.errors import ErrorKind
+        """ONE aggregated view of every pipeline the fleet runs:
+        desired vs observed shard counts, orchestrator health with the
+        pod /health degraded reasons, per-pipeline lag when a reader is
+        wired, and the fleet-wide degraded-reason tally. Deliberately
+        tenant-headerless: this is the operator's fleet console, behind
+        the same bearer auth as every /v1 route."""
+        from ..fleet.reconciler import place_fleet
+        from ..fleet.spec import FleetSpec
+        from ..models.errors import EtlError
 
+        spec_doc = None
+        if state.fleet_store is not None:
+            spec_doc = await state.fleet_store.get_fleet_spec()
+        spec = FleetSpec.from_json(spec_doc)
+        targets = place_fleet(spec)
+        by_id = spec.by_id()
+        try:
+            observed = await state.orchestrator.list_pipelines()
+        except EtlError:
+            observed = {}
+        pipelines = []
+        reason_tally: dict[str, int] = {}
+        states_tally: dict[str, int] = {}
+        for pid in sorted(set(targets) | set(observed)):
+            st = await state.orchestrator.status(pid)
+            lag = None
+            if state.fleet_lag_of is not None:
+                lag = await state.fleet_lag_of(pid)
+            for reason in st.reasons:
+                reason_tally[reason] = reason_tally.get(reason, 0) + 1
+            states_tally[st.state] = states_tally.get(st.state, 0) + 1
+            p = by_id.get(pid)
+            pipelines.append({
+                "pipeline_id": pid,
+                "tenant_id": p.tenant_id if p else None,
+                "profile": p.profile if p else None,
+                "desired_shards": targets.get(pid, 0),
+                "observed_shards": observed.get(pid, 0),
+                "state": st.state,
+                "detail": st.detail,
+                "degraded_reasons": list(st.reasons),
+                "lag_bytes": lag,
+            })
         return web.json_response({
-            "error": "the fleet view needs the fleet reconciler (fleet/), "
-                     "which is not ported to etl_tpu_torch yet "
-                     "(ROADMAP.md, queue 1 entry 6)",
-            "kind": ErrorKind.CONFIG_INVALID.name}, status=501)
+            "spec_version": spec.spec_version,
+            "pipelines": pipelines,
+            "counts": {
+                "desired": len(targets),
+                "observed": len(observed),
+                "by_state": states_tally,
+            },
+            "converged": dict(observed) == targets,
+            "degraded_reasons": reason_tally,
+            "quotas": {t: q.to_json()
+                       for t, q in sorted(spec.quotas.items())},
+        })
 
     r.add_get("/v1/fleet", fleet_status)
     return app

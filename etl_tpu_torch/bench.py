@@ -69,6 +69,12 @@ held to its floor in BENCH_FLOOR.json (`benchmarks/smoke.py`), one JSON
 line each, exit 0 only when the gate holds; `--smoke` runs every gate
 the port has and lists the rest under `not_ported`. They decode on the
 card unless `--device cpu` is given (the kernels' plain versions).
+
+    python -m etl_tpu_torch.bench --autoscale | --fleet
+
+are the reference's two gates of pure arithmetic (the scaling policy's
+reaction ticks; the fleet reconciler's converge ticks, zero double
+actuations and the actuation trace's digest): they run without a card.
 """
 
 from __future__ import annotations
@@ -2687,6 +2693,16 @@ def main(argv=None) -> int:
                            "inside the cooldown, back to the starting K, "
                            "the same trace twice); pure arithmetic, it "
                            "needs no device")
+    mode.add_argument("--fleet", action="store_true",
+                      help="fleet converge gate: a 100-pipeline seeded "
+                           "FleetSpec reconciles onto an empty simulated "
+                           "fleet and through one add/remove/resize "
+                           "edit; gates working ticks <= "
+                           "fleet_converge_ticks_max, zero "
+                           "double-actuations (journal-verified), "
+                           "observed == quota-clamped placement, and a "
+                           "deterministic actuation trace; pure "
+                           "arithmetic, it needs no device")
     ap.add_argument("--streams", default=None, metavar="P1,P2,...",
                     help="--multi-pipeline: the workload profiles "
                          "(default: multi_pipeline_smoke_profiles)")
@@ -2716,6 +2732,19 @@ def main(argv=None) -> int:
         out = harness.run_autoscale_bench(
             seed=args.seed, reaction_ticks_max=smoke.load_floors().get(
                 "autoscale_reaction_ticks_max", 3))
+        print(json.dumps(out))
+        return 0 if out["ok"] else 1
+    if args.fleet:
+        # host-side reconciliation arithmetic over a simulated fleet: no
+        # pipeline and no device, as in the reference
+        from .benchmarks import harness, smoke
+
+        floors = smoke.load_floors()
+        out = harness.run_fleet_bench(
+            seed=args.seed,
+            fleet_size=floors.get("fleet_bench_pipelines", 100),
+            converge_ticks_max=floors.get("fleet_converge_ticks_max", 3))
+        out.pop("actuation_trace")  # its digest stands for it
         print(json.dumps(out))
         return 0 if out["ok"] else 1
     if args.device == "cuda" and not torch.cuda.is_available():

@@ -23,6 +23,9 @@ applies the floors of BENCH_FLOOR.json):
                       policy, the applied K looped back (gate
                       `autoscale_reaction_ticks_max`; pure arithmetic, no
                       pipeline and no device)
+  fleet               a seeded fleet reconciled onto an empty simulated
+                      fleet and through one versioned edit (gate
+                      `fleet_converge_ticks_max`; pure arithmetic)
 
 Engines: the reference's "tpu" engine is the port's `BatchEngine.CUDA`,
 its decoders on `device` ("cuda", the card, unless the caller asks for
@@ -1526,6 +1529,119 @@ def run_autoscale_bench(seed: int = 7, reaction_ticks_max: int = 3) -> dict:
         "decisions": [{"tick": t, "action": a, "target_k": k}
                       for t, a, k in actions],
         "deterministic": first == second,
+        "failures": failures,
+        "ok": not failures,
+    }
+
+
+# ---------------------------------------------------------------------------
+# fleet convergence
+# ---------------------------------------------------------------------------
+
+
+def actuation_digest(actuations: list) -> str:
+    """sha256 of an actuation log, one canonical JSON document: two runs
+    that made the same runtime calls in the same order share it."""
+    import hashlib
+    import json
+
+    return hashlib.sha256(json.dumps(actuations, sort_keys=True)
+                          .encode()).hexdigest()
+
+
+def run_fleet_bench(seed: int = 7, fleet_size: int = 100,
+                    converge_ticks_max: int = 3) -> dict:
+    """Fleet converge gate (docs/fleet.md): a `fleet_size`-pipeline
+    seeded FleetSpec reconciles onto an empty simulated fleet, then
+    through one versioned add/remove/resize edit. GATED: (a) each
+    convergence completes within `converge_ticks_max` WORKING ticks;
+    (b) zero double-actuations — every runtime call in the actuation
+    log is backed 1:1 by an APPLIED record in the per-pipeline journals,
+    and nothing stays pending; (c) the observed fleet equals the
+    quota-clamped placement exactly (no leaks, no strays); (d) the
+    actuation trace is bit-identical across two runs of the same seed.
+    Wall clock is RECORDED, not gated: pure host arithmetic, no pipeline
+    and no device. Copy of the reference's `bench.py::run_fleet_bench`,
+    which also returns the trace itself (`actuation_trace`) and its
+    `actuation_digest`."""
+    from ..fleet import (FleetReconciler, PipelineSpec,
+                         SimulatedFleetRuntime, seeded_fleet_spec)
+    from ..fleet.reconciler import place_fleet
+    from ..store.memory import MemoryStore
+
+    async def drive() -> dict:
+        store = MemoryStore()
+        runtime = SimulatedFleetRuntime(seed=seed)
+        spec = seeded_fleet_spec(seed, fleet_size)
+        await store.update_fleet_spec(spec.to_json())
+        reconciler = FleetReconciler(store=store, runtime=runtime)
+        t0 = time.perf_counter()
+        ticks = await reconciler.converge(
+            max_ticks=converge_ticks_max + 1)
+        converge_s = time.perf_counter() - t0
+        edited = spec.with_edit(
+            remove=[1, 2], resize={10: 6, 11: 1},
+            add=[PipelineSpec(pipeline_id=fleet_size + 1,
+                              tenant_id="tenant-edit", shard_count=2)])
+        await store.update_fleet_spec(edited.to_json())
+        t0 = time.perf_counter()
+        edit_ticks = await reconciler.converge(
+            max_ticks=converge_ticks_max + 1)
+        edit_s = time.perf_counter() - t0
+        journals = await store.get_fleet_journals()
+        statuses = [e.get("status") for doc in journals.values()
+                    for e in doc.get("entries", [])]
+        return {
+            "ticks": ticks,
+            "edit_ticks": edit_ticks,
+            "converge_s": converge_s,
+            "edit_s": edit_s,
+            "applied": statuses.count("applied"),
+            "pending": statuses.count("pending"),
+            "actuations": list(runtime.actuation_log),
+            "observed": await runtime.list_pipelines(),
+            "targets": place_fleet(edited),
+            "violations": runtime.violations(),
+        }
+
+    first = asyncio.run(drive())
+    second = asyncio.run(drive())
+    failures = []
+    for label, ticks in (("initial", first["ticks"]),
+                         ("edit", first["edit_ticks"])):
+        if ticks > converge_ticks_max:
+            failures.append(f"{label} converge took {ticks} working "
+                            f"ticks, gate is {converge_ticks_max}")
+    double = len(first["actuations"]) - first["applied"]
+    if double != 0:
+        failures.append(f"{double} runtime actuations not backed by an "
+                        f"applied journal record")
+    if first["pending"]:
+        failures.append(f"{first['pending']} journal records still "
+                        f"pending after convergence")
+    if first["observed"] != first["targets"]:
+        failures.append("observed fleet != quota-clamped placement")
+    if first["violations"]:
+        failures.extend(first["violations"][:5])
+    if first["actuations"] != second["actuations"]:
+        failures.append("actuation trace not deterministic across two "
+                        "runs of the same seed")
+    return {
+        "mode": "fleet",
+        "seed": seed,
+        "fleet_size": fleet_size,
+        "converge_ticks": first["ticks"],
+        "edit_converge_ticks": first["edit_ticks"],
+        "converge_ticks_max": converge_ticks_max,
+        "converge_wall_clock_s": round(first["converge_s"], 4),
+        "edit_wall_clock_s": round(first["edit_s"], 4),
+        "actuations": len(first["actuations"]),
+        "applied_records": first["applied"],
+        "double_actuations": double,
+        "deterministic": first["actuations"] == second["actuations"],
+        "observed_equals_placement": first["observed"] == first["targets"],
+        "actuation_trace": first["actuations"],
+        "actuation_digest": actuation_digest(first["actuations"]),
         "failures": failures,
         "ok": not failures,
     }

@@ -24,7 +24,6 @@ FLOOR_PATH = Path(__file__).resolve().parents[2] / "BENCH_FLOOR.json"
 NOT_PORTED_PREFIXES = {
     "coldstart_": "queue 1 entry 8 (the program store and coldstart "
                   "worker)",
-    "fleet_": "queue 1 entry 6 (fleet/)",
     "ir_analysis_budget_s": "queue 1 entry 10 (the lint's IR tier)",
     "static_analysis_budget_s": "queue 1 entry 10 (the lint tiers)",
     "mesh_smoke_rows": "queue 1 entry 9 (multi-GPU)",
@@ -382,6 +381,23 @@ def run_smoke(device: str = "cuda") -> dict:
     out["autoscale_chaos"] = autoscale_chaos.describe()
     gates["autoscale"] = correct["autoscale"] = bool(
         autoscale["ok"] and autoscale_chaos.ok)
+
+    # fleet: the declarative reconcile of a seeded fleet onto an empty
+    # simulated fleet and through one versioned edit, within the
+    # working-tick budget, zero double-actuations, observed ==
+    # placement, the same actuation trace twice (pure arithmetic)
+    fleet = harness.run_fleet_bench(
+        fleet_size=floors.get("fleet_bench_pipelines", 100),
+        converge_ticks_max=floors.get("fleet_converge_ticks_max", 3))
+    out["fleet_ok"] = bool(fleet["ok"])
+    for key in ("converge_ticks", "edit_converge_ticks",
+                "converge_ticks_max", "double_actuations",
+                "observed_equals_placement", "actuation_digest",
+                "failures"):
+        out[f"fleet_{key}"] = fleet[key]
+    out["fleet_deterministic"] = bool(fleet["deterministic"])
+    out["fleet_converge_wall_clock_s"] = fleet["converge_wall_clock_s"]
+    gates["fleet"] = correct["fleet"] = bool(fleet["ok"])
 
     out["gates"] = gates
     out["correctness"] = correct

@@ -8,10 +8,11 @@ was violated.
 
 Copy of the reference's `etl_tpu/chaos/__main__.py`. The pipelines decode
 on the card (`--device cuda`, the default; no card fails the run) unless
-`--device cpu` is given. Scenarios that need a module the port does not
-have yet are refused typed (CONFIG_INVALID, exit 2): `--fleet` (its
-chaos module), and the program-cache scenarios (the program store), which
-the corpus run prints as refused and passes over.
+`--device cpu` is given. `--fleet` reconciles a simulated fleet by
+arithmetic alone and needs no device. The program-cache scenarios need
+the program store, which the port does not have yet: asked for by name
+they are refused typed (CONFIG_INVALID, exit 2), and the corpus run
+prints them as refused and passes over them.
 """
 
 from __future__ import annotations
@@ -153,24 +154,27 @@ def main(argv: list[str] | None = None) -> int:
         return 2 if e.kind is ErrorKind.CONFIG_INVALID else 1
 
 
-#: the reference's scenario families whose modules are not ported yet
-#: (ROADMAP.md, queue 1), by flag
-_UNPORTED = {
-    "fleet": "chaos/fleet.py and fleet/ (the fleet reconciler)",
-}
-
-
 def _run(parser, args) -> int:
     import torch
 
     from ..models.errors import ErrorKind, EtlError
 
-    for flag, what in _UNPORTED.items():
-        if getattr(args, flag):
-            raise EtlError(
-                ErrorKind.CONFIG_INVALID,
-                f"--{flag.replace('_', '-')} needs {what}, which is not "
-                "ported to etl_tpu_torch yet (ROADMAP.md, queue 1)")
+    if args.fleet:
+        if args.matrix or args.workload or args.scenario or args.sharded \
+                or args.autoscale or args.multi_pipeline \
+                or args.ack_window or args.dlq or args.exactly_once:
+            parser.error("--fleet runs its own 100-pipeline "
+                         "reconciliation scenario and cannot be "
+                         "combined with --matrix/--workload/--scenario/"
+                         "--sharded/--autoscale/--multi-pipeline/"
+                         "--ack-window/--dlq/--exactly-once")
+        from .fleet import run_fleet_chaos
+
+        # the reconciler, the simulated fleet and the signal bus are
+        # host arithmetic: the run touches no device, so --device is moot
+        run = asyncio.run(run_fleet_chaos(seed=args.seed))
+        print(json.dumps(run.describe(), sort_keys=True))
+        return 0 if run.ok else 1
     from .corpus import SCENARIOS, WORKLOAD_MATRIX, get_scenario
     from .runner import refuse_unported, run_scenario
 

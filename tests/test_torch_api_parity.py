@@ -5,7 +5,7 @@ on both storage backends) with the statuses and bodies compared and the
 rows each `ApiDb` wrote compared; the OpenAPI document; the K8s manifests
 byte for byte apart from the package a container runs; the reference's
 `TestShardedOrchestration` (`tests/test_sharding.py`) on the port; the
-typed refusal of `/v1/fleet`; and `LocalOrchestrator` starting, scaling
+aggregated view of `/v1/fleet` against the reference's; and `LocalOrchestrator` starting, scaling
 (K = 1 → 2 behind a shard rebalance) and stopping the port's replicator
 children on the CPU (`benchmarks.control_plane`).
 
@@ -210,16 +210,43 @@ class TestRouteParity:
                 "body": docs["etl_tpu_torch"][1]} == pinned
 
     async def test_fleet_route_refused_typed(self, tmp_path, backend):
-        client, _, _ = await _client("etl_tpu_torch", backend, tmp_path,
-                                     "port")
-        try:
-            resp = await client.get("/v1/fleet")
-            assert resp.status == 501
-            doc = await resp.json()
-            assert doc["kind"] == "CONFIG_INVALID"
-            assert "queue 1 entry 6" in doc["error"]
-        finally:
-            await client.close()
+        """`/v1/fleet`, a typed 501 until the fleet reconciler was
+        ported, answers the reference's aggregated view: the same status
+        and body from both apps over the same fleet spec (a quota that
+        clamps) and the same observed fleet (a stray, a missing
+        pipeline)."""
+        docs = {}
+        for pkg in ("etl_tpu", "etl_tpu_torch"):
+            client, state, stub = await _client(pkg, backend, tmp_path, pkg)
+            spec_mod = __import__(f"{pkg}.fleet.spec", fromlist=["x"])
+            memory = __import__(f"{pkg}.store.memory", fromlist=["x"])
+            store = memory.MemoryStore()
+            spec = spec_mod.FleetSpec(
+                spec_version=3,
+                pipelines=(spec_mod.PipelineSpec(
+                    pipeline_id=1, tenant_id="acme", shard_count=2),
+                           spec_mod.PipelineSpec(
+                    pipeline_id=2, tenant_id="globex", shard_count=3,
+                    profile="tiny_txs")),
+                quotas={"globex": spec_mod.TenantQuota(max_shards=2,
+                                                       slo_weight=0.5)})
+            await store.update_fleet_spec(spec.to_json())
+            state.fleet_store = store
+            stub.running = {1, 7}
+
+            async def listing():
+                return {1: 2, 7: 1}
+
+            stub.list_pipelines = listing
+            try:
+                resp = await client.get("/v1/fleet")
+                docs[pkg] = (resp.status, await resp.json())
+            finally:
+                await client.close()
+        assert docs["etl_tpu_torch"] == docs["etl_tpu"]
+        status, doc = docs["etl_tpu_torch"]
+        assert status == 200 and doc["converged"] is False
+        assert [p["desired_shards"] for p in doc["pipelines"]] == [2, 2, 0]
 
 
 #: the specs whose K8s requests are compared: plain, with secrets and an

@@ -259,7 +259,7 @@ class TestCli:
         assert outs[0] == outs[1]
 
     @pytest.mark.parametrize("argv", [
-        ["--scenario", "crash_restart_corrupt_program_cache"], ["--fleet"],
+        ["--scenario", "crash_restart_corrupt_program_cache"],
         ["--scenario", "crash_restart_warm_programs"]])
     def test_unported_refused_typed(self, argv):
         proc = _cli("--device", "cpu", *argv, timeout=120)

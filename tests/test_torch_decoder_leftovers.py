@@ -595,294 +595,3 @@ class TestPropertyDecode:
             return cols, [generate_value(rng, o).text for o in cols]
 
         assert draw(PROPERTY_SEED + 2) == draw(PROPERTY_SEED + 2)
-
-
-# -- the codec fuzz targets, against the port's copies -----------------------------
-
-FUZZ_SEED = 20260729
-FUZZ_CASES = 300
-FUZZ_BOX_S = 1.5
-
-
-def _port_oid(oid):
-    """Both packages' type OIDs are the catalog's integers."""
-    return int(oid)
-
-
-def _same_outcome(port_fn, ref_fn):
-    """The port's parse and the reference's on one input: both reject
-    typed, or both return the same value."""
-    from etl_tpu.models.errors import EtlError as RefError
-
-    try:
-        got = ("ok", repr(port_fn()))
-    except EtlError as e:
-        got = ("typed", e.kind.name)
-    try:
-        want = ("ok", repr(ref_fn()))
-    except RefError as e:
-        want = ("typed", e.kind.name)
-    assert got == want, (got, want)
-
-
-def fuzz_parse_text_cell(rng):
-    from etl_tpu.postgres.codec.text import parse_cell_text as ref_parse
-    from etl_tpu.testing.fuzz import _OIDS, _SEED_TEXTS, _mutate
-    from etl_tpu_torch.postgres.codec.text import parse_cell_text
-
-    text = _mutate(rng, rng.choice(_SEED_TEXTS))
-    oid = rng.choice(_OIDS)
-    _same_outcome(lambda: parse_cell_text(text, _port_oid(oid)),
-                  lambda: ref_parse(text, oid))
-
-
-def fuzz_parse_copy_row(rng):
-    from etl_tpu.postgres.codec.copy_text import parse_copy_row as ref_parse
-    from etl_tpu.testing.fuzz import _OIDS, _SEED_TEXTS, _mutate
-    from etl_tpu_torch.postgres.codec.copy_text import parse_copy_row
-
-    n_cols = rng.randint(1, 6)
-    oids = [rng.choice(_OIDS) for _ in range(n_cols)]
-    fields = [_mutate(rng, rng.choice(_SEED_TEXTS))
-              for _ in range(rng.randint(0, n_cols + 1))]
-    line = "\t".join(fields).encode("utf-8", "surrogatepass")[:2048]
-    try:
-        got = ("ok", repr(parse_copy_row(line,
-                                         [_port_oid(o) for o in oids])
-                          .values))
-    except (EtlError, UnicodeDecodeError) as e:
-        got = ("rejected", type(e).__name__)
-    from etl_tpu.models.errors import EtlError as RefError
-
-    try:
-        want = ("ok", repr(ref_parse(line, oids).values))
-    except (RefError, UnicodeDecodeError) as e:
-        want = ("rejected", type(e).__name__)
-    assert got == want, (got, want)
-
-
-def fuzz_numeric_roundtrip(rng):
-    from etl_tpu.testing.fuzz import _mutate
-    from etl_tpu_torch.models.cell import PgNumeric
-    from etl_tpu_torch.models.pgtypes import Oid as PortOid
-    from etl_tpu_torch.postgres.codec.text import parse_cell_text
-
-    digits = rng.randint(1, 35)
-    scale = rng.randint(0, digits)
-    n = rng.randint(0, 10**digits - 1)
-    s = str(n).rjust(scale + 1, "0")
-    text = (("-" if rng.random() < 0.5 else "")
-            + (s[:-scale] + "." + s[-scale:] if scale else s))
-    v = parse_cell_text(text, PortOid.NUMERIC)
-    assert isinstance(v, PgNumeric)
-    assert v.pg_text() == text, (v.pg_text(), text)
-    try:
-        parse_cell_text(_mutate(rng, text), PortOid.NUMERIC)
-    except EtlError:
-        pass
-
-
-def fuzz_bytea_hex(rng):
-    from etl_tpu.models.pgtypes import Oid as RefOid
-    from etl_tpu.postgres.codec.text import parse_cell_text as ref_parse
-    from etl_tpu_torch.postgres.codec.text import parse_cell_text
-
-    body = "".join(rng.choice("0123456789abcdefABCDEFxg \\")
-                   for _ in range(rng.randint(0, 64)))
-    for text in (f"\\x{body}", body):
-        _same_outcome(lambda: parse_cell_text(text, _port_oid(Oid.BYTEA)),
-                      lambda: ref_parse(text, RefOid.BYTEA))
-
-
-def fuzz_framer(rng):
-    """Random bytes through the port's C framer: it flags malformed
-    frames or raises typed, never crashes or emits out-of-bounds
-    fields — and frames what the reference's framer frames."""
-    from etl_tpu.native import frame_pgoutput as ref_frame
-    from etl_tpu_torch.native import frame_pgoutput
-
-    msgs = []
-    for _ in range(rng.randint(1, 8)):
-        c = rng.random()
-        if c < 0.4:
-            msgs.append(pgoutput.encode_insert(
-                rng.randrange(1, 1 << 31),
-                [str(rng.randrange(1000)).encode()
-                 for _ in range(rng.randint(0, 4))]))
-        elif c < 0.6:
-            msgs.append(pgoutput.encode_begin(rng.randrange(1 << 40),
-                                              rng.randrange(1 << 50), 7))
-        else:
-            msgs.append(bytes(rng.randrange(256)
-                              for _ in range(rng.randint(0, 64))))
-    if msgs and rng.random() < 0.5:
-        i = rng.randrange(len(msgs))
-        b = bytearray(msgs[i])
-        if b:
-            b[rng.randrange(len(b))] ^= 1 << rng.randrange(8)
-        msgs[i] = bytes(b)
-    buf = b"".join(msgs)
-    lens = np.array([len(m) for m in msgs], dtype=np.int32)
-    offs = np.zeros(len(msgs), dtype=np.int64)
-    np.cumsum(lens[:-1], out=offs[1:])
-    n_cols = rng.randint(1, 8)
-    try:
-        framed, bad = frame_pgoutput(buf, offs, lens, n_cols)
-    except EtlError:
-        framed = None
-    from etl_tpu.models.errors import EtlError as RefError
-
-    try:
-        ref_framed, ref_bad = ref_frame(buf, offs, lens, n_cols)
-    except RefError:
-        ref_framed = None
-    assert (framed is None) == (ref_framed is None)
-    if framed is None:
-        return
-    assert bad == ref_bad
-    upto = framed.n_msgs if bad < 0 else bad
-    total = len(buf)
-    for name in ("new_off", "new_len", "old_off", "old_len"):
-        assert np.array_equal(getattr(framed, name)[:upto],
-                              getattr(ref_framed, name)[:upto]), name
-    for arr_off, arr_len in ((framed.new_off[:upto], framed.new_len[:upto]),
-                             (framed.old_off[:upto], framed.old_len[:upto])):
-        ends = arr_off.astype(np.int64) + arr_len
-        assert (arr_off >= 0).all() and (arr_len >= 0).all() \
-            and (ends <= total).all(), "framer emitted out-of-bounds field"
-
-
-def fuzz_pb_append_rows(rng):
-    from etl_tpu_torch.destinations import bq_proto
-    from etl_tpu_torch.models.cell import PgNumeric
-    from etl_tpu_torch.models.pgtypes import Oid as PortOid
-    from etl_tpu_torch.models.schema import (ColumnSchema,
-                                             ReplicatedTableSchema,
-                                             TableName, TableSchema)
-    from etl_tpu_torch.testing.pb_reader import decode_append_rows
-
-    kinds = [(PortOid.INT4, lambda: rng.randrange(-(1 << 31), 1 << 31)),
-             (PortOid.INT8, lambda: rng.randrange(-(1 << 62), 1 << 62)),
-             (PortOid.TEXT, lambda: "".join(chr(rng.randrange(32, 0x24F))
-                                            for _ in range(rng.randint(0, 9)))),
-             (PortOid.BOOL, lambda: rng.random() < 0.5),
-             (PortOid.FLOAT8, lambda: rng.uniform(-1e12, 1e12)),
-             (PortOid.NUMERIC,
-              lambda: PgNumeric(str(rng.randrange(10 ** 12))))]
-    ncols = rng.randint(1, 5)
-    chosen = [kinds[rng.randrange(len(kinds))] for _ in range(ncols)]
-    schema = ReplicatedTableSchema.with_all_columns(TableSchema(
-        999, TableName("public", "fz"),
-        tuple(ColumnSchema(f"c{i}", oid, nullable=True,
-                           primary_key_ordinal=1 if i == 0 else None)
-              for i, (oid, _) in enumerate(chosen))))
-    rows = []
-    for r in range(rng.randint(1, 4)):
-        values = [None if rng.random() < 0.25 else gen()
-                  for _, gen in chosen]
-        rows.append(bq_proto.encode_row(schema, values, "UPSERT",
-                                        f"{r:016x}"))
-    buf = bq_proto.append_rows_request(
-        "projects/p/datasets/d/tables/t/streams/_default",
-        bq_proto.row_descriptor(schema), rows, trace_id="fz",
-        offset=rng.randrange(1 << 40) if rng.random() < 0.5 else None)
-    ind = decode_append_rows(buf)
-    own = bq_proto.decode_append_rows_request(buf)
-    assert ind["write_stream"] == own.write_stream
-    assert ind["trace_id"] == own.trace_id
-    assert ind.get("offset") == own.offset
-    assert [(f["name"], f["number"], f["label"], f["type"])
-            for f in ind["descriptor"]["fields"]] == \
-        list(own.descriptor_fields)
-    assert len(ind["rows"]) == len(own.serialized_rows) == len(rows)
-    assert ind["rows"] == own.decode_rows(), (ind["rows"],
-                                              own.decode_rows())
-    raw = bytearray(buf)
-    raw[rng.randrange(len(raw))] ^= 1 << rng.randrange(8)
-    try:
-        decode_append_rows(bytes(raw))
-    except (ValueError, KeyError):
-        pass
-
-
-def fuzz_snowpipe_batches(rng):
-    import json as _json
-
-    import zstandard
-
-    from etl_tpu_torch.destinations.snowpipe import (MAX_COMPRESSED_BYTES,
-                                                     RowBatchBuilder)
-
-    b = RowBatchBuilder()
-    docs = []
-    split_case = rng.random() < 0.05
-    gens = [lambda: rng.randrange(-(1 << 60), 1 << 60),
-            lambda: "".join(chr(rng.randrange(32, 0x2FF))
-                            for _ in range(rng.randint(0, 2000))),
-            lambda: None, lambda: rng.random() * 1e6,
-            lambda: rng.random() < 0.5,
-            lambda: {"nested": [1, "x", None]}]
-    n = rng.randint(8, 12) if split_case else rng.randint(1, 40)
-    for i in range(n):
-        v = rng.randbytes(512 << 10).hex() if split_case \
-            else rng.choice(gens)()
-        doc = {"id": i, "v": v, "_cdc_sequence_number": f"{i:016x}"}
-        b.push_row(doc, f"{i:016x}")
-        docs.append(doc)
-    batches = b.finish()
-    if split_case:
-        assert len(batches) >= 2
-    dctx = zstandard.ZstdDecompressor()
-    got = []
-    row_total = 0
-    for rb in batches:
-        assert len(rb.data) <= MAX_COMPRESSED_BYTES
-        lines = dctx.decompressobj().decompress(rb.data).split(b"\n")
-        rows = [_json.loads(ln) for ln in lines if ln]
-        assert len(rows) == rb.row_count
-        assert rb.start_offset == rows[0]["_cdc_sequence_number"]
-        assert rb.end_offset == rows[-1]["_cdc_sequence_number"]
-        row_total += rb.row_count
-        got.extend(rows)
-    assert row_total == n and got == docs
-    b2 = RowBatchBuilder()
-    with pytest.raises(EtlError):
-        b2.push_row({"v": float("inf")}, "0")
-
-
-#: the reference's `etl_tpu/testing/fuzz.py` targets (`:81`, `:92`,
-#: `:106`, `:129`, `:141`, `:251`, `:312`), against the port's copies
-PORT_FUZZ_TARGETS = {
-    "parse_text_cell": fuzz_parse_text_cell,
-    "parse_copy_row": fuzz_parse_copy_row,
-    "numeric_roundtrip": fuzz_numeric_roundtrip,
-    "bytea_hex": fuzz_bytea_hex,
-    "framer": fuzz_framer,
-    "pb_append_rows": fuzz_pb_append_rows,
-    "snowpipe_batches": fuzz_snowpipe_batches,
-}
-
-
-@pytest.mark.parametrize("target", sorted(PORT_FUZZ_TARGETS))
-def test_fuzz_target(target):
-    """Seeded (case i runs on seed FUZZ_SEED + i) and time-boxed: at
-    least FUZZ_CASES cases, then until FUZZ_BOX_S has passed. A case
-    passes when the port's parser matches the contract (and, where both
-    packages parse, the reference's outcome); an untyped escape fails."""
-    import time
-
-    fn = PORT_FUZZ_TARGETS[target]
-    deadline = time.monotonic() + FUZZ_BOX_S
-    case = 0
-    while case < FUZZ_CASES or time.monotonic() < deadline:
-        seed = FUZZ_SEED + case
-        try:
-            fn(random.Random(seed))
-        except EtlError:
-            pass  # typed rejection is the contract
-        except Exception as e:
-            raise AssertionError(
-                f"fuzz target {target} failed at seed {seed}: "
-                f"{type(e).__name__}: {e}") from e
-        case += 1
-    assert case >= FUZZ_CASES

@@ -35,12 +35,11 @@ NOT_PORTED = {
     "coldstart_tables", "coldstart_rows_per_tx", "coldstart_txs_per_table",
     "coldstart_smoke_tables", "coldstart_smoke_rows_per_tx",
     "coldstart_smoke_txs_per_table",
-    "fleet_converge_ticks_max", "fleet_bench_pipelines",
     "ir_analysis_budget_s", "static_analysis_budget_s", "mesh_smoke_rows",
     "egress_floors.parquet_rows_per_sec"}
 GATES = {"decode_identity", "heartbeat", "table_streaming", "egress",
          "workload", "selectivity", "ack_window", "poison", "exactly_once",
-         "multi_pipeline", "sharded", "autoscale"}
+         "multi_pipeline", "sharded", "autoscale", "fleet"}
 
 
 @pytest.fixture(autouse=True)

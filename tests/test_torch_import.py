@@ -98,6 +98,12 @@ PORT_MODULES = [
     "etl_tpu_torch.api", "etl_tpu_torch.api.crypto", "etl_tpu_torch.api.db",
     "etl_tpu_torch.api.orchestrator", "etl_tpu_torch.api.validation",
     "etl_tpu_torch.api.app", "etl_tpu_torch.benchmarks.control_plane",
+    "etl_tpu_torch.fleet", "etl_tpu_torch.fleet.spec",
+    "etl_tpu_torch.fleet.journal", "etl_tpu_torch.fleet.runtime",
+    "etl_tpu_torch.fleet.sim", "etl_tpu_torch.fleet.reconciler",
+    "etl_tpu_torch.fleet.bus", "etl_tpu_torch.chaos.fleet",
+    "etl_tpu_torch.devtools", "etl_tpu_torch.testing.fuzz",
+    "etl_tpu_torch.benchmarks.fleet",
 ]
 
 
