@@ -219,6 +219,20 @@ the final result line:
    base weight in the scheduler, both streams verified by count and
    digest, K1 = device-routed batches, the scheduler drained.
 
+19. the lake, Iceberg and maintenance (`lake_phase`): (a) prints on a
+   line of its own whether pyarrow imports; (b) `fuzz_avro_ocf` at
+   `tests/test_fuzz.py`'s seed 20260729 for its 300 cases, the port's
+   Iceberg OCF writer against the port's independent reader (no
+   pyarrow needed); (c) where pyarrow is missing:
+   `LakeDestination`, `IcebergDestination`, `python -m
+   etl_tpu_torch.maintenance` and `run_replicator` over a config with
+   `destination: lake` each refuse with CONFIG_INVALID naming pyarrow;
+   (d) where pyarrow imports: phase 12(a)'s pgbench copy and CDC through
+   K1 into a `LakeDestination` (`bench.run_lake_cdc`), its
+   `read_current` equal to the written rows, K1 = device-routed batches.
+   No kernel is added; the launch counts are set to 0 just before (d)
+   and read just after.
+
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
 """
@@ -910,7 +924,8 @@ def egress_phase(args, main_specs, cdc: dict) -> dict:
                           if k.endswith(("_per_sec", "_attached",
                                          "_used_device", "_identical"))),
           flush=True)
-    print(f"  parquet: {eb['parquet']}", flush=True)
+    if "parquet" in eb:  # why the Parquet writer was not measured
+        print(f"  parquet: {eb['parquet']}", flush=True)
     for e in ("tsv", "json"):
         t = eb[f"device_{e}_decode_timings"]
         print(f"  {e} decode: " + " ".join(
@@ -2305,6 +2320,128 @@ def fleet_phase(args, runtime: dict, device: str = "cuda") -> dict:
     return {"18_fleet": out}
 
 
+#: phase 19(b): `tests/test_fuzz.py`'s pinned seed and case count
+AVRO_FUZZ_SEED = 20260729
+AVRO_FUZZ_CASES = 300
+
+
+def _refused_for_pyarrow(fn, what: str) -> str:
+    """Call `fn`; it must raise the typed CONFIG_INVALID naming pyarrow.
+    Returns the message."""
+    from etl_tpu_torch.models.errors import ErrorKind, EtlError
+
+    try:
+        fn()
+    except EtlError as e:
+        check(e.kind is ErrorKind.CONFIG_INVALID and "pyarrow" in str(e),
+              f"19(c): {what} refused with {e.kind.name}, not "
+              f"CONFIG_INVALID naming pyarrow: {e}")
+        return str(e)
+    raise SmokeFailure(f"19(c): {what} built without pyarrow")
+
+
+def lake_phase(args, device: str = "cuda") -> dict:
+    """Phase 19: the lake, Iceberg and maintenance (module docstring,
+    19). Without pyarrow the launch counts stay 0: the phase launches
+    nothing."""
+    import asyncio
+    import contextlib
+    import io
+    import logging
+    import tempfile
+
+    from etl_tpu_torch.benchmarks.smoke import pyarrow_importable
+    from etl_tpu_torch.testing import fuzz
+
+    print("[19] the lake, Iceberg and maintenance", flush=True)
+    oracle_clear("phase 19")
+    t0 = time.perf_counter()
+    have = pyarrow_importable()
+    print(f"  19(a) pyarrow imports: {'yes' if have else 'no'}", flush=True)
+    cases = fuzz.run_target("avro_ocf", seconds=0.0,
+                            min_cases=AVRO_FUZZ_CASES, seed=AVRO_FUZZ_SEED)
+    check(cases >= AVRO_FUZZ_CASES, "19(b): fuzz_avro_ocf ran too few cases")
+    print(f"  19(b) fuzz_avro_ocf: {cases} cases at seed {AVRO_FUZZ_SEED}, "
+          "every file round-tripped through the independent reader, every "
+          "flipped bit rejected typed or decoded to other records",
+          flush=True)
+    out: dict = {"pyarrow": have, "avro_ocf_cases": cases,
+                 "k1_launches": 0, "k2_launches": 0, "epilogue_launches": 0,
+                 "k2c_launches": 0, "egress_launches": 0}
+    if not have:
+        from etl_tpu_torch.destinations.iceberg import (IcebergConfig,
+                                                        IcebergDestination)
+        from etl_tpu_torch.destinations.lake import (LakeConfig,
+                                                     LakeDestination)
+        from etl_tpu_torch.maintenance import main as maintenance_main
+        from etl_tpu_torch.replicator import run_replicator
+
+        tmp = tempfile.TemporaryDirectory()
+        refusals = {
+            "lake": _refused_for_pyarrow(
+                lambda: LakeDestination(LakeConfig(tmp.name)),
+                "LakeDestination"),
+            "iceberg": _refused_for_pyarrow(
+                lambda: IcebergDestination(IcebergConfig(
+                    "http://127.0.0.1:9", tmp.name)), "IcebergDestination")}
+        err = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), \
+                contextlib.redirect_stderr(err):
+            rc = maintenance_main(["--warehouse", tmp.name])
+        doc = json.loads(err.getvalue().strip().splitlines()[-1])
+        check(rc == 2 and doc.get("kind") == "CONFIG_INVALID"
+              and "pyarrow" in doc.get("error", ""),
+              f"19(c): the maintenance command did not refuse typed: "
+              f"rc={rc} {doc}")
+        refusals["maintenance"] = doc["error"]
+        config_dir = os.path.join(tmp.name, "config")
+        os.makedirs(config_dir)
+        with open(os.path.join(config_dir, "base.yaml"), "w") as f:
+            json.dump({"pipeline_id": 1, "publication_name": "pub",
+                       "pg_connection": {"host": "127.0.0.1", "port": 9,
+                                         "name": "postgres",
+                                         "username": "etl"},
+                       "batch": {"batch_engine": "cuda", "device": device},
+                       "destination": {"type": "lake",
+                                       "warehouse_path": tmp.name}}, f)
+        root = logging.getLogger()
+        handlers, level = list(root.handlers), root.level
+        try:
+            refusals["replicator"] = _refused_for_pyarrow(
+                lambda: asyncio.run(run_replicator(config_dir)),
+                "run_replicator with destination lake")
+        finally:
+            root.handlers, root.level = handlers, level
+        tmp.cleanup()
+        for name, msg in refusals.items():
+            print(f"  19(c) {name}: refused CONFIG_INVALID: {msg[:100]}",
+                  flush=True)
+        out["refusals"] = refusals
+    else:
+        from etl_tpu_torch import bench
+
+        print(f"  19(d) pgbench into the lake: COPY {args.copy_rows} rows, "
+              f"CDC {args.cdc_events} events", flush=True)
+        _reset_launch_counts()
+        r = asyncio.run(bench.run_lake_cdc(args.copy_rows, args.cdc_events,
+                                           device=device, seed=args.seed))
+        r.update(_launch_counts())
+        print(f"  lake rows={r['lake_rows']} copy_s={r['copy_s']:.2f} "
+              f"cdc_s={r['cdc_s']:.2f} events/s="
+              f"{r['events_per_second']:.0f} cdc_files={r['cdc_files']} "
+              f"maintenance={r['history']} launches: k1={r['k1_launches']} "
+              f"device_batches={r['device_batches']}", flush=True)
+        check(r["rows_ok"], "19(d): the lake's current view differs from "
+              "the written rows")
+        check(r["k1_launches"] > 0
+              and r["k1_launches"] == r["device_batches"],
+              "19(d): K1 launches differ from the device-routed batches")
+        out.update(r)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"  phase 19 in {out['wall_s']:.1f} s", flush=True)
+    return {"19_lake": out}
+
+
 def _warehouse_lines(r: dict) -> None:
     run = r["run"]
     print(f"  warehouse: watched {r['watched_rows']} rows, bad "
@@ -2691,6 +2828,7 @@ def main() -> int:
     runtime.update(harness_phase(args, runtime))
     runtime.update(autoscale_api_phase(args, runtime))
     runtime.update(fleet_phase(args, runtime))
+    runtime.update(lake_phase(args))
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs

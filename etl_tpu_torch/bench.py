@@ -45,10 +45,10 @@ oracle sample, and for the copy that every chunk took the device route.
 
 runs the reference's `--egress --device` mode (`harness.run_egress`) at
 262,144 rows: rows/s and bytes/s of the BigQuery proto, ClickHouse TSV
-and Snowpipe NDJSON encoders, and of the TSV and NDJSON fast paths on
-batches whose decode launched the egress render kernel. It exits 0 only
-when both fast paths used the device text and equal the columnar oracle
-byte for byte. Parquet is left out: its writer needs pyarrow.
+and Snowpipe NDJSON encoders, the Parquet writer where pyarrow imports,
+and of the TSV and NDJSON fast paths on batches whose decode launched
+the egress render kernel. It exits 0 only when both fast paths used the
+device text and equal the columnar oracle byte for byte.
 
     python -m etl_tpu_torch.bench --wire [--rows N] [--events N]
         [--row-filter SQL] [--destination memory|clickhouse|bigquery|
@@ -1177,6 +1177,98 @@ DEGRADE_COOLDOWN_S = 3.0
 POISON_RATE = 0.001
 
 
+async def run_lake_cdc(copy_rows: int = 1_000_000,
+                       n_events: int = 500_000, *, device: str = "cuda",
+                       seed: int = 7, tx_size: int = 500,
+                       warehouse_path: str | None = None) -> dict:
+    """pgbench_accounts copied and streamed into the lake: the port's
+    Pipeline on the fake walsender, the CUDA engine on `device`, into a
+    `LakeDestination` (its defaults: Parquet files, compaction at 8 CDC
+    files) in `warehouse_path` (a temporary directory by default).
+    `copy_rows` seeded rows are copied, then `n_events` inserts stream in
+    `tx_size`-row transactions. Checks: the lake's `read_current` holds
+    exactly the written rows (every aid once, each column equal), and on
+    the card K1 launched once per device-routed batch. Needs pyarrow
+    (`destinations.util.require_pyarrow`)."""
+    import tempfile
+
+    from .destinations.lake import LakeConfig, LakeDestination
+    from .destinations.util import require_pyarrow
+    from .postgres.fake import FakeDatabase
+
+    require_pyarrow("the lake run")
+    t_copy = pgbench_table(copy_rows, seed)
+    t_cdc = pgbench_table(n_events, seed + 1, first_aid=copy_rows + 1)
+    payloads = table_payloads(t_cdc)
+    db = FakeDatabase()
+    db.create_table(make_schema().table_schema,
+                    rows=table_text_rows(t_copy))
+    db.create_publication("pub", [PGBENCH_TID])
+    tmp = None
+    if warehouse_path is None:
+        tmp = tempfile.TemporaryDirectory()
+        warehouse_path = tmp.name
+    dest = LakeDestination(LakeConfig(warehouse_path))
+    pipeline, store = _pipeline(db, dest, device)
+    out: dict = {"mode": "lake_cdc", "copy_rows": copy_rows,
+                 "events": n_events, "tx_size": tx_size, "device": device}
+    want = copy_rows + n_events
+
+    def stored_rows() -> int:
+        (n,) = dest._catalog().execute(
+            "SELECT COALESCE(SUM(f.row_count), 0) FROM lake_files f JOIN "
+            "lake_tables t ON t.table_id = f.table_id AND f.generation = "
+            "t.generation WHERE f.table_id = ?", (PGBENCH_TID,)).fetchone()
+        return int(n)
+
+    try:
+        c0 = _counters()
+        t0 = time.perf_counter()
+        await pipeline.start()
+        await _wait_ready(store, PGBENCH_TID, 900)
+        out["copy_s"] = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        for lo in range(0, n_events, tx_size):
+            tx = db.transaction()
+            for p in payloads[lo:lo + tx_size]:
+                tx.insert_preencoded(PGBENCH_TID, p)
+            await tx.commit()
+        await _until(lambda: stored_rows() >= want, 900,
+                     "the lake's rows")
+        out["cdc_s"] = time.perf_counter() - t1
+        out["events_per_second"] = n_events / out["cdc_s"]
+        await pipeline.shutdown_and_wait()  # shuts the destination down
+        out.update(_delta(c0, _counters()))
+        reader = LakeDestination(LakeConfig(warehouse_path))
+        await reader.startup()
+        try:
+            current = reader.read_current(PGBENCH_TID).sort_by("aid")
+            out["cdc_files"] = reader.current_cdc_file_count(PGBENCH_TID)
+            out["history"] = [(h["operation"], h["outcome"])
+                              for h in reader.maintenance_history()]
+        finally:
+            await reader.shutdown()
+        out["lake_rows"] = current.num_rows
+        cols = {k: np.concatenate([t_copy[k], t_cdc[k]])
+                for k in ("aid", "bid", "abalance", "filler")}
+        filler = cols["filler"].view(f"S{FILLER_WIDTH}").ravel()
+        out["rows_ok"] = current.num_rows == want and all(
+            np.array_equal(current.column(k).to_numpy(), cols[k])
+            for k in ("aid", "bid", "abalance")) \
+            and current.column("filler").to_pylist() \
+            == [f.decode() for f in filler.tolist()]
+    finally:
+        await pipeline.shutdown_and_wait()
+        if tmp is not None:
+            tmp.cleanup()
+    on_card = device.split(":")[0] == "cuda"
+    out["launches_ok"] = out["device_batches"] > 0 and (
+        out["k1_launches"] == out["device_batches"] if on_card
+        else out["k1_launches"] == 0)
+    out["ok"] = bool(out["rows_ok"] and out["launches_ok"])
+    return out
+
+
 async def run_device_degrade(copy_rows: int = 200_000,
                              n_events: int = 100_000,
                              device: str = "cuda") -> dict:
@@ -1524,15 +1616,22 @@ def run_egress(n_rows: int = N_ROWS, n_iters: int = 3,
     then of the TSV and NDJSON fast paths on batches decoded with it
     (`device_{tsv,json}_*`: the buffers attached, the fast path used them,
     its bytes equal the columnar oracle's) and of the same fast paths on
-    the host twins (`host_{tsv,json}_*`). Parquet is not measured: it
-    needs pyarrow. Min over `n_iters` of the host clock."""
+    the host twins (`host_{tsv,json}_*`). The Parquet row-group writer
+    (the lake's and Iceberg's: Arrow record batch with the CDC columns →
+    one Parquet table in memory) is measured where pyarrow imports, and
+    `parquet` says why not where it does not. Min over `n_iters` of the
+    host clock."""
     from .destinations import bq_proto
     from .destinations.clickhouse import (render_batch_tsv_columnar,
                                           render_batch_tsv_fast)
     from .destinations.snowflake import (encode_batch_ndjson,
                                          encode_batch_ndjson_fast,
                                          offset_token_batch)
-    from .destinations.util import (change_type_batch, sequence_number_batch,
+    from .benchmarks.smoke import PYARROW_MISSING, pyarrow_importable
+    from .destinations.util import (CHANGE_SEQUENCE_COLUMN,
+                                    CHANGE_TYPE_COLUMN, change_type_arrow,
+                                    change_type_batch, sequence_number_arrow,
+                                    sequence_number_batch,
                                     sequence_number_buffer)
     from .ops.egress import ENCODER_JSON, ENCODER_TSV
 
@@ -1567,11 +1666,29 @@ def run_egress(n_rows: int = N_ROWS, n_iters: int = 3,
                                     offset_token_batch(lsns, txos))
         return sum(len(ln) for ln in lines)
 
+    def parquet():
+        import io
+
+        import pyarrow as pa
+        import pyarrow.parquet as pq
+
+        rb = batch.to_arrow()
+        rb = rb.append_column(CHANGE_TYPE_COLUMN, change_type_arrow(cts))
+        rb = rb.append_column(CHANGE_SEQUENCE_COLUMN,
+                              sequence_number_arrow(lsns, txos, ords))
+        sink = io.BytesIO()
+        pq.write_table(pa.Table.from_batches([rb]), sink)
+        return sink.tell()
+
     out: dict = {"mode": "egress", "rows": n_rows, "iters": n_iters,
-                 "device": device,
-                 "parquet": "not measured: the Parquet writer needs pyarrow"}
-    for name, fn in (("bq_proto", bq), ("clickhouse_tsv", clickhouse),
-                     ("snowpipe_ndjson", snowpipe)):
+                 "device": device}
+    encoders = [("bq_proto", bq), ("clickhouse_tsv", clickhouse),
+                ("snowpipe_ndjson", snowpipe)]
+    if pyarrow_importable():
+        encoders.insert(2, ("parquet", parquet))
+    else:
+        out["parquet"] = f"not measured: {PYARROW_MISSING}"
+    for name, fn in encoders:
         out[f"{name}_rows_per_sec"], out[f"{name}_bytes_per_sec"] = timed(fn)
 
     seq_buf = sequence_number_buffer(lsns, txos, ords)

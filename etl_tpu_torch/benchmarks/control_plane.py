@@ -56,22 +56,65 @@ def _metric(text: str, name: str) -> float:
     return total
 
 
-def _free_port_pair() -> int:
-    """A port p on 127.0.0.1 with p + 1 free too (the K = 2 children's
-    `/metrics`)."""
-    import socket
+class PortPair:
+    """Two adjacent ports on 127.0.0.1, p and p + 1 (the K = 2 children's
+    `/metrics`), held from the choice until `close()`.
 
-    for _ in range(100):
-        with socket.socket() as a:
-            a.bind(("127.0.0.1", 0))
-            p = a.getsockname()[1]
+    Each port stays bound here by a socket marked SO_REUSEADDR before its
+    bind, which never listens: an outgoing connection never picks a
+    bound port as its local port, and an exclusive bind (another run's
+    `PortPair` probe, a `bind(0)` probe) is refused, while the children's
+    servers (aiohttp binds with SO_REUSEADDR) bind and listen beside it,
+    and a child restarted on the same port finds it still held. Each
+    port is first probed by an exclusive bind, released and taken at
+    once by the holder (a gap of two system calls). The holder is marked
+    before its bind because some kernels (the card's host) refuse the
+    child's bind beside a socket marked after it. A probe released until
+    the child bound it lost the port, now and then, to another socket
+    (an outgoing connection's local port, or one in TIME_WAIT): the child
+    then failed to bind and exited."""
+
+    def __init__(self):
+        import socket
+
+        def take(port: int) -> "socket.socket":
+            probe = socket.socket()
             try:
-                with socket.socket() as b:
-                    b.bind(("127.0.0.1", p + 1))
-                    return p
+                probe.bind(("127.0.0.1", port))  # exclusive: nobody else
+                port = probe.getsockname()[1]
+            finally:
+                probe.close()
+            held = socket.socket()
+            held.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            try:
+                held.bind(("127.0.0.1", port))
+            except OSError:
+                held.close()
+                raise
+            return held
+
+        for _ in range(100):
+            try:
+                a = take(0)
             except OSError:
                 continue
-    raise RuntimeError("no free pair of ports")
+            port = a.getsockname()[1]
+            try:
+                if port + 1 > 65535:
+                    raise OSError("no port above")
+                b = take(port + 1)
+            except OSError:
+                a.close()
+                continue
+            self.port = port
+            self._held = [a, b]
+            return
+        raise RuntimeError("no free pair of ports")
+
+    def close(self) -> None:
+        for sock in self._held:
+            sock.close()
+        self._held = []
 
 
 def _alive(pid: int) -> bool:
@@ -121,6 +164,7 @@ async def run_control_plane(copy_rows: int = 2_000, events: int = 4_000, *,
     fake = HttpServerProcess("clickhouse")
     orch = LocalOrchestrator(os.path.join(tmp.name, "work"))
     runner = None
+    ports = PortPair()
     store = None
     children: dict = {}  # key → pid, every child the run saw
 
@@ -197,7 +241,7 @@ async def run_control_plane(copy_rows: int = 2_000, events: int = 4_000, *,
         api_port = bench.free_port()
         await web.TCPSite(runner, "127.0.0.1", api_port).start()
         base = f"http://127.0.0.1:{api_port}"
-        metrics_port = _free_port_pair()
+        metrics_port = ports.port
         routes: dict = {}
         async with aiohttp.ClientSession() as http:
             async def call(method: str, path: str, doc=None,
@@ -296,6 +340,7 @@ async def run_control_plane(copy_rows: int = 2_000, events: int = 4_000, *,
             await store.close()
         if runner is not None:
             await runner.cleanup()
+        ports.close()
         fake.close()
         server.close()
         tmp.cleanup()

@@ -22,8 +22,8 @@ on live pipelines sharing the process's admission scheduler.
   names its own `metrics_port` pair, so shard s of A and shard s of B
   never share a port;
 - from empty the fleet converges, every child (`python -m
-  etl_tpu_torch.replicator`) turns healthy, copies its tables and
-  streams one CDC wave into each pipeline; each child's own `/metrics`
+  etl_tpu_torch.replicator`) turns healthy and streams from its apply
+  slot, copies its tables and takes one CDC wave into each pipeline; each child's own `/metrics`
   shows device-routed rows (and, on the card, kernel seconds);
 - one versioned edit deletes B and resizes A from 1 to 2. The
   coordinator is killed in both crash windows of the journal, as the
@@ -31,8 +31,9 @@ on live pipelines sharing the process's admission scheduler.
   settle (`post_actuate`: the successor's `resume()` settles it with no
   runtime call), then before A's resize ran (`pre_actuate`: the
   successor re-drives the roll). A second `resume()` finds nothing;
-- the roll starts shards 0 and 1 of A; one more CDC wave into A, and each
-  of A's children shows its own device work;
+- the roll starts shards 0 and 1 of A; once both stream from their new
+  apply slots, one more CDC wave into A, and each of A's children shows
+  its own device work;
 - `/v1/fleet`, served by the API over the fleet store, shows desired =
   observed; every copied row and every sequence key arrives once, table
   by table; every runtime call is backed by an applied journal record;
@@ -42,8 +43,12 @@ on live pipelines sharing the process's admission scheduler.
 The resize calls `scale_pipeline` without a `ShardCoordinator`
 rebalance, as the reference's fleet runtime does: A's K = 1 child runs
 unsharded, so its K = 2 pods bootstrap a fresh shard assignment and new
-per-shard slots, and nothing is written to A between the edit and the
-pods turning healthy.
+per-shard slots, and nothing is written to A between the edit and both
+pods streaming from those slots.
+
+Each pipeline's pair of `/metrics` ports is held (`PortPair`) from the
+choice until the run ends, so no other socket takes a port before its
+child binds it, or between a child's stop and its successor's start.
 
 `run_admission_weights`: two in-process `Pipeline`s on the process's
 `global_admission()` scheduler, both decoding on `device`. The bus's
@@ -68,7 +73,7 @@ import tempfile
 import time
 
 from ..fleet import OrchestratorFleetRuntime
-from .control_plane import _alive, _free_port_pair, _metric
+from .control_plane import PortPair, _alive, _metric
 
 TX_SIZE = 500
 TENANTS = ("tenant-a", "tenant-b")
@@ -164,6 +169,21 @@ async def kill_in_window(store, runtime, *, window: str, pipeline_id: int,
             "second_resume": [r.to_json() for r in again]}, successor
 
 
+def _log_tail(orch, key, n_bytes: int = 1500) -> str:
+    """The end of a `LocalOrchestrator` child's log (its config dir's
+    `replicator.log`)."""
+    pid, shard = key if isinstance(key, tuple) else (key, None)
+    suffix = "" if shard is None else f"-s{shard}"
+    path = os.path.join(orch.work_dir, f"pipeline-{pid}{suffix}",
+                        "replicator.log")
+    try:
+        with open(path, "rb") as f:
+            f.seek(max(0, os.path.getsize(path) - n_bytes))
+            return f.read().decode(errors="replace")
+    except OSError as e:
+        return f"(no log: {e})"
+
+
 def _table_ids(start: int, n: int, exclude: set) -> list:
     """`n` table ids from `start` up whose K = 2 ShardMap gives each shard
     one at least (so both pods of a K = 2 pipeline have work)."""
@@ -178,21 +198,17 @@ def _table_ids(start: int, n: int, exclude: set) -> list:
         tid += 1
 
 
-def _port_pair(exclude: set) -> int:
-    for _ in range(100):
-        p = _free_port_pair()
-        if not {p, p + 1} & exclude:
-            return p
-    raise RuntimeError("no free pair of ports apart from the others")
-
-
 async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
                              device: str = "cuda", seed: int = 7,
                              converge_ticks_max: int = 3,
-                             start_timeout_s: float = 300.0) -> dict:
+                             start_timeout_s: float = 300.0,
+                             budget_s: "float | None" = None) -> dict:
     """The fleet over `LocalOrchestrator` children (module docstring).
     `events` is each CDC wave's inserts into a pipeline, spread over its
-    two tables in 500-row transactions."""
+    two tables in 500-row transactions. `budget_s` bounds every wait of
+    the run (the children's `/health`, the rows counted at the fake) by
+    what is left of it, so a caller's own time box outlasts the run's
+    waits and a slow start fails as the run's wait that ran out."""
     from aiohttp import web
 
     from .. import bench
@@ -204,6 +220,7 @@ async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
                          TenantQuota)
     from ..fleet.reconciler import place_fleet
     from ..ops.pipeline import AdmissionScheduler
+    from ..postgres.slots import apply_slot_name
     from ..store import SqliteStore
     from ..testing.http_process import HttpServerProcess
     from ..testing.pg_process import PgServerProcess
@@ -225,9 +242,14 @@ async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
     tables[2] = _table_ids(max(tables[1]) + 1, 2, set(tables[1]))
     names = {tid: f"pgbench_accounts_{'ab'[pid - 1]}{i}"
              for pid, tids in tables.items() for i, tid in enumerate(tids)}
-    port_a = _port_pair(set())
-    ports = {1: port_a, 2: _port_pair({port_a, port_a + 1})}
     per = events // 2  # inserts a table, a wave
+    deadline = None if budget_s is None else time.monotonic() + budget_s
+
+    def wait_s(timeout_s: float) -> float:
+        """`timeout_s`, cut to what is left of the budget."""
+        if deadline is None:
+            return timeout_s
+        return max(0.0, min(timeout_s, deadline - time.monotonic()))
 
     tmp = tempfile.TemporaryDirectory()
     server = PgServerProcess(password=bench.WIRE_PASSWORD)
@@ -237,6 +259,9 @@ async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
     sched = AdmissionScheduler(1)  # the coordinator's own SLO feed target
     store = SqliteStore(os.path.join(tmp.name, "fleet.db"), 1)
     runner = None
+    # each pipeline's pair of /metrics ports, held until the end
+    held = [PortPair(), PortPair()]
+    ports = {1: held[0].port, 2: held[1].port}
     children: dict = {}  # key → pid, every child the run saw
     waves: dict = {1: 0, 2: 0}
 
@@ -258,7 +283,7 @@ async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
         async def done():
             return (await acall(fake, "count"))[key] >= want
 
-        await bench._until(done, timeout_s, what, interval=0.05)
+        await bench._until(done, wait_s(timeout_s), what, interval=0.05)
 
     async def healthy(port_list: list) -> float:
         t0 = time.perf_counter()
@@ -269,7 +294,7 @@ async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
                 if proc.returncode is not None:
                     raise RuntimeError(
                         f"replicator child {key} exited with "
-                        f"{proc.returncode}")
+                        f"{proc.returncode}: {_log_tail(orch, key)}")
             for p in port_list:
                 try:
                     status, _ = await bench.http_get(p, "/health")
@@ -279,8 +304,27 @@ async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
                     return False
             return True
 
-        await bench._until(up, start_timeout_s,
+        await bench._until(up, wait_s(start_timeout_s),
                            f"/health 200 on {port_list}", interval=0.1)
+        return time.perf_counter() - t0
+
+    async def streaming(slots: list) -> float:
+        """Wait until each of the pods' apply slots is streaming. `/health`
+        answers 200 once a pod's pipeline started, before its apply worker
+        created its slot and began to stream; a wave written before then
+        lies behind the new slot's start and never reaches the pod."""
+        t0 = time.perf_counter()
+
+        async def active():
+            for name in slots:
+                s = await acall(server, "slot", name=name)
+                if s is None or not s["active"]:
+                    return False
+            return True
+
+        await bench._until(active, wait_s(start_timeout_s),
+                           f"the apply slots {slots} streaming",
+                           interval=0.05)
         return time.perf_counter() - t0
 
     async def scrape(port: int) -> dict:
@@ -363,6 +407,9 @@ async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
         out["observed_initial"] = await runtime.list_pipelines()
         out["placed_initial"] = place_fleet(spec)
         out["start_s"] = await healthy([ports[1], ports[2], ports[2] + 1])
+        out["streaming_s"] = await streaming(
+            [apply_slot_name(1), apply_slot_name(2, 0),
+             apply_slot_name(2, 1)])
         out["slo_weights"] = {t: sched._slo_for(t) for t in TENANTS}
         t0 = time.perf_counter()
         await until_counted("copy_rows", 4 * copy_rows, 600, "the copies")
@@ -399,6 +446,8 @@ async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
         out["observed_edit"] = await runtime.list_pipelines()
         out["placed_edit"] = place_fleet(spec2)
         out["roll_start_s"] = await healthy([ports[1], ports[1] + 1])
+        out["roll_streaming_s"] = await streaming(
+            [apply_slot_name(1, 0), apply_slot_name(1, 1)])
         out["b_children_left"] = [k for k, p in pids_b.items()
                                   if _alive(p)]
         t0 = time.perf_counter()
@@ -434,6 +483,8 @@ async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
         await store.close()
         if runner is not None:
             await runner.cleanup()
+        for pair in held:
+            pair.close()
         fake.close()
         server.close()
         tmp.cleanup()

@@ -20,17 +20,38 @@ from pathlib import Path
 FLOOR_PATH = Path(__file__).resolve().parents[2] / "BENCH_FLOOR.json"
 
 #: BENCH_FLOOR.json keys whose gate the port does not run yet, by key
-#: prefix, with the ROADMAP.md queue 1 entry (or reason) that brings it
+#: prefix, with the ROADMAP.md queue 1 entry that brings it
 NOT_PORTED_PREFIXES = {
     "coldstart_": "queue 1 entry 8 (the program store and coldstart "
                   "worker)",
     "ir_analysis_budget_s": "queue 1 entry 10 (the lint's IR tier)",
     "static_analysis_budget_s": "queue 1 entry 10 (the lint tiers)",
     "mesh_smoke_rows": "queue 1 entry 9 (multi-GPU)",
-    "egress_floors.parquet_rows_per_sec": "queue 1 entry 7 (the Parquet "
-                                          "writer needs pyarrow, which "
-                                          "the card's machine lacks)",
 }
+
+#: read where pyarrow imports; listed under `not_ported` where it does not
+PARQUET_FLOOR = "egress_floors.parquet_rows_per_sec"
+PYARROW_MISSING = "pyarrow missing on this host"
+
+
+def pyarrow_importable() -> bool:
+    from ..destinations.util import require_pyarrow
+    from ..models.errors import EtlError
+
+    try:
+        require_pyarrow("the Parquet writer")
+    except EtlError:
+        return False
+    return True
+
+
+def not_ported_prefixes() -> dict:
+    """NOT_PORTED_PREFIXES, plus the Parquet floor where pyarrow cannot
+    be imported (the card's machine)."""
+    out = dict(NOT_PORTED_PREFIXES)
+    if not pyarrow_importable():
+        out[PARQUET_FLOOR] = PYARROW_MISSING
+    return out
 
 
 def load_floors() -> dict:
@@ -44,8 +65,9 @@ def not_ported(floors: dict) -> dict:
     keys = list(floors) + [f"egress_floors.{k}"
                            for k in floors.get("egress_floors", {})]
     out = {}
+    prefixes = not_ported_prefixes()
     for key in keys:
-        for prefix, why in NOT_PORTED_PREFIXES.items():
+        for prefix, why in prefixes.items():
             if key.startswith(prefix):
                 out[key] = why
     return out
@@ -282,7 +304,7 @@ def run_smoke(device: str = "cuda") -> dict:
     egress_failures = [
         f"{k}: {egress.get(k)} under floor {v}"
         for k, v in floors.get("egress_floors", {}).items()
-        if f"egress_floors.{k}" not in NOT_PORTED_PREFIXES
+        if f"egress_floors.{k}" not in not_ported_prefixes()
         and egress.get(k, 0) < v]
     for flag in ("device_tsv_identical", "device_json_identical",
                  "device_tsv_used_device", "device_json_used_device"):

@@ -10,13 +10,19 @@ destinations share (`change_type_label`, `require_full_row`,
 `require_full_batch`, `sequence_number`, `escaped_table_name`,
 `versioned_table_name`), and the error classification the poison-pill
 isolation keys on (the HTTP status map, transport-exception wrapping,
-`with_retries`). The reference's pyarrow helpers (`*_arrow`) are left
-out: no ported destination builds Arrow arrays.
+`with_retries`), the lake's column-wise patch labels (`CDC_PATCH`,
+`PATCH_MISSING_COLUMN`), and the Arrow builders of the lake and Iceberg
+writers (`sequence_number_arrow`, `hex16_arrow`, `change_type_arrow`,
+`fixed_width_string_arrow`). Each of those imports pyarrow inside, so the
+module imports where pyarrow is not installed; `require_pyarrow` turns
+its absence into the typed refusal the Parquet writers raise.
 """
 
 from __future__ import annotations
 
 import asyncio
+import random
+import uuid
 from typing import Awaitable, Callable, TypeVar
 
 import numpy as np
@@ -34,6 +40,11 @@ CHANGE_SEQUENCE_COLUMN = "_CHANGE_SEQUENCE_NUMBER"
 
 CDC_UPSERT = "UPSERT"
 CDC_DELETE = "DELETE"
+# column-wise partial update: only the columns NOT listed in the row's
+# `_PATCH_MISSING` metadata overwrite the stored row (the lake analogue of
+# reference ducklake/batches.rs UpdatedTableRow::Partial → SQL UPDATE)
+CDC_PATCH = "PATCH"
+PATCH_MISSING_COLUMN = "_PATCH_MISSING"
 
 
 def change_type_label(ct: ChangeType) -> str:
@@ -152,12 +163,73 @@ def sequence_number_batch(commit_lsns, tx_ordinals, ordinals) -> list[bytes]:
     return buf.reshape(-1).view(f"S{_SEQ_WIDTH}").tolist()
 
 
+def sequence_number_arrow(commit_lsns, tx_ordinals, ordinals):
+    """Per-row sequence keys as a pyarrow StringArray built straight from
+    the fixed-width buffer (no per-row Python strings)."""
+    return fixed_width_string_arrow(
+        sequence_number_buffer(commit_lsns, tx_ordinals, ordinals))
+
+
+def hex16_arrow(values):
+    """Vectorized `{v:016x}` strings as a pyarrow StringArray (the
+    Iceberg copy path's per-row sequence suffix)."""
+    arr = np.asarray(values, dtype=np.uint64)
+    out = np.empty((len(arr), 16), dtype=np.uint8)
+    _hex16(arr, out)
+    return fixed_width_string_arrow(out)
+
+
+def fixed_width_string_arrow(buf: np.ndarray):
+    """pyarrow StringArray from an (n, W) uint8 buffer where every row is
+    exactly W bytes (the sequence-key / hex-token shape): offsets are an
+    arange, values the buffer itself, so a caller that already rendered
+    the buffer (the lake's watermark comparison) reuses it."""
+    import pyarrow as pa
+
+    n, width = buf.shape
+    offsets = np.arange(0, (n + 1) * width, width, dtype=np.int32)
+    return pa.StringArray.from_buffers(
+        n, pa.py_buffer(offsets.tobytes()),
+        pa.py_buffer(np.ascontiguousarray(buf).tobytes()))
+
+
 def change_type_batch(change_types) -> np.ndarray:
     """Vectorized `_CHANGE_TYPE` labels for a batch: (n,) bytes array
     (S6) of UPSERT/DELETE matching `change_type_label` per row."""
     cts = np.asarray(change_types)
     return np.where(cts == int(ChangeType.DELETE),
                     np.bytes_(CDC_DELETE), np.bytes_(CDC_UPSERT))
+
+
+def change_type_arrow(change_types):
+    """Vectorized `_CHANGE_TYPE` labels as a pyarrow StringArray."""
+    import pyarrow as pa
+
+    return pa.array(change_type_batch(change_types).astype("U6"))
+
+
+def new_uuid4(rng: "random.Random | None" = None) -> uuid.UUID:
+    """A version-4 UUID: drawn from `rng` where one is given (a
+    `random.Random` a test seeds), else `uuid.uuid4()`. The lake's file
+    names and replay epochs, the Iceberg data files, manifests, snapshot
+    ids and OCF sync markers, and the maintenance run ids draw here."""
+    if rng is None:
+        return uuid.uuid4()
+    return uuid.UUID(int=rng.getrandbits(128), version=4)
+
+
+def require_pyarrow(what: str) -> None:
+    """The typed refusal of the Parquet writers: raise CONFIG_INVALID
+    naming pyarrow where it cannot be imported, never a quiet
+    substitute."""
+    try:
+        import pyarrow  # noqa: F401
+        import pyarrow.parquet  # noqa: F401
+    except ImportError as e:
+        raise EtlError(
+            ErrorKind.CONFIG_INVALID,
+            f"{what} writes Parquet through pyarrow, which cannot be "
+            f"imported here ({e})") from None
 
 
 def count_egress_write(used_device: bool) -> None:

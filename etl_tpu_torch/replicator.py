@@ -6,10 +6,13 @@ signal-driven graceful shutdown; plus the /metrics HTTP endpoint the
 reference exposes through etl-telemetry.
 
 Extra config keys consumed here (beyond PipelineConfig):
-  destination: {type: memory|clickhouse|bigquery|snowflake, …params}
-               (destinations/registry.py; `lake` and `iceberg` are refused
-               typed until a Parquet writer without pyarrow exists)
+  destination: {type: memory|clickhouse|bigquery|lake|iceberg|snowflake,
+               …params} (destinations/registry.py; `lake` and `iceberg`
+               are refused typed where pyarrow cannot be imported)
   store:       {type: memory|sqlite|postgres, path: …, connection: …}
+  maintenance: {coordination: true, …MaintenancePolicy fields} —
+               external-maintenance coordination with the lake's catalog
+               (maintenance_coordination.py); needs destination lake
   metrics_port: 0 disables the endpoint
 
 Copy of the reference's `etl_tpu/replicator.py`. The decoder runs where
@@ -17,8 +20,11 @@ Copy of the reference's `etl_tpu/replicator.py`. The decoder runs where
 default (no card raises at start), `batch: {device: cpu}` for the tests.
 `--shard`/`--shard-count` (or the document's `shard`/`shard_count` keys)
 run the binary as one shard pod, and `/health` and `/health/detail` carry
-the pod's shard identity. A `maintenance` block needs the lake destination
-and is refused typed.
+the pod's shard identity. A `maintenance` block is validated before
+startup (unknown keys, coordination without the lake: CONFIG_INVALID);
+with `coordination` over a lake destination the agent runs beside the
+pipeline and pauses its intake under the controller's lease through
+`MemoryMonitor.set_external_pause`.
 """
 
 from __future__ import annotations
@@ -160,12 +166,31 @@ async def run_replicator(config_dir: str,
         doc["shard_count"] = shard_count
     dest_doc = doc.pop("destination", {"type": "memory"})
     store_doc = doc.pop("store", {"type": "memory"})
-    if doc.pop("maintenance", None):
-        raise EtlError(
-            ErrorKind.CONFIG_INVALID,
-            "maintenance: external-maintenance coordination needs the lake "
-            "destination, which is not ported to etl_tpu_torch yet "
-            "(ROADMAP.md, queue 1)")
+    maint_doc = doc.pop("maintenance", {})
+    # validate BEFORE startup (config/load convention: unknown keys fail
+    # typed at load time, not as a TypeError after slots exist)
+    maint_policy = None
+    if maint_doc:
+        import dataclasses
+
+        from .maintenance_coordination import MaintenancePolicy
+
+        known = {f.name for f in dataclasses.fields(MaintenancePolicy)}
+        unknown = set(maint_doc) - known - {"coordination"}
+        if unknown:
+            raise EtlError(
+                ErrorKind.CONFIG_INVALID,
+                f"maintenance: unknown keys {sorted(unknown)} "
+                f"(known: {sorted(known | {'coordination'})})")
+        maint_policy = MaintenancePolicy(
+            **{k: v for k, v in maint_doc.items() if k != "coordination"})
+        if maint_doc.get("coordination") and \
+                dest_doc.get("type") != "lake":
+            raise EtlError(
+                ErrorKind.CONFIG_INVALID,
+                "maintenance.coordination requires destination.type=lake "
+                f"(got {dest_doc.get('type')!r}) — the coordination state "
+                "lives in the lake catalog")
     metrics_port = doc.pop("metrics_port", 0)
     project_ref = doc.pop("project_ref", "")
     error_webhook = doc.pop("error_webhook_url", "")
@@ -223,9 +248,34 @@ async def run_replicator(config_dir: str,
     for sig in (signal.SIGINT, signal.SIGTERM):
         loop.add_signal_handler(sig, _request_shutdown)
 
+    maint_agent = None
+    maint_store = None
     try:
         await pipeline.start()
         logger.info("pipeline started")
+        if dest_doc.get("type") == "lake" and maint_doc.get("coordination"):
+            # external-maintenance coordination (reference
+            # etl-maintenance coordination.rs replicator role): sample
+            # lake stats into operation requests, pause intake under the
+            # controller's lease via the monitor's external pause
+            from .maintenance_coordination import (
+                CatalogMaintenanceStore, ReplicatorMaintenanceAgent)
+
+            maint_store = CatalogMaintenanceStore(
+                dest_doc["warehouse_path"], config.pipeline_id)
+            mon = pipeline.memory_monitor
+            loop_ = asyncio.get_event_loop()
+            # call_soon_threadsafe: agent ticks run in a worker thread
+            # (catalog lock waits must not stall WAL keepalives), and the
+            # monitor's pause event belongs to this loop
+            maint_agent = ReplicatorMaintenanceAgent(
+                maint_store, policy=maint_policy,
+                pause=lambda: loop_.call_soon_threadsafe(
+                    mon.set_external_pause, True),
+                resume=lambda: loop_.call_soon_threadsafe(
+                    mon.set_external_pause, False))
+            maint_agent.start()
+            logger.info("maintenance coordination agent started")
         await pipeline.wait()
         logger.info("pipeline stopped cleanly")
     except BaseException as e:
@@ -236,6 +286,10 @@ async def run_replicator(config_dir: str,
             logger.error("replicator failed: %s", e)
         raise
     finally:
+        if maint_agent is not None:
+            await maint_agent.stop()
+        if maint_store is not None:
+            maint_store.close()
         if metrics_runner is not None:
             await metrics_runner.cleanup()
         close = getattr(store, "close", None)

@@ -20,12 +20,13 @@ plain data, `check_<target>(inputs)` holds the port to the contract on
 them, and the target is the one after the other. A second implementation
 of the same format can be held to the port's on the drawn inputs.
 
-Two targets are refused with a typed CONFIG_INVALID instead of run, both
-by `run_target` before its first case and by the target itself:
-`avro_ocf` needs the Iceberg metadata writer (`destinations/
-iceberg_meta.py`) and `testing/avro_reader.py`, which the port does not
-have yet (ROADMAP.md, queue 1 entry 7); `snowpipe_batches` needs the
-`zstandard` package where it is not installed.
+`avro_ocf` holds the port's Iceberg metadata writer (`destinations/
+iceberg_meta.py`, its sync marker drawn from the case's seed) to the
+port's independent reader (`testing/avro_reader.py`); neither needs
+pyarrow. One target is refused with a typed CONFIG_INVALID instead of
+run, both by `run_target` before its first case and by the target
+itself: `snowpipe_batches` needs the `zstandard` package where it is
+not installed.
 
 Run ad hoc:  python -m etl_tpu_torch.testing.fuzz --seconds 30 [--seed N]
 """
@@ -272,19 +273,80 @@ def fuzz_framer(rng: random.Random, _ignored=None) -> None:
 # -- Iceberg metadata (Avro OCF) -----------------------------------------------
 
 
-def _refuse_avro_ocf() -> None:
-    raise EtlError(
-        ErrorKind.CONFIG_INVALID,
-        "fuzz target avro_ocf is not ported to etl_tpu_torch yet: it "
-        "round-trips the Iceberg metadata writer (destinations/"
-        "iceberg_meta.py) through testing/avro_reader.py, which come with "
-        "the lake and Iceberg destinations (ROADMAP.md, queue 1 entry 7)")
+#: the record schema of the OCF pair: a string, a long, a nullable bytes
+#: union, an array of int-keyed records (Iceberg's stat-map shape), a bool
+AVRO_SCHEMA = {"type": "record", "name": "r", "fields": [
+    {"name": "s", "type": "string"},
+    {"name": "n", "type": "long"},
+    {"name": "ob", "type": ["null", "bytes"]},
+    {"name": "arr", "type": {"type": "array", "items": {
+        "type": "record", "name": "kv", "fields": [
+            {"name": "key", "type": "int"},
+            {"name": "value", "type": "bytes"}]}}},
+    {"name": "flag", "type": "boolean"},
+]}
+
+
+def draw_avro_ocf(rng: random.Random) -> dict:
+    """Up to six manifest-shaped records, the seed of the file's sync
+    marker, and one bit to flip: its position as a fraction of the file's
+    length, and the bit."""
+    records = []
+    for _ in range(rng.randint(0, 6)):
+        records.append({
+            "s": "".join(chr(rng.randrange(32, 0x2FF))
+                         for _ in range(rng.randint(0, 12))),
+            "n": rng.randrange(-(1 << 62), 1 << 62),
+            "ob": None if rng.random() < 0.3 else
+            bytes(rng.randrange(256) for _ in range(rng.randint(0, 9))),
+            "arr": [{"key": rng.randrange(1 << 20),
+                     "value": bytes(rng.randrange(256) for _ in
+                                    range(rng.randint(0, 5)))}
+                    for _ in range(rng.randint(0, 3))],
+            "flag": rng.random() < 0.5,
+        })
+    return {"records": records, "sync_seed": rng.getrandbits(64),
+            "flip": (rng.random(), rng.randrange(8))}
+
+
+def avro_ocf_file(inputs: dict, path) -> bytes:
+    """Write `inputs`' records with the port's OCF writer (the sync
+    marker drawn from the case's seed) to `path`; returns its bytes."""
+    from pathlib import Path
+
+    from ..destinations.iceberg_meta import write_avro_ocf
+
+    write_avro_ocf(path, AVRO_SCHEMA, inputs["records"],
+                   rng=random.Random(inputs["sync_seed"]))
+    return Path(path).read_bytes()
+
+
+def check_avro_ocf(inputs: dict) -> None:
+    """The Iceberg metadata pair: the records through the OCF writer must
+    round-trip EXACTLY through the independent reader (they share no
+    code), and the bit-flipped file must raise cleanly (ValueError, or
+    KeyError/TypeError from a corrupt-but-valid-JSON schema) or parse to
+    something that simply differs, never hang. AssertionError stays
+    uncaught so the round-trip check reports."""
+    import tempfile
+    from pathlib import Path
+
+    from .avro_reader import read_avro_ocf
+
+    with tempfile.TemporaryDirectory(prefix="avro_fuzz_") as d:
+        path = Path(d) / "f.avro"
+        raw = avro_ocf_file(inputs, path)
+        _, got, _ = read_avro_ocf(path)
+        assert got == inputs["records"], (got, inputs["records"])
+        path.write_bytes(flip_bit(raw, inputs["flip"]))
+        try:
+            read_avro_ocf(path)
+        except (ValueError, KeyError, TypeError, RecursionError):
+            pass  # typed rejection is the contract
 
 
 def fuzz_avro_ocf(rng: random.Random, _ignored=None) -> None:
-    """The Iceberg metadata pair (the OCF writer against the independent
-    reader): refused typed until the Iceberg destination is ported."""
-    _refuse_avro_ocf()
+    check_avro_ocf(draw_avro_ocf(rng))
 
 
 # -- BigQuery AppendRows -------------------------------------------------------
@@ -347,7 +409,8 @@ def pb_request(inputs: dict) -> bytes:
 
 
 def flip_bit(buf: bytes, flip: tuple) -> bytes:
-    """`buf` with the drawn bit flipped (`draw_pb_append_rows`)."""
+    """`buf` with the drawn bit flipped (`draw_pb_append_rows`,
+    `draw_avro_ocf`)."""
     frac, bit = flip
     raw = bytearray(buf)
     raw[min(int(frac * len(raw)), len(raw) - 1)] ^= 1 << bit
@@ -497,7 +560,6 @@ TARGETS = {
 #: what keeps a target from running here, by target: each raises the
 #: typed refusal, or returns when the target can run
 REFUSALS = {
-    "avro_ocf": _refuse_avro_ocf,
     "snowpipe_batches": _refuse_without_zstandard,
 }
 

@@ -3,7 +3,8 @@ Snowflake Snowpipe Streaming) against the port's HTTP fakes: the cases of
 the reference's `tests/test_destinations.py` for these three, run on the
 port's modules (`etl_tpu_torch`), plus the port's own rules: a failed
 columnar render fails the write and posts nothing, the registry builds
-the three and refuses the Parquet destinations.
+the three, and the Parquet destinations where pyarrow imports (refused
+typed, naming pyarrow, where it does not).
 
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_destination*.py -q
 """
@@ -1378,14 +1379,45 @@ class TestRegistry:
 
     @pytest.mark.parametrize("kind", ["lake", "iceberg"])
     def test_refuses_the_parquet_destinations(self, kind):
-        from etl_tpu_torch.destinations import build_destination
-        from etl_tpu_torch.models.errors import ErrorKind, EtlError
+        """Where pyarrow cannot be imported (a subprocess with
+        `sys.modules["pyarrow"] = None`, as on a host without it), the
+        registry refuses the Parquet destinations with CONFIG_INVALID
+        naming the destination and pyarrow; where it imports, it builds
+        them as the reference's registry does."""
+        import os
+        import subprocess
+        import sys
 
-        with pytest.raises(EtlError) as ei:
-            build_destination({"type": kind, "warehouse_path": "/x"})
-        assert ei.value.kind is ErrorKind.CONFIG_INVALID
-        assert kind in str(ei.value)
-        assert "pyarrow's Parquet writer" in str(ei.value)
+        from etl_tpu_torch.destinations import build_destination
+
+        doc = {"type": kind, "warehouse_path": "/x"}
+        if kind == "iceberg":
+            doc["catalog_url"] = "http://127.0.0.1:9"
+        assert type(build_destination(dict(doc))).__name__ \
+            == {"lake": "LakeDestination",
+                "iceberg": "IcebergDestination"}[kind]
+        code = (
+            "import json, sys\n"
+            "sys.modules['pyarrow'] = None\n"
+            "from etl_tpu_torch.destinations import build_destination\n"
+            "from etl_tpu_torch.models.errors import EtlError\n"
+            "try:\n"
+            f"    build_destination({doc!r})\n"
+            "    print(json.dumps(None))\n"
+            "except EtlError as e:\n"
+            "    print(json.dumps([e.kind.name, str(e)]))\n")
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+        env["PYTHONPATH"] = root
+        proc = subprocess.run([sys.executable, "-c", code],
+                              capture_output=True, text=True, timeout=120,
+                              cwd=root, env=env)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert got is not None
+        kind_name, msg = got
+        assert kind_name == "CONFIG_INVALID"
+        assert kind in msg and "pyarrow" in msg
 
 
 class TestDelayedAck:

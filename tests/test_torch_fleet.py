@@ -1038,6 +1038,30 @@ def test_fleet_clis_run_without_a_card(argv, pinned):
 
 # -- the reconciler over real replicator children ------------------------------
 
+#: the runs' own waits end within this, inside the tests' time boxes
+FLEET_BUDGET_S = 100.0
+
+#: a child's `sitecustomize`: its apply slot is created
+#: $ETL_TEST_APPLY_SLOT_DELAY_S late (F5's test)
+SLOW_APPLY_SLOT = """
+import os
+
+if os.environ.get("ETL_TEST_APPLY_SLOT_DELAY_S"):
+    import asyncio
+
+    from etl_tpu_torch.postgres import client
+
+    _delay = float(os.environ["ETL_TEST_APPLY_SLOT_DELAY_S"])
+    _real = client.PgReplicationClient.create_slot
+
+    async def _create_slot(self, name):
+        if "_apply_" in name:
+            await asyncio.sleep(_delay)
+        return await _real(self, name)
+
+    client.PgReplicationClient.create_slot = _create_slot
+"""
+
 
 class TestOrchestratorFleetRuntime:
     async def test_create_resize_delete_over_local_children(self):
@@ -1046,11 +1070,13 @@ class TestOrchestratorFleetRuntime:
         A resized to 2 with the coordinator killed in both crash windows,
         A removed; `list_pipelines` equals the placement after each
         convergence, every key once, no double actuation, no child
-        left. Time-boxed."""
+        left. Time-boxed; the run's own waits end within FLEET_BUDGET_S,
+        so a slow start fails as the wait that ran out."""
         from etl_tpu_torch.benchmarks.fleet import run_fleet_children
 
         r = await asyncio.wait_for(
-            run_fleet_children(500, 1_000, device="cpu"), 240)
+            run_fleet_children(500, 1_000, device="cpu",
+                               budget_s=FLEET_BUDGET_S), 240)
         assert r["ok"], r["checks"]
         assert r["observed_initial"] == r["placed_initial"] == {1: 1, 2: 2}
         assert r["observed_edit"] == r["placed_edit"] == {1: 2}
@@ -1059,6 +1085,53 @@ class TestOrchestratorFleetRuntime:
         assert r["double_actuations"] == 0
         assert [a["verb"] for a in r["actuations"]] \
             == ["create", "create", "delete", "resize"]
+
+    async def test_ports_taken_and_slots_late_lose_nothing(
+            self, monkeypatch, tmp_path):
+        """F5: the run holds each child's `/metrics` port from its choice
+        to the run's end, and writes a CDC wave only once every pod
+        streams from its apply slot. An intruder binds each child's port
+        just before the orchestrator starts the child, as an outgoing
+        connection of another process takes a released port; each
+        child's apply slot is created 3 s late, as under a busy host.
+        Both fail the parent's run (the child exits on its port; A's
+        K = 2 wave lies behind a slot created after it). Time-boxed."""
+        import socket
+
+        from etl_tpu_torch.benchmarks.fleet import run_fleet_children
+
+        (tmp_path / "sitecustomize.py").write_text(SLOW_APPLY_SLOT)
+        monkeypatch.setenv("PYTHONPATH", os.pathsep.join(
+            [str(tmp_path), ROOT]))
+        monkeypatch.setenv("ETL_TEST_APPLY_SLOT_DELAY_S", "3")
+        real = LocalOrchestrator.start_pipeline
+        taken, refused = [], []
+
+        async def start_pipeline(self, spec):
+            port = spec.config.get("metrics_port")
+            if port:
+                sock = socket.socket()
+                try:
+                    sock.bind(("127.0.0.1", int(port)))
+                    taken.append(sock)
+                except OSError:
+                    sock.close()
+                    refused.append(int(port))
+            return await real(self, spec)
+
+        monkeypatch.setattr(LocalOrchestrator, "start_pipeline",
+                            start_pipeline)
+        try:
+            r = await asyncio.wait_for(
+                run_fleet_children(500, 1_000, device="cpu"), 240)
+        finally:
+            ports = [s.getsockname()[1] for s in taken]
+            for sock in taken:
+                sock.close()
+        assert ports == [], f"an intruder took the ports {ports}"
+        assert refused, "no child was started"
+        assert r["ok"], r["checks"]
+        assert r["roll_streaming_s"] > 0
 
     async def test_admission_weights_on_live_pipelines(self):
         """`run_admission_weights` on the CPU (chip_smoke.py 18(d)): the

@@ -104,6 +104,22 @@ PORT_MODULES = [
     "etl_tpu_torch.fleet.bus", "etl_tpu_torch.chaos.fleet",
     "etl_tpu_torch.devtools", "etl_tpu_torch.testing.fuzz",
     "etl_tpu_torch.benchmarks.fleet",
+    "etl_tpu_torch.destinations.lake", "etl_tpu_torch.destinations.iceberg",
+    "etl_tpu_torch.destinations.iceberg_meta",
+    "etl_tpu_torch.testing.avro_reader", "etl_tpu_torch.testing.fake_iceberg",
+    "etl_tpu_torch.maintenance", "etl_tpu_torch.maintenance_coordination",
+]
+
+#: the lake, Iceberg and maintenance modules import where pyarrow cannot
+#: be imported; building them refuses typed there
+#: (tests/test_torch_lake.py, test_torch_maintenance.py)
+PYARROW_FREE_MODULES = [
+    "etl_tpu_torch.destinations.lake", "etl_tpu_torch.destinations.iceberg",
+    "etl_tpu_torch.destinations.iceberg_meta",
+    "etl_tpu_torch.destinations.registry", "etl_tpu_torch.testing.fuzz",
+    "etl_tpu_torch.testing.avro_reader", "etl_tpu_torch.testing.fake_iceberg",
+    "etl_tpu_torch.maintenance", "etl_tpu_torch.maintenance_coordination",
+    "etl_tpu_torch.replicator", "etl_tpu_torch.bench",
 ]
 
 
@@ -129,6 +145,25 @@ bad = sorted(m for m in sys.modules
 print("BAD", bad)
 print("HAVE", "etl_tpu_torch.ops.engine" in sys.modules)
 """
+
+
+def test_parquet_modules_import_without_pyarrow():
+    """With pyarrow blocked, the Parquet writers' modules import, pull in
+    neither JAX nor the reference, and the OCF pair still round-trips."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    code = ("import sys\nsys.modules['pyarrow'] = None\n"
+            + _PROBE.format(mods=PYARROW_FREE_MODULES)
+            + "from etl_tpu_torch.testing import fuzz\n"
+              "print('CASES', fuzz.run_target('avro_ocf', seconds=0.1, "
+              "min_cases=50, seed=1))\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=240, cwd=ROOT, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    lines = proc.stdout.splitlines()
+    assert "BAD []" in lines, proc.stdout
+    assert any(ln.startswith("CASES ") and int(ln.split()[1]) >= 50
+               for ln in lines), proc.stdout
 
 
 def test_port_imports_neither_jax_nor_reference():

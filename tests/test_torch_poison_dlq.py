@@ -1091,17 +1091,26 @@ class TestDlqCli:
         return json.loads(buf.getvalue())
 
     def test_replay_via_registry_destination_waits_typed(self, seeded_db,
-                                                         tmp_path):
+                                                         tmp_path,
+                                                         monkeypatch):
         """`replay --destination-json` builds the destination through
-        `destinations/registry.py`: a type the port has not ported yet
-        fails typed (exit 1), naming it, and marks nothing replayed;
-        `memory` replays every dead entry, and a second run none."""
+        `destinations/registry.py`: one that cannot be built here (the
+        lake where pyarrow cannot be imported, as on a host without it)
+        fails typed (exit 1), naming it and pyarrow, and marks nothing
+        replayed; `memory` replays every dead entry, and a second run
+        none."""
+        import sys
+
         base = ["--sqlite", seeded_db, "--pipeline-id", "1"]
-        unported = tmp_path / "lake.json"
-        unported.write_text('{"type": "lake"}')
-        out = self.run_cli_failing(*base, "replay", "--destination-json",
-                                   str(unported))
-        assert "lake" in out["error"] and "not ported" in out["error"]
+        unbuildable = tmp_path / "lake.json"
+        unbuildable.write_text(json.dumps(
+            {"type": "lake", "warehouse_path": str(tmp_path / "wh")}))
+        with monkeypatch.context() as m:
+            m.setitem(sys.modules, "pyarrow", None)
+            out = self.run_cli_failing(*base, "replay",
+                                       "--destination-json",
+                                       str(unbuildable))
+        assert "lake" in out["error"] and "pyarrow" in out["error"]
         assert self.run_cli(*base, "list")["count"] == 3
         dest_json = tmp_path / "dest.json"
         dest_json.write_text('{"type": "memory"}')
