@@ -8,11 +8,16 @@ the final result line:
 
 1. device: the card's name, the device count, nvidia-smi's name and power
    limit. No CUDA device → exit 1.
-2. build: nvcc builds the decode kernels and the egress render kernel
-   from csrc/, one nvcc a source, both started together (build times and
-   the `-Xptxas -v` reports are printed).
+2. build: the program store's default directory is emptied, and nvcc
+   builds the decode kernels and the egress render kernel from csrc/
+   through the store (`ops/program_store.py`), one nvcc a source, both
+   started together (build times and the `-Xptxas -v` reports are
+   printed): the cold start's nvcc.
 3. kernel against its plain version, on the card, bit for bit: (a) the
-   pgbench main-path specs at 262,144 rows, (b) every dense kind raw at
+   pgbench main-path layout at 262,144 rows (the canonical layout the
+   unfiltered main path packs: its three INT4 columns sorted by width
+   and bit width; the exact and canonical layouts print), (b) every
+   dense kind raw at
    65,536 rows, (c) the integer and temporal kinds nibble-packed at
    65,536 rows. Inputs are seeded and include adversarial rows. Prints
    the walk the launch took (tile, subtile, direct), the kernel time
@@ -45,7 +50,9 @@ the final result line:
    timed once.
 4. main path: pgbench insert CDC payloads → framing → stage_wal_batch →
    DeviceDecoder(device="cuda") with two batches in flight, 262,144 rows
-   a batch. The decoder must launch the kernel; the first batch must equal
+   a batch. Each batch must take the device route and launch K1 once
+   (the routes print with the decoder's measured `device_min_rows`);
+   the first batch must equal
    the CPU decode of the same staged batch, every batch must have its
    digest, and a row sample must equal the CPU oracle. Prints records/s,
    the stage split (framing + staging, pack, launch on the host clock,
@@ -132,7 +139,9 @@ the final result line:
 
 11. the replicator binary over the Postgres wire protocol, against the
    port's fake server (SCRAM) in a child process: (a)
-   `replicator.run_replicator` in this process at phases 6 and 7's sizes,
+   `replicator.run_replicator` in this process at 250,000 rows and
+   125,000 events (cut for time from phases 6 and 7's 1,000,000 and
+   500,000),
    a PostgresStore on the same server, the `memory` destination, then
    20,000 inserts across a restart; (b) phase 8's stream from a
    publication whose catalog row filter is `bid <= 5`; (c) `python -m
@@ -162,7 +171,10 @@ the final result line:
    its device-routed batches.
 
 14. the chaos corpus, the pod kill, the multi-pipeline crash and the DLQ
-   scenarios, every batch through K1 (`device_floor(1)`).
+   scenarios, every batch through K1 (`device_floor(1)`). The two
+   program-cache scenarios run on the program store and must launch K1:
+   the warm restart builds nothing and loads from disk, the corrupt one
+   counts an invalid miss and rebuilds, its nvcc seconds printed.
 
 15. exactly-once and the ack window (`exactly_once_phase`): the hard-kill
    matrix and the K-in-flight crash, the `--ack-latency` (both engines),
@@ -176,13 +188,16 @@ the final result line:
    shard worker processes (each worker's launches = its device-routed
    batches, beside phase 13), lag at 25 % and 75 % of the maximum, the
    wide row, and `python -m etl_tpu_torch.bench --smoke` as a process
-   (its exit code, gates and `not_ported` printed).
+   (its exit code, gates and `not_ported` printed; it gates the
+   `coldstart_*` smoke sizes, none of which may be listed not ported).
 
 17. the autoscale controller and the control plane
    (`autoscale_api_phase`): (a) `run_autoscale_surge_drain` and
    `run_autoscale_controller_crash` (seed 7) on the card, each green,
    with the decision trace and K trajectory of the same seed on the CPU,
-   K1 launches = the pods' device-routed batches > 0; (b) `bench
+   K1 launches = the pods' device-routed batches > 0, at the CPU run's
+   threshold (`device_floor(DEVICE_MIN_ROWS)`: no probe moves its 64-105
+   row batches off K1); (b) `bench
    --autoscale` (reaction ticks ≤ autoscale_reaction_ticks_max, the same
    trace twice, back to the starting K) and phase 16's `bench --smoke`
    holding the autoscale gates with rc 0; (c) the API served on
@@ -232,6 +247,24 @@ the final result line:
    `read_current` equal to the written rows, K1 = device-routed batches.
    No kernel is added; the launch counts are set to 0 just before (d)
    and read just after.
+
+20. the program store and autotune (`program_store_phase`): (a) the
+   routing cost model fitted on the card (fixed ms, round-trip GB/s, the
+   host route's column-rows/s and per-call ms), pgbench batches of 64,
+   128 and 256 rows timed through the host route and through K1, the
+   resolved `device_min_rows` of pgbench_accounts and of the coldstart
+   schema, phase 4's batches each through K1, and every phase's device,
+   host and oracle batches; (b) `python -m etl_tpu_torch.bench
+   --coldstart` (started as a process before phase 14, so that its cold
+   build overlaps it: its seconds are taken under that load) at
+   BENCH_FLOOR.json's full coldstart sizes (3 tables, 800 rows a transaction, 2
+   transactions), two lifetimes on a fresh cache directory: each prints
+   its nvcc seconds, builds, disk hits, oracle rows and start,
+   first-durable and total seconds; the warm restart builds nothing, and
+   each run's K1 launches equal its device-routed batches.
+
+Every phase's routed batches are counted by route (device, host,
+oracle), and the three must add up to the routed batches.
 
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
@@ -692,22 +725,23 @@ def fused_cases(specs, pool, seed, pred, wide_pred, wide_specs):
 
 def held_main_path_ms(decoder, staged, specs, filtered: bool) -> dict:
     """The main path's kernels on one of its own batches, timed as the
-    kernel records are (held, `bench.device_ms`): K1, or the filtered
-    route (K2c), on the decoder's packed bytes, lengths and row flags of
-    `staged`, with the L2 flushed before each launch (`cold_ms`) and
-    without (`warm_ms`, as the engine finds the bytes just uploaded)."""
+    kernel records are (held, `bench.device_ms`): K1 on the canonical
+    layout, or the filtered route (K2c) on the exact one, on the
+    decoder's packed bytes, lengths and row flags of `staged` (`specs`
+    the batch's exact specs), with the L2 flushed before each launch
+    (`cold_ms`) and without (`warm_ms`, as the engine finds the bytes
+    just uploaded)."""
     import torch
 
     from etl_tpu_torch.ops import decode_kernel as dk
 
-    widths = tuple(w for _, _, w, _ in specs)
-    packed = decoder._pack_host(staged, widths)
+    packed = decoder._pack_stage(staged, specs)
+    specs = packed.pspecs(specs)  # the canonical layout, unfiltered
     bm = torch.from_numpy(packed.bmat).cuda()
     ln = torch.from_numpy(packed.lengths).cuda()
     if filtered:
-        pred = decoder._device_filter_for(staged)
-        fl = torch.from_numpy(decoder._row_flags(staged, specs, pred,
-                                                 packed.bad_rows)).cuda()
+        pred = packed.pred
+        fl = torch.from_numpy(packed.row_flags).cuda()
 
         def fn():
             return dk.prepare_filtered(bm, ln, fl, specs, packed.nibble,
@@ -721,22 +755,44 @@ def held_main_path_ms(decoder, staged, specs, filtered: bool) -> dict:
             "warm_ms": time_ms(fn, 50)}
 
 
+def _spec_text(specs) -> str:
+    return "[" + ", ".join(f"{k.name}/{w}/{bw}" for _, k, w, bw in specs) \
+        + "]"
+
+
 def _reset_launch_counts() -> None:
+    """Set the kernels' launch counts and the engine's routed-batch
+    counts of this process to 0."""
     from etl_tpu_torch.ops import decode_kernel as dk
     from etl_tpu_torch.ops import egress_kernel as ek
+    from etl_tpu_torch.ops import engine
 
     dk.launches = dk.filter_launches = dk.compact_launches = 0
     dk.fused_launches = ek.launches = 0
+    engine.routed_batches = engine.routed_device_batches = 0
+    engine.routed_host_batches = engine.routed_oracle_batches = 0
 
 
 def _launch_counts() -> dict:
+    """The counts since `_reset_launch_counts`: launches by kernel and
+    batches by route. Every batch the engine routed took exactly one
+    route: device + host + oracle must add up to all routed batches."""
     from etl_tpu_torch.ops import decode_kernel as dk
     from etl_tpu_torch.ops import egress_kernel as ek
+    from etl_tpu_torch.ops import engine
 
-    return {"k1_launches": dk.launches, "k2_launches": dk.filter_launches,
-            "epilogue_launches": dk.compact_launches,
-            "k2c_launches": dk.fused_launches,
-            "egress_launches": ek.launches}
+    out = {"k1_launches": dk.launches, "k2_launches": dk.filter_launches,
+           "epilogue_launches": dk.compact_launches,
+           "k2c_launches": dk.fused_launches,
+           "egress_launches": ek.launches,
+           "routed_batches": engine.routed_batches,
+           "device_routed_batches": engine.routed_device_batches,
+           "host_routed_batches": engine.routed_host_batches,
+           "oracle_routed_batches": engine.routed_oracle_batches}
+    check(out["device_routed_batches"] + out["host_routed_batches"]
+          + out["oracle_routed_batches"] == out["routed_batches"],
+          f"routes do not add up to the routed batches: {out}")
+    return out
 
 
 def _stage_line(r: dict) -> str:
@@ -1145,6 +1201,12 @@ def default_config_phase(args, cdc: dict) -> dict:
 #: phase 11: the inserts across 11(a)'s restart; 11(c)'s table and stream
 #: (the binary as a process proves the process, not a rate)
 RESTART_EVENTS = 20_000
+#: the depth of 11(a), 11(b) and 12(a), cut for time from phases 6 and
+#: 7's 1,000,000 rows and 500,000 events (the program store's phases pay
+#: four nvcc builds of the decode library); their rates still print
+#: beside phases 6-8
+WIRE_COPY_ROWS = 250_000
+WIRE_CDC_EVENTS = 125_000
 BINARY_COPY_ROWS = 100_000
 BINARY_EVENTS = 10_000
 
@@ -1152,8 +1214,9 @@ BINARY_EVENTS = 10_000
 def wire_phase(args, runtime: dict, device: str = "cuda") -> dict:
     """Phase 11: the replicator binary over the Postgres wire protocol,
     against a fake server with SCRAM auth in a child process. (a)
-    `replicator.run_replicator(config_dir)` in this process at phases 6
-    and 7's sizes, with a PostgresStore and a restart; (b) the same
+    `replicator.run_replicator(config_dir)` in this process at
+    `WIRE_COPY_ROWS` and `WIRE_CDC_EVENTS`, with a PostgresStore and a
+    restart; (b) the same
     stream from a publication whose catalog row filter is `bid <= 5`, in
     offload mode; (c) `python -m etl_tpu_torch.replicator` as a process
     with a SqliteStore, and the DLQ CLI's `--postgres` and `replay
@@ -1167,13 +1230,13 @@ def wire_phase(args, runtime: dict, device: str = "cuda") -> dict:
     out = {}
     r6, r7, r8 = runtime["6_copy"], runtime["7_cdc"], runtime["8_cdc_filtered"]
     print(f"[11a] the replicator over the wire, in process: COPY "
-          f"{args.copy_rows} rows, CDC {args.cdc_events} events, then "
+          f"{WIRE_COPY_ROWS} rows, CDC {WIRE_CDC_EVENTS} events, then "
           f"{RESTART_EVENTS} more across a restart (PostgresStore, SCRAM, "
           f"the server in a child process)", flush=True)
     oracle_clear("phase 11(a)")
     _reset_launch_counts()
     r = asyncio.run(bench.run_wire_replicator(
-        args.copy_rows, args.cdc_events, device=device, seed=args.seed,
+        WIRE_COPY_ROWS, WIRE_CDC_EVENTS, device=device, seed=args.seed,
         restart_events=RESTART_EVENTS))
     r.update(_launch_counts())
     _wire_lines(r, r6, r7, "phase 6", "phase 7")
@@ -1190,12 +1253,12 @@ def wire_phase(args, runtime: dict, device: str = "cuda") -> dict:
     out["11a_wire"] = r
 
     print(f"[11b] the same stream from a publication with the catalog row "
-          f"filter bid <= 5 (offload mode, {args.cdc_events} events)",
+          f"filter bid <= 5 (offload mode, {WIRE_CDC_EVENTS} events)",
           flush=True)
     oracle_clear("phase 11(b)")
     _reset_launch_counts()
     r = asyncio.run(bench.run_wire_replicator(
-        0, args.cdc_events, device=device, seed=args.seed,
+        0, WIRE_CDC_EVENTS, device=device, seed=args.seed,
         row_filter="bid <= 5", restart_events=0))
     r.update(_launch_counts())
     _wire_lines(r, None, r8, None, "phase 8")
@@ -1236,7 +1299,7 @@ def wire_phase(args, runtime: dict, device: str = "cuda") -> dict:
 WAREHOUSE_FILTERED_EVENTS = 100_000
 BIGQUERY_COPY_ROWS = 200_000
 BIGQUERY_EVENTS = 100_000
-PROFILE_EVENTS = 50_000
+PROFILE_EVENTS = 20_000  # cut for time from 50,000
 
 
 def warehouse_phase(args, runtime: dict, device: str = "cuda") -> dict:
@@ -1259,13 +1322,13 @@ def warehouse_phase(args, runtime: dict, device: str = "cuda") -> dict:
 
     out = {}
     ref = runtime["11a_wire"]
-    print(f"[12a] ClickHouse over HTTP: COPY {args.copy_rows} rows, CDC "
-          f"{args.cdc_events} events, then {RESTART_EVENTS} more across a "
+    print(f"[12a] ClickHouse over HTTP: COPY {WIRE_COPY_ROWS} rows, CDC "
+          f"{WIRE_CDC_EVENTS} events, then {RESTART_EVENTS} more across a "
           f"restart (the fake in a child process)", flush=True)
     oracle_clear("phase 12(a)")
     _reset_launch_counts()
     r = asyncio.run(bench.run_wire_replicator(
-        args.copy_rows, args.cdc_events, device=device, seed=args.seed,
+        WIRE_COPY_ROWS, WIRE_CDC_EVENTS, device=device, seed=args.seed,
         restart_events=RESTART_EVENTS, destination="clickhouse"))
     r.update(_launch_counts())
     _wire_lines(r, ref, ref, "11(a)", "11(a)")
@@ -1437,21 +1500,21 @@ def chaos_phase(args, device: str = "cuda") -> dict:
     """Phase 14: the chaos corpus through the kernels. `run_scenario` over
     every scenario of the corpus and its workload matrix with the CUDA
     engine on the card and the decoder's floor at one row (at the corpus's
-    few-row transactions every batch would otherwise take the oracle), the
-    two program-cache scenarios printed as refused (the program store is
-    not ported); then the sharded pod kill, the multi-pipeline crash and
-    the DLQ scenarios. Each must hold its invariants and launch K1 (the
-    per-tuple engine's scenario launches none, by design). The launch
-    counts are set to 0 just before the phase and read just after."""
+    few-row transactions every batch would otherwise take the host route
+    or the oracle), the two program-cache scenarios included: the warm
+    restart must build nothing and load from disk, the corrupt one must
+    count an invalid miss and rebuild (its nvcc seconds print); then the
+    sharded pod kill, the multi-pipeline crash and the DLQ scenarios.
+    Each must hold its invariants and launch K1 (the per-tuple engine's
+    scenario launches none, by design). The launch counts are set to 0
+    just before the phase and read just after."""
     import asyncio
 
     from etl_tpu_torch.chaos.corpus import SCENARIOS, WORKLOAD_MATRIX
     from etl_tpu_torch.chaos.dlq import run_dlq_scenarios
     from etl_tpu_torch.chaos.multi import run_multi_pipeline_scenario
-    from etl_tpu_torch.chaos.runner import (device_floor, refuse_unported,
-                                            run_scenario)
+    from etl_tpu_torch.chaos.runner import device_floor, run_scenario
     from etl_tpu_torch.chaos.sharded import run_sharded_scenario
-    from etl_tpu_torch.models.errors import EtlError
     from etl_tpu_torch.ops import decode_kernel as dk
 
     print(f"[14] the chaos corpus through K1 ({len(SCENARIOS)} scenarios + "
@@ -1460,21 +1523,35 @@ def chaos_phase(args, device: str = "cuda") -> dict:
           f"crash and the DLQ scenarios", flush=True)
     oracle_clear("phase 14")
     _reset_launch_counts()
-    runs, refused = [], []
+    runs = []
     t0 = time.perf_counter()
     with device_floor(1):
         for scenario in SCENARIOS + WORKLOAD_MATRIX:
-            try:
-                refuse_unported(scenario)
-            except EtlError as e:
-                refused.append(scenario.name)
-                print(f"  {scenario.name}: refused ({e})", flush=True)
-                continue
             k1 = dk.launches
+            built = dk.build_seconds
             run = asyncio.run(run_scenario(scenario, args.seed,
                                            device=device))
             runs.append((scenario.name, run, dk.launches - k1,
                          scenario.engine))
+            if scenario.program_cache:
+                pc = run.program_cache or {}
+                rebuild = dk.build_seconds \
+                    if dk.build_seconds is not built else None
+                print(f"  {scenario.name}: program cache since seeding: "
+                      f"builds={pc.get('compiled')} disk_hits="
+                      f"{pc.get('disk_hits')} invalid={pc.get('invalid')}"
+                      f"; decode_pack.cu rebuilt by nvcc in "
+                      f"{rebuild if rebuild is None else round(rebuild, 2)}"
+                      f" s", flush=True)
+                if scenario.program_cache == "warm":
+                    check(pc.get("compiled") == 0
+                          and pc.get("disk_hits", 0) > 0,
+                          f"14: {scenario.name}: {pc}")
+                else:
+                    check(pc.get("invalid", 0) >= 1
+                          and pc.get("compiled", 0) >= 1
+                          and rebuild is not None,
+                          f"14: {scenario.name}: {pc}, rebuild {rebuild}")
         for name, fn in (("sharded_pod_kill", run_sharded_scenario),
                          ("multi_pipeline_crash_one_stream",
                           run_multi_pipeline_scenario)):
@@ -1486,7 +1563,7 @@ def chaos_phase(args, device: str = "cuda") -> dict:
         for run in dlq:  # the two share one count
             runs.append((run.scenario, run, dk.launches - k1, "cuda"))
     wall = time.perf_counter() - t0
-    out = {"scenarios": {}, "refused": refused, "wall_s": wall}
+    out = {"scenarios": {}, "wall_s": wall}
     for name, run, k1, engine in runs:
         d = run.describe()
         inv = d["invariants"]
@@ -1495,17 +1572,18 @@ def chaos_phase(args, device: str = "cuda") -> dict:
               + (f" violations={inv['violations']}" if not run.ok else ""),
               flush=True)
         out["scenarios"][name] = {"ok": run.ok, "k1_launches": k1,
-                                  "duration_s": d["duration_s"]}
+                                  "duration_s": d["duration_s"],
+                                  **({"program_cache": d["program_cache"]}
+                                     if "program_cache" in d else {})}
         check(run.ok, f"14: {name} broke an invariant: {inv['violations']}")
         check(k1 > 0 if engine == "cuda" else k1 == 0,
               f"14: {name} launched K1 {k1} times (engine {engine})")
     out.update(_launch_counts())
-    check(sorted(refused) == ["crash_restart_corrupt_program_cache",
-                              "crash_restart_warm_programs"],
-          f"14: refused {refused}, not the two program-cache scenarios")
-    print(f"  {len(runs)} runs green in {wall:.1f} s; refused until the "
-          f"program store: {refused}; launches: k1={out['k1_launches']} "
-          f"k2c={out['k2c_launches']}", flush=True)
+    print(f"  {len(runs)} runs green in {wall:.1f} s, none refused; "
+          f"launches: k1={out['k1_launches']} k2c={out['k2c_launches']}; "
+          f"routes: device={out['device_routed_batches']} host="
+          f"{out['host_routed_batches']} oracle="
+          f"{out['oracle_routed_batches']}", flush=True)
     return {"14_chaos": out}
 
 
@@ -1984,8 +2062,15 @@ def harness_phase(args, runtime: dict, device: str = "cuda") -> dict:
     for key in ("table_streaming_events_per_second", "ack_window_speedup",
                 "poison_throughput_ratio", "exactly_once_overhead_ratio",
                 "multi_pipeline_events_per_second",
-                "sharded_events_per_second", "workload_events_per_second"):
+                "sharded_events_per_second", "workload_events_per_second",
+                "coldstart_cold_first_durable_seconds",
+                "coldstart_warm_first_durable_seconds",
+                "coldstart_failures"):
         print(f"  16(f) {key}={json.dumps(sm.get(key))}", flush=True)
+    check(not [k for k in sm.get("not_ported", {})
+               if k.startswith("coldstart_")]
+          and "coldstart" in sm.get("gates", {}),
+          "16(f) bench --smoke does not gate the coldstart_* sizes")
     check(bool(sm) and all(sm.get("correctness", {"": False}).values()),
           f"16(f) bench --smoke: a correctness check failed "
           f"({json.dumps(sm.get('correctness'))}; stderr "
@@ -2016,6 +2101,8 @@ def autoscale_api_phase(args, runtime: dict, device: str = "cuda") -> dict:
     from etl_tpu_torch.benchmarks.control_plane import run_control_plane
     from etl_tpu_torch.chaos.autoscale import (run_autoscale_controller_crash,
                                                run_autoscale_surge_drain)
+    from etl_tpu_torch.chaos.runner import device_floor
+    from etl_tpu_torch.ops.engine import DeviceDecoder
 
     print("[17] the autoscale controller and the control plane",
           flush=True)
@@ -2027,7 +2114,11 @@ def autoscale_api_phase(args, runtime: dict, device: str = "cuda") -> dict:
                       run_autoscale_controller_crash)}
     _reset_launch_counts()
     for fn in (run_autoscale_surge_drain, run_autoscale_controller_crash):
-        run = asyncio.run(fn(seed=args.seed, device=device))
+        # at the CPU run's threshold: most of these batches hold 64-105
+        # rows, where a measured threshold would move them between the
+        # host route and K1 from one probe to the next
+        with device_floor(DeviceDecoder.DEVICE_MIN_ROWS):
+            run = asyncio.run(fn(seed=args.seed, device=device))
         ref = cpu[fn.__name__]
         d = run.describe()
         stats = d["invariants"].get("stats", {})
@@ -2442,6 +2533,214 @@ def lake_phase(args, device: str = "cuda") -> dict:
     return {"19_lake": out}
 
 
+class _Background:
+    """A command started now and read later, its output in files, so that
+    a long build overlaps a phase; `stop` ends it, and its process group,
+    on any way out."""
+
+    def __init__(self, argv: list):
+        import subprocess
+        import tempfile
+
+        self.dir = tempfile.mkdtemp(prefix="chip-smoke-bg-")
+        self.out = open(os.path.join(self.dir, "out"), "w+")
+        self.err = open(os.path.join(self.dir, "err"), "w+")
+        self.proc = subprocess.Popen(argv, stdout=self.out, stderr=self.err,
+                                     cwd=ROOT, start_new_session=True)
+
+    def result(self, timeout: float) -> tuple:
+        rc = self.proc.wait(timeout)
+        self.out.seek(0)
+        self.err.seek(0)
+        return rc, self.out.read(), self.err.read()
+
+    def stop(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            self.proc.wait()
+        self.out.close()
+        self.err.close()
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def start_coldstart(device: str = "cuda") -> _Background:
+    """Phase 20(b)'s `python -m etl_tpu_torch.bench --coldstart`, started
+    before phase 14 so that its cold lifetime's nvcc build overlaps the
+    phase; phase 20 reads its result."""
+    return _Background([sys.executable, "-m", "etl_tpu_torch.bench",
+                        "--coldstart", "--device", device])
+
+
+#: phase 20(a): pgbench batch sizes timed through the host route and K1,
+#: from the host route's floor (HOST_MIN_ROWS) up; repetitions of each
+ROUTE_ROWS = (64, 128, 256)
+ROUTE_REPS = 30
+
+
+def route_times(device: str) -> dict:
+    """Phase 20(a)'s direct answer to the routing question: one pgbench
+    batch of each of ROUTE_ROWS rows decoded whole (pack, the route,
+    assemble; `decode()` returns a host batch) through the host route
+    and through K1, each the minimum of ROUTE_REPS calls, the two
+    alternating; both must equal the CPU codec. The decoders keep out of
+    the routing counters (`telemetry=False`); their K1 launches are
+    made before the phase's counts are set to 0."""
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch
+
+    schema = bench.make_schema()
+    routes = {
+        "host": DeviceDecoder(schema, device=device,
+                              device_min_rows=1 << 30, host_min_rows=1,
+                              telemetry=False),
+        "k1": DeviceDecoder(schema, device=device, device_min_rows=1,
+                            telemetry=False)}
+    oracle = DeviceDecoder(schema, device="cpu", device_min_rows=1 << 30,
+                           telemetry=False)
+    out = {}
+    for n in ROUTE_ROWS:
+        buf, offs, lens = concat_payloads(bench.build_workload(n))
+        staged = stage_wal_batch(buf, offs, lens, 4).staged
+        want = oracle.decode(staged)
+        for name, dec in routes.items():
+            check(bench.batches_equal(dec.decode(staged), want),
+                  f"20(a) {n} rows: the {name} route differs from the "
+                  "CPU codec")
+        best = dict.fromkeys(routes, float("inf"))
+        for _ in range(ROUTE_REPS):
+            for name, dec in routes.items():
+                t0 = time.perf_counter()
+                dec.decode(staged)
+                best[name] = min(best[name], time.perf_counter() - t0)
+        out[n] = {f"{name}_ms": t * 1e3 for name, t in best.items()}
+    return out
+
+
+def program_store_phase(args, runtime: dict, main_counts: dict,
+                        coldstart: _Background,
+                        device: str = "cuda") -> dict:
+    """Phase 20: the program store and autotune at full width. (a) The
+    routing cost model fitted on this card (`autotune.measure`: fixed ms,
+    round-trip GB/s, the host route's column-rows/s and per-call ms),
+    pgbench batches of ROUTE_ROWS rows timed through the host route and
+    K1 (`route_times`), and the resolved
+    `device_min_rows` of pgbench_accounts and of the coldstart schema;
+    phase 4's batches each took K1, and every phase's device, host and
+    oracle batches (checked to add up to its routed batches where it ran)
+    print. (b) `python -m etl_tpu_torch.bench --coldstart` as a process
+    (`coldstart`, started before phase 14 so that its cold build overlaps
+    phases 14-15) at BENCH_FLOOR.json's full coldstart sizes: two
+    replicator lifetimes on a fresh cache directory, each printing its
+    nvcc seconds, builds,
+    disk hits, oracle rows and start, first-durable and total seconds;
+    the warm run must build nothing, each run's K1 launches must equal
+    its device-routed batches and its delivered rows its written rows.
+    The launch counts are set to 0 just before the phase and read just
+    after; the workers' launches are added from their reports."""
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.benchmarks import coldstart_worker as cw
+    from etl_tpu_torch.models import (ColumnSchema, Oid,
+                                      ReplicatedTableSchema, TableName,
+                                      TableSchema)
+    from etl_tpu_torch.ops import autotune
+    from etl_tpu_torch.ops.bitpack import layout_for_specs
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+
+    print("[20] the program store and autotune", flush=True)
+    oracle_clear("phase 20")
+    t0 = time.perf_counter()
+    card = bench.card_info()
+    model = autotune.measure()
+    check(model is not None, "20(a) no cost model on the card")
+    print(f"  20(a) cost model ({card}): fixed_ms={model.fixed_s * 1e3!r} "
+          f"round_trip_GB/s={model.bytes_per_s / 1e9!r} host_col_rows/s="
+          f"{model.host_col_rows_per_s!r} host_fixed_ms="
+          f"{model.host_fixed_s * 1e3!r}", flush=True)
+    routes = route_times(device)
+    for n, r in routes.items():
+        print(f"  20(a) {n} pgbench rows ({card}): host route "
+              f"{r['host_ms']!r} ms, K1 route {r['k1_ms']!r} ms (whole "
+              f"decode, min of {ROUTE_REPS})", flush=True)
+    _reset_launch_counts()
+    kinds = [getattr(Oid, k) for k in cw.KIND_NAMES]
+    cold_schema = ReplicatedTableSchema.with_all_columns(TableSchema(
+        cw.BASE_TID, TableName("public", "cold_0"),
+        (ColumnSchema("id", Oid.INT8, nullable=False,
+                      primary_key_ordinal=1),)
+        + tuple(ColumnSchema(f"c{i}", o) for i, o in enumerate(kinds))))
+    out: dict = {"cost_model": {
+        "fixed_ms": model.fixed_s * 1e3,
+        "round_trip_bytes_per_s": model.bytes_per_s,
+        "host_col_rows_per_s": model.host_col_rows_per_s,
+        "host_fixed_ms": model.host_fixed_s * 1e3},
+        "route_ms": routes, "device_min_rows": {}}
+    for name, schema in (("pgbench_accounts", bench.make_schema()),
+                         ("coldstart", cold_schema)):
+        dec = DeviceDecoder(schema, device=device)
+        specs = dec._host_specs()
+        bpr = sum(w for _, _, w, _ in specs) + len(specs) \
+            + layout_for_specs(specs).n_words * 4
+        print(f"  20(a) {name}: dense={len(dec._dense)} bytes/row={bpr} "
+              f"device_min_rows={dec.device_min_rows} host_min_rows="
+              f"{dec.host_min_rows}", flush=True)
+        check((dec.host_min_rows or 0) <= dec.device_min_rows,
+              f"20(a) {name}: host route above the device route")
+        out["device_min_rows"][name] = dec.device_min_rows
+    print(f"  20(a) phase 4: {main_counts['device_routed_batches']} "
+          f"batches of {bench.N_ROWS} rows, k1={main_counts['k1_launches']}"
+          f", host={main_counts['host_routed_batches']} oracle="
+          f"{main_counts['oracle_routed_batches']}", flush=True)
+    for phase, res in runtime.items():
+        if "routed_batches" in res:
+            print(f"  20(a) routes of {phase}: device="
+                  f"{res['device_routed_batches']} host="
+                  f"{res['host_routed_batches']} oracle="
+                  f"{res['oracle_routed_batches']} of "
+                  f"{res['routed_batches']} (k1={res['k1_launches']} "
+                  f"k2c={res['k2c_launches']})", flush=True)
+
+    rc, stdout, stderr = coldstart.result(timeout=900)
+    try:
+        cs = json.loads(stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        cs = {}
+    check(rc == 0 and cs.get("ok"),
+          f"20(b) bench --coldstart: rc={rc} {cs.get('failures')} "
+          f"{stderr[-1500:]}")
+    worker_k1 = 0
+    for name in ("cold", "warm"):
+        r = cs[name]
+        print(f"  20(b) {name} ({card}): nvcc_s={r['nvcc_seconds']!r} "
+              f"builds={r['programs_compiled']:g} disk_hits="
+              f"{r['cache_hits_disk']:g} oracle_rows={r['oracle_rows']:g} "
+              f"start_s={r['start_seconds']!r} first_durable_s="
+              f"{r['first_durable_seconds']!r} total_s="
+              f"{r['total_seconds']!r} rows={r['rows_delivered']}/"
+              f"{r['rows_written']} k1={r['k1_launches']} device_batches="
+              f"{r['device_batches']} host_batches={r['host_batches']} "
+              f"layouts={r['layouts_by_route']}", flush=True)
+        check(r["k1_launches"] == r["device_batches"]
+              and r["rows_delivered"] == r["rows_written"],
+              f"20(b) {name}: {r}")
+        worker_k1 += r["k1_launches"]
+    check(cs["warm"]["programs_compiled"] == 0,
+          "20(b) the warm restart built a library")
+    out["coldstart"] = {name: {k: cs[name][k] for k in (
+        "nvcc_seconds", "programs_compiled", "cache_hits_disk",
+        "oracle_rows", "start_seconds", "first_durable_seconds",
+        "total_seconds", "k1_launches", "device_batches", "host_batches",
+        "rows_delivered")} for name in ("cold", "warm")}
+    out["wall_s"] = time.perf_counter() - t0
+    out.update(_launch_counts())
+    out["k1_launches"] += worker_k1
+    print(f"  phase 20 in {out['wall_s']:.1f} s; launches (workers "
+          f"included): k1={out['k1_launches']}", flush=True)
+    return {"20_program_store": out}
+
+
 def _warehouse_lines(r: dict) -> None:
     run = r["run"]
     print(f"  warehouse: watched {r['watched_rows']} rows, bad "
@@ -2553,7 +2852,7 @@ def main() -> int:
 
     from etl_tpu_torch import bench, convert
     from etl_tpu_torch.models.pgtypes import CellKind as K
-    from etl_tpu_torch.ops import decode_kernel, egress_kernel
+    from etl_tpu_torch.ops import decode_kernel, egress_kernel, program_store
     from etl_tpu_torch.ops.bitpack import saturation_width
     from etl_tpu_torch.ops.engine import DeviceDecoder
     from etl_tpu_torch.ops.predicate import (compile_row_filter,
@@ -2569,7 +2868,8 @@ def main() -> int:
 
     # -- 2. build ------------------------------------------------------------
     print("[2] build", flush=True)
-    shutil.rmtree(decode_kernel.BUILD_DIR, ignore_errors=True)
+    # the default store starts empty: phase 2 pays the cold start's nvcc
+    shutil.rmtree(program_store.DEFAULT_DIR, ignore_errors=True)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(2) as pool:  # one nvcc a source, together
         for f in [pool.submit(lib.load) for lib in (decode_kernel,
@@ -2594,7 +2894,12 @@ def main() -> int:
 
     decoder = DeviceDecoder(schema, device="cuda")
     staged0 = stage().staged
-    main_specs = decoder._specs(staged0, decoder._widths(staged0))
+    # the filtered main path packs the exact layout, the unfiltered one
+    # its canonical layout (ops/program_store.py)
+    main_exact = decoder._specs(staged0, decoder._widths(staged0))
+    main_specs = program_store.canonical_plan(main_exact).specs
+    print(f"  main-path layout: exact {_spec_text(main_exact)} -> "
+          f"canonical {_spec_text(main_specs)}", flush=True)
 
     def bw(kind_, w):
         return (min(w, saturation_width(kind_)) + 1) & ~1
@@ -2652,7 +2957,7 @@ def main() -> int:
                "c1 < 99999999999)")
     nib_cmp = cmp_kinds[1:]
     fcases = [
-        ("3d(i) pgbench bid<=5", main_specs, True, rows, 16_384,
+        ("3d(i) pgbench bid<=5", main_exact, True, rows, 16_384,
          compile_row_filter(fschema.row_predicate, fschema)),
         ("3d(ii) all comparable kinds raw",
          tuple((i, k, w, bw(k, w)) for i, (k, w) in enumerate(cmp_kinds)),
@@ -2681,11 +2986,11 @@ def main() -> int:
     wide_specs = tuple((i, K.I32, 12, bw(K.I32, 12)) for i in range(260))
     wide_pred = compile_row_filter("c1 <= 5", kind_schema([(K.I32, 12)]
                                                           * 260))
-    extra = fused_cases(main_specs, 16_384, args.seed + 30, fcases[0][5],
+    extra = fused_cases(main_exact, 16_384, args.seed + 30, fcases[0][5],
                         wide_pred, wide_specs)
 
     print("[3e] every walk at the main-path shape", flush=True)
-    walks = walk_cases(main_specs, True, rows, 16_384, args.seed + 20,
+    walks = walk_cases(main_exact, True, rows, 16_384, args.seed + 20,
                        fcases[0][5])
 
     # -- 4. main path --------------------------------------------------------
@@ -2702,16 +3007,22 @@ def main() -> int:
         stage_s.append(time.perf_counter() - t0)
         return wal
 
-    decode_kernel.launches = 0
+    _reset_launch_counts()
     paths = dict(decode_kernel.path_launches)
     done: list = []
     wall = bench.decode_stream(decoder, timed_stage, args.batches,
                                done.append)
-    launches = decode_kernel.launches
+    c4 = _launch_counts()
+    launches = c4["k1_launches"]
     print(f"  batches={args.batches} rows/batch={rows} in_flight="
           f"{bench.IN_FLIGHT} kernel launches={launches} "
-          f"path={paths_taken(paths)}", flush=True)
-    check(launches > 0, "the main path launched no decode kernel")
+          f"path={paths_taken(paths)} routes: device="
+          f"{c4['device_routed_batches']} host={c4['host_routed_batches']}"
+          f" oracle={c4['oracle_routed_batches']} (device_min_rows="
+          f"{decoder.device_min_rows})", flush=True)
+    check(launches == args.batches == c4["device_routed_batches"],
+          f"the main path's {args.batches} batches did not each take K1: "
+          f"{c4}")
     batches = [p.result() for p in done]
     check(all(b.num_rows == rows and len(b.columns) == 4 for b in batches),
           "decoded batches have the wrong shape")
@@ -2739,7 +3050,7 @@ def main() -> int:
     print(f"  records/s={rps:.0f} wall_s={wall:.4f} device_busy_share="
           f"{busy:.4f} per-batch ms: "
           + " ".join(f"{k}={v:.4f}" for k, v in split.items()), flush=True)
-    held = held_main_path_ms(decoder, staged0, main_specs, False)
+    held = held_main_path_ms(decoder, staged0, main_exact, False)
     print(f"  kernel_ms={split['kernel_ms']:.5f} (engine events) against "
           f"K1 held on a main-path batch: cold_ms={held['cold_ms']:.5f} "
           f"warm_ms={held['warm_ms']:.5f}; launch_ms="
@@ -2809,7 +3120,7 @@ def main() -> int:
     print(f"  records/s={frps:.0f} wall_s={fwall:.4f} device_busy_share="
           f"{fbusy:.4f} per-batch ms: "
           + " ".join(f"{k}={v:.4f}" for k, v in fsplit.items()), flush=True)
-    fheld = held_main_path_ms(fdecoder, staged0, main_specs, True)
+    fheld = held_main_path_ms(fdecoder, staged0, main_exact, True)
     print(f"  kernel_ms={fsplit['kernel_ms']:.5f} (engine events) against "
           f"K2c held on a main-path batch: cold_ms={fheld['cold_ms']:.5f} "
           f"warm_ms={fheld['warm_ms']:.5f}; launch_ms="
@@ -2823,12 +3134,17 @@ def main() -> int:
     runtime.update(wire_phase(args, runtime))
     runtime.update(warehouse_phase(args, runtime))
     runtime.update(sharded_phase(args, runtime))
-    runtime.update(chaos_phase(args))
-    runtime.update(exactly_once_phase(args))
-    runtime.update(harness_phase(args, runtime))
-    runtime.update(autoscale_api_phase(args, runtime))
-    runtime.update(fleet_phase(args, runtime))
-    runtime.update(lake_phase(args))
+    coldstart = start_coldstart()
+    try:
+        runtime.update(chaos_phase(args))
+        runtime.update(exactly_once_phase(args))
+        runtime.update(harness_phase(args, runtime))
+        runtime.update(autoscale_api_phase(args, runtime))
+        runtime.update(fleet_phase(args, runtime))
+        runtime.update(lake_phase(args))
+        runtime.update(program_store_phase(args, runtime, c4, coldstart))
+    finally:
+        coldstart.stop()
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs

@@ -62,7 +62,7 @@ the event loop into PATH and the destination's share of it.
 
     python -m etl_tpu_torch.bench [--device cpu] --smoke | --ack-latency
         MS | --poison | --exactly-once | --workload PROFILE|all |
-        --multi-pipeline | --sharded K | --mode lag|wide_row
+        --multi-pipeline | --sharded K | --coldstart | --mode lag|wide_row
 
 are the reference's harness modes (`etl_tpu_torch/benchmarks/`), each
 held to its floor in BENCH_FLOOR.json (`benchmarks/smoke.py`), one JSON
@@ -679,9 +679,11 @@ def _tsv_destination():
 def tsv_checks(dest, device_min_rows: int) -> dict:
     """The checks of a TSV destination's writes: every body equals
     `render_batch_tsv_columnar` on the same batch and metadata; every
-    decoded batch of a device run (at least `device_min_rows` rows)
-    carried device-rendered text and every oracle-routed one none; and a
-    write used the device text exactly when all its batches carried it."""
+    decoded batch of at least `device_min_rows` rows (the device route,
+    or on a card below its measured threshold the host route, whose
+    plain render carries the same text) carried rendered text and every
+    oracle-routed one none; and a write used the text exactly when all
+    its batches carried it."""
     from .destinations.clickhouse import render_batch_tsv_columnar
     from .destinations.util import change_type_batch, sequence_number_batch
 
@@ -1136,10 +1138,10 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
                           and not out["after_shutdown"]["admission_tenants"])
     out["ok"] = bool(out["count_ok"] and out["digest_ok"] and out["order_ok"]
                      and out["identity_ok"] and out["oracle_sample_ok"])
-    # device runs of the window: the decoded batches of at least the
-    # device threshold (smaller runs take the oracle route)
-    out["device_runs"] = sum(1 for n in dest.decoded_rows
-                             if n >= DeviceDecoder.DEVICE_MIN_ROWS)
+    # device runs of the window: the batches the decoders routed to the
+    # device (smaller runs take the host route, on a card below its
+    # measured threshold, or the oracle)
+    out["device_runs"] = int(d["device_batches"])
     out["k1_per_device_run_ok"] = \
         out["k1_launches"] == out["device_runs"]
     if supervised is not None:
@@ -1157,7 +1159,9 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
     if tsv:
         out.update(egress_launches=int(d["egress_launches"]),
                    egress_s=d["egress_s"], d2h_egress_s=d["d2h_egress_s"],
-                   tsv=tsv_checks(dest, DeviceDecoder.DEVICE_MIN_ROWS))
+                   tsv=tsv_checks(dest, DeviceDecoder.DEVICE_MIN_ROWS
+                                  if DeviceDecoder.PINNED_MIN_ROWS is None
+                                  else DeviceDecoder.PINNED_MIN_ROWS))
         out["tsv"]["render_share"] = out["tsv"]["render_s"] / window
         out["ok"] = bool(
             out["ok"] and out["tsv"]["bodies_identical"]
@@ -2678,6 +2682,12 @@ def _run_harness_mode(args, ap) -> "dict | None":
     if args.mode == "wide_row":
         return harness.run_wide_row(device=device)
     floors = smoke.load_floors()
+    if args.coldstart:
+        return harness.run_coldstart(
+            n_tables=floors.get("coldstart_tables", 3),
+            rows_per_tx=floors.get("coldstart_rows_per_tx", 800),
+            txs_per_table=floors.get("coldstart_txs_per_table", 2),
+            device=device)
     if args.ack_latency is not None:
         return smoke.gate_ack(asyncio.run(harness.run_ack_latency(
             ack_ms=args.ack_latency, engine=engine or "cpu",
@@ -2800,6 +2810,11 @@ def main(argv=None) -> int:
                       help="K shard replicator processes and a K = 1 "
                            "baseline (sharded_events_per_sec_floor, and "
                            "strictly above the baseline)")
+    mode.add_argument("--coldstart", action="store_true",
+                      help="two replicator lifetimes on one program-cache "
+                           "directory at the coldstart_* sizes: the warm "
+                           "restart must build nothing, load from disk "
+                           "and decode no row on the oracle")
     mode.add_argument("--smoke", action="store_true",
                       help="every ported gate of BENCH_FLOOR.json at its "
                            "smoke size; the rest listed under not_ported")

@@ -26,6 +26,10 @@ applies the floors of BENCH_FLOOR.json):
   fleet               a seeded fleet reconciled onto an empty simulated
                       fleet and through one versioned edit (gate
                       `fleet_converge_ticks_max`; pure arithmetic)
+  coldstart           two replicator lifetimes (`coldstart_worker`
+                      subprocesses) on one program-cache directory:
+                      the cold start builds, the warm restart builds
+                      nothing (the `coldstart_*` sizes)
 
 Engines: the reference's "tpu" engine is the port's `BatchEngine.CUDA`,
 its decoders on `device` ("cuda", the card, unless the caller asks for
@@ -38,9 +42,9 @@ kernel launches and device-routed batches over its run
 (`kernel_counts`): on the card each device-routed batch is one launch of
 K1, of K2c, or of K2 (with the epilogue).
 
-The port has no program store, so the reference's background-compile
-waits and `_compile_metrics` have no counterpart here (ROADMAP.md, queue
-1 entry 8).
+The port builds its libraries synchronously at `Pipeline.start`
+(ops/program_store.py), so the reference's background-compile waits and
+`_compile_metrics` have no counterpart here.
 """
 
 from __future__ import annotations
@@ -566,8 +570,8 @@ async def run_sharded_processes(shards: int = 2,
     here, once and before any worker starts (each worker then loads it
     from the build directory), and the workers are fresh interpreters,
     never forked from a process with CUDA initialised. `device_floor`
-    sets each worker's `DeviceDecoder.DEVICE_MIN_ROWS` (None: the
-    decoder's own floor)."""
+    pins each worker's decode threshold (`chaos.runner.device_floor`;
+    None: the decoder's own)."""
     import json as _json
     import sys as _sys
 
@@ -640,6 +644,97 @@ async def run_sharded_processes(shards: int = 2,
         "all_verified": all(r["verified"] for r in results),
         "union_covers_all_tables": bool(union_ok),
         "launches_ok": all(r["launches_ok"] for r in results),
+    }
+
+
+# ---------------------------------------------------------------------------
+# coldstart: restart-to-first-durable-batch, cold vs warm program cache
+# ---------------------------------------------------------------------------
+
+
+def run_coldstart(n_tables: int = 3, rows_per_tx: int = 800,
+                  txs_per_table: int = 2, device: str = "cuda",
+                  cache_dir: "str | None" = None) -> dict:
+    """Two replicator lifetimes (subprocesses: the loaded libraries are
+    process state, so cold and warm MUST be separate processes) against
+    one program-cache directory, decoding on `device`: the cold start
+    builds, the warm restart loads. Gates:
+
+      - the warm restart builds NOTHING, loads at least one library from
+        disk and decodes no row on the oracle;
+      - the cold start builds no more times than there are prewarm
+        buckets, and the permuted-column tables take one canonical
+        layout on each route;
+      - each run delivers the rows it wrote, and on the card launched K1
+        once per device-routed batch.
+
+    Wall-clock numbers (start / first-durable / total) and the kernels'
+    nvcc seconds are recorded, not gated."""
+    import json as _json
+    import os
+    import shutil
+    import subprocess
+    import sys
+    import tempfile
+
+    owned = cache_dir is None
+    if owned:
+        cache_dir = tempfile.mkdtemp(prefix="etl-coldstart-cache-")
+    repo = os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+
+    def one_run() -> dict:
+        proc = subprocess.run(
+            [sys.executable, "-m", "etl_tpu_torch.benchmarks.coldstart_worker",
+             "--cache-dir", cache_dir, "--tables", str(n_tables),
+             "--rows-per-tx", str(rows_per_tx),
+             "--txs-per-table", str(txs_per_table), "--device", device],
+            capture_output=True, text=True, timeout=900, cwd=repo)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"coldstart worker failed: {proc.stderr[-3000:]}")
+        return _json.loads(proc.stdout.strip().splitlines()[-1])
+
+    try:
+        cold = one_run()
+        warm = one_run()
+    finally:
+        if owned:
+            shutil.rmtree(cache_dir, ignore_errors=True)
+    buckets = cold["prewarm_buckets"]
+    on_card = device.split(":")[0] == "cuda"
+    failures = []
+    if warm["programs_compiled"] != 0:
+        failures.append(f"warm restart built {warm['programs_compiled']:g} "
+                        "libraries (want 0)")
+    if warm["cache_hits_disk"] < 1:
+        failures.append("warm restart never loaded a library from disk")
+    if warm["oracle_rows"] != 0:
+        failures.append(f"warm restart decoded {warm['oracle_rows']:g} rows "
+                        "on the oracle")
+    if cold["programs_compiled"] > buckets:
+        failures.append(
+            f"cold start built {cold['programs_compiled']:g} libraries — "
+            f"more than the {buckets} prewarm buckets")
+    for name, r in (("cold", cold), ("warm", warm)):
+        layouts = r["layouts_by_route"]
+        if not layouts or max(layouts.values()) != 1:
+            failures.append(f"{name}: canonical layouts by route {layouts} "
+                            f"for {n_tables} same-multiset tables (want 1)")
+        if r["rows_delivered"] != r["rows_written"]:
+            failures.append(f"{name}: delivered {r['rows_delivered']} of "
+                            f"{r['rows_written']} rows")
+        if on_card and r["k1_launches"] != r["device_batches"]:
+            failures.append(f"{name}: K1 launched {r['k1_launches']} times "
+                            f"for {r['device_batches']} device-routed "
+                            "batches")
+    return {
+        "mode": "coldstart", "device": device, "ok": not failures,
+        "failures": failures, "cold": cold, "warm": warm,
+        "warm_zero_compiles": warm["programs_compiled"] == 0,
+        "warm_first_durable_seconds": warm["first_durable_seconds"],
+        "cold_first_durable_seconds": cold["first_durable_seconds"],
+        "cold_oracle_rows_during_warmup": cold["oracle_rows"],
     }
 
 
@@ -724,7 +819,10 @@ def run_wide_row(n_rows: int = 16_384, n_iters: int = 5,
     rps = n_rows / _median(times)
     from ..ops.bitpack import layout_for_specs
 
-    layout = layout_for_specs(dec._specs(staged, dec._widths(staged)))
+    from ..ops.program_store import canonical_plan
+
+    layout = layout_for_specs(canonical_plan(
+        dec._specs(staged, dec._widths(staged))).specs)
     return {"mode": "wide_row", "rows": n_rows, "columns": 100,
             "engine": "cuda", "device": device,
             "dense_columns": len(dec._dense),

@@ -30,8 +30,8 @@ Copy of the reference's `etl_tpu/benchmarks/shard_worker.py`. The
 pipeline decodes with the CUDA engine on the card unless `--device cpu`
 is given (or the spec's `engine` is "cpu", the per-tuple path); a worker
 asked for the card that finds none fails, and never carries on on the
-CPU. The spec's `device_floor` (rows) sets `DeviceDecoder.
-DEVICE_MIN_ROWS` for the worker.
+CPU. The spec's `device_floor` (rows) pins the worker's decode threshold
+(`chaos.runner.device_floor`).
 """
 
 from __future__ import annotations

@@ -15,9 +15,9 @@ Three parts (the reference's docs/chaos.md):
 `python -m etl_tpu_torch.chaos --seed N` replays a scenario
 deterministically.
 
-Copy of the reference's `etl_tpu/chaos`, on the port's pipeline. The
-autoscale and fleet scenario families wait for their modules (ROADMAP.md,
-queue 1).
+Copy of the reference's `etl_tpu/chaos`, on the port's pipeline, every
+scenario family included (the autoscale and fleet families with their
+modules, the program-cache scenarios on the port's program store).
 
 Only `failpoints` is imported eagerly: the runtime package imports it at
 module-import time, so the heavyweight runner/corpus (which import the

@@ -9,10 +9,9 @@ was violated.
 Copy of the reference's `etl_tpu/chaos/__main__.py`. The pipelines decode
 on the card (`--device cuda`, the default; no card fails the run) unless
 `--device cpu` is given. `--fleet` reconciles a simulated fleet by
-arithmetic alone and needs no device. The program-cache scenarios need
-the program store, which the port does not have yet: asked for by name
-they are refused typed (CONFIG_INVALID, exit 2), and the corpus run
-prints them as refused and passes over them.
+arithmetic alone and needs no device. The program-cache scenarios run on
+the port's program store (ops/program_store.py), each in a private cache
+directory.
 """
 
 from __future__ import annotations
@@ -176,7 +175,7 @@ def _run(parser, args) -> int:
         print(json.dumps(run.describe(), sort_keys=True))
         return 0 if run.ok else 1
     from .corpus import SCENARIOS, WORKLOAD_MATRIX, get_scenario
-    from .runner import refuse_unported, run_scenario
+    from .runner import run_scenario
 
     if args.list:
         for s in SCENARIOS + WORKLOAD_MATRIX:
@@ -317,17 +316,8 @@ def _run(parser, args) -> int:
                          "pick --scenario <base> --workload <profile> "
                          "instead)")
         scenarios = [replace(s, workload=args.workload) for s in scenarios]
-    if args.scenario:
-        refuse_unported(scenarios[0])  # asked for by name: refused typed
     all_ok = True
     for scenario in scenarios:
-        try:
-            refuse_unported(scenario)
-        except EtlError as e:
-            print(json.dumps({"scenario": scenario.name,
-                              "refused": str(e)},
-                             sort_keys=True))
-            continue
         run = asyncio.run(run_scenario(scenario, args.seed,
                                        timeout_s=args.timeout,
                                        device=device))

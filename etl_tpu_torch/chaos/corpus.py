@@ -7,8 +7,10 @@ Copy of the reference's `etl_tpu/chaos/corpus.py`, every scenario by name.
 Two differ in what they prove on the port: `device_oom_fallback` (the
 port has no per-batch OOM fallback, so each firing fails its batch and
 the worker re-streams it: held to no loss and bounded duplicates), and
-the two program-cache scenarios, which the runner refuses until the
-program store is ported (ROADMAP.md, queue 1 entry 8).
+the two program-cache scenarios, whose programs are the port's built
+libraries (ops/program_store.py): the warm restart loads them from the
+cache and builds none, the corrupt one degrades to a counted invalid miss
+and a real rebuild.
 
 Layers covered:
 
@@ -166,13 +168,13 @@ SCENARIOS: tuple[Scenario, ...] = (
     Scenario(
         name="crash_restart_warm_programs",
         description="hard crash with a WARM program cache: "
-                    "the runner seeds a cache dir, clears the in-process "
-                    "program caches at the restart (process-death "
-                    "semantics for jit state), and the restarted "
-                    "pipeline must serve its first batch from DISK-"
-                    "cached programs — compile-counter delta == 0, disk "
-                    "hits > 0 — while the usual zero-loss/bounded-dup "
-                    "invariants hold",
+                    "the runner seeds a cache dir with the built "
+                    "libraries, drops the in-process library state at "
+                    "the restart (process-death semantics), and the "
+                    "restarted pipeline must serve its first batch from "
+                    "DISK-cached libraries — build-counter delta == 0, "
+                    "disk hits > 0 — while the usual zero-loss/bounded-"
+                    "dup invariants hold",
         faults=(FaultSpec(fp.ON_PROGRESS_STORE, kind=FaultKind.CRASH,
                           after_hits=1),),
         txs=4, rows_per_tx=96, expect_restarts=1,
@@ -182,10 +184,9 @@ SCENARIOS: tuple[Scenario, ...] = (
         description="hard crash with a CORRUPTED program cache: "
                     "every cache file is garbage at restart — the "
                     "load must degrade to a clean rebuild (invalid-miss "
-                    "counted, file deleted, batches decode on the "
-                    "oracle while the rebuild runs) and the invariants "
-                    "must hold; a corrupt cache must never crash or "
-                    "wedge a replicator",
+                    "counted, file deleted, the restart awaiting the "
+                    "build) and the invariants must hold; a corrupt "
+                    "cache must never crash or wedge a replicator",
         faults=(FaultSpec(fp.ON_PROGRESS_STORE, kind=FaultKind.CRASH,
                           after_hits=1),),
         txs=4, rows_per_tx=96, expect_restarts=1,

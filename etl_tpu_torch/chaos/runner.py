@@ -22,22 +22,26 @@ the run is replayable from the CLI (`python -m etl_tpu_torch.chaos`).
 Copy of the reference's `etl_tpu/chaos/runner.py`, on the port's pipeline:
 `BatchEngine.CUDA` decodes through the kernels on `device` ("cuda", the
 card, unless the caller asks for "cpu", where the kernels' plain versions
-run). Two departures:
-
-  - the port has no program store yet (ROADMAP.md, queue 1 entry 8), so a
-    scenario with `program_cache` set is refused with a typed
-    CONFIG_INVALID before anything runs;
-  - the port has no per-batch device-OOM fallback: an
-    `engine.device_oom` firing fails its batch, and the worker re-streams
-    it like any other failed batch, so the firing funds the duplication
-    budget instead of being exempt from it.
+run). The program-cache scenarios run on the port's program store
+(ops/program_store.py): a private cache directory seeded with the
+libraries a restarted process would inherit (copied out of the default
+store, so no build), the in-process library state dropped at each hard
+restart, and for the corrupt variant every cache file replaced by
+garbage before the restart, which then pays the real rebuild. One
+departure: the port has no per-batch device-OOM fallback: an
+`engine.device_oom` firing fails its batch, and the worker re-streams it
+like any other failed batch, so the firing funds the duplication budget
+instead of being exempt from it.
 """
 
 from __future__ import annotations
 
 import asyncio
 import contextlib
+import os
 import random
+import shutil
+import tempfile
 import time
 from dataclasses import dataclass, field
 
@@ -47,7 +51,7 @@ from ..destinations import (FaultAction, FaultInjectingDestination, FaultKind
                             as DestFaultKind, MemoryDestination)
 from ..models import ColumnSchema, Oid, TableName, TableSchema
 from ..models.lsn import Lsn
-from ..models.errors import ErrorKind, EtlError
+from ..models.errors import EtlError
 from ..models.table_state import TableStateType
 from ..postgres.fake import FakeDatabase, FakeSource
 from ..postgres.slots import apply_slot_name
@@ -68,23 +72,108 @@ _DEST_OPS = ("write_events", "write_table_rows", "truncate_table",
 @contextlib.contextmanager
 def device_floor(rows: "int | None"):
     """Route every batch of at least `rows` rows to the kernels while the
-    block runs (None keeps the decoder's floor,
-    `DeviceDecoder.DEVICE_MIN_ROWS`, 64 rows). The corpus's transactions
-    are a few rows each, so at the floor most of its runs take the host
-    oracle and never reach the card; `chip_smoke.py` phase 14 and the
-    CLI's `--device-floor` lower it to hold the kernels to every fault.
-    Routing only: the same rows decode, to the same values."""
+    block runs: decoders built inside take `rows` as their threshold in
+    place of the measured one (None keeps the decoder's own routing).
+    The corpus's transactions are a few rows each, so most of its batches
+    would otherwise take the host route or the oracle and never reach the
+    card; `chip_smoke.py` phase 14 and the CLI's `--device-floor` lower
+    it to hold the kernels to every fault. Routing only: the same rows
+    decode, to the same values."""
     from ..ops.engine import DeviceDecoder
 
     if rows is None:
         yield
         return
-    before = DeviceDecoder.DEVICE_MIN_ROWS
-    DeviceDecoder.DEVICE_MIN_ROWS = rows
+    before = DeviceDecoder.PINNED_MIN_ROWS
+    DeviceDecoder.PINNED_MIN_ROWS = rows
     try:
         yield
     finally:
-        DeviceDecoder.DEVICE_MIN_ROWS = before
+        DeviceDecoder.PINNED_MIN_ROWS = before
+
+
+# -- program-cache restart scenarios ------------------------------------------
+
+#: row buckets prewarmed for the program-cache scenarios (every bucket the
+#: scenarios' flushes can stage into: txs × rows_per_tx stays under 4096)
+_PC_PREWARM_BUCKETS = (256, 1024, 4096)
+#: added to a program-cache scenario's time budget: the corrupt variant's
+#: restart rebuilds every library for real (decode_pack.cu alone takes
+#: 40-70 s of nvcc on an H100's host)
+_PC_BUILD_BUDGET_S = 240.0
+
+
+def _clear_program_memory_caches() -> None:
+    """Process-death semantics for the program state a real crash frees
+    with the process: the loaded libraries, the descriptors on the device,
+    K2c's status buffers and the store's memory layer. The program-cache
+    scenarios clear these after seeding and at every hard restart, so the
+    restarted pipeline can only be warm through the disk layer."""
+    from .. import native
+    from ..ops import decode_kernel, egress_kernel, program_store
+
+    for mod in (decode_kernel, egress_kernel, native):
+        mod._lib = None
+    with decode_kernel._lock:
+        decode_kernel._desc_cache.clear()
+        decode_kernel._pred_cache.clear()
+        decode_kernel._scan_states.clear()
+    with egress_kernel._lock:
+        egress_kernel._desc_cache.clear()
+    program_store.forget_memory()
+
+
+def _corrupt_program_cache(cache_dir: str) -> None:
+    """Replace every file of the cache by garbage (the power-loss /
+    torn-disk case the degrade contract covers), through tmp + rename: a
+    library this process still maps is never written into."""
+    for root, _dirs, files in os.walk(cache_dir):
+        for f in files:
+            path = os.path.join(root, f)
+            with open(path + ".garbage", "wb") as fh:
+                fh.write(b"not a shared library")
+            os.replace(path + ".garbage", path)
+
+
+def _program_cache_counters() -> dict:
+    from ..telemetry.metrics import (ETL_COMPILE_CACHE_HITS_TOTAL,
+                                     ETL_COMPILE_CACHE_MISSES_TOTAL,
+                                     ETL_PROGRAMS_COMPILED_TOTAL)
+
+    return {
+        "compiled": registry.get_counter(ETL_PROGRAMS_COMPILED_TOTAL),
+        "disk_hits": registry.get_counter(ETL_COMPILE_CACHE_HITS_TOTAL,
+                                          {"layer": "disk"}),
+        "invalid": registry.get_counter(ETL_COMPILE_CACHE_MISSES_TOTAL,
+                                        {"reason": "invalid"}),
+    }
+
+
+def _check_program_cache(scenario: Scenario, run: "ChaosRun", base: dict,
+                         restart_base: "dict | None") -> None:
+    """The program-cache scenarios' own checks, on the store's counters
+    since seeding (`base`) and since the last restart (`restart_base`)."""
+    now = _program_cache_counters()
+    run.program_cache = {k: now[k] - base[k] for k in now}
+    if scenario.program_cache == "warm":
+        if run.program_cache["compiled"] != 0:
+            run.report.fail(
+                f"warm program cache: {run.program_cache['compiled']:g} "
+                "builds after seeding — the restart did not load its "
+                "libraries from the cache")
+        if restart_base is not None \
+                and now["disk_hits"] <= restart_base["disk_hits"]:
+            run.report.fail("warm program cache: the restarted pipeline "
+                            "never loaded a library from disk")
+        return
+    if now["invalid"] <= base["invalid"]:
+        run.report.fail("corrupt program cache: no invalid miss recorded "
+                        "— the corrupted files were never probed (the "
+                        "degrade path did not run)")
+    if restart_base is not None \
+            and now["compiled"] <= restart_base["compiled"]:
+        run.report.fail("corrupt program cache: the restart rebuilt "
+                        "nothing")
 
 
 class SimulatedCrash(Exception):
@@ -153,6 +242,9 @@ class ChaosRun:
     health_track: list[str] = field(default_factory=list)
     supervision_restarts: int = 0
     duration_s: float = 0.0
+    # program-cache scenarios: the store's counter deltas since seeding
+    # (builds, disk hits, invalid misses)
+    program_cache: dict | None = None
 
     @property
     def ok(self) -> bool:
@@ -173,6 +265,8 @@ class ChaosRun:
             "supervision_restarts": self.supervision_restarts,
             "invariants": self.report.describe(),
             "duration_s": round(self.duration_s, 3),
+            **({"program_cache": dict(self.program_cache)}
+               if self.program_cache is not None else {}),
         }
 
 
@@ -337,24 +431,15 @@ async def _wait_until(predicate, timeout: float, what: str,
         await asyncio.sleep(interval)
 
 
-def refuse_unported(scenario: Scenario) -> None:
-    """Raise the typed refusal for a scenario the port cannot run yet."""
-    if scenario.program_cache:
-        raise EtlError(
-            ErrorKind.CONFIG_INVALID,
-            f"scenario {scenario.name!r} needs the program store "
-            f"(program_cache={scenario.program_cache!r}), which is not "
-            "ported to etl_tpu_torch yet (ROADMAP.md, queue 1 entry 8)")
-
-
 async def run_scenario(scenario: Scenario, seed: int,
                        timeout_s: float = 60.0,
                        device: str = "cuda") -> ChaosRun:
     """Run one scenario to completion and verify invariants. Always
     disarms every failpoint on the way out. `device` is where the CUDA
-    engine's decoders run. A scenario the port cannot run yet is refused
-    (`refuse_unported`), never run without what it needs."""
-    refuse_unported(scenario)
+    engine's decoders run. A program-cache scenario's budget grows by
+    `_PC_BUILD_BUDGET_S` for its real rebuild."""
+    if scenario.program_cache:
+        timeout_s += _PC_BUILD_BUDGET_S
     failpoints.disarm_all()
     run = ChaosRun(scenario=scenario, seed=seed)
     t_start = time.monotonic()
@@ -382,6 +467,21 @@ async def _run_scenario_inner(scenario: Scenario, seed: int,
     leak_probe = LeakProbe.capture()
     workload = _make_workload(scenario, rng)
     db = workload.build_db()
+    pc_dir = pc_base = pc_restart_base = None
+    if scenario.program_cache:
+        # a private cache dir seeded with the verified libraries out of
+        # the default store (what a restarted process on a shared dir
+        # inherits, without a build), then the in-process state made to
+        # look like a fresh process: from here on, warmth can only come
+        # from disk
+        from ..ops import program_store
+
+        pc_dir = tempfile.mkdtemp(prefix="etl-chaos-progcache-")
+        for lib in program_store.libraries(device):
+            await asyncio.to_thread(program_store.export_entry, lib, pc_dir)
+        program_store.configure(pc_dir)
+        _clear_program_memory_caches()
+        pc_base = _program_cache_counters()
     store = RecordingStore()
     inner = TracingDestination()
     dest = FaultInjectingDestination(inner)
@@ -520,7 +620,12 @@ async def _run_scenario_inner(scenario: Scenario, seed: int,
         pipeline_id=1, publication_name="pub",
         batch=BatchConfig(max_size_bytes=64 * 1024, max_fill_ms=25,
                           batch_engine=BatchEngine(scenario.engine),
-                          device=device),
+                          device=device,
+                          # program-cache scenarios: each (re)started
+                          # pipeline prewarms from the private dir
+                          program_cache_dir=pc_dir,
+                          prewarm_row_buckets=_PC_PREWARM_BUCKETS
+                          if pc_dir else None),
         apply_retry=RetryConfig(max_attempts=10, initial_delay_ms=15,
                                 max_delay_ms=120),
         table_retry=RetryConfig(max_attempts=10, initial_delay_ms=15,
@@ -608,6 +713,15 @@ async def _run_scenario_inner(scenario: Scenario, seed: int,
             except SimulatedCrash:
                 crash.event.clear()
                 await _hard_kill(pipeline)
+                if scenario.program_cache:
+                    # a real crash loses the loaded libraries with the
+                    # process; the corrupt variant also trashes the disk
+                    # layer, so the restart takes the degrade path
+                    _clear_program_memory_caches()
+                    if scenario.program_cache == "corrupt":
+                        await asyncio.to_thread(_corrupt_program_cache,
+                                                pc_dir)
+                    pc_restart_base = _program_cache_counters()
                 resume = await store.get_durable_progress(
                     apply_slot_name(1))
                 rec = RestartRecord(kind="crash",
@@ -644,6 +758,9 @@ async def _run_scenario_inner(scenario: Scenario, seed: int,
                 lambda: workload.delivered(inner), 30.0,
                 "post-restart workload never delivered"))
             run.restarts[-1].recovery_s = time.monotonic() - t_phase
+
+        if scenario.program_cache:
+            _check_program_cache(scenario, run, pc_base, pc_restart_base)
 
         if scenario.expect_health_recovery and pipeline.supervisor is not None:
             # the acceptance arc: /health's state machine must have gone
@@ -683,6 +800,11 @@ async def _run_scenario_inner(scenario: Scenario, seed: int,
         engine.clear_forced_oracle()
         await _hard_kill(pipeline)
         await dest.shutdown()
+        if pc_dir is not None:
+            from ..ops import program_store
+
+            program_store.configure(None)
+            shutil.rmtree(pc_dir, ignore_errors=True)
     # unresolved = still pending now (shutdown missed them) PLUS any the
     # wrapper had to force-fail because no release ever came (shutdown
     # clears _held_acks, so counting the list alone would always be 0)

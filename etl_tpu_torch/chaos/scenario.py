@@ -114,15 +114,15 @@ class Scenario:
     # assert the health state machine visited DEGRADED during the run
     # and settled back to HEALTHY before shutdown
     expect_health_recovery: bool = False
-    # program-cache restart modes (the reference's ops/program_store.py;
-    # the port has no program store yet, and its runner refuses these):
-    #   "warm"    — seed a cache dir with this workload's programs, clear
-    #               the in-process program caches at every hard restart
-    #               (process-death semantics for jit state), and assert
-    #               the restarted pipeline served its first batch from
-    #               DISK-cached programs: compile-counter delta == 0
-    #               across the whole post-seed run, disk hits > 0.
-    #   "corrupt" — same setup, but every cache file is overwritten with
+    # program-cache restart modes (ops/program_store.py; the programs
+    # are the built libraries):
+    #   "warm"    — seed a cache dir with the libraries, clear the
+    #               in-process library state at every hard restart
+    #               (process-death semantics), and assert the restarted
+    #               pipeline served its first batch from DISK-cached
+    #               libraries: build-counter delta == 0 across the whole
+    #               post-seed run, disk hits > 0.
+    #   "corrupt" — same setup, but every cache file is replaced by
     #               garbage at the restart: the load must degrade to a
     #               clean rebuild (invariants hold, at least one
     #               invalid-miss recorded), never a crash.

@@ -12,11 +12,14 @@ selects the decode path at the BatchConfig boundary: "cpu" (the per-row
 oracle) or "cuda" (the port's DeviceDecoder, in place of the reference's
 "tpu"). `BatchConfig.device` names the torch device the decoder runs on:
 "cuda" by default; "cpu" runs the kernels' plain versions (the tests).
-Every other field keeps the reference's name and default; the program
-cache and prewarm fields have no effect in the port yet. `device_egress`
-does: with it set (the default) and a destination that declares an
-`egress_encoder`, unfiltered device batches carry text the render kernel
-made on the card (ops/egress.py).
+Every other field keeps the reference's name and default.
+`program_cache_dir`, `prewarm_programs` and `prewarm_row_buckets` drive
+the port's program store (ops/program_store.py): the built kernel and
+packer libraries persist in the directory, and `Pipeline.start` prewarms
+them and the stored schemas' layouts. `device_egress`: with it set (the
+default) and a destination that declares an `egress_encoder`,
+unfiltered device batches carry text the render kernel made on the card
+(ops/egress.py).
 """
 
 from __future__ import annotations
@@ -102,22 +105,21 @@ class BatchConfig:
     # 0 = auto (max(4, 2 × device count)); the FIRST pipeline to start
     # fixes the process-wide value. Drops to 1 under memory pressure.
     admission_capacity: int = 0
-    # AOT program cache directory (ops/program_store.py): compiled decode
-    # executables persist here, keyed by canonical layout + backend +
-    # versions, so a restarted replicator LOADS its programs instead of
-    # re-paying the XLA builds. None = in-memory only (also honors
-    # $ETL_TPU_PROGRAM_CACHE_DIR). The store is PROCESS-global, like the
+    # program cache directory (ops/program_store.py): the built kernel
+    # and packer libraries persist here, keyed by source, flags, compiler,
+    # CUDA runtime and card, so a restarted replicator LOADS them instead
+    # of re-paying nvcc. None = $ETL_TPU_PROGRAM_CACHE_DIR, else the
+    # package's `_build/` directory. The store is PROCESS-global, like the
     # admission scheduler's capacity: the first pipeline to configure a
     # dir fixes it for every pipeline in the process (a later pipeline
     # naming a different dir is ignored with a warning; one naming None
     # shares the configured store). Safe to share across pods on
     # identical images/machine types — see the OPERATIONS.md runbook.
     program_cache_dir: str | None = None
-    # warm stored table schemas' canonical host programs at
-    # Pipeline.start, before the apply loop sees traffic. None = auto
-    # (prewarm iff a program cache dir is configured — without one a
-    # fresh process has nothing to load and the nonblocking background
-    # compiles cover first-touch); the row buckets default to
+    # warm the libraries and the stored table schemas' canonical layouts
+    # (descriptors, pinned staging buffers) at Pipeline.start, before the
+    # apply loop sees traffic. None = auto (prewarm iff a program cache
+    # dir is configured); the row buckets default to
     # program_store.PREWARM_ROW_BUCKETS.
     prewarm_programs: bool | None = None
     prewarm_row_buckets: tuple | None = None

@@ -1,23 +1,24 @@
 """Native host components: the pgoutput framer and byte packers (C, ctypes).
 
 Copy of the reference's `etl_tpu/native`: `framer.c` is the same source,
-built with the system C compiler at first use into `_framer-<hash>.so`
-beside it (ignored by git). Unlike the reference there is no pure-Python
-walker: a missing compiler raises. `frame_pgoutput` is the entry point;
-see ops/wal.py for the staging layer that consumes it.
+built with the system C compiler ($CC, else `cc`) at first use through
+the program store (`ops/program_store.py`: the library `LIBRARY`, in the
+configured cache directory or `etl_tpu_torch/_build/`, ignored by git).
+Unlike the reference there is no pure-Python walker: a missing compiler
+raises. `frame_pgoutput` is the entry point; see ops/wal.py for the
+staging layer that consumes it.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import numpy as np
+
+from ..ops.program_store import Acquired, Library, acquire
 
 _DIR = Path(__file__).resolve().parent
 
@@ -27,67 +28,62 @@ _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
 
 
-def _build(src: Path, so: Path) -> None:
-    # build into a temporary name and rename: concurrent first uses (test
-    # workers, threads) never load a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_DIR)
-    os.close(fd)
-    try:
-        cc = os.environ.get("CC", "cc")
-        subprocess.run([cc, "-O3", "-shared", "-fPIC", str(src), "-o", tmp],
-                       check=True, capture_output=True, timeout=120)
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a built framer library."""
+    lib.etl_frame_pgoutput.restype = ctypes.c_int64
+    lib.etl_frame_pgoutput.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,  # buf, buf_len
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # msg_off/len/n
+        ctypes.c_int32,  # n_cols
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # kind/relid/oldkind
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # new off/len/flag
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # old off/len/flag
+    ]
+    lib.etl_pack_bmat.restype = None
+    lib.etl_pack_bmat.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,  # data, data_len
+        ctypes.c_void_p, ctypes.c_void_p,  # offsets, lengths [R,C]
+        ctypes.c_int64, ctypes.c_int32,  # n_rows, n_cols
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,  # cols,widths,n
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,  # bmat,tw,lens
+    ]
+    lib.etl_pack_bmat_nibble.restype = None
+    lib.etl_pack_bmat_nibble.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
+        ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
+        ctypes.c_void_p,  # bad_rows
+    ]
+    lib.etl_gather_string.restype = ctypes.c_int64
+    lib.etl_gather_string.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # off,len,valid
+        ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,  # R, C, col
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # aoff,vals,cap
+    ]
+    return lib
+
+
+LIBRARY = Library("framer", _DIR / "framer.c",
+                  lambda: os.environ.get("CC", "cc"),
+                  ("-O3", "-shared", "-fPIC"), _bind, timeout_s=120)
+
+
+def load_library() -> Acquired:
+    """Acquire the framer library through the program store and make it
+    this module's."""
+    global _lib
+    with _lock:
+        got = acquire(LIBRARY)
+        _lib = got.lib
+        return got
 
 
 def _load() -> ctypes.CDLL:
-    global _lib
-    with _lock:
-        if _lib is not None:
-            return _lib
-        src = _DIR / "framer.c"
-        tag = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        so = _DIR / f"_framer-{tag}.so"
-        if not so.exists():
-            _build(src, so)
-        lib = ctypes.CDLL(str(so))
-        lib.etl_frame_pgoutput.restype = ctypes.c_int64
-        lib.etl_frame_pgoutput.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,  # buf, buf_len
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # msg_off/len/n
-            ctypes.c_int32,  # n_cols
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # kind/relid/oldkind
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # new off/len/flag
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # old off/len/flag
-        ]
-        lib.etl_pack_bmat.restype = None
-        lib.etl_pack_bmat.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,  # data, data_len
-            ctypes.c_void_p, ctypes.c_void_p,  # offsets, lengths [R,C]
-            ctypes.c_int64, ctypes.c_int32,  # n_rows, n_cols
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,  # cols,widths,n
-            ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,  # bmat,tw,lens
-        ]
-        lib.etl_pack_bmat_nibble.restype = None
-        lib.etl_pack_bmat_nibble.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32,
-            ctypes.c_void_p, ctypes.c_int32, ctypes.c_void_p,
-            ctypes.c_void_p,  # bad_rows
-        ]
-        lib.etl_gather_string.restype = ctypes.c_int64
-        lib.etl_gather_string.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # off,len,valid
-            ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,  # R, C, col
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,  # aoff,vals,cap
-        ]
-        _lib = lib
-        return lib
+    lib = _lib
+    return lib if lib is not None else load_library().lib
 
 
 def _ptr(a: np.ndarray) -> ctypes.c_void_p:

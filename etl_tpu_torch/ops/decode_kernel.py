@@ -23,10 +23,12 @@ fallback: a kernel that fails to build or to launch raises. The
 outputs, the look-back's status buffer) and return the launch, so a
 caller can time the launch alone; each wrapper is its prepare, called.
 
-The kernels are compiled with nvcc at first use into
-`etl_tpu_torch/_build/` (ignored by git), as a shared library with a
-plain C interface that this module loads with ctypes: a source that
-includes no PyTorch header builds in seconds. `launches`,
+The kernels are compiled with nvcc at first use, as a shared library
+with a plain C interface that this module loads with ctypes: a source
+that includes no PyTorch header builds in seconds. The build and load go
+through the program store (`ops/program_store.py`, `LIBRARY`): a process
+loads the library the store holds for this source, these flags, this
+nvcc, this CUDA runtime and this card, and builds only on a miss. `launches`,
 `filter_launches`, `compact_launches` and `fused_launches` count the
 launches of K1, K2, the epilogue and K2c in this process;
 `tag_launches` counts them again under the decode tag of the launching
@@ -48,13 +50,9 @@ from __future__ import annotations
 
 import contextvars
 import ctypes
-import hashlib
 import os
 import shutil
-import subprocess
-import tempfile
 import threading
-import time
 from pathlib import Path
 
 import torch
@@ -65,10 +63,10 @@ from .bitpack import (compact_packed_plain, filter_pack_plain,
                       layout_for_specs, parse_and_pack_plain,
                       unpack_keep_mask)
 from .predicate import P_CMP, P_NULLTEST
+from .program_store import Acquired, Library, acquire
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "decode_pack.cu"
-BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -118,6 +116,7 @@ build_log = ""
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
+_load_lock = threading.Lock()
 _desc_cache: dict = {}  # (specs, nibble, device) → descriptor on device
 _pred_cache: dict = {}  # (program, referenced columns, spec columns, device)
 _DESC_CACHE_MAX = 64
@@ -157,45 +156,22 @@ def nvcc_command(source: Path, out: Path) -> list[str]:
     return [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
 
 
-def build(source: Path) -> tuple[Path, float | None, str]:
-    """Build the CUDA source `source` with nvcc into a shared library in
-    BUILD_DIR, once per hash of the source and the flags; returns (the
-    library's path, the build's seconds, None when it was built already,
-    and nvcc's output). Each kernel library's `load` calls it under its
-    own lock, so two sources build in parallel."""
-    tag = hashlib.sha256(source.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"{source.stem}-{tag}.so"
-    if so.exists():
-        return so, None, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    try:
-        res = subprocess.run(nvcc_command(source, Path(tmp)),
-                             capture_output=True, text=True, timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source.name} "
-                               f"({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, so)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return so, time.perf_counter() - t0, res.stdout + res.stderr
+def load_library() -> Acquired:
+    """Acquire the kernel library through the program store and make it
+    this module's (a build sets `build_seconds` and `build_log`)."""
+    global _lib, build_seconds, build_log
+    with _load_lock:
+        got = acquire(LIBRARY)
+        if got.build_seconds is not None:
+            build_seconds, build_log = got.build_seconds, got.build_log
+        _lib = got.lib
+        return got
 
 
 def load() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _lib, build_seconds, build_log
-    with _lock:
-        if _lib is not None:
-            return _lib
-        so, seconds, log = build(SOURCE)
-        if seconds is not None:
-            build_seconds, build_log = seconds, log
-        _lib = bind(ctypes.CDLL(str(so)))
-        return _lib
+    """The kernel library, acquired at first use."""
+    lib = _lib
+    return lib if lib is not None else load_library().lib
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -234,6 +210,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.etl_cuda_error_string.restype = ctypes.c_char_p
     lib.etl_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+LIBRARY = Library("decode_pack", SOURCE, _nvcc, NVCC_FLAGS, bind, cuda=True)
 
 
 def descriptor(specs: tuple, nibble: bool) -> list[int]:

@@ -11,9 +11,9 @@ the kernel, and raises for any other device. There is no fallback: a
 kernel that fails to build or to launch raises. `prepare_render` does the
 wrapper's host work (the plan's descriptor, outputs) and returns the
 launch, so a caller can time the launch alone. The library is built with
-nvcc at first use into `etl_tpu_torch/_build/` by `decode_kernel.build`,
-as the decode kernels are, and loaded with ctypes; `launches` counts the
-kernel's launches in this process.
+nvcc at first use through the program store (`LIBRARY`), as the decode
+kernels are, and loaded with ctypes; `launches` counts the kernel's
+launches in this process.
 """
 
 from __future__ import annotations
@@ -24,9 +24,10 @@ import threading
 import torch
 
 from .bitpack import layout_for_specs
-from .decode_kernel import _PKG, KIND_CODES, build
+from .decode_kernel import _PKG, KIND_CODES, NVCC_FLAGS, _nvcc
 from .egress import (EGRESS_MAX_COLS, RENDER_COMPONENTS, EgressPlan,
                      render_plain)
+from .program_store import Acquired, Library, acquire
 
 SOURCE = _PKG / "csrc" / "egress_render.cu"
 # descriptor layout (DESC_* in the source)
@@ -40,21 +41,27 @@ build_log = ""
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
+_load_lock = threading.Lock()
 _desc_cache: dict = {}  # (pspecs, plan, device) → descriptor on device
 _DESC_CACHE_MAX = 64
 
 
-def load() -> ctypes.CDLL:
-    """Build (once per source hash) and load the render library."""
+def load_library() -> Acquired:
+    """Acquire the render library through the program store and make it
+    this module's (a build sets `build_seconds` and `build_log`)."""
     global _lib, build_seconds, build_log
-    with _lock:
-        if _lib is not None:
-            return _lib
-        so, seconds, log = build(SOURCE)
-        if seconds is not None:
-            build_seconds, build_log = seconds, log
-        _lib = bind(ctypes.CDLL(str(so)))
-        return _lib
+    with _load_lock:
+        got = acquire(LIBRARY)
+        if got.build_seconds is not None:
+            build_seconds, build_log = got.build_seconds, got.build_log
+        _lib = got.lib
+        return got
+
+
+def load() -> ctypes.CDLL:
+    """The render library, acquired at first use."""
+    lib = _lib
+    return lib if lib is not None else load_library().lib
 
 
 def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -73,6 +80,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.etl_egress_error_string.restype = ctypes.c_char_p
     lib.etl_egress_error_string.argtypes = [i32]
     return lib
+
+
+LIBRARY = Library("egress_render", SOURCE, _nvcc, NVCC_FLAGS, bind,
+                  cuda=True)
 
 
 def descriptor(pspecs: tuple, plan: EgressPlan) -> list[int]:

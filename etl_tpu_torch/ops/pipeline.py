@@ -782,7 +782,8 @@ class DecodePipeline:
         t0 = time.perf_counter()
         try:
             with self._stream(decoder.device):
-                packed = decoder._pack_stage(staged, specs, arena=arena)
+                packed = decoder._pack_stage(staged, specs, arena=arena,
+                                             host=mode == "host")
                 t1 = time.perf_counter()
                 failpoints.fail_point(failpoints.PIPELINE_DISPATCH)
                 pending = decoder._dispatch_stage(staged, specs, packed)

@@ -13,11 +13,15 @@ degrade) and poison-pill isolation (runtime/poison.py, through the apply
 loop) on by default, as in the reference. A config that sets `shard` runs
 one shard pod: `start()` adopts the store's shard assignment and swaps the
 store for the pod's fenced view (sharding/runtime.py), and the pod keeps
-its own `DecodePipeline`s and CUDA streams on the one card. The
-reference's autotune and program-store prewarm have no
-counterpart until queue 1 entry 8 (the program store and autotune); with
-`BatchEngine.CUDA` on a CUDA device, `start()` builds the kernel library
-instead, and raises when there is no card.
+its own `DecodePipeline`s and CUDA streams on the one card. With
+`BatchEngine.CUDA` on a CUDA device, `start()` raises when there is no
+card, then measures the routing cost model (ops/autotune.py) and loads
+the kernel libraries through the program store (ops/program_store.py,
+from the configured cache directory), all before the source connects;
+after the destination's startup it prewarms the stored schemas'
+layouts, before the apply loop sees traffic. It awaits any build it
+needs: unlike the reference's nonblocking compile, no batch decodes on
+the oracle while nvcc runs.
 """
 
 from __future__ import annotations
@@ -65,6 +69,8 @@ class Pipeline:
         self._apply_task: asyncio.Task | None = None
         self.memory_monitor: MemoryMonitor | None = None
         self.batch_budget: BatchBudgetController | None = None
+        # what start()'s program prewarm warmed ({} when it did not run)
+        self.prewarm_stats: dict = {}
         # supervision tree (docs/supervision.md): liveness watchdogs over
         # every long-running component + the pipeline health state
         # machine a health endpoint serves. Built here (not in start) so
@@ -89,6 +95,54 @@ class Pipeline:
                     type(destination).__name__),
                 heartbeat=self.supervisor.register("destination"))
 
+    def _check_card(self, batch) -> None:
+        """No fallback to the CPU: with `BatchEngine.CUDA` on a CUDA
+        device and no card, the pipeline does not start."""
+        if batch.device.split(":")[0] == "cuda" \
+                and not torch.cuda.is_available():
+            raise EtlError(ErrorKind.DEVICE_UNAVAILABLE,
+                           "BatchEngine.CUDA on device "
+                           f"{batch.device!r}: no CUDA device is "
+                           "available")
+
+    async def _load_decode(self, batch) -> None:
+        """The CUDA engine's start-up before any resource opens, off the
+        event loop (where the reference runs its autotune): the card
+        check, the store's directory (first: the probe's host decode
+        loads the packers), the routing cost model, then the kernel
+        libraries — built here, if they must be, and not at the first
+        flush. A failed build leaves nothing running."""
+        from ..ops import autotune, program_store
+
+        self._check_card(batch)
+        program_store.configure_pipeline(batch)
+        if batch.device.split(":")[0] != "cuda":
+            return
+        await autotune.prewarm()
+        await asyncio.to_thread(decode_kernel.load)
+        if egress_encoder(self.config,
+                          self.active_destination) is not None:
+            from ..ops import egress_kernel
+
+            await asyncio.to_thread(egress_kernel.load)
+
+    async def _prewarm(self, batch) -> None:
+        """The program prewarm of the stored schemas' layouts, after the
+        destination's startup as in the reference; on failure the
+        watchdogs stop and the destination shuts down before it
+        raises."""
+        from ..ops import program_store
+
+        try:
+            self.prewarm_stats = await program_store.prewarm_pipeline(
+                self.store, batch, egress=egress_encoder(
+                    self.config, self.active_destination) is not None)
+        except BaseException:
+            if self.supervisor is not None:
+                await self.supervisor.stop()
+            await self.active_destination.shutdown()
+            raise
+
     async def start(self) -> None:
         if self.config.shard is not None and self.shard_identity is None:
             # adopt the authoritative shard assignment and swap the store
@@ -102,24 +156,9 @@ class Pipeline:
             self.shard_identity = scoped.identity
             logger.info("shard scope: %s", scoped.identity.describe())
         batch = self.config.batch
-        if batch.batch_engine is BatchEngine.CUDA \
-                and batch.device.split(":")[0] == "cuda":
-            # no fallback to the CPU: without a card the pipeline does not
-            # start. The kernel library builds here, off the event loop,
-            # and not at the first flush
-            if not torch.cuda.is_available():
-                raise EtlError(ErrorKind.DEVICE_UNAVAILABLE,
-                               "BatchEngine.CUDA on device "
-                               f"{batch.device!r}: no CUDA device is "
-                               "available")
-            await asyncio.to_thread(decode_kernel.load)
-            if egress_encoder(self.config,
-                              self.active_destination) is not None:
-                from ..ops import egress_kernel
-
-                await asyncio.to_thread(egress_kernel.load)
-        # the reference's autotune and program-store prewarm come here;
-        # they have no counterpart until ROADMAP.md queue 1 entry 8
+        cuda_engine = batch.batch_engine is BatchEngine.CUDA
+        if cuda_engine:
+            await self._load_decode(batch)
         source = self.source_factory()
         await source.connect()
         try:
@@ -137,6 +176,8 @@ class Pipeline:
         if self.supervisor is not None:
             self.supervisor.start()
         await self.active_destination.startup()
+        if cuda_engine:
+            await self._prewarm(batch)
         # memory defense (reference pipeline.rs:168 MemoryMonitor::new +
         # batch_budget.rs): the monitor pauses WAL/COPY intake under RSS
         # pressure; the budget controller sizes batches by the active

@@ -3,8 +3,8 @@ the corpus by name (every scenario of the reference's corpus and its
 workload matrix), each scenario the port runs green on the CPU at the
 reference's size (`device="cpu"`: the kernels' plain versions) with the
 same per-seed determinism (two runs of one seed describe the same run,
-timings aside), the two program-cache scenarios refused typed until the
-program store is ported, the seeded workloads equal to the reference's
+timings aside), the two program-cache scenarios green on the port's
+program store with its counters checked, the seeded workloads equal to the reference's
 (the same committed truth and the same WAL bytes for one seed), the
 failpoint restart matrix, the CLI's replay and its typed refusals, the
 multi-pipeline scenario over the port's `global_admission`, and the
@@ -32,7 +32,7 @@ from etl_tpu_torch.chaos.invariants import (InvariantReport, LeakProbe,
 from etl_tpu_torch.chaos.runner import (RecordingStore, TracingDestination,
                                         run_scenario)
 from etl_tpu_torch.chaos.scenario import FaultKind, FaultSpec, Scenario
-from etl_tpu_torch.models.errors import ErrorKind, EtlError
+from etl_tpu_torch.models.errors import ErrorKind
 from etl_tpu_torch.ops import engine
 from etl_tpu_torch.ops.pipeline import reset_global_admission
 
@@ -131,11 +131,26 @@ class TestCorpus:
 
     @pytest.mark.parametrize("name", ["crash_restart_warm_programs",
                                       "crash_restart_corrupt_program_cache"])
-    async def test_program_cache_scenarios_refused_typed(self, name):
-        with pytest.raises(EtlError) as e:
-            await run_scenario(get_scenario(name), SEED, device="cpu")
-        assert e.value.kind is ErrorKind.CONFIG_INVALID
-        assert "queue 1 entry 8" in str(e.value)
+    async def test_program_cache_scenarios_green(self, name):
+        """The two scenarios on the port's program store, every batch on
+        the device route (phase 14's configuration): the warm restart
+        builds nothing and loads from disk; the corrupt one counts an
+        invalid miss and rebuilds (the framer, with the C compiler)."""
+        from etl_tpu_torch.chaos.runner import device_floor
+        from etl_tpu_torch.ops import program_store
+
+        b0 = engine.routed_device_batches
+        with device_floor(1):
+            run = await run_scenario(get_scenario(name), SEED, device="cpu")
+        assert run.ok, run.describe()
+        assert engine.routed_device_batches > b0
+        pc = run.describe()["program_cache"]
+        if name == "crash_restart_warm_programs":
+            assert pc["compiled"] == 0 and pc["disk_hits"] >= 2
+            assert pc["invalid"] == 0
+        else:
+            assert pc["invalid"] >= 1 and pc["compiled"] >= 1
+        assert program_store.active_dir() is None  # the private dir goes
 
     async def test_device_oom_fails_its_batches_without_an_oracle_route(
             self):
@@ -261,11 +276,15 @@ class TestCli:
     @pytest.mark.parametrize("argv", [
         ["--scenario", "crash_restart_corrupt_program_cache"],
         ["--scenario", "crash_restart_warm_programs"]])
-    def test_unported_refused_typed(self, argv):
+    def test_program_cache_scenarios_run(self, argv):
+        """Asked for by name, each program-cache scenario runs green and
+        prints the store's counters."""
         proc = _cli("--device", "cpu", *argv, timeout=120)
-        assert proc.returncode == 2, proc.stderr
-        assert proc.stderr.startswith("refused: CONFIG_INVALID"), proc.stderr
-        assert proc.stdout == ""
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        d = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert d["ok"] is True and d["scenario"] == argv[1]
+        assert set(d["program_cache"]) == {"compiled", "disk_hits",
+                                           "invalid"}
 
     @pytest.mark.parametrize("argv", [
         ["--exactly-once"], ["--ack-window"],

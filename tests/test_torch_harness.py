@@ -8,8 +8,9 @@ round trip at K = 1 and K = 2 (K processes; the slices cover every table
 once and verify); a worker or a bench asked for the card without one
 fails; `bench --smoke --device cpu` runs every ported gate of
 BENCH_FLOOR.json with its correctness checks green and lists the rest
-under `not_ported`; `benchmarks/compare.py` diffs reports as the
-reference's does. Wall-clock floors are asserted nowhere here: the
+under `not_ported`; `bench --coldstart --device cpu` runs its two
+lifetimes green (the reference's `run_coldstart` gates);
+`benchmarks/compare.py` diffs reports as the reference's does. Wall-clock floors are asserted nowhere here: the
 reference's tests assert none for these modes either. Tolerance: none.
 """
 
@@ -32,14 +33,11 @@ SEED = 7
 
 #: what `bench --smoke` may not run yet, by BENCH_FLOOR.json key (the
 #: Parquet floor is read where pyarrow imports, as here)
-NOT_PORTED = {
-    "coldstart_tables", "coldstart_rows_per_tx", "coldstart_txs_per_table",
-    "coldstart_smoke_tables", "coldstart_smoke_rows_per_tx",
-    "coldstart_smoke_txs_per_table",
-    "ir_analysis_budget_s", "static_analysis_budget_s", "mesh_smoke_rows"}
+NOT_PORTED = {"ir_analysis_budget_s", "static_analysis_budget_s",
+              "mesh_smoke_rows"}
 GATES = {"decode_identity", "heartbeat", "table_streaming", "egress",
          "workload", "selectivity", "ack_window", "poison", "exactly_once",
-         "multi_pipeline", "sharded", "autoscale", "fleet"}
+         "multi_pipeline", "sharded", "autoscale", "fleet", "coldstart"}
 
 
 @pytest.fixture(autouse=True)
@@ -267,6 +265,43 @@ class TestSmokeFlag:
         assert out["exactly_once_duplicate_rows"] == 0
         assert out["table_rows_constructed"] == 0
         assert proc.returncode == (0 if out["ok"] else 1)
+
+
+class TestColdstart:
+    """The reference's `run_coldstart` gates on the CPU: the warm restart
+    builds nothing, loads the packers' library from disk and decodes no
+    row on the oracle; the cold start builds once (the framer, with the
+    C compiler); the three rotated tables take one canonical layout."""
+
+    def test_smoke_sizes_in_process(self, tmp_path):
+        from etl_tpu_torch.benchmarks import harness, smoke
+
+        floors = smoke.load_floors()
+        out = harness.run_coldstart(
+            n_tables=floors["coldstart_smoke_tables"],
+            rows_per_tx=floors["coldstart_smoke_rows_per_tx"],
+            txs_per_table=floors["coldstart_smoke_txs_per_table"],
+            device="cpu", cache_dir=str(tmp_path))
+        assert out["ok"], out["failures"]
+        cold, warm = out["cold"], out["warm"]
+        assert cold["programs_compiled"] == 1
+        assert warm["programs_compiled"] == 0
+        assert warm["cache_hits_disk"] >= 1
+        assert warm["oracle_rows"] == cold["oracle_rows"] == 0
+        assert cold["layouts_by_route"] == warm["layouts_by_route"] \
+            == {"device": 1}
+        assert warm["rows_delivered"] == warm["rows_written"] == 3 * 400
+        assert warm["prewarm"]["observed"] >= 1  # the cold run's layouts
+
+    def test_bench_coldstart_flag(self):
+        proc = subprocess.run(
+            [sys.executable, "-m", "etl_tpu_torch.bench", "--coldstart",
+             "--device", "cpu"], capture_output=True, text=True,
+            timeout=600, cwd=ROOT)
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert proc.returncode == 0 and out["ok"], out.get("failures")
+        assert out["mode"] == "coldstart" and out["warm_zero_compiles"]
+        assert out["warm"]["rows_delivered"] == 3 * 800 * 2
 
 
 class TestCompare:

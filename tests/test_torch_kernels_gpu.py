@@ -915,3 +915,52 @@ def test_copy_escapes_fix_up_at_compacted_indices(cuda, route, monkeypatch):
             f"a\tb{src}" if src % 7 == 0 else f"plain{src}")
         assert [c.value(pos) for c in got.columns] \
             == [c.value(pos) for c in want.columns]
+
+
+def test_store_reloads_the_kernel_library(cuda, tmp_path):
+    """The program store's disk layer on the card: a directory seeded
+    from the default store loads the kernel library with no nvcc run,
+    and K1 from that library matches its plain version."""
+    from etl_tpu_torch.ops import program_store
+
+    program_store.export_entry(decode_kernel.LIBRARY, str(tmp_path))
+    before = decode_kernel._lib
+    try:
+        program_store.configure(str(tmp_path))
+        got = program_store.acquire(decode_kernel.LIBRARY)
+        assert got.source == "disk" and got.build_seconds is None
+        decode_kernel._lib = got.lib
+        got_words, want = _both(((0, K.I32, 12, 10), (1, K.DATE, 16, 10)),
+                                True, 5000, seed=16)
+        assert torch.equal(got_words, want)
+    finally:
+        decode_kernel._lib = before
+        program_store.configure(None)
+
+
+def test_cost_model_and_host_route(cuda):
+    """The measured cost model exists on the card, and a CUDA decoder's
+    host route serves mid-size batches with its plain version: no K1
+    launch, the CPU decoder's batch."""
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops import autotune, engine
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch
+
+    model = autotune.measure()
+    assert model is not None and model.fixed_s > 0
+    assert model.bytes_per_s > 0 and model.host_col_rows_per_s > 0
+    assert model.host_fixed_s >= 0
+    assert DeviceDecoder(bench.make_schema(),
+                         device="cuda").device_min_rows >= 64
+    dec = DeviceDecoder(bench.make_schema(), device="cuda",
+                        device_min_rows=10_000)
+    assert dec.host_min_rows == DeviceDecoder.HOST_MIN_ROWS == 64
+    staged = stage_wal_batch(*concat_payloads(bench.build_workload(500)),
+                             4).staged
+    k0, h0 = decode_kernel.launches, engine.routed_host_batches
+    batch = dec.decode(staged)
+    assert decode_kernel.launches == k0
+    assert engine.routed_host_batches == h0 + 1
+    assert bench.batches_equal(batch, DeviceDecoder(
+        bench.make_schema(), device="cpu").decode(staged))
