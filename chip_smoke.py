@@ -99,7 +99,8 @@ the final result line:
    on the same words. Inputs are seeded: decoded junk, out-of-range and
    edge texts (integer extremes, dates at year ends, TIMESTAMPTZ shifted
    across midnight and year ends), rows of random bits, fields that
-   straddle two words. (b) `bench --egress` at 262,144 rows: each encoder
+   straddle two words. (b) `bench --egress` at 262,144 rows (the min of
+   2 timings, `EGRESS_ITERS`, cut for time from 3): each encoder
    alone, and the TSV and NDJSON fast paths, which must use the device
    text and equal the columnar oracle byte for byte. (c) Phase 7's CDC
    stream, with the default PipelineConfig (supervision and poison on),
@@ -118,8 +119,9 @@ the final result line:
    for the pipeline id, the publication and the batch: the supervisor
    started, the destination is a SupervisedDestination, K1 launched once
    per device run, no degrade event, no `device-degraded` reason, health
-   `healthy` at the end, and phase 7's checks. (b) The same stream with
-   0.1 % of the rows poison (a `filler` starting `POISON`) into
+   `healthy` at the end, and phase 7's checks. (b) The same stream, cut
+   to 250,000 events (`POISON_EVENTS`), with 0.1 % of the rows poison
+   (a `filler` starting `POISON`) into
    `PoisonRejectingDestination(counting)`, the state in a SqliteStore in a
    temporary directory and `PoisonConfig(budget_rows=1_000_000)`: every
    poison row is on the dead-letter store exactly once under its WAL key,
@@ -189,7 +191,10 @@ the final result line:
    batches, beside phase 13), lag at 25 % and 75 % of the maximum, the
    wide row, and `python -m etl_tpu_torch.bench --smoke` as a process
    (its exit code, gates and `not_ported` printed; it gates the
-   `coldstart_*` smoke sizes, none of which may be listed not ported).
+   `coldstart_*` smoke sizes, none of which may be listed not ported, and
+   both lint gates — the AST pass with `--check-baseline`, and the IR
+   tier on the card — must hold, with only `mesh_smoke_rows` (and the
+   Parquet floor where pyarrow is missing) left not ported).
 
 17. the autoscale controller and the control plane
    (`autoscale_api_phase`): (a) `run_autoscale_surge_drain` and
@@ -262,6 +267,24 @@ the final result line:
    its nvcc seconds, builds, disk hits, oracle rows and start,
    first-durable and total seconds; the warm restart builds nothing, and
    each run's K1 launches equal its device-routed batches.
+
+21. etl-lint over the port (`lint_phase`): (a) the AST,
+   interprocedural and concurrency tiers over etl_tpu_torch/ in this
+   process (its seconds, its findings, the baseline's entries, none past
+   the baseline) and `python -m etl_tpu_torch.analysis --check-baseline`
+   as a process beside (b), exit 0; (b) the IR tier on the card
+   (`analysis.ir.runner`) at 4,096 and 262,144 rows, pgbench's
+   main-path batch, with the main path's own observed signature added
+   to the catalogue by one decode into a store of the phase's own: the
+   programs per variant, each contract's findings (0, `ir-host-callback`
+   checked under CUDA's sync debug mode), K1, K2c (or K2 + the
+   epilogue) and the render launched exactly as often as the catalogue
+   has programs of their variants (counts set to 0 just before), every
+   launch bit for bit against its plain version; (c) two deliberate
+   violations built in the phase: a K1 launch wrapper that reads
+   `.item()` before it returns must raise `ir-host-callback`, a render
+   handed back one row larger than its plan `ir-egress-output-budget`.
+   The card's name and power limit print beside the seconds.
 
 Every phase's routed batches are counted by route (device, host,
 oracle), and the three must add up to the routed batches.
@@ -885,6 +908,10 @@ def runtime_phases(args) -> dict:
     return out
 
 
+#: 9(b)'s timings of each encoder: cut for time from `bench --egress`'s 3
+EGRESS_ITERS = 2
+
+
 def egress_case(name, specs, nibble, rows, pool, seed, encoders, runs=1):
     """Phase 9(a) case: the render kernel against its plain version on the
     card, on one set of seeded words, under each encoder's plan; returns
@@ -973,9 +1000,9 @@ def egress_phase(args, main_specs, cdc: dict) -> dict:
                          4_096, args.seed + 41,
                          [egress.ENCODER_TSV, egress.ENCODER_JSON])
 
-    print(f"[9b] encoders alone (bench --egress, {bench.N_ROWS} rows)",
-          flush=True)
-    eb = bench.run_egress(bench.N_ROWS)
+    print(f"[9b] encoders alone (bench --egress, {bench.N_ROWS} rows, "
+          f"min of {EGRESS_ITERS})", flush=True)
+    eb = bench.run_egress(bench.N_ROWS, n_iters=EGRESS_ITERS)
     print("  " + " ".join(f"{k}={v}" for k, v in eb.items()
                           if k.endswith(("_per_sec", "_attached",
                                          "_used_device", "_identical"))),
@@ -1054,6 +1081,11 @@ def oracle_clear(before: str) -> None:
           f"the engine's forced host-oracle state is set before {before}")
 
 
+#: 10(b)'s events: cut for time from phase 7's 500,000 (the poisoned
+#: stream runs at about a sixteenth of phase 7's rate)
+POISON_EVENTS = 250_000
+
+
 def default_config_phase(args, cdc: dict) -> dict:
     """Phase 10: the reference's default PipelineConfig (supervision and
     poison on) on the card: (a) phase 7's stream, (b) the stream with
@@ -1112,13 +1144,14 @@ def default_config_phase(args, cdc: dict) -> dict:
           "clean shutdown", flush=True)
     out["10a_default"] = r
 
-    print(f"[10b] CDC with poison rows ({args.cdc_events} events, poison "
+    events = min(args.cdc_events, POISON_EVENTS)
+    print(f"[10b] CDC with poison rows ({events} events, poison "
           f"rate {bench.POISON_RATE}, SqliteStore)", flush=True)
     oracle_clear("phase 10(b)")
     _reset_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
         r = asyncio.run(bench.run_table_streaming(
-            args.cdc_events, device="cuda", seed=args.seed + 1,
+            events, device="cuda", seed=args.seed + 1,
             subsystems="default", poison_rate=bench.POISON_RATE,
             store_dir=tmp))
     r.update(_launch_counts())
@@ -2065,12 +2098,25 @@ def harness_phase(args, runtime: dict, device: str = "cuda") -> dict:
                 "sharded_events_per_second", "workload_events_per_second",
                 "coldstart_cold_first_durable_seconds",
                 "coldstart_warm_first_durable_seconds",
-                "coldstart_failures"):
+                "coldstart_failures", "static_analysis_seconds",
+                "static_analysis_findings", "static_analysis_violations",
+                "static_analysis_baseline_clean",
+                "static_analysis_baseline_seconds", "ir_analysis_seconds",
+                "ir_analysis_clean", "ir_analysis_report"):
         print(f"  16(f) {key}={json.dumps(sm.get(key))}", flush=True)
     check(not [k for k in sm.get("not_ported", {})
                if k.startswith("coldstart_")]
           and "coldstart" in sm.get("gates", {}),
           "16(f) bench --smoke does not gate the coldstart_* sizes")
+    # the two lint gates run and hold; only the mesh (and, where pyarrow
+    # is missing, the Parquet floor) stays not ported
+    check(sm.get("gates", {}).get("static_analysis") is True
+          and sm.get("gates", {}).get("ir_analysis") is True,
+          "16(f) bench --smoke: a lint gate did not hold")
+    check(set(sm.get("not_ported", {})) - {
+        "egress_floors.parquet_rows_per_sec"} == {"mesh_smoke_rows"},
+          f"16(f) bench --smoke: not_ported is not the mesh alone: "
+          f"{sorted(sm.get('not_ported', {}))}")
     check(bool(sm) and all(sm.get("correctness", {"": False}).values()),
           f"16(f) bench --smoke: a correctness check failed "
           f"({json.dumps(sm.get('correctness'))}; stderr "
@@ -2741,6 +2787,181 @@ def program_store_phase(args, runtime: dict, main_counts: dict,
     return {"20_program_store": out}
 
 
+#: phase 21's row buckets: the IR tier's default and pgbench's main-path
+#: batch
+LINT_ROW_BUCKETS = (4096, 262_144)
+
+
+def _lint_probes(runner, catalog) -> dict:
+    """21(c): two deliberate violations built here, not in the package.
+    (i) a K1 launch wrapper that reads `.item()` of its output between the
+    launch and its return must raise `ir-host-callback`; (ii) a render
+    whose text is handed back one row larger than its plan must raise
+    `ir-egress-output-budget` (on the widest render plan of the catalog,
+    whose row of text and lengths outweighs the budget's 64 B of
+    slack)."""
+    import torch
+
+    k1 = next(d for d in catalog if d.variant == "device"
+              and d.tag.startswith("i32x3"))
+
+    def item_between(launch):
+        def probe():
+            out = launch()
+            out.view(torch.int32)[0, 0].item()  # the violation
+            return out
+        return probe
+
+    eg = max((d for d in catalog if d.variant == "egress-tsv"),
+             key=lambda d: len(d.specs))
+
+    def one_row_more(launch):
+        def probe():
+            ebytes, elens = launch()
+            big = torch.empty((ebytes.shape[0] + 1, ebytes.shape[1]),
+                              dtype=ebytes.dtype, device=ebytes.device)
+            big[:-1].copy_(ebytes)  # a device copy: no host sync
+            return big, elens
+        return probe
+
+    out = {}
+    for name, desc, wrap, rule in (
+            ("item", k1, item_between, "ir-host-callback"),
+            ("one_row_more", eg, one_row_more, "ir-egress-output-budget")):
+        got, _ = runner.analyze_descriptor(desc, "cuda", wrap=wrap)
+        rules = sorted({f.rule for f in got})
+        print(f"  21(c) {name} on {desc.path} [{desc.scope}]: "
+              + "; ".join(f.fingerprint for f in got), flush=True)
+        check(rule in rules, f"21(c) the {name} probe did not raise {rule}:"
+              f" {rules}")
+        out[name] = [f.fingerprint for f in got]
+    return out
+
+
+def lint_phase(staged0, schema) -> dict:
+    """Phase 21: etl-lint over the port (module docstring, 21). (a) The
+    AST, interprocedural and concurrency tiers over etl_tpu_torch/ in this
+    process, and `--check-baseline` in a process beside it. (b) The IR
+    tier on the card at LINT_ROW_BUCKETS, after one main-path batch
+    decoded with a program store configured, so that the observed
+    signature of the main path joins the catalogue; the launch counts are
+    set to 0 just before the tier and read just after. (c) The two
+    deliberate violations (`_lint_probes`)."""
+    import subprocess
+    import tempfile
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.analysis import baseline as baseline_mod
+    from etl_tpu_torch.analysis.ir import runner
+    from etl_tpu_torch.analysis.ir.catalog import (KERNEL_OF_VARIANT,
+                                                   build_catalog)
+    from etl_tpu_torch.analysis.rules import analyze_paths, repo_package_dir
+    from etl_tpu_torch.ops import program_store
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+
+    print("[21] etl-lint over the port", flush=True)
+    oracle_clear("phase 21")
+    t_phase = time.perf_counter()
+    card = bench.card_info()
+    t0 = time.perf_counter()
+    base = subprocess.Popen(
+        [sys.executable, "-m", "etl_tpu_torch.analysis", "--check-baseline",
+         "-q"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        findings = analyze_paths([str(repo_package_dir())])
+        ast_s = time.perf_counter() - t0
+        entries = baseline_mod.load()
+        violations, _ = baseline_mod.apply(findings, entries)
+        print(f"  21(a) AST + interprocedural + concurrency tiers over "
+              f"etl_tpu_torch/: {ast_s:.2f} s ({card}), {len(findings)} "
+              f"findings, {len(entries)} baseline entries, "
+              f"{len(violations)} past the baseline", flush=True)
+        for f in violations:
+            print(f"    {f.render()}", flush=True)
+        check(not violations, "21(a) the lint finds violations past the "
+              "baseline")
+
+        # (b) the main path's signature, observed into a store of the
+        # phase's own, joins the catalogue
+        prev = program_store._CONFIGURED[0]
+        store = tempfile.mkdtemp(prefix="chip-smoke-lint-")
+        program_store.configure(store)
+        # the process guard forgets the signatures earlier phases recorded
+        # (plans and libraries stay), so this batch's is written again
+        program_store.reset_for_tests()
+        try:
+            DeviceDecoder(schema, device="cuda").decode(staged0)
+            observed = program_store.load_observed()
+            catalog = build_catalog(row_buckets=LINT_ROW_BUCKETS)
+            _reset_launch_counts()
+            t1 = time.perf_counter()
+            found, _, report = runner.analyze_local(
+                device="cuda", row_buckets=LINT_ROW_BUCKETS)
+            ir_s = time.perf_counter() - t1
+            counts = _launch_counts()
+        finally:
+            program_store.configure(prev)
+            shutil.rmtree(store, ignore_errors=True)
+        check(len(observed) == 1, f"21(b) the main-path batch recorded "
+              f"{len(observed)} signatures, not 1")
+        print(f"  21(b) IR tier on the card ({card}), row buckets "
+              f"{list(LINT_ROW_BUCKETS)}: {report['programs']} programs in "
+              f"{ir_s:.2f} s (" + ", ".join(
+                  f"{k} {v}" for k, v in report["variants"].items())
+              + f"; {sum(d.source == 'observed' for d in catalog)} "
+              f"observed); seconds by variant "
+              f"{report['seconds_by_variant']}", flush=True)
+        print("  21(b) findings by contract: " + " ".join(
+            f"{k}={v}" for k, v in report["findings"].items())
+              + f"; not checked: {report['not_checked'] or 'none'}",
+              flush=True)
+        for f in found:
+            print(f"    {f.render()}", flush=True)
+        check(not found and not report["not_checked"],
+              "21(b) the IR tier has findings, or left a contract "
+              "unchecked, on the card")
+        want = {"k1": 0, "k2c": 0, "render": 0}
+        for d in catalog:
+            kernel = KERNEL_OF_VARIANT.get(d.variant)
+            if kernel is not None:
+                want[kernel] += 1
+        print(f"  21(b) launches: K1 {counts['k1_launches']} (programs "
+              f"{want['k1']}), K2c {counts['k2c_launches']} + K2 "
+              f"{counts['k2_launches']} / epilogue "
+              f"{counts['epilogue_launches']} (filtered programs "
+              f"{want['k2c']}), render {counts['egress_launches']} "
+              f"(programs {want['render']}); routes {report['routes']}; "
+              f"every launch bit for bit against its plain version: "
+              f"{'yes' if report['plain_held'] else 'no'}", flush=True)
+        check(counts["k1_launches"] == want["k1"]
+              and counts["k2c_launches"] + counts["k2_launches"]
+              == want["k2c"]
+              and counts["k2_launches"] == counts["epilogue_launches"]
+              and counts["egress_launches"] == want["render"],
+              f"21(b) the launches do not match the catalogue: {counts}, "
+              f"want {want}")
+        check(report["plain_held"] and not report["plain_mismatches"],
+              "21(b) a launch was not held to its plain version")
+        probes = _lint_probes(runner, catalog)
+        base_out, base_err = base.communicate(timeout=300)
+        base_s = time.perf_counter() - t0
+    finally:
+        if base.poll() is None:
+            base.kill()
+            base.wait()
+    print(f"  21(a) --check-baseline (a process beside (b)): exit "
+          f"{base.returncode} in {base_s:.2f} s", flush=True)
+    check(base.returncode == 0, f"21(a) --check-baseline exit "
+          f"{base.returncode}: {(base_out + base_err)[-600:]}")
+    phase_s = time.perf_counter() - t_phase
+    print(f"  21 done in {phase_s:.2f} s ({card})", flush=True)
+    return {"ast_s": ast_s, "findings": len(findings),
+            "baseline_entries": len(entries), "ir_s": ir_s,
+            "report": report, "launches": counts, "probes": probes,
+            "phase_s": phase_s}
+
+
 def _warehouse_lines(r: dict) -> None:
     run = r["run"]
     print(f"  warehouse: watched {r['watched_rows']} rows, bad "
@@ -3145,6 +3366,7 @@ def main() -> int:
         runtime.update(program_store_phase(args, runtime, c4, coldstart))
     finally:
         coldstart.stop()
+    lint_phase(staged0, schema)
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs

@@ -2,14 +2,20 @@
 
 Copy of the markers of the reference's `etl_tpu/analysis/annotations.py`
 that the port's runtime carries. Each decorator is zero-cost: it tags the
-function with an attribute and returns it unchanged. The reference's
-etl-lint reads the tags; the port keeps them so the same contracts stay
-written on the same functions:
+function with an attribute and returns it unchanged. The port's etl-lint
+matches the decorator names lexically (and through import aliases in the
+whole-program pass), so the same contracts stay written — and checked —
+on the same functions:
 
   - `@hot_loop`: per-row/per-dispatch hot path — no host<->device
     transfer (`torch.cuda.synchronize`, `.cpu()`, `.item()`, an event
     wait) inside; dispatch device work and hand back pending handles, the
     fetch happens at the consumer (`_PendingDecode.result()`);
+  - `@dispatch_stage`: the decode pipeline's dispatch stage, a hot-loop
+    function whose job is to start device work — uploads and enqueued
+    copies (`.cuda()`, `.to(<device>)`, `.copy_(…, non_blocking=True)`)
+    are its point; fetches (`.cpu()`, `.item()`, a synchronize) stay
+    forbidden there;
   - `@admission_path`: the admission scheduler's grant path — no device
     traffic of any kind, or one tenant's round trip would serialize every
     tenant's admission behind it;
@@ -45,6 +51,7 @@ SHARD_SCOPED_ATTR = "__etl_shard_scoped__"
 DOMAIN_ATTR = "__etl_domain__"
 HANDOFF_ATTR = "__etl_handoff__"
 CONTROL_LOOP_ATTR = "__etl_control_loop__"
+DISPATCH_STAGE_ATTR = "__etl_dispatch_stage__"
 
 #: the execution domains `@domain` accepts (a typo'd pin raises)
 KNOWN_DOMAINS = frozenset({"loop", "worker", "executor", "sweep",
@@ -96,4 +103,9 @@ def handoff(fn: _F) -> _F:
 
 def control_loop(fn: _F) -> _F:
     setattr(fn, CONTROL_LOOP_ATTR, True)
+    return fn
+
+
+def dispatch_stage(fn: _F) -> _F:
+    setattr(fn, DISPATCH_STAGE_ATTR, True)
     return fn

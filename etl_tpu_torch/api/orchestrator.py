@@ -13,8 +13,8 @@ Implementations:
 
 Copy of the reference's `etl_tpu/api/orchestrator.py`. The manifests are
 the reference's byte for byte apart from the package a container runs
-(`etl_tpu_torch.maintenance`, which ROADMAP.md queue 1 entry 7 ports
-with the lake destinations); the local children run
+(`etl_tpu_torch.maintenance`, the port's copy of the reference's
+maintenance module); the local children run
 `python -m etl_tpu_torch.replicator`, which decodes on the card unless
 the config document says `batch: {device: cpu}`.
 """

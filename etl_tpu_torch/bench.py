@@ -890,7 +890,8 @@ async def run_table_copy(n_rows: int = 1_000_000, device: str = "cuda",
         "device_busy_share": d["device_s"] / copy_s,
         "count_ok": dest.rows_delivered == n_rows,
         "digest_ok": bool(digest_ok),
-        "oracle_sample_ok": _oracle_sample_ok(dest.copied, t, 512, seed, 1),
+        "oracle_sample_ok": await asyncio.to_thread(
+            _oracle_sample_ok, dest.copied, t, 512, seed, 1),
     }
     out["device_route_ok"] = (out["device_rows"] == n_rows
                               and out["oracle_rows"] == 0
@@ -1128,7 +1129,8 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
         "count_ok": delivered == want_rows,
         "digest_ok": digest == table_digest(t, np.flatnonzero(keep)),
         "order_ok": order_ok, "identity_ok": identity_ok,
-        "oracle_sample_ok": _oracle_sample_ok(batches, t, 512, seed, 1),
+        "oracle_sample_ok": await asyncio.to_thread(
+            _oracle_sample_ok, batches, t, 512, seed, 1),
         "after_shutdown": {"pipeline_threads": threads,
                            "admission_in_flight": sched.in_flight,
                            "admission_tenants": sorted(
@@ -2273,15 +2275,16 @@ async def run_wire_replicator(copy_rows: int = 1_000_000,
         "restart": restart,
     })
     if http:
-        _warehouse_checks(out, destination, report, watch, t_copy, t_cdc,
-                          first_aid, prod, seed)
+        await asyncio.to_thread(_warehouse_checks, out, destination, report,
+                                watch, t_copy, t_cdc, first_aid, prod, seed)
     else:
-        out["oracle_sample_ok"] = _oracle_sample_ok(
-            [_sample_batch(values, 512, seed)], t_cdc, 512, seed, first_aid)
+        out["oracle_sample_ok"] = await asyncio.to_thread(
+            _oracle_sample_ok, [_sample_batch(values, 512, seed)], t_cdc,
+            512, seed, first_aid)
         if copied_values:
-            out["copy_oracle_sample_ok"] = _oracle_sample_ok(
-                [_sample_batch(copied_values, 512, seed)], t_copy, 512,
-                seed, 1)
+            out["copy_oracle_sample_ok"] = await asyncio.to_thread(
+                _oracle_sample_ok, [_sample_batch(copied_values, 512, seed)],
+                t_copy, 512, seed, 1)
     # the launches of the whole run (both lifetimes) against its
     # device-routed batches: K1 for each unfiltered one, K2c (or K2 and
     # the epilogue) for each filtered one; a destination that declares an

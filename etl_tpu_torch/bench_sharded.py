@@ -428,10 +428,11 @@ async def run_sharded_replication(copy_rows: int = 1_000_000,
         copied = [b for d in dests.values() for t, b in d.copied if t == tid]
         streamed = [e[1] for d in dests.values() for e in d.events
                     if e[0] == tid]
-        sample_ok &= bench._oracle_sample_ok(copied, t_copy[tid], n_per,
-                                             seed + i, 1)
-        sample_ok &= bench._oracle_sample_ok(streamed, t_cdc[tid], n_per,
-                                             seed + 50 + i, per_table + 1)
+        sample_ok &= await asyncio.to_thread(
+            bench._oracle_sample_ok, copied, t_copy[tid], n_per, seed + i, 1)
+        sample_ok &= await asyncio.to_thread(
+            bench._oracle_sample_ok, streamed, t_cdc[tid], n_per,
+            seed + 50 + i, per_table + 1)
     out["oracle_sample_ok"] = bool(sample_ok)
     # each pod held to its own launches: K1 + K2c == its device batches
     launches = {}

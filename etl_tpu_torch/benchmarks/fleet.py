@@ -234,8 +234,8 @@ async def run_fleet_children(copy_rows: int = 2_000, events: int = 2_000, *,
         from ..ops import decode_kernel, egress_kernel
 
         t0 = time.perf_counter()
-        decode_kernel.load()
-        egress_kernel.load()
+        await asyncio.to_thread(decode_kernel.load)  # off the loop
+        await asyncio.to_thread(egress_kernel.load)
         out["build_s"] = time.perf_counter() - t0
 
     tables = {1: _table_ids(bench.PGBENCH_TID, 2, set())}

@@ -15,6 +15,8 @@ from __future__ import annotations
 import asyncio
 import concurrent.futures
 import json
+import subprocess
+import sys
 import time
 from pathlib import Path
 
@@ -23,9 +25,8 @@ FLOOR_PATH = Path(__file__).resolve().parents[2] / "BENCH_FLOOR.json"
 #: BENCH_FLOOR.json keys whose gate the port does not run yet, by key
 #: prefix, with the ROADMAP.md queue 1 entry that brings it
 NOT_PORTED_PREFIXES = {
-    "ir_analysis_budget_s": "queue 1 entry 10 (the lint's IR tier)",
-    "static_analysis_budget_s": "queue 1 entry 10 (the lint tiers)",
-    "mesh_smoke_rows": "queue 1 entry 9 (multi-GPU)",
+    "mesh_smoke_rows": "queue 1 entry 9 (multi-GPU; with it the IR "
+                       "tier's mesh slice)",
 }
 
 #: read where pyarrow imports; listed under `not_ported` where it does not
@@ -243,6 +244,80 @@ def _heartbeat_overhead(budget_events_per_sec: float) -> float:
     return min(rounds) * budget_events_per_sec
 
 
+def _timed_run(argv: list, cwd: Path) -> tuple:
+    """(completed process, seconds) of one subprocess run."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, capture_output=True, text=True,
+                          timeout=600, cwd=str(cwd))
+    return proc, time.perf_counter() - t0
+
+
+def start_lint_processes(device: str) -> dict:
+    """Start the two lint gates' processes in the background, beside
+    the in-process pass: the exact commands CI runs (`python -m
+    etl_tpu_torch.analysis --check-baseline -q`, and the IR tier,
+    `--programs -q --device <device>`), each timed on its own;
+    `lint_gates` collects them."""
+    pool = concurrent.futures.ThreadPoolExecutor(2)
+    root = FLOOR_PATH.parent
+    mod = [sys.executable, "-m", "etl_tpu_torch.analysis"]
+    runs = {
+        "baseline": pool.submit(_timed_run,
+                                mod + ["--check-baseline", "-q"], root),
+        "ir": pool.submit(_timed_run,
+                          mod + ["--programs", "-q", "--device",
+                                 device.split(":")[0]], root),
+    }
+    pool.shutdown(wait=False)
+    return runs
+
+
+def static_pass() -> tuple:
+    """(findings, violations past the baseline, seconds) of the
+    whole-program etl-lint pass over the package, in this process."""
+    from ..analysis import baseline as baseline_mod
+    from ..analysis.rules import analyze_paths, repo_package_dir
+
+    t0 = time.perf_counter()
+    findings = analyze_paths([str(repo_package_dir())])
+    seconds = time.perf_counter() - t0
+    violations, _ = baseline_mod.apply(findings, baseline_mod.load())
+    return findings, violations, seconds
+
+
+def lint_gates(floors: dict, static: tuple, runs: dict) -> dict:
+    """bench --smoke's two lint gates, as the reference's bench.py
+    (:770-815): (1) the whole-program etl-lint pass (`static_pass`)
+    under `static_analysis_budget_s`, with no violation past the
+    baseline, and `--check-baseline` clean in a process under the same
+    budget; (2) the IR tier in a process, exit 0 (every contract clean
+    over the catalog) within `ir_analysis_budget_s`."""
+    lint_budget_s = float(floors.get("static_analysis_budget_s", 30.0))
+    ir_budget_s = float(floors.get("ir_analysis_budget_s", 120.0))
+    findings, violations, lint_s = static
+    base, base_s = runs["baseline"].result()
+    ir, ir_s = runs["ir"].result()
+    base_clean, ir_clean = base.returncode == 0, ir.returncode == 0
+    return {
+        "static_analysis_seconds": round(lint_s, 3),
+        "static_analysis_budget_s": lint_budget_s,
+        "static_analysis_under_budget": bool(
+            lint_s < lint_budget_s and base_s < lint_budget_s),
+        "static_analysis_findings": len(findings),
+        "static_analysis_violations": len(violations),
+        "static_analysis_baseline_clean": bool(base_clean),
+        "static_analysis_baseline_seconds": round(base_s, 3),
+        "static_analysis_baseline_error": "" if base_clean
+        else (base.stdout + base.stderr)[-2000:],
+        "ir_analysis_seconds": round(ir_s, 3),
+        "ir_analysis_budget_s": ir_budget_s,
+        "ir_analysis_under_budget": bool(ir_s < ir_budget_s),
+        "ir_analysis_clean": bool(ir_clean),
+        "ir_analysis_error": "" if ir_clean else ir.stderr[-2000:],
+        "ir_analysis_report": ir.stderr.strip().splitlines()[-4:],
+    }
+
+
 def correctness_failures(failures: list) -> list:
     """The failures of a gate that are not a missed floor."""
     return [f for f in failures if "under floor" not in f]
@@ -279,7 +354,6 @@ def run_smoke(device: str = "cuda") -> dict:
         txs_per_table=floors.get("coldstart_smoke_txs_per_table", 1),
         device=device)
     pool.shutdown(wait=False)
-
     ident = _decode_identity(device)
     out.update(ident)
     gates["decode_identity"] = correct["decode_identity"] = \
@@ -431,6 +505,22 @@ def run_smoke(device: str = "cuda") -> dict:
     out["fleet_deterministic"] = bool(fleet["deterministic"])
     out["fleet_converge_wall_clock_s"] = fleet["converge_wall_clock_s"]
     gates["fleet"] = correct["fleet"] = bool(fleet["ok"])
+
+    # the lint gates after the timed ones, so that nothing they run
+    # overlaps a timed gate, and before the coldstart pair is read, whose
+    # cold build may still be running: the two processes beside the
+    # in-process pass
+    lint_runs = start_lint_processes(device)
+    lint = lint_gates(floors, static_pass(), lint_runs)
+    out.update(lint)
+    correct["static_analysis"] = bool(
+        lint["static_analysis_violations"] == 0
+        and lint["static_analysis_baseline_clean"])
+    gates["static_analysis"] = correct["static_analysis"] \
+        and lint["static_analysis_under_budget"]
+    correct["ir_analysis"] = lint["ir_analysis_clean"]
+    gates["ir_analysis"] = correct["ir_analysis"] \
+        and lint["ir_analysis_under_budget"]
 
     # coldstart: two replicator subprocess lifetimes on one program-cache
     # dir — the warm restart builds NOTHING, loads from disk and decodes

@@ -12,9 +12,9 @@ DecodedBatchEvent payloads straight from the device engine; the
 `expand_batch_events` helper converts batch events to per-row events for
 row-oriented writers.
 
-Copy of the reference's `etl_tpu/destinations/base.py` without device
-egress (queue 1, item 5 of ROADMAP.md): a `CoalescedBatch` carries
-`egress = None`, so no merge of egress parts is ever reached.
+Copy of the reference's `etl_tpu/destinations/base.py`, with the
+port's device egress: a `CoalescedBatch` merges its events' rendered
+wire buffers (`ops/egress.DeviceEgress.concat`) all-or-nothing.
 """
 
 from __future__ import annotations

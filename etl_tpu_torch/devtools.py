@@ -331,7 +331,8 @@ async def chaos(args) -> int:
             return 1
         from .ops import decode_kernel
 
-        decode_kernel.load()  # a failed build fails here, before a run
+        # a failed build fails here, before a run; built off the loop
+        await asyncio.to_thread(decode_kernel.load)
     scenarios = (["partition", "latency", "corruption", "copy",
                   "destination", "slot"]
                  if args.scenario == "all" else [args.scenario])

@@ -88,6 +88,7 @@ import torch
 
 import logging
 
+from ..analysis.annotations import dispatch_stage, hot_loop
 from ..models.errors import ErrorKind, EtlError
 from ..models.pgtypes import CellKind
 from ..models.schema import ReplicatedTableSchema
@@ -715,6 +716,8 @@ class DeviceDecoder:
         packed.pack_s = time.perf_counter() - t0
         return packed
 
+    @dispatch_stage
+    @hot_loop
     def _dispatch_stage(self, staged: StagedBatch, specs: tuple,
                         packed: _Packed) -> _PendingDecode:
         """Stage 2: start the device work on the packed inputs and return
@@ -766,7 +769,7 @@ class DeviceDecoder:
                                 device=self.device)
         if pred is not None:
             flags_h = self._pinned.take(flags.shape, torch.uint8)
-            flags_h.numpy()[:] = flags
+            flags_h[:] = torch.from_numpy(flags)
             packed.pinned = packed.pinned + (flags_h,)
             flags_d = torch.empty(flags.shape, dtype=torch.uint8,
                                   device=self.device)
@@ -1192,6 +1195,7 @@ class DeviceDecoder:
             return route, self._host_specs()
         return route, ()
 
+    @hot_loop
     def decode_async(self, staged: StagedBatch) -> _PendingDecode:
         """Dispatch the device work and return immediately; stage the next
         batch while this one is in flight."""

@@ -174,6 +174,21 @@ def stage_tuples(tuples: Sequence[TupleData], n_cols: int) -> StagedBatch:
     return StagedBatch(data, offsets, lengths, nulls, toast, n)
 
 
+def synthetic_staged_batch(n_cols: int, row_capacity: int) -> StagedBatch:
+    """An all-NULL staged batch at an exact row capacity: the IR tier
+    (`analysis/ir/catalog.py`) takes the minimum-width device signature
+    of a schema from one, through the engine's own `_widths`/`_specs`, so
+    the layouts it checks cannot drift from what batches of that schema
+    get."""
+    return StagedBatch(
+        np.zeros(0, dtype=np.uint8),
+        np.zeros((row_capacity, n_cols), dtype=np.int32),
+        np.zeros((row_capacity, n_cols), dtype=np.int32),
+        np.ones((row_capacity, n_cols), dtype=np.bool_),
+        np.zeros((row_capacity, n_cols), dtype=np.bool_),
+        row_capacity)
+
+
 _NULL_FIELD_BYTES = (92, 78)  # "\\N"
 
 

@@ -165,7 +165,9 @@ async def _serve(conn, password):
                 return
             try:
                 out = await _COMMANDS[cmd](db, state, **kwargs)
-            except Exception as e:  # answered, not fatal to the server
+            # answered, not fatal to the server; no spin: each turn of the
+            # loop waits for the parent's next command
+            except Exception as e:  # etl-lint: ignore[unbounded-retry]
                 conn.send(("error", f"{cmd}: {e!r}"))
                 continue
             conn.send(("ok", out))

@@ -7,8 +7,8 @@ Also: the multi-pipeline, poison and wide-row modes; the shard worker's
 round trip at K = 1 and K = 2 (K processes; the slices cover every table
 once and verify); a worker or a bench asked for the card without one
 fails; `bench --smoke --device cpu` runs every ported gate of
-BENCH_FLOOR.json with its correctness checks green and lists the rest
-under `not_ported`; `bench --coldstart --device cpu` runs its two
+BENCH_FLOOR.json (the two lint gates included) with its correctness
+checks green and lists the rest (the mesh) under `not_ported`; `bench --coldstart --device cpu` runs its two
 lifetimes green (the reference's `run_coldstart` gates);
 `benchmarks/compare.py` diffs reports as the reference's does. Wall-clock floors are asserted nowhere here: the
 reference's tests assert none for these modes either. Tolerance: none.
@@ -33,11 +33,11 @@ SEED = 7
 
 #: what `bench --smoke` may not run yet, by BENCH_FLOOR.json key (the
 #: Parquet floor is read where pyarrow imports, as here)
-NOT_PORTED = {"ir_analysis_budget_s", "static_analysis_budget_s",
-              "mesh_smoke_rows"}
+NOT_PORTED = {"mesh_smoke_rows"}
 GATES = {"decode_identity", "heartbeat", "table_streaming", "egress",
          "workload", "selectivity", "ack_window", "poison", "exactly_once",
-         "multi_pipeline", "sharded", "autoscale", "fleet", "coldstart"}
+         "multi_pipeline", "sharded", "autoscale", "fleet", "coldstart",
+         "static_analysis", "ir_analysis"}
 
 
 @pytest.fixture(autouse=True)
@@ -264,6 +264,22 @@ class TestSmokeFlag:
         assert set(out["not_ported"]) == NOT_PORTED
         assert out["exactly_once_duplicate_rows"] == 0
         assert out["table_rows_constructed"] == 0
+        # the two lint gates, as tests/test_decode_pipeline.py holds the
+        # reference's: the whole-program pass over the port clean past
+        # its baseline and inside its budget, `--check-baseline` clean,
+        # and the IR tier (`--programs --device cpu`) exiting 0 inside
+        # its own budget, listing what the CPU cannot check
+        assert out["static_analysis_under_budget"] is True, out
+        assert out["static_analysis_seconds"] < \
+            out["static_analysis_budget_s"]
+        assert out["static_analysis_violations"] == 0
+        assert out["static_analysis_findings"] > 0
+        assert out["static_analysis_baseline_clean"] is True, out
+        assert out["ir_analysis_clean"] is True, out
+        assert out["ir_analysis_under_budget"] is True, out
+        assert out["ir_analysis_seconds"] < out["ir_analysis_budget_s"]
+        assert any("ir-host-callback not_checked: cpu" in line
+                   for line in out["ir_analysis_report"]), out
         assert proc.returncode == (0 if out["ok"] else 1)
 
 

@@ -110,6 +110,27 @@ PORT_MODULES = [
     "etl_tpu_torch.destinations.iceberg_meta",
     "etl_tpu_torch.testing.avro_reader", "etl_tpu_torch.testing.fake_iceberg",
     "etl_tpu_torch.maintenance", "etl_tpu_torch.maintenance_coordination",
+    "etl_tpu_torch.analysis.baseline", "etl_tpu_torch.analysis.callgraph",
+    "etl_tpu_torch.analysis.cfg", "etl_tpu_torch.analysis.cli",
+    "etl_tpu_torch.analysis.concurrency", "etl_tpu_torch.analysis.contexts",
+    "etl_tpu_torch.analysis.domains", "etl_tpu_torch.analysis.findings",
+    "etl_tpu_torch.analysis.interproc", "etl_tpu_torch.analysis.rules",
+    "etl_tpu_torch.analysis.visitor", "etl_tpu_torch.analysis.__main__",
+    "etl_tpu_torch.analysis.ir", "etl_tpu_torch.analysis.ir.catalog",
+    "etl_tpu_torch.analysis.ir.contracts", "etl_tpu_torch.analysis.ir.runner",
+]
+
+#: the lint's tiers but the IR runner: stdlib-only, as the reference's
+#: (the hot modules import the markers from this package)
+TORCH_FREE_LINT_MODULES = [
+    "etl_tpu_torch.analysis", "etl_tpu_torch.analysis.annotations",
+    "etl_tpu_torch.analysis.baseline", "etl_tpu_torch.analysis.callgraph",
+    "etl_tpu_torch.analysis.cfg", "etl_tpu_torch.analysis.cli",
+    "etl_tpu_torch.analysis.concurrency", "etl_tpu_torch.analysis.contexts",
+    "etl_tpu_torch.analysis.domains", "etl_tpu_torch.analysis.findings",
+    "etl_tpu_torch.analysis.interproc", "etl_tpu_torch.analysis.rules",
+    "etl_tpu_torch.analysis.visitor", "etl_tpu_torch.analysis.ir",
+    "etl_tpu_torch.analysis.ir.contracts",
 ]
 
 #: the lake, Iceberg and maintenance modules import where pyarrow cannot
@@ -177,6 +198,50 @@ def test_port_imports_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     assert "HAVE True" in out.stdout
+
+
+_LINT_PROBE = """
+import importlib, sys
+for m in {mods!r}:
+    importlib.import_module(m)
+print("BAD", sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("torch", "numpy", "jax",
+                                           "etl_tpu")))
+"""
+
+
+def test_lint_tiers_import_no_torch():
+    """`import etl_tpu_torch.analysis` and every tier but the IR runner
+    leave torch (and numpy, jax and the reference) unimported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run(
+        [sys.executable, "-c", _LINT_PROBE.format(
+            mods=TORCH_FREE_LINT_MODULES)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_lint_cli_runs_without_jax_or_reference():
+    """The whole CLI, both tiers (`--programs --device cpu` over one
+    file), runs in a process that has neither jax nor the reference."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\nsys.modules['etl_tpu'] = None\n"
+            "from etl_tpu_torch.analysis.cli import main\n"
+            "rc = main(['--programs', '--device', 'cpu', '--row-buckets', "
+            "'64', '-q', sys.argv[1]])\n"
+            "print('RC', rc)\n"
+            "print('BAD', sorted(m for m in sys.modules if m.split('.')[0] "
+            "in ('jax', 'etl_tpu') and sys.modules[m] is not None))\n")
+    out = subprocess.run(
+        [sys.executable, "-c", code, os.path.join(ROOT, "etl_tpu_torch",
+                                                  "analysis", "findings.py")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "RC 0" in out.stdout and "BAD []" in out.stdout, out.stdout
 
 
 _EGRESS_PROBE = """

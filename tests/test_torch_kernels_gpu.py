@@ -964,3 +964,52 @@ def test_cost_model_and_host_route(cuda):
     assert engine.routed_host_batches == h0 + 1
     assert bench.batches_equal(batch, DeviceDecoder(
         bench.make_schema(), device="cpu").decode(staged))
+
+
+# -- the lint's IR tier on the card --------------------------------------------
+
+
+def _ir_program(variant: str):
+    from etl_tpu_torch.analysis.ir.catalog import build_catalog
+
+    return next(d for d in build_catalog(include_observed=False)
+                if d.variant == variant and d.tag.startswith("i32x3"))
+
+
+def test_ir_host_callback_fires_under_sync_debug_mode(cuda):
+    """A K1 launch wrapper that reads `.item()` of its output before it
+    returns synchronises with the card: sync debug mode raises inside
+    the dispatch window, and the finding names the probe's frame."""
+    from etl_tpu_torch.analysis.ir import runner
+
+    def item_between(launch):
+        def probe():
+            out = launch()
+            out.view(torch.int32)[0, 0].item()
+            return out
+        return probe
+
+    found, rec = runner.analyze_descriptor(_ir_program("device"), "cuda",
+                                           wrap=item_between)
+    assert rec.aborted and rec.sync_events
+    assert [f.rule for f in found] == ["ir-host-callback"]
+    assert found[0].detail.startswith("sync@test_torch_kernels_gpu.py:")
+
+
+@pytest.mark.parametrize("variant", ["device", "nibble", "filtered",
+                                     "egress-tsv", "host"])
+def test_ir_programs_clean_and_held_on_the_card(cuda, variant):
+    """Each variant's program: no finding, the host-callback contract
+    checked, the launch held bit for bit against its plain version, and
+    one launch of its kernel (none for the host route)."""
+    from etl_tpu_torch.analysis.ir import runner
+
+    desc = _ir_program(variant)
+    found, rec = runner.analyze_descriptor(desc, "cuda")
+    assert found == [], [f.render() for f in found]
+    assert rec.sync_events == []
+    if variant == "host":
+        assert rec.launches == {} and rec.plain_ok is None
+    else:
+        assert rec.plain_ok is True
+        assert sum(rec.launches.values()) == 1, rec.launches
