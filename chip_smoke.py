@@ -193,8 +193,10 @@ the final result line:
    (its exit code, gates and `not_ported` printed; it gates the
    `coldstart_*` smoke sizes, none of which may be listed not ported, and
    both lint gates — the AST pass with `--check-baseline`, and the IR
-   tier on the card — must hold, with only `mesh_smoke_rows` (and the
-   Parquet floor where pyarrow is missing) left not ported).
+   tier on the card with its mesh variants — must hold, as must the
+   mesh gate (`bench --mesh-check` at `mesh_smoke_rows`, 8 shards on
+   the card), with nothing (but the Parquet floor where pyarrow is
+   missing) left not ported).
 
 17. the autoscale controller and the control plane
    (`autoscale_api_phase`): (a) `run_autoscale_surge_drain` and
@@ -286,8 +288,32 @@ the final result line:
    handed back one row larger than its plan `ir-egress-output-budget`.
    The card's name and power limit print beside the seconds.
 
+22. the row-sharded decode mesh (`mesh_phase`; `parallel/mesh.py`), 8
+   shards on the one card (`decode_mesh([cuda:0] * 8)`): (a) at the main
+   path's shape (262,144 pgbench rows, nibble) K1, the render (`tsv`)
+   and K2c (`bid <= 5`) launched on each shard's row block through the
+   shard helpers, 8 launches each, bit for bit against the plain
+   versions — K1's words and per-shard fallback counts against
+   `parse_and_pack_plain(…, n_shards=8)` on the CPU, K2c's survivors,
+   the bit-joined mask and the 8 counts against the same with the
+   filter, the render against `render_plain` of the whole batch — and
+   each kernel's 8 shard launches back to back held against one
+   whole-batch launch; (b) `DeviceDecoder(mesh=…, mesh_min_rows=0)` over
+   phase 4's payloads, 3 batches (`MESH_BATCHES`) with two in flight,
+   unfiltered and under `bid <= 5`: every batch equal to the
+   single-card decoder's (phases 4 and 5, `source_rows` = the truth), K1
+   or K2c 8 launches a batch, counts set to 0 just before each and read
+   just after (every kernel's counts of the two runs, summed, are the
+   phase's launches in the `kernels` line); (c) `bench --mesh-check` and (d) `python -m
+   etl_tpu_torch.analysis --programs --mesh --device cuda` as two
+   processes at once: (c) ok, (d) the four mesh variants with every
+   contract 0; (e) the device count: with 2 or more cards (a) and (b)
+   run over the real cards too, with one the line says a mesh across
+   cards was not run.
+
 Every phase's routed batches are counted by route (device, host,
-oracle), and the three must add up to the routed batches.
+oracle), and the three must add up to the routed batches (a mesh batch
+counts once a shard).
 
 Then one JSON line of kernel records, nvidia-smi's line, and as the last
 line {"ok": true, "device": {...}}.
@@ -2102,20 +2128,26 @@ def harness_phase(args, runtime: dict, device: str = "cuda") -> dict:
                 "static_analysis_findings", "static_analysis_violations",
                 "static_analysis_baseline_clean",
                 "static_analysis_baseline_seconds", "ir_analysis_seconds",
-                "ir_analysis_clean", "ir_analysis_report"):
+                "ir_analysis_clean", "ir_analysis_report",
+                "mesh_sharded_equals_single", "mesh_shards"):
         print(f"  16(f) {key}={json.dumps(sm.get(key))}", flush=True)
     check(not [k for k in sm.get("not_ported", {})
                if k.startswith("coldstart_")]
           and "coldstart" in sm.get("gates", {}),
           "16(f) bench --smoke does not gate the coldstart_* sizes")
-    # the two lint gates run and hold; only the mesh (and, where pyarrow
-    # is missing, the Parquet floor) stays not ported
+    # the two lint gates (the IR tier with its mesh variants) and the
+    # mesh gate run and hold; nothing (but, where pyarrow is missing, the
+    # Parquet floor) stays not ported
     check(sm.get("gates", {}).get("static_analysis") is True
           and sm.get("gates", {}).get("ir_analysis") is True,
           "16(f) bench --smoke: a lint gate did not hold")
+    check(sm.get("gates", {}).get("mesh") is True
+          and sm.get("mesh_shards") == 8,
+          f"16(f) bench --smoke: the mesh gate did not hold: "
+          f"{json.dumps(sm.get('mesh_check'))}")
     check(set(sm.get("not_ported", {})) - {
-        "egress_floors.parquet_rows_per_sec"} == {"mesh_smoke_rows"},
-          f"16(f) bench --smoke: not_ported is not the mesh alone: "
+        "egress_floors.parquet_rows_per_sec"} == set(),
+          f"16(f) bench --smoke: a gate is still not ported: "
           f"{sorted(sm.get('not_ported', {}))}")
     check(bool(sm) and all(sm.get("correctness", {"": False}).values()),
           f"16(f) bench --smoke: a correctness check failed "
@@ -2962,6 +2994,348 @@ def lint_phase(staged0, schema) -> dict:
             "phase_s": phase_s}
 
 
+#: phase 22: shards of the one card's mesh, and the mesh decoder's
+#: batches per path (cut for time from phase 4's 6)
+MESH_SHARDS = 8
+MESH_BATCHES = 3
+
+
+def _cuda_sync_all(devs) -> None:
+    import torch
+
+    for d in sorted(set(devs), key=str):
+        torch.cuda.synchronize(d)
+
+
+def _run_shards(launches, devs) -> list:
+    """Each shard's prepared launch called with its shard's device
+    current, as the engine calls them."""
+    from etl_tpu_torch.ops import decode_kernel as dk
+
+    out = []
+    for launch, dev in zip(launches, devs):
+        with dk.device_scope(dev):
+            out.append(launch())
+    return out
+
+
+def _mesh_words_err(got, want) -> int:
+    """Largest |difference| of two int32/uint32 word tensors as unsigned
+    32-bit values (0 where bit for bit)."""
+    import torch
+
+    if got.shape != want.shape:
+        return 1 << 32
+    a = got.view(torch.int32).long() & 0xFFFFFFFF
+    b = want.view(torch.int32).long() & 0xFFFFFFFF
+    return int((a - b).abs().max().item()) if a.numel() else 0
+
+
+def mesh_kernel_cases(mesh, schema, fschema, staged0, main_exact,
+                      timed: bool) -> dict:
+    """22(a): the main path's batch (pgbench, 262,144 rows, nibble) on
+    `mesh`: K1, K2c (`bid <= 5`) and the render (`tsv`) launched on each
+    shard's row block through the shard helpers, against the plain
+    versions bit for bit — K1's words and the per-shard fallback counts
+    against `parse_and_pack_plain(…, n_shards=)` on the CPU, K2c's
+    survivors, joined mask and per-shard counts against the same with the
+    filter, the render against `render_plain` of the whole batch's words.
+    Launches are counted from 0 over the checked run. With `timed` (a
+    one-card mesh), each kernel's shard launches back to back are held
+    (`bench.device_ms`) against one whole-batch launch."""
+    import torch
+
+    from etl_tpu_torch.ops import decode_kernel as dk
+    from etl_tpu_torch.ops import egress_kernel as ek
+    from etl_tpu_torch.ops.bitpack import (join_keep_masks, layout_for_specs,
+                                           parse_and_pack_plain,
+                                           shard_fallback_counts)
+    from etl_tpu_torch.ops.egress import plan_for_specs, render_plain
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+
+    n, devs = mesh.size, list(mesh.flat)
+    home = devs[0]
+
+    def packed_of(sch):
+        dec = DeviceDecoder(sch, device="cuda", mesh=None)
+        packed = dec._pack_stage(staged0, main_exact)
+        host = [torch.from_numpy(a).clone() for a in (
+            packed.bmat, packed.lengths) + ((packed.row_flags,)
+                                            if packed.pred is not None
+                                            else ())]
+        dec._pinned.give_back(packed.pinned)
+        return packed, host
+
+    def blocks(t):
+        # a block of its own on its shard's device, as the engine uploads
+        return [b.to(d, copy=True)
+                for b, d in zip(dk.row_blocks(t, n), devs)]
+
+    out = {}
+    packed, host = packed_of(schema)
+    specs, nibble = packed.pspecs(main_exact), packed.nibble
+    layout = layout_for_specs(specs)
+    R = host[0].shape[0]
+    rps = R // n
+    bms, lns = blocks(host[0]), blocks(host[1])
+    _reset_launch_counts()
+    k1 = dk.prepare_decode_pack_shards(bms, lns, specs, nibble)
+    words = _run_shards(k1, devs)
+    bad = [shard_fallback_counts(w, ln, layout) for w, ln in zip(words, lns)]
+    plan = plan_for_specs(specs, "tsv")
+    render = ek.prepare_render_shards(words, specs, plan)
+    texts = _run_shards(render, devs)
+    _cuda_sync_all(devs)
+    counts = _launch_counts()
+    want_w, want_bad = parse_and_pack_plain(host[0], host[1], specs, nibble,
+                                            n_shards=n)
+    joined = torch.cat([w.view(torch.int32).cpu() for w in words], dim=1)
+    got_bad = torch.cat([b.cpu() for b in bad])
+    k1_err = max(_mesh_words_err(joined, want_w),
+                 int((got_bad - want_bad).abs().max().item()))
+    check(k1_err == 0, "22(a) K1 on the mesh differs from "
+          "parse_and_pack_plain(n_shards=8) on the CPU")
+    check(counts["k1_launches"] == n and counts["egress_launches"] == n,
+          f"22(a) K1 and the render did not launch once a shard: {counts}")
+    whole_bm, whole_ln = host[0].to(home), host[1].to(home)
+    whole_k1 = dk.prepare_decode_pack(whole_bm, whole_ln, specs, nibble)
+    whole_words = whole_k1()
+    want_t = render_plain(whole_words, specs, plan)
+    r_err = max(int((torch.cat([t[i].to(home) for t in texts]).long()
+                     - want_t[i].long()).abs().max().item())
+                for i in range(2))
+    check(r_err == 0, "22(a) the render on the mesh differs from "
+          "render_plain of the whole batch")
+    out["k1"] = {"launches": counts["k1_launches"], "max_abs_err": k1_err,
+                 "shard_bad": got_bad.tolist()}
+    out["render"] = {"launches": counts["egress_launches"],
+                     "max_abs_err": r_err}
+
+    fpacked, fhost = packed_of(fschema)
+    fb, fl, ff = blocks(fhost[0]), blocks(fhost[1]), blocks(fhost[2])
+    _reset_launch_counts()
+    k2c = dk.prepare_filtered_shards(fb, fl, ff, main_exact, fpacked.nibble,
+                                     fpacked.pred)
+    fouts = _run_shards(k2c, devs)
+    _cuda_sync_all(devs)
+    fcounts = _launch_counts()
+    w_c, mask, shard_counts, _ = parse_and_pack_plain(
+        fhost[0], fhost[1], main_exact, fpacked.nibble, pred=fpacked.pred,
+        row_flags=fhost[2], n_shards=n)
+    got_counts = torch.cat([o[2].cpu() for o in fouts])
+    errs = [int((got_counts - shard_counts).abs().max().item()),
+            _mesh_words_err(join_keep_masks([o[1].cpu() for o in fouts],
+                                            rps), mask)]
+    for s, o in enumerate(fouts):
+        c = int(shard_counts[s])
+        errs.append(_mesh_words_err(o[0][:, :c].cpu(),
+                                    w_c[:, s * rps:s * rps + c]))
+    k2c_err = max(errs)
+    check(k2c_err == 0, "22(a) K2c on the mesh differs from "
+          "parse_and_pack_plain(pred=…, n_shards=8): words, joined mask or "
+          "counts")
+    check(fcounts["k2c_launches"] == n and fcounts["k2_launches"] == 0,
+          f"22(a) K2c did not launch once a shard: {fcounts}")
+    out["k2c"] = {"launches": fcounts["k2c_launches"],
+                  "max_abs_err": k2c_err,
+                  "counts": got_counts.tolist()}
+    print(f"  22(a) {n} shards on {sorted({str(d) for d in devs})}, "
+          f"{R} rows ({rps} a shard): K1 {counts['k1_launches']}, render "
+          f"{counts['egress_launches']}, K2c {fcounts['k2c_launches']} "
+          f"launches, each bit for bit (K1 words + shard_bad "
+          f"{got_bad.tolist()}; K2c counts {got_counts.tolist()}, joined "
+          f"mask; render text and lengths)", flush=True)
+    if timed:
+        scratch = torch.empty(64 << 20, dtype=torch.uint8, device=home)
+        whole_k2c = dk.prepare_filtered(*(t.to(home) for t in fhost),
+                                        main_exact, fpacked.nibble,
+                                        fpacked.pred)
+        whole_render = ek.prepare_render(whole_words, specs, plan)
+        for name, shards, whole in (("k1", k1, whole_k1),
+                                    ("k2c", k2c, whole_k2c),
+                                    ("render", render, whole_render)):
+            mesh_ms = time_ms(lambda: _run_shards(shards, devs), 50,
+                              flush=scratch.zero_)
+            whole_ms = time_ms(whole, 50, flush=scratch.zero_)
+            out[name].update(mesh_ms=mesh_ms, whole_ms=whole_ms)
+            print(f"  22(a) {name}: {n} shard launches back to back held "
+                  f"{mesh_ms:.5f} ms against one whole-batch launch "
+                  f"{whole_ms:.5f} ms (ratio {mesh_ms / whole_ms:.3f})",
+                  flush=True)
+    return out
+
+
+def mesh_decoder_runs(mesh, schema, fschema, stage, staged0, main) -> dict:
+    """22(b): `DeviceDecoder(mesh=mesh, mesh_min_rows=0)` over phase 4's
+    payloads, MESH_BATCHES batches with two in flight, then phase 5's
+    `bid <= 5`: every batch equal to the single-card decoder's (phase 4's
+    and 5's digests, the first batch by value, `source_rows` = the
+    payloads' truth), K1 (K2c) launched once a shard a batch, counts set
+    to 0 just before each run and read just after."""
+    import numpy as np
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+
+    n = mesh.size
+    out = {}
+    for name, sch, kernel in (("unfiltered", schema, "k1"),
+                              ("filtered", fschema, "k2c")):
+        dec = DeviceDecoder(sch, device="cuda", mesh=mesh, mesh_min_rows=0)
+        dec.decode(staged0)  # descriptors, pinned buffers
+        _reset_launch_counts()
+        done: list = []
+        wall = bench.decode_stream(dec, stage, MESH_BATCHES, done.append)
+        counts = _launch_counts()
+        batches = [p.result() for p in done]
+        check(counts[f"{kernel}_launches"] == n * MESH_BATCHES
+              == counts["device_routed_batches"]
+              and counts["k2_launches"] == 0,
+              f"22(b) {name}: the mesh decoder's launches are not "
+              f"{n} a batch: {counts}")
+        if kernel == "k1":
+            check(bench.batches_equal(batches[0], main["first"])
+                  and all(bench.batch_digest(b) == main["digest"]
+                          for b in batches),
+                  "22(b) a mesh batch differs from the single-card "
+                  "decoder's")
+        else:
+            check(bench.filtered_batches_identical(batches[0],
+                                                   main["ffirst"])
+                  and all(bench.batch_digest(b) == main["fdigest"]
+                          and np.array_equal(b.source_rows, main["truth"])
+                          for b in batches),
+                  "22(b) a filtered mesh batch (or its source_rows) "
+                  "differs from the single-card decoder's")
+        rps = MESH_BATCHES * bench.N_ROWS / wall
+        split = {k: float(np.mean([p.timings[k] for p in done]))
+                 for k in done[0].timings if k.endswith("_ms")}
+        print(f"  22(b) {name}: {MESH_BATCHES} batches of {bench.N_ROWS} "
+              f"rows on {n} shards, {counts[f'{kernel}_launches']} "
+              f"{kernel.upper()} launches, each batch == the single-card "
+              f"decoder's; records/s={rps:.0f} per-batch ms (sums over "
+              f"the shards): " + " ".join(f"{k}={v:.4f}"
+                                          for k, v in split.items()),
+              flush=True)
+        out[name] = {"launches": counts[f"{kernel}_launches"],
+                     "records_per_s": rps, "split_ms": split,
+                     "counts": counts}
+    return out
+
+
+def mesh_phase(stage, staged0, schema, fschema, main_exact,
+               main: dict) -> dict:
+    """Phase 22: the row-sharded decode mesh (module docstring, 22)."""
+    import subprocess
+    import tempfile
+
+    import torch
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.parallel.mesh import decode_mesh
+
+    print("[22] the row-sharded decode mesh", flush=True)
+    oracle_clear("phase 22")
+    t_phase = time.perf_counter()
+    card = bench.card_info()
+    home = torch.device("cuda", 0)
+    mesh = decode_mesh([home] * MESH_SHARDS)
+    out = {"22a": mesh_kernel_cases(mesh, schema, fschema, staged0,
+                                    main_exact, timed=True)}
+    out["22b"] = mesh_decoder_runs(mesh, schema, fschema, stage, staged0,
+                                   main)
+    # (c) and (d), two processes on the card at once
+    clean = tempfile.NamedTemporaryFile("w", suffix=".py", delete=False)
+    clean.write("x = 1\n")
+    clean.close()
+    procs = {
+        "c": subprocess.Popen(
+            [sys.executable, "-m", "etl_tpu_torch.bench", "--mesh-check",
+             "--device", "cuda"], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True),
+        "d": subprocess.Popen(
+            [sys.executable, "-m", "etl_tpu_torch.analysis", "--programs",
+             "--mesh", "--device", "cuda", "--row-buckets", "4096",
+             "--json", clean.name], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)}
+    t0 = time.perf_counter()
+    try:
+        res = {k: p.communicate(timeout=300) for k, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        os.unlink(clean.name)
+    sub_s = time.perf_counter() - t0
+    try:
+        mc = json.loads(res["c"][0].strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        mc = {}
+    print(f"  22(c) bench --mesh-check on the card: rc="
+          f"{procs['c'].returncode} ok={mc.get('ok')} shards="
+          f"{mc.get('mesh_shards')} rows={mc.get('rows')} equal="
+          f"{mc.get('sharded_equals_single')} filtered equal="
+          f"{mc.get('filtered_sharded_equals_single')} launches a batch "
+          f"K1={mc.get('k1_launches_per_batch')} filtered="
+          f"{mc.get('filtered_launches_per_batch')}; decode s single="
+          f"{mc.get('single_decode_s')} sharded={mc.get('sharded_decode_s')}"
+          f" filtered single={mc.get('filtered_single_decode_s')} sharded="
+          f"{mc.get('filtered_sharded_decode_s')}", flush=True)
+    check(procs["c"].returncode == 0 and mc.get("ok") is True
+          and mc.get("mesh_shards") == MESH_SHARDS,
+          f"22(c) bench --mesh-check failed: {res['c'][1][-600:]}")
+    try:
+        ir = json.loads(res["d"][0])["programs"]
+    except (ValueError, KeyError):
+        ir = {}
+    mesh_variants = {k: v for k, v in ir.get("variants", {}).items()
+                     if k.startswith("mesh")}
+    print(f"  22(d) --programs --mesh on the card: rc="
+          f"{procs['d'].returncode}, {ir.get('programs')} programs (mesh "
+          f"variants {mesh_variants}) on {ir.get('mesh_shards')} shards, "
+          f"findings {ir.get('findings')}, launches {ir.get('launches')}, "
+          f"not checked: {ir.get('not_checked') or 'none'}; (c) and (d) "
+          f"together {sub_s:.2f} s", flush=True)
+    check(procs["d"].returncode == 0 and ir.get("mesh_shards") == MESH_SHARDS
+          and set(mesh_variants) == {"mesh", "mesh-filtered",
+                                     "mesh-egress-tsv", "mesh-egress-json"}
+          and not any(ir.get("findings", {"": 1}).values())
+          and not ir.get("not_checked") and ir.get("plain_held") is True,
+          f"22(d) --programs --mesh failed on the card: "
+          f"{res['d'][1][-600:]}")
+    out["22c"] = mc
+    out["22d"] = {k: ir.get(k) for k in ("programs", "variants", "findings",
+                                         "launches", "program_launches",
+                                         "seconds")}
+    count = torch.cuda.device_count()
+    if count >= 2:
+        cards = decode_mesh()
+        out["22e"] = {
+            "a": mesh_kernel_cases(cards, schema, fschema, staged0,
+                                   main_exact, timed=False),
+            "b": mesh_decoder_runs(cards, schema, fschema, stage, staged0,
+                                   main)}
+        print(f"  22(e) (a) and (b) across {count} cards: passed",
+              flush=True)
+    else:
+        print(f"  22(e) {count} card: a mesh across cards was not run",
+              flush=True)
+    phase_s = time.perf_counter() - t_phase
+    print(f"  22 done in {phase_s:.2f} s ({card})", flush=True)
+    a, b = out["22a"], out["22b"]
+    # every kernel's launches in (b)'s two runs, as counted there
+    out["runtime"] = {
+        key: b["unfiltered"]["counts"][key] + b["filtered"]["counts"][key]
+        for key in ("k1_launches", "k2_launches", "epilogue_launches",
+                    "k2c_launches", "egress_launches")}
+    out["runtime"]["rows_per_second"] = b["unfiltered"]["records_per_s"]
+    out["kernels"] = {name: {"shards": MESH_SHARDS, **a[name]}
+                      for name in ("k1", "k2c", "render")}
+    out["phase_s"] = phase_s
+    return out
+
+
 def _warehouse_lines(r: dict) -> None:
     run = r["run"]
     print(f"  warehouse: watched {r['watched_rows']} rows, bad "
@@ -3367,6 +3741,11 @@ def main() -> int:
     finally:
         coldstart.stop()
     lint_phase(staged0, schema)
+    mesh = mesh_phase(stage, staged0, schema, fschema, main_exact,
+                      {"first": batches[0], "digest": digest,
+                       "ffirst": fbatches[0], "fdigest": fdigest,
+                       "truth": truth})
+    runtime["22_mesh"] = mesh["runtime"]
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs
@@ -3422,6 +3801,9 @@ def main() -> int:
             "lag_p95_ms", "device_busy_share") if key in res}
             for phase, res in runtime.items()
             if k["runtime_launches"][phase]}
+    # phase 22: each kernel on the 8 row blocks of the one card's mesh
+    for k, name in ((kernels[0], "k1"), (kernels[3], "k2c")):
+        k["mesh"] = mesh["kernels"][name]
     kernels[3]["fused_cases"] = extra
     kernels[3]["max_abs_err"] = max(
         [kernels[3]["max_abs_err"]] + [r["max_abs_err"] for r in extra])
@@ -3456,7 +3838,8 @@ def main() -> int:
         "main_path": {key: cdc_tsv[key] for key in (
             "events_per_second", "lag_p50_ms", "lag_p95_ms",
             "device_busy_share", "egress_s", "d2h_egress_s", "kernel_s",
-            "device_s", "k1_launches", "egress_launches", "tsv")}})
+            "device_s", "k1_launches", "egress_launches", "tsv")},
+        "mesh": mesh["kernels"]["render"]})
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

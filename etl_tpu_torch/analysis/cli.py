@@ -3,7 +3,8 @@
 Exit codes: 0 clean (after baseline), 1 violations (or, with
 `--check-baseline`, stale suppressions), 2 usage/parse error — and, for
 the IR tier, a device that is not there (`--device cuda` without a card)
-or a mesh asked for (the port has none).
+or `--mesh` without `--programs`. `--programs --mesh` adds the mesh's
+variants (8 shards over the devices at hand) to the same run.
 """
 
 from __future__ import annotations
@@ -54,8 +55,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--row-buckets", default=None, metavar="N[,N...]",
                    help="the IR tier's row buckets (default: 4096)")
     p.add_argument("--mesh", action="store_true",
-                   help="the reference's mesh-sharded variants: the port "
-                        "has no mesh, so this exits 2")
+                   help="with --programs: also the mesh-sharded variants "
+                        "(mesh, mesh-filtered, mesh-egress-*) on an "
+                        "8-shard mesh over the --device's devices (one "
+                        "card holds all 8), in this process")
     p.add_argument("--callgraph", action="store_true",
                    help="dump the resolved call graph edges and exit")
     p.add_argument("--domains", action="store_true",
@@ -165,10 +168,8 @@ def main(argv: "list[str] | None" = None) -> int:
         names = RULE_NAMES + (IR_CONTRACT_NAMES if args.programs else ())
         print("\n".join(names))
         return 0
-    if args.mesh:
-        print("etl-lint: MESH_NOT_PORTED: the port has no mesh "
-              "(parallel/mesh.py is ROADMAP queue 1, entry 9), so there "
-              "are no mesh-sharded programs to check", file=sys.stderr)
+    if args.mesh and not args.programs:
+        print("etl-lint: --mesh requires --programs", file=sys.stderr)
         return 2
     try:
         row_buckets = _row_buckets(args.row_buckets)
@@ -215,8 +216,9 @@ def main(argv: "list[str] | None" = None) -> int:
         from .ir import runner as ir_runner
 
         try:
+            mesh = {"mesh": True} if args.mesh else {}
             ir_findings, ir_paths, ir_report = ir_runner.analyze_local(
-                device=args.device, row_buckets=row_buckets)
+                device=args.device, row_buckets=row_buckets, **mesh)
         except ir_runner.IrAnalysisError as e:
             print(f"etl-lint: {e}", file=sys.stderr)
             return 2

@@ -21,8 +21,13 @@ or K2 + the compaction epilogue where K2c's word tile does not fit: the
 engine's own choice, `decode_kernel.prepare_filtered`), `egress-tsv` and
 `egress-json` (the render kernel), and `host` / `filtered-host` (the
 host route's plain versions on CPU tensors). The reference's separate
-Pallas and XLA programs are one K1 program here, listed once, and there
-is no mesh.
+Pallas and XLA programs are one K1 program here, listed once. With a
+mesh (`build_catalog(mesh=…)`, parallel/mesh.py) the catalogue is the
+mesh's variants alone, as the reference's forced-8-device pass: `mesh`
+(K1 on every shard's row block, nibble-packed where the layout allows,
+as the engine packs it), `mesh-filtered` (the filtered decode on every
+block) and `mesh-egress-tsv` / `mesh-egress-json` (the render on every
+block's words), at the buckets the shard count divides.
 
 Descriptor tags (`programs/<kinds>-<hash8>`) derive from the canonical
 specs via the program store's stable repr, so the finding namespace is
@@ -37,6 +42,10 @@ import hashlib
 #: variants whose program is a kernel launch on the card, by kernel
 KERNEL_OF_VARIANT = {"device": "k1", "nibble": "k1", "filtered": "k2c",
                      "egress-tsv": "render", "egress-json": "render"}
+#: the mesh's variants, by the kernel each launches once a shard
+MESH_KERNEL_OF_VARIANT = {"mesh": "k1", "mesh-filtered": "k2c",
+                          "mesh-egress-tsv": "render",
+                          "mesh-egress-json": "render"}
 
 
 @dataclasses.dataclass
@@ -55,6 +64,9 @@ class ProgramDescriptor:
     egress: str = None
     #: permuted-twin canonical specs for ir-canonical-dedup (None = skip)
     dedup_twin: tuple = None
+    #: the mesh (parallel.mesh.DecodeMesh) of a mesh variant: its rows
+    #: are launched a shard's block at a time
+    mesh: object = None
 
     @property
     def path(self) -> str:
@@ -67,6 +79,10 @@ class ProgramDescriptor:
     @property
     def host(self) -> bool:
         return self.variant in ("host", "filtered-host")
+
+    @property
+    def n_shards(self) -> int:
+        return self.mesh.size if self.mesh is not None else 0
 
 
 def layout_tag(specs: tuple) -> str:
@@ -158,11 +174,14 @@ def _device_specs(dec):
     return dec._specs(staged, widths), widths
 
 
-def build_catalog(*, row_buckets=None,
+def build_catalog(*, mesh=None, row_buckets=None,
                   include_observed: bool = True) -> list:
-    """All descriptors for one run, deterministically ordered."""
+    """All descriptors for one run, deterministically ordered: the
+    single-device set, or with `mesh` the mesh's variants alone (module
+    docstring)."""
     from ...ops.egress import ENCODER_JSON, ENCODER_TSV, plan_for_specs
     from ...ops.program_store import canonical_plan, load_observed
+    from ...parallel.mesh import mesh_cache_key
 
     buckets = tuple(row_buckets) if row_buckets else (4096,)
     out: list[ProgramDescriptor] = []
@@ -170,6 +189,7 @@ def build_catalog(*, row_buckets=None,
 
     def add(desc: ProgramDescriptor):
         key = (desc.specs, desc.row_capacity, desc.variant, desc.nibble,
+               desc.n_shards,
                desc.pred.fingerprint() if desc.pred is not None else None,
                desc.egress)
         if key in seen:
@@ -205,6 +225,20 @@ def build_catalog(*, row_buckets=None,
                            if pred is None
                            and plan_for_specs(dev_layout, e) is not None]
         for bucket in buckets:
+            if mesh is not None:
+                if bucket % mesh.size:
+                    continue
+                add(ProgramDescriptor(
+                    tag=layout_tag(dev_layout), specs=dev_layout,
+                    row_capacity=bucket,
+                    variant="mesh-filtered" if pred is not None else "mesh",
+                    nibble=dec._can_nibble(widths), pred=pred, mesh=mesh))
+                for enc in egress_encoders:
+                    add(ProgramDescriptor(
+                        tag=layout_tag(dev_layout), specs=dev_layout,
+                        row_capacity=bucket, variant=f"mesh-egress-{enc}",
+                        egress=enc, mesh=mesh))
+                continue
             add(ProgramDescriptor(
                 tag=layout_tag(host_layout), specs=host_layout,
                 row_capacity=bucket,
@@ -227,26 +261,32 @@ def build_catalog(*, row_buckets=None,
 
     if include_observed:
         # observed dispatch signatures: key shape is (row_capacity,
-        # canonical specs, nibble, predicate fingerprint, route) — see
-        # DeviceDecoder._dispatch_stage. Only unfiltered keys are
-        # reconstructable from the fingerprint alone (a fingerprint
-        # cannot be turned back into a CompiledRowFilter without its
-        # schema).
+        # canonical specs, nibble, mesh fingerprint, predicate
+        # fingerprint, route) — see DeviceDecoder._dispatch_stage. A
+        # mesh key joins the pass of its mesh, any other the
+        # single-device pass. Only unfiltered keys are reconstructable
+        # from the fingerprint alone (a fingerprint cannot be turned
+        # back into a CompiledRowFilter without its schema).
+        want_mesh = mesh_cache_key(mesh)
         for key in load_observed():
-            if len(key) != 5 or key[3] is not None \
-                    or key[4] not in ("host", "device"):
+            if key[3] != want_mesh or key[4] is not None \
+                    or key[5] not in ("host", "device"):
                 continue
             row_capacity, specs, nibble = key[0], key[1], bool(key[2])
             if not (isinstance(specs, tuple) and specs
                     and all(isinstance(s, tuple) and len(s) == 4
                             for s in specs)):
                 continue
-            variant = "host" if key[4] == "host" \
-                else "nibble" if nibble else "device"
+            if mesh is not None:
+                variant = "mesh"
+            else:
+                variant = "host" if key[5] == "host" \
+                    else "nibble" if nibble else "device"
             add(ProgramDescriptor(
                 tag=layout_tag(specs), specs=specs,
                 row_capacity=row_capacity, variant=variant,
-                nibble=nibble and variant == "nibble", source="observed"))
+                nibble=nibble and variant in ("nibble", "mesh"),
+                source="observed", mesh=mesh))
 
     out.sort(key=lambda d: (d.path, d.scope, d.source))
     return out

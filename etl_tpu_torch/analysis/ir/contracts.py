@@ -25,10 +25,15 @@ contracts.py), restated for CUDA launches:
                       (the reference: declared donation must be realized
                       as aliasing, and only on accelerators)
   ir-collective       no `torch.distributed` collective is called during
-                      a catalogued dispatch (the reference: no collective
-                      in a mesh-sharded program's compiled HLO; the port
-                      has no mesh, and no dispatch may talk to another
-                      rank)
+                      a catalogued dispatch, and on a mesh no shard's
+                      launch reads or writes a row tensor of another
+                      shard's block, and each kernel of the program
+                      launches once a shard (the reference: no collective
+                      in a mesh-sharded program's compiled HLO; the
+                      port's mesh is one process driving its shards, so
+                      a cross-shard effect is a launch touching another
+                      block, or one shard's launch standing in for
+                      another's)
   ir-widening         no tensor a launch takes or returns has a 64-bit
                       element type: bmat, lengths, row flags, the column
                       and predicate descriptors, the outputs (the
@@ -37,7 +42,8 @@ contracts.py), restated for CUDA launches:
                       input or output of a launch
   ir-output-budget    the bytes the dispatch's D2H copies move stay within
                       the per-layout budget (packed words + filter
-                      metadata + slack) — the reference's formula
+                      metadata + the mesh's per-shard counts + slack) —
+                      the reference's formula
   ir-egress-output-budget
                       the render's D2H (text + lengths) fetches at most
                       R·ΣW text bytes + one int32 length per rendered
@@ -119,6 +125,55 @@ def check_collectives(calls) -> list:
             for op in sorted(set(calls))]
 
 
+def _view_span(t) -> "tuple | None":
+    """(device, start, end) of the bytes the view `t` can reach (its
+    first element to its last, by its strides), None for an empty one."""
+    if t.numel() == 0:
+        return None
+    reach = sum((n - 1) * st for n, st in zip(t.shape, t.stride())) + 1
+    start = t.data_ptr()
+    return t.device, start, start + reach * t.element_size()
+
+
+def check_shard_locality(shards) -> list:
+    """ir-collective on a mesh: (shard a's tensor, shard b's tensor)
+    pairs whose bytes overlap on one device. `shards` holds one list of
+    (name, tensor) a shard: the row tensors its launch read and wrote
+    (its block of the input, its outputs); a shard's launch that reads
+    or writes another shard's block overlaps that shard's tensors."""
+    spans = [[(name, _view_span(t)) for name, t in shard]
+             for shard in shards]
+    out = []
+    for a, mine in enumerate(spans):
+        for b in range(a + 1, len(spans)):
+            for an, asp in mine:
+                for bn, bsp in spans[b]:
+                    if asp is None or bsp is None or asp[0] != bsp[0]:
+                        continue
+                    if asp[1] < bsp[2] and bsp[1] < asp[2]:
+                        out.append((
+                            f"shard{a}.{an}~shard{b}.{bn}",
+                            f"mesh shard {a}'s launch tensor `{an}` "
+                            f"overlaps shard {b}'s `{bn}`: a shard's "
+                            f"launch must read and write its own row "
+                            f"block only"))
+    return out
+
+
+def check_shard_launches(launches: dict, kernel: str, n_shards: int) -> list:
+    """ir-collective on a mesh: the program's kernel launched once a
+    shard (`launches`, kernel → launches in the program's run; K2 + the
+    epilogue count for K2c where the layout takes that route)."""
+    if kernel == "k2c" and not launches.get("k2c"):
+        got = {k: launches.get(k, 0) for k in ("k2", "epilogue")}
+    else:
+        got = {kernel: launches.get(kernel, 0)}
+    return [(f"launches[{k}]={n}!={n_shards}",
+             f"mesh program launched {k} {n} times over {n_shards} "
+             f"shards: each shard launches its own block once")
+            for k, n in got.items() if n != n_shards]
+
+
 def check_widening(tensors) -> list:
     """ir-widening: (name, tensor) pairs with a 64-bit element type."""
     out = []
@@ -137,24 +192,30 @@ def output_bytes(tensors) -> int:
 
 
 def output_budget_bytes(n_words: int, row_capacity: int, *,
-                        filtered: bool) -> int:
-    """The per-program budget (the reference's, with no mesh): the
-    packed words themselves, plus the filter metadata the fused path
-    legitimately returns (keep mask, survivor count), plus 64 bytes of
-    fixed slack. Anything more — an extra R-sized output, a widened word
-    array — trips the contract."""
+                        filtered: bool, n_shards: int = 0) -> int:
+    """The per-program budget (the reference's): the packed words
+    themselves, plus the filter metadata the fused path legitimately
+    returns (keep mask — a mask a shard on a mesh, each rounded to whole
+    words — and a survivor count a shard), plus the mesh's per-shard
+    fallback counts, plus 64 bytes of fixed slack. Anything more — an
+    extra R-sized output, a widened word array — trips the contract."""
     budget = n_words * 4 * row_capacity
+    shards = max(n_shards, 1)
     if filtered:
-        budget += 4 * ((row_capacity + 31) // 32)  # keep mask, 1 bit/row
-        budget += 4                                # survivor count
+        rps = row_capacity // shards
+        budget += 4 * shards * ((rps + 31) // 32)  # keep mask, 1 bit/row
+        budget += 4 * shards                       # survivor counts
+    if n_shards:
+        budget += 4 * n_shards                     # shard_bad counts
     return budget + 64
 
 
 def check_output_budget(fetched, n_words: int, row_capacity: int, *,
-                        filtered: bool) -> list:
+                        filtered: bool, n_shards: int = 0) -> list:
     """ir-output-budget: fetched bytes vs the layout budget."""
     actual = output_bytes(fetched)
-    budget = output_budget_bytes(n_words, row_capacity, filtered=filtered)
+    budget = output_budget_bytes(n_words, row_capacity, filtered=filtered,
+                                 n_shards=n_shards)
     if actual <= budget:
         return []
     per_row = actual / max(row_capacity, 1)

@@ -28,6 +28,17 @@ How one program runs (`run_program`), in the engine's dispatch order:
      bit for bit against what came back; on the CPU the launch IS the
      plain version, and nothing is held.
 
+A mesh variant (`desc.mesh`) runs the same steps a shard at a time,
+as the engine's `_dispatch_cuda`: its input split into the mesh's row
+blocks, every shard's launch prepared through the shard helpers
+(`prepare_decode_pack_shards`, `prepare_filtered_shards`,
+`prepare_render_shards`), then each shard's upload, launch, reduction of
+its fallback candidates and D2H copies on its own device's stream, and
+each shard held against the plain version of its own block. The record
+keeps the row tensors each shard's launch read and wrote, for the
+restated `ir-collective` (no shard touches another's block), and the
+launches, which must be one a shard for each kernel of the program.
+
 The contracts (`contracts`) are pure functions of what the run recorded.
 On the CPU `ir-host-callback` cannot be checked: the report lists it as
 `not_checked: cpu`, and that is the only reason a CPU run passes without
@@ -94,6 +105,9 @@ class Record:
     aborted: bool = False
     plain_ok: "bool | None" = None
     words: object = None  # the fetched words, for ir-canonical-dedup
+    #: mesh variants: one list of (name, tensor) a shard — the row
+    #: tensors its launch read and wrote
+    shards: list = dataclasses.field(default_factory=list)
 
 
 # -- launch accounting --------------------------------------------------------
@@ -372,10 +386,7 @@ def _run_cuda(desc: ProgramDescriptor, host: dict, rec: Record,
             v.copy_(pinned[k], non_blocking=True)
         out = launch()
         out = out if isinstance(out, tuple) else (out,)
-        names = ("text", "lengths") if desc.egress is not None else \
-            ("words", "keep_mask", "count") if desc.pred is not None \
-            else ("words",)
-        rec.outputs = list(zip(names, out))
+        rec.outputs = list(zip(_out_names(desc), out))
         # the dispatch's D2H copies: everything but a filtered decode's
         # words, which wait for the count
         fetch = out if desc.pred is None else out[1:]
@@ -438,6 +449,195 @@ def _held_to_plain(desc: ProgramDescriptor, d: dict, hosts: list,
                        want.view(torch.int32).cpu())
 
 
+def _shard_launches(desc: ProgramDescriptor, blocks: dict) -> list:
+    """One prepared launch a shard over `blocks` (name → one tensor a
+    shard), in shard order."""
+    from ...ops import decode_kernel, egress_kernel
+
+    if desc.egress is not None:
+        return egress_kernel.prepare_render_shards(
+            blocks["words"], desc.specs, _plan(desc))
+    if desc.pred is not None:
+        return decode_kernel.prepare_filtered_shards(
+            blocks["bmat"], blocks["lengths"], blocks["row_flags"],
+            desc.specs, desc.nibble, desc.pred)
+    return decode_kernel.prepare_decode_pack_shards(
+        blocks["bmat"], blocks["lengths"], desc.specs, desc.nibble)
+
+
+def _touched(launch, original, out: tuple) -> list:
+    """The row tensors a shard's launch read (its `inputs`: the wrapped
+    launch's where a wrap set them, else the prepared one's) and wrote."""
+    reads = getattr(launch, "inputs", None)
+    if reads is None:
+        reads = original.inputs
+    names = ("words",) if len(reads) == 1 else \
+        ("bmat", "lengths", "row_flags")[:len(reads)]
+    return [(f"in:{n}", t) for n, t in zip(names, reads)] \
+        + [(f"out:{i}", t) for i, t in enumerate(out)]
+
+
+def _out_names(desc: ProgramDescriptor) -> tuple:
+    return ("text", "lengths") if desc.egress is not None else \
+        ("words", "keep_mask", "count") if desc.pred is not None \
+        else ("words",)
+
+
+def _mesh_blocks(desc: ProgramDescriptor, host: dict, to_tensor) -> dict:
+    """name → one tensor a shard: the host inputs split into the mesh's
+    row blocks (rows lead bmat, lengths and flags; the words run along
+    their second axis), each made a tensor by `to_tensor`."""
+    import numpy as np
+
+    out = {}
+    for k, v in host.items():
+        parts = np.split(v, desc.n_shards, axis=1 if k == "words" else 0)
+        out[k] = [to_tensor(np.ascontiguousarray(b)) for b in parts]
+    return out
+
+
+def _run_mesh_cpu(desc: ProgramDescriptor, host: dict, rec: Record,
+                  wrap) -> None:
+    """A mesh program's shards through the plain versions on CPU tensors
+    (`--device cpu`): row-block views of the input, as the engine's CPU
+    mesh dispatch takes them. No D2H: the consumer reads the outputs."""
+    import torch
+
+    from ...ops.bitpack import layout_for_specs, shard_fallback_counts
+    from ...ops.staging import slice_rows
+
+    blocks = _mesh_blocks(desc, host, torch.from_numpy)
+    prepared = _shard_launches(desc, blocks)
+    launches = [wrap(launch) for launch in prepared]
+    rec.inputs = _host_descriptors(desc)
+    names = _out_names(desc)
+    rps = desc.row_capacity // desc.n_shards
+    words = []
+    for s, (launch, orig) in enumerate(zip(launches, prepared)):
+        out = launch()
+        out = out if isinstance(out, tuple) else (out,)
+        touched = _touched(launch, orig, out)
+        rec.shards.append(touched)
+        rec.inputs += [(f"{n}[{s}]", v) for n, v in touched
+                       if n.startswith("in:")]
+        rec.outputs += [(f"{n}[{s}]", v) for n, v in zip(names, out)]
+        if desc.egress is not None:
+            rec.fetched += list(out)
+        elif desc.pred is not None:
+            count = int(out[2][0])
+            rec.fetched += [out[1], out[2],
+                            out[0][:, :slice_rows(count, rps)]]
+            words.append(out[0][:, :count])
+        else:
+            bad = shard_fallback_counts(
+                out[0], blocks["lengths"][s], layout_for_specs(desc.specs))
+            rec.fetched += [out[0], bad]
+            words.append(out[0])
+    if words:
+        rec.words = torch.cat([w.view(torch.int32) for w in words], dim=1)
+    rec.route = "mesh-" + ("render" if desc.egress is not None else
+                           "filtered" if desc.pred is not None else "k1") \
+        + "-plain"
+
+
+def _run_mesh_cuda(desc: ProgramDescriptor, host: dict, rec: Record,
+                   wrap) -> None:
+    """One mesh dispatch on the card(s), as the engine's `_dispatch_cuda`
+    (module docstring), every shard then held against the plain version
+    of its own block."""
+    import torch
+
+    from ...ops import decode_kernel
+    from ...ops.bitpack import (layout_for_specs, parse_and_pack_plain,
+                                shard_fallback_counts)
+    from ...ops.staging import slice_rows
+
+    devs = list(desc.mesh.flat)
+    hblocks = _mesh_blocks(desc, host, _pinned)
+    descs = []
+    for dev in sorted(set(devs), key=str):
+        with decode_kernel.device_scope(dev):
+            descs += [(f"{n}@{dev}", v) for n, v in _ready(desc, dev)]
+    names = _out_names(desc)
+    layout = layout_for_specs(desc.specs)
+    rps = desc.row_capacity // desc.n_shards
+    done = []
+    hosts_by_shard, d_by_shard, words_d = [], [], []
+    with sync_checked(rec, True):
+        dblocks = {k: [torch.empty(b.shape, dtype=b.dtype, device=d)
+                       for b, d in zip(bs, devs)]
+                   for k, bs in hblocks.items()}
+        rec.inputs = list(descs)
+        prepared = _shard_launches(desc, dblocks)
+        launches = [wrap(launch) for launch in prepared]
+        for s, dev in enumerate(devs):
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev)
+                for k in dblocks:
+                    dblocks[k][s].copy_(hblocks[k][s], non_blocking=True)
+                out = launches[s]()
+                out = out if isinstance(out, tuple) else (out,)
+                rec.shards.append(_touched(launches[s], prepared[s], out))
+                rec.inputs += [(f"{k}[{s}]", dblocks[k][s]) for k in dblocks]
+                rec.outputs += [(f"{n}[{s}]", v) for n, v in zip(names, out)]
+                words_d.append(out[0])
+                fetch = list(out if desc.pred is None else out[1:])
+                if desc.egress is None and desc.pred is None:
+                    fetch.append(shard_fallback_counts(
+                        out[0], dblocks["lengths"][s], layout))
+                hosts = []
+                for t in fetch:
+                    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                    h.copy_(t, non_blocking=True)
+                    hosts.append(h)
+                ev = torch.cuda.Event()
+                ev.record(stream)
+                done.append(ev)
+                hosts_by_shard.append(hosts)
+                d_by_shard.append({k: dblocks[k][s] for k in dblocks})
+    if rec.aborted:
+        return
+    for ev in done:
+        ev.synchronize()  # the consumer's wait (`_PendingDecode.result`)
+    ok = True
+    words = []
+    for s, dev in enumerate(devs):
+        hosts, d = hosts_by_shard[s], d_by_shard[s]
+        srec = Record()
+        if desc.pred is not None:
+            mask_h, counts_h = hosts
+            srec.count = int(counts_h[0])
+            sb = slice_rows(srec.count, rps)
+            words_h = torch.empty((words_d[s].shape[0], sb),
+                                  dtype=torch.int32, pin_memory=True)
+            with torch.cuda.device(dev):
+                if sb:
+                    decode_kernel.copy_columns(
+                        words_h, words_d[s].view(torch.int32), sb)
+                torch.cuda.current_stream(dev).synchronize()
+            rec.fetched += [mask_h, counts_h, words_h]
+            srec.words = words_h[:, :srec.count]
+            words.append(srec.words)
+        else:
+            rec.fetched += hosts
+            if desc.egress is None:
+                srec.words = hosts[0]
+                words.append(hosts[0].view(torch.int32))
+        with torch.cuda.device(dev):
+            ok = _held_to_plain(desc, d, hosts, srec) and ok
+            if desc.egress is None and desc.pred is None:
+                want = shard_fallback_counts(parse_and_pack_plain(
+                    d["bmat"], d["lengths"], desc.specs, desc.nibble),
+                    d["lengths"], layout)
+                ok = ok and torch.equal(hosts[1], want.cpu())
+    if words:
+        rec.words = torch.cat([w.view(torch.int32).cpu() for w in words],
+                              dim=1)
+    rec.route = "mesh-" + ("render" if desc.egress is not None else
+                           "filtered" if desc.pred is not None else "k1")
+    rec.plain_ok = ok
+
+
 def run_program(desc: ProgramDescriptor, device: str, wrap=None,
                 calls: "list | None" = None) -> Record:
     """Launch one program on `device` and record what the contracts
@@ -448,7 +648,12 @@ def run_program(desc: ProgramDescriptor, device: str, wrap=None,
     rec = Record()
     host = synthetic_inputs(desc)
     before, n_calls = launch_counts(), len(calls)
-    if device == "cuda" and not desc.host:
+    if desc.mesh is not None:
+        if device == "cuda":
+            _run_mesh_cuda(desc, host, rec, wrap)
+        else:
+            _run_mesh_cpu(desc, host, rec, wrap)
+    elif device == "cuda" and not desc.host:
         _run_cuda(desc, host, rec, wrap)
     else:
         # the host route is a @hot_loop dispatch too: on the card its
@@ -456,8 +661,9 @@ def run_program(desc: ProgramDescriptor, device: str, wrap=None,
         with sync_checked(rec, device == "cuda"):
             _run_cpu(desc, host, rec, wrap)
     rec.launches = _delta(before, launch_counts())
-    if rec.route == "filtered":  # the engine's choice, by shape
-        rec.route = "k2c" if rec.launches.get("k2c") else "k2+epilogue"
+    if rec.route in ("filtered", "mesh-filtered"):  # by shape
+        rec.route = rec.route.replace("filtered", "") + (
+            "k2c" if rec.launches.get("k2c") else "k2+epilogue")
     rec.collectives = calls[n_calls:]
     return rec
 
@@ -518,6 +724,14 @@ def analyze_descriptor(desc: ProgramDescriptor, device: str,
         emit("ir-host-callback",
              contracts.check_host_callback(rec.sync_events))
     emit("ir-collective", contracts.check_collectives(rec.collectives))
+    if desc.mesh is not None and not rec.aborted:
+        from .catalog import MESH_KERNEL_OF_VARIANT
+
+        emit("ir-collective", contracts.check_shard_locality(rec.shards))
+        if device == "cuda":  # only the card's launches are counted
+            emit("ir-collective", contracts.check_shard_launches(
+                rec.launches, MESH_KERNEL_OF_VARIANT[desc.variant],
+                desc.n_shards))
     if not rec.aborted:
         emit("ir-donation",
              contracts.check_donation(rec.inputs, rec.outputs))
@@ -532,7 +746,8 @@ def analyze_descriptor(desc: ProgramDescriptor, device: str,
         else:
             emit("ir-output-budget", contracts.check_output_budget(
                 rec.fetched, layout_for_specs(desc.specs).n_words,
-                desc.row_capacity, filtered=desc.pred is not None))
+                desc.row_capacity, filtered=desc.pred is not None,
+                n_shards=desc.n_shards))
         if desc.dedup_twin is not None:
             from ...ops.program_store import canonical_plan
 
@@ -553,14 +768,22 @@ def _finding_sort_key(f: Finding):
     return (f.path, f.line, f.col, f.rule, f.scope, f.detail)
 
 
+#: shards of the `--mesh` pass: the reference's forced host devices
+MESH_SHARDS = 8
+
+
 def analyze_local(*, device: str = "cuda", row_buckets=None,
-                  include_observed: bool = True) -> tuple:
+                  include_observed: bool = True, mesh=None) -> tuple:
     """Run the tier in-process over the catalog. Returns (findings,
     program_paths, report) — paths cover every ENUMERATED program, clean
     or not, so `--check-baseline` can treat the whole namespace as
     scanned; the report is plain data (the run's programs, launches,
     contract counts, what was not checked and what disagreed with its
-    plain version)."""
+    plain version). `mesh` (a DecodeMesh, or True for `MESH_SHARDS`
+    shards over the devices at hand: `parallel.mesh.shard_mesh`) adds
+    the mesh's variants to the same run — one process drives every
+    shard, so the reference's forced-device subprocess has no
+    counterpart."""
     problem = device_problem(device)
     if problem is not None:
         raise IrAnalysisError(problem)
@@ -568,6 +791,13 @@ def analyze_local(*, device: str = "cuda", row_buckets=None,
     try:
         descriptors = build_catalog(row_buckets=row_buckets,
                                     include_observed=include_observed)
+        if mesh is True:
+            from ...parallel.mesh import shard_mesh
+
+            mesh = shard_mesh(MESH_SHARDS, device)
+        if mesh is not None:
+            descriptors += build_catalog(mesh=mesh, row_buckets=row_buckets,
+                                         include_observed=include_observed)
     except Exception as e:
         raise IrAnalysisError(f"program enumeration failed: {e}") from e
     findings: list[Finding] = []
@@ -618,6 +848,7 @@ def analyze_local(*, device: str = "cuda", row_buckets=None,
         "not_checked": {"ir-host-callback": "cpu"} if device == "cpu"
         else {},
         "plain_held": device == "cuda",
+        "mesh_shards": mesh.size if mesh is not None else 0,
         "plain_mismatches": mismatches,
         "seconds": time.perf_counter() - t0,
         "seconds_by_variant": {k: round(v, 3)
@@ -642,6 +873,8 @@ def report_lines(report: dict) -> list:
                  f"{k}={v}" for k, v in report["routes"].items()),
              "ir: findings " + " ".join(
                  f"{k}={v}" for k, v in report["findings"].items())]
+    if report.get("mesh_shards"):
+        lines.append(f"ir: mesh variants on {report['mesh_shards']} shards")
     for rule, why in report["not_checked"].items():
         lines.append(f"ir: {rule} not_checked: {why}")
     return lines

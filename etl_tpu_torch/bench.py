@@ -63,6 +63,7 @@ the event loop into PATH and the destination's share of it.
     python -m etl_tpu_torch.bench [--device cpu] --smoke | --ack-latency
         MS | --poison | --exactly-once | --workload PROFILE|all |
         --multi-pipeline | --sharded K | --coldstart | --mode lag|wide_row
+        | --mesh-check [--mesh-rows N] [--mesh-shards 8]
 
 are the reference's harness modes (`etl_tpu_torch/benchmarks/`), each
 held to its floor in BENCH_FLOOR.json (`benchmarks/smoke.py`), one JSON
@@ -312,6 +313,94 @@ def filter_bench_schema():
         (ColumnSchema("id", Oid.INT8, nullable=False, primary_key_ordinal=1),
          ColumnSchema("v", Oid.INT4),
          ColumnSchema("note", Oid.TEXT))))
+
+
+#: the filter of the mesh check's filtered half (the reference's)
+MESH_CHECK_FILTER = "abalance < 0"
+
+
+def run_mesh_check(n_rows: int = 65_536, n_shards: int = 8,
+                   device: str = "cuda", iters: int = 3) -> dict:
+    """The reference's `bench.py --mesh-check` on the port: pgbench
+    batches of `n_rows` rows decoded by a single-device decoder and by
+    the same decoder on an `n_shards` mesh over the devices at hand
+    (`parallel.mesh.shard_mesh`: the shards repeat the one card, or the
+    CPU), unfiltered and under `abalance < 0`. The sharded batches must
+    equal the single-device ones, `source_rows` included; on a card each
+    sharded batch must launch K1 (K2c, or K2 + the epilogue, filtered)
+    once a shard. The seconds (best of `iters` decodes, staging off the
+    clock) are recorded, not gated: one card's shards run one after the
+    other on its stream, so they measure the mesh's overhead, not a
+    division of work."""
+    from .ops import decode_kernel as dk
+    from .ops.engine import DeviceDecoder
+    from .ops.predicate import parse_row_filter
+    from .ops.wal import concat_payloads, stage_wal_batch
+    from .parallel.mesh import shard_mesh
+
+    schema = make_schema()
+    buf, offs, lens = concat_payloads(build_workload(n_rows))
+
+    def stage():
+        return stage_wal_batch(buf, offs, lens, 4).staged
+
+    mesh = shard_mesh(n_shards, device)
+    out = {"mode": "mesh_check", "device": device,
+           "devices": len(set(mesh.flat)), "mesh_shards": mesh.size,
+           "mesh_devices": [str(d) for d in mesh.flat], "rows": n_rows,
+           "row_filter": MESH_CHECK_FILTER}
+    fschema = schema.with_row_predicate(parse_row_filter(MESH_CHECK_FILTER))
+    single, fsingle = (DeviceDecoder(s, device=device, device_min_rows=0,
+                                     mesh=None) for s in (schema, fschema))
+    sharded, fsharded = (DeviceDecoder(s, device=device, device_min_rows=0,
+                                       mesh=mesh, mesh_min_rows=0)
+                         for s in (schema, fschema))
+
+    def launches():
+        return {"k1": dk.launches,
+                "filtered": dk.fused_launches + dk.filter_launches}
+
+    b1 = single.decode(stage())
+    before = launches()
+    b8 = sharded.decode(stage())
+    k1 = launches()["k1"] - before["k1"]
+    fb1 = fsingle.decode(stage())
+    before = launches()
+    fb8 = fsharded.decode(stage())
+    kf = launches()["filtered"] - before["filtered"]
+    identical = batches_equal(b1, b8) and b8.num_rows == n_rows
+    filtered_identical = (
+        filtered_batches_identical(fb1, fb8)
+        and fb1.source_rows is not None and fb8.source_rows is not None
+        and 0 < fb1.num_rows < n_rows)
+    cuda = mesh.flat[0].type == "cuda"
+
+    def best(dec) -> float:
+        ts = []
+        for _ in range(iters):
+            staged = stage()
+            t0 = time.perf_counter()
+            dec.decode(staged)
+            ts.append(time.perf_counter() - t0)
+        return min(ts)
+
+    out.update({
+        "sharded_equals_single": bool(identical),
+        "filtered_sharded_equals_single": bool(filtered_identical),
+        "filtered_survivors": int(fb1.num_rows),
+        "k1_launches_per_batch": k1,
+        "filtered_launches_per_batch": kf,
+        # plain versions on the CPU launch nothing
+        "launches_ok": (k1, kf) == ((mesh.size, mesh.size) if cuda
+                                    else (0, 0)),
+        "single_decode_s": best(single),
+        "sharded_decode_s": best(sharded),
+        "filtered_single_decode_s": best(fsingle),
+        "filtered_sharded_decode_s": best(fsharded),
+    })
+    out["ok"] = bool(identical and filtered_identical
+                     and out["launches_ok"])
+    return out
 
 
 def run_selectivity(n_rows: int = N_ROWS, device: str = "cuda",
@@ -782,7 +871,10 @@ def _counters() -> dict:
                       ("egress_s", m.ETL_EGRESS_RENDER_SECONDS_TOTAL),
                       ("d2h_egress_s", m.ETL_EGRESS_FETCH_SECONDS_TOTAL),
                       ("overlap_s",
-                       m.ETL_DECODE_PIPELINE_OVERLAP_SECONDS_TOTAL)):
+                       m.ETL_DECODE_PIPELINE_OVERLAP_SECONDS_TOTAL),
+                      ("mesh_batches", m.ETL_DECODE_MESH_BATCHES_TOTAL),
+                      ("mesh_padded_rows",
+                       m.ETL_DECODE_MESH_PADDED_ROWS_TOTAL)):
         out[key] = r.get_counter(name)
     for path in ("device", "host"):  # columnar wire writes, by text source
         out[f"{path}_writes"] = r.get_counter(m.ETL_EGRESS_WRITES_TOTAL,
@@ -1126,6 +1218,9 @@ async def run_table_streaming(n_events: int = 500_000, tx_size: int = 500,
         "overlap_ratio": d["overlap_s"] / d["pack_s"] if d["pack_s"] else 0,
         "device_s": d["device_s"], "kernel_s": d["kernel_s"],
         "device_busy_share": d["device_s"] / window,
+        # zero off the mesh (the reference's streaming report's too)
+        "mesh_batches": int(d["mesh_batches"]),
+        "mesh_padded_rows": int(d["mesh_padded_rows"]),
         "count_ok": delivered == want_rows,
         "digest_ok": digest == table_digest(t, np.flatnonzero(keep)),
         "order_ok": order_ok, "identity_ok": identity_ok,
@@ -2684,6 +2779,9 @@ def _run_harness_mode(args, ap) -> "dict | None":
         return asyncio.run(harness.run_lag_vs_rate(device=device))
     if args.mode == "wide_row":
         return harness.run_wide_row(device=device)
+    if args.mesh_check:
+        return run_mesh_check(args.mesh_rows, args.mesh_shards,
+                              device=device)
     floors = smoke.load_floors()
     if args.coldstart:
         return harness.run_coldstart(
@@ -2818,6 +2916,19 @@ def main(argv=None) -> int:
                            "directory at the coldstart_* sizes: the warm "
                            "restart must build nothing, load from disk "
                            "and decode no row on the oracle")
+    mode.add_argument("--mesh-check", dest="mesh_check",
+                      action="store_true",
+                      help="single-device decode against an 8-shard mesh "
+                           "over the --device's devices (the one card "
+                           "repeated, or the CPU), unfiltered and under "
+                           "abalance < 0: byte-identical batches and "
+                           "source_rows, one launch a shard (seconds "
+                           "recorded, not gated)")
+    ap.add_argument("--mesh-rows", dest="mesh_rows", type=int,
+                    default=65_536,
+                    help="--mesh-check: rows of the batch (65,536)")
+    ap.add_argument("--mesh-shards", dest="mesh_shards", type=int,
+                    default=8, help="--mesh-check: shards of the mesh (8)")
     mode.add_argument("--smoke", action="store_true",
                       help="every ported gate of BENCH_FLOOR.json at its "
                            "smoke size; the rest listed under not_ported")

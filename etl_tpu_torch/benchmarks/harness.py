@@ -84,16 +84,18 @@ def _pipeline_metrics() -> dict:
 
 
 def _admission_metrics() -> dict:
-    """Snapshot of the fair batch-admission scheduler's counters
-    (ops/pipeline.AdmissionScheduler). Per-tenant labels roll up via
-    sum_* — benches report the delta over their measured window. (The
-    reference's mesh counters stay at zero on one card: the mesh is
-    ROADMAP.md queue 1 entry 9.)"""
+    """Snapshot of the fair batch-admission scheduler and mesh-sharded
+    decode counters (ops/pipeline.AdmissionScheduler, the engine's mesh
+    path). Per-tenant labels roll up via sum_* — benches report the
+    delta over their measured window. The mesh counters stay at zero
+    where no decoder has a mesh (`mesh="auto"` on one card)."""
     from ..telemetry.metrics import (
         ETL_DECODE_ADMISSION_BYPASS_GRANTS_TOTAL,
         ETL_DECODE_ADMISSION_GRANTS_TOTAL,
         ETL_DECODE_ADMISSION_STARVATION_GRANTS_TOTAL,
-        ETL_DECODE_ADMISSION_WAIT_SECONDS, registry)
+        ETL_DECODE_ADMISSION_WAIT_SECONDS, ETL_DECODE_MESH_BATCHES_TOTAL,
+        ETL_DECODE_MESH_PADDED_ROWS_TOTAL, ETL_DECODE_MESH_ROWS_TOTAL,
+        registry)
 
     waits, wait_seconds = registry.sum_histogram(
         ETL_DECODE_ADMISSION_WAIT_SECONDS)
@@ -106,6 +108,10 @@ def _admission_metrics() -> dict:
             ETL_DECODE_ADMISSION_BYPASS_GRANTS_TOTAL),
         "admission_waits": waits,
         "admission_wait_seconds": wait_seconds,
+        "mesh_batches": registry.get_counter(ETL_DECODE_MESH_BATCHES_TOTAL),
+        "mesh_rows": registry.get_counter(ETL_DECODE_MESH_ROWS_TOTAL),
+        "mesh_padded_rows": registry.get_counter(
+            ETL_DECODE_MESH_PADDED_ROWS_TOTAL),
     }
 
 
@@ -535,6 +541,11 @@ async def run_multi_pipeline(profiles=None, seed: int = 7,
             int(adm["admission_starvation_grants"]),
         "admission_bypass_grants": int(adm["admission_bypass_grants"]),
         "admission_wait_seconds": round(adm["admission_wait_seconds"], 4),
+        # mesh activity over the window: zero off the mesh; padded rows
+        # against mesh rows is the padding the batch sizes cost
+        "mesh_batches": int(adm["mesh_batches"]),
+        "mesh_rows": int(adm["mesh_rows"]),
+        "mesh_padded_rows": int(adm["mesh_padded_rows"]),
         "scheduler_drained": drained["in_flight"] == 0
                              and not drained["tenants"],
         **counts,

@@ -23,11 +23,9 @@ from pathlib import Path
 FLOOR_PATH = Path(__file__).resolve().parents[2] / "BENCH_FLOOR.json"
 
 #: BENCH_FLOOR.json keys whose gate the port does not run yet, by key
-#: prefix, with the ROADMAP.md queue 1 entry that brings it
-NOT_PORTED_PREFIXES = {
-    "mesh_smoke_rows": "queue 1 entry 9 (multi-GPU; with it the IR "
-                       "tier's mesh slice)",
-}
+#: prefix, with the ROADMAP.md queue 1 entry that brings it (none: every
+#: gate of the file is ported)
+NOT_PORTED_PREFIXES: dict = {}
 
 #: read where pyarrow imports; listed under `not_ported` where it does not
 PARQUET_FLOOR = "egress_floors.parquet_rows_per_sec"
@@ -252,12 +250,36 @@ def _timed_run(argv: list, cwd: Path) -> tuple:
     return proc, time.perf_counter() - t0
 
 
+def mesh_gate(floors: dict, device: str) -> dict:
+    """The reference's mesh gate: `python -m etl_tpu_torch.bench
+    --mesh-check --mesh-rows <mesh_smoke_rows>` in a child process on
+    `device` — an 8-shard mesh over its devices (the one card repeated,
+    or the CPU) must decode byte-identically to one device, unfiltered
+    and filtered, with one launch a shard on a card."""
+    root = FLOOR_PATH.parent
+    proc, seconds = _timed_run(
+        [sys.executable, "-m", "etl_tpu_torch.bench", "--mesh-check",
+         "--mesh-rows", str(floors.get("mesh_smoke_rows", 8192)),
+         "--device", device.split(":")[0]], root)
+    try:
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (ValueError, IndexError):
+        out = {"error": (proc.stderr or "no output")[-400:]}
+    out["ok"] = bool(proc.returncode == 0
+                     and out.get("sharded_equals_single") is True
+                     and out.get("filtered_sharded_equals_single") is True
+                     and out.get("launches_ok") is True
+                     and out.get("mesh_shards") == 8)
+    out["process_seconds"] = seconds
+    return out
+
+
 def start_lint_processes(device: str) -> dict:
     """Start the two lint gates' processes in the background, beside
     the in-process pass: the exact commands CI runs (`python -m
-    etl_tpu_torch.analysis --check-baseline -q`, and the IR tier,
-    `--programs -q --device <device>`), each timed on its own;
-    `lint_gates` collects them."""
+    etl_tpu_torch.analysis --check-baseline -q`, and the IR tier with
+    its mesh variants, `--programs --mesh -q --device <device>`), each
+    timed on its own; `lint_gates` collects them."""
     pool = concurrent.futures.ThreadPoolExecutor(2)
     root = FLOOR_PATH.parent
     mod = [sys.executable, "-m", "etl_tpu_torch.analysis"]
@@ -265,7 +287,7 @@ def start_lint_processes(device: str) -> dict:
         "baseline": pool.submit(_timed_run,
                                 mod + ["--check-baseline", "-q"], root),
         "ir": pool.submit(_timed_run,
-                          mod + ["--programs", "-q", "--device",
+                          mod + ["--programs", "--mesh", "-q", "--device",
                                  device.split(":")[0]], root),
     }
     pool.shutdown(wait=False)
@@ -407,6 +429,13 @@ def run_smoke(device: str = "cuda") -> dict:
     out["workload_failures"] = workload["failures"]
     gates["workload"] = workload["ok"]
     correct["workload"] = not correctness_failures(workload["failures"])
+
+    mesh = mesh_gate(floors, device)
+    out["mesh_check"] = mesh
+    out["mesh_sharded_equals_single"] = bool(
+        mesh.get("sharded_equals_single"))
+    out["mesh_shards"] = mesh.get("mesh_shards", 0)
+    gates["mesh"] = correct["mesh"] = mesh["ok"]
 
     sel = bench.run_selectivity(
         floors.get("selectivity_smoke_rows", 8_192), device=device,

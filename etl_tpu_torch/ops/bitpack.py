@@ -4,7 +4,9 @@ Copy of the host half of the reference's `etl_tpu/ops/bitpack.py` (the
 layout and `unpack_host`, numpy) plus the plain PyTorch version of its
 device half: `pack_plain`, `parse_and_pack_plain`, `filter_pack_plain`
 and `compact_packed_plain`, the plain versions of the CUDA kernels in
-`csrc/decode_pack.cu` (ops/decode_kernel.py), and `unpack_keep_mask`.
+`csrc/decode_pack.cu` (ops/decode_kernel.py), with the reference's
+`n_shards` (X1-mesh: `shard_fallback_counts`, shard-local compaction),
+and `unpack_keep_mask` / `join_keep_masks`.
 
 Layout (per row): for each dense column in spec order — 1 ok bit, then
 each nonzero-width component (parsers.COLUMN_COMPONENTS order), signed
@@ -207,20 +209,70 @@ def _keep_mask(keep: torch.Tensor) -> torch.Tensor:
     return parsers.wrap32(mask).to(torch.int32).view(torch.uint32)
 
 
-def compact_packed_plain(words: torch.Tensor, keep: torch.Tensor):
-    """Row compaction (the reference's `bitpack.compact_packed` with one
-    shard): the kept rows of `words` uint32[n_words, R] move, in order,
-    to the front; every position at or after the survivor count is zero.
+def _mask_bits(mask: torch.Tensor, n: int) -> torch.Tensor:
+    """keep mask uint32[⌈n/32⌉] → keep bool[n]."""
+    m = mask.view(torch.int32).long() & 0xFFFFFFFF
+    shifts = torch.arange(32, dtype=torch.int64, device=mask.device)
+    return ((m[:, None] >> shifts) & 1).flatten()[:n].bool()
+
+
+def join_keep_masks(masks, rps: int) -> torch.Tensor:
+    """The keep mask of a whole batch from its shards' masks, each
+    uint32[⌈rps/32⌉] over a block of `rps` rows, joined bit by bit: a
+    block whose row count is not a multiple of 32 ends inside a word."""
+    return _keep_mask(torch.cat([_mask_bits(m, rps) for m in masks]))
+
+
+def compact_packed_plain(words: torch.Tensor, keep: torch.Tensor,
+                         n_shards: int = 1):
+    """Row compaction, shard-local (the reference's
+    `bitpack.compact_packed`): the rows split into `n_shards` blocks of
+    R / n_shards rows; in each block the kept rows of `words`
+    uint32[n_words, R] move, in order, to the front of the block, and
+    every position of the block at or after its survivor count is zero.
+    Nothing crosses a block boundary.
 
     Returns (words_compacted uint32[n_words, R], keep_mask
-    uint32[⌈R/32⌉], counts int32[1]). The plain version of the
-    compaction epilogue in `csrc/decode_pack.cu`."""
+    uint32[⌈R/32⌉], counts int32[n_shards]: the survivors of each block).
+    With one shard, the plain version of the compaction epilogue in
+    `csrc/decode_pack.cu`; with more, of K2c launched on each block."""
+    R = keep.shape[0]
+    if n_shards < 1 or R % n_shards:
+        raise ValueError(f"{R} rows do not split into {n_shards} shards")
+    rps = R // n_shards
     w = words.view(torch.int32)
-    count = int(keep.sum())
     out = torch.zeros_like(w)
-    out[:, :count] = w[:, keep]
-    counts = torch.tensor([count], dtype=torch.int32, device=keep.device)
+    counts = []
+    for s in range(n_shards):
+        k = keep[s * rps:(s + 1) * rps]
+        n = int(k.sum())
+        out[:, s * rps:s * rps + n] = w[:, s * rps:(s + 1) * rps][:, k]
+        counts.append(n)
+    counts = torch.tensor(counts, dtype=torch.int32, device=keep.device)
     return out.view(torch.uint32), _keep_mask(keep), counts
+
+
+def shard_fallback_counts(words: torch.Tensor, lengths: torch.Tensor,
+                          layout: "BitLayout", n_shards: int = 1
+                          ) -> torch.Tensor:
+    """int32[n_shards]: per block of R / n_shards rows, the fallback
+    candidates — rows with a field of nonzero length whose packed ok bit
+    is clear (the reference's `parse_and_pack(n_shards=…)` second
+    output). A zero-length field (NULL, TOAST, a phantom slot, the mesh's
+    all-NULL padding rows) is not a failure. Torch ops on the words'
+    device, no synchronisation: on a shard's device it reduces that
+    shard's block there."""
+    w = words.view(torch.int32)
+    R = w.shape[1]
+    if n_shards < 1 or R % n_shards:
+        raise ValueError(f"{R} rows do not split into {n_shards} shards")
+    ok = [next(s for s in slots if s.comp == "ok").bit_off
+          for slots in layout.slots]
+    # one shift a column, then whole-matrix ops: the count costs a few
+    # launches more than the columns, whatever their number
+    bits = torch.stack([w[o // 32] >> (o % 32) for o in ok])  # [C, R]
+    bad = ((bits & 1) == 0) & (lengths.T > 0)
+    return bad.any(dim=0).view(n_shards, -1).sum(dim=1, dtype=torch.int32)
 
 
 def unpack_keep_mask(mask: np.ndarray, n_rows: int) -> np.ndarray:
@@ -256,7 +308,8 @@ def _parse_pack(bmat: torch.Tensor, lengths: torch.Tensor, specs: tuple,
 
 def parse_and_pack_plain(bmat: torch.Tensor, lengths: torch.Tensor,
                          specs: tuple, nibble: bool, pred=None,
-                         row_flags: torch.Tensor | None = None):
+                         row_flags: torch.Tensor | None = None,
+                         n_shards: int | None = None):
     """The plain version of the decode kernels: per-column parse
     (parsers.parse_column) + bit-pack (pack_plain) of the packed field
     bytes `bmat` u8[R, ΣW] (u8[R, ΣW/2] planar nibble pairs when
@@ -267,22 +320,39 @@ def parse_and_pack_plain(bmat: torch.Tensor, lengths: torch.Tensor,
     row filter) and `row_flags` [R] (0 dead / 1 live / 2 live +
     force-keep), the filter evaluates over the parsed components and the
     survivors compact to the front: returns (words_compacted, keep_mask,
-    counts) as the reference's `parse_and_pack(pred=…)` does."""
+    counts) as the reference's `parse_and_pack(pred=…)` does.
+
+    With `n_shards` (X1-mesh: rows in `n_shards` blocks of R / n_shards)
+    the compaction is shard-local (`compact_packed_plain`, one count a
+    block) and the per-block fallback-candidate counts
+    (`shard_fallback_counts`, over every row, kept or not) come last:
+    (words, shard_bad), or (words_compacted, keep_mask, counts,
+    shard_bad) under a filter."""
+    layout = layout_for_specs(specs)
     if pred is None:
-        return _parse_pack(bmat, lengths, specs, nibble, frozenset())[0]
-    return compact_packed_plain(*_filter_words(bmat, lengths, row_flags,
-                                               specs, nibble, pred))
+        words = _parse_pack(bmat, lengths, specs, nibble, frozenset())[0]
+        if n_shards is None:
+            return words
+        return words, shard_fallback_counts(words, lengths, layout,
+                                            n_shards)
+    words, masked, keep = _filter_words(bmat, lengths, row_flags, specs,
+                                        nibble, pred)
+    if n_shards is None:
+        return compact_packed_plain(masked, keep)
+    return (*compact_packed_plain(masked, keep, n_shards),
+            shard_fallback_counts(words, lengths, layout, n_shards))
 
 
 def _filter_words(bmat: torch.Tensor, lengths: torch.Tensor,
                   row_flags: torch.Tensor, specs: tuple, nibble: bool, pred):
-    """(words × keep uint32[n_words, R], keep bool[R]): the parse, the
-    filter and the zeroing of dropped rows that K2 does."""
+    """(words, words × keep, both uint32[n_words, R], keep bool[R]): the
+    parse, the filter and the zeroing of dropped rows that K2 does."""
     words, colmap = _parse_pack(bmat, lengths, specs, nibble,
                                 frozenset(pred.referenced_indices))
     keep = pred.device_keep(colmap, row_flags.long())
-    words = torch.where(keep[None, :], words.view(torch.int32), 0)
-    return words.view(torch.uint32), keep
+    masked = torch.where(keep[None, :], words.view(torch.int32), 0) \
+        .view(torch.uint32)
+    return words, masked, keep
 
 
 def filter_pack_plain(bmat: torch.Tensor, lengths: torch.Tensor,
@@ -291,7 +361,8 @@ def filter_pack_plain(bmat: torch.Tensor, lengths: torch.Tensor,
     """The plain version of the filter kernel (K2) alone: (words × keep
     uint32[n_words, R], keep_mask uint32[⌈R/32⌉], survivor counts
     int32[⌈R/block_rows⌉] per block of `block_rows` rows)."""
-    words, keep = _filter_words(bmat, lengths, row_flags, specs, nibble, pred)
+    _, words, keep = _filter_words(bmat, lengths, row_flags, specs, nibble,
+                                   pred)
     R = keep.shape[0]
     padded = torch.zeros(-(-R // block_rows) * block_rows, dtype=torch.int32,
                          device=keep.device)

@@ -8,6 +8,10 @@ wrappers. Counterpart of the reference's `etl_tpu/ops/pallas_kernel.py`.
   folded in by a decoupled look-back) → (words, keep_mask, counts), equal
   to `parse_and_pack(pred=…)` in `words[:, :count]`, the mask and the
   count; columns at or past the count are not written.
+- `prepare_decode_pack_shards`, `prepare_filtered_shards`: the same
+  launches on each shard's row block of a mesh (`row_blocks`,
+  parallel/mesh.py), each called with its shard's device current
+  (`device_scope`).
 - `decode_pack_filtered(bmat, lengths, row_flags, specs, nibble, pred)`:
   the same function with the reference's full contract (zeros behind the
   survivors), in two launches: `filter_pack` (K2: filter, words × keep,
@@ -277,7 +281,8 @@ def prepare_decode_pack(bmat: torch.Tensor, lengths: torch.Tensor,
     """`decode_pack`'s host work; returns its launch."""
     _check(bmat, lengths, specs, nibble)
     if bmat.device.type == "cpu" and lengths.device.type == "cpu":
-        return lambda: parse_and_pack_plain(bmat, lengths, specs, nibble)
+        return _reads(lambda: parse_and_pack_plain(bmat, lengths, specs,
+                                                   nibble), bmat, lengths)
     if bmat.device.type != "cuda" or lengths.device != bmat.device:
         raise ValueError(f"decode_pack: unsupported devices {bmat.device}, "
                          f"{lengths.device}")
@@ -312,7 +317,7 @@ def prepare_decode_pack(bmat: torch.Tensor, lengths: torch.Tensor,
         return out.view(torch.uint32)
 
     launch.outputs = (out,)
-    return launch
+    return _reads(launch, bmat, lengths)
 
 
 def tile_bytes(rows: int, row_bytes: int, n_cols: int, lengths_u8: bool,
@@ -448,6 +453,13 @@ def _device_pred(pred, specs: tuple, dev) -> torch.Tensor:
     return desc
 
 
+def _reads(launch, *inputs):
+    """`launch`, its `inputs` attribute set to the row tensors it reads
+    (the IR tier's shard-locality check reads it)."""
+    launch.inputs = inputs
+    return launch
+
+
 def _raise_on(lib, rc: int, what: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{what} launch failed: "
@@ -494,8 +506,9 @@ def prepare_filter_pack(bmat: torch.Tensor, lengths: torch.Tensor,
     got = _filter_inputs("filter_pack", bmat, lengths, row_flags, specs,
                          nibble, pred)
     if got is None:
-        return lambda: filter_pack_plain(bmat, lengths, row_flags, specs,
-                                         nibble, pred, FILTER_BLOCK)
+        return _reads(lambda: filter_pack_plain(
+            bmat, lengths, row_flags, specs, nibble, pred, FILTER_BLOCK),
+            bmat, lengths, row_flags)
     lib, bmat, lengths, row_flags, desc, pdesc, n_words = got
     dev, R = bmat.device, bmat.shape[0]
     words = torch.empty((n_words, R), dtype=torch.int32, device=dev)
@@ -521,7 +534,7 @@ def prepare_filter_pack(bmat: torch.Tensor, lengths: torch.Tensor,
         return words.view(torch.uint32), mask.view(torch.uint32), counts
 
     launch.outputs = (words, mask, counts)
-    return launch
+    return _reads(launch, bmat, lengths, row_flags)
 
 
 def compact_packed(words: torch.Tensor, keep_mask: torch.Tensor,
@@ -588,8 +601,9 @@ def decode_pack_filtered(bmat: torch.Tensor, lengths: torch.Tensor,
 
 def _plain_filtered(bmat, lengths, row_flags, specs, nibble, pred):
     _check(bmat, lengths, specs, nibble)
-    return lambda: parse_and_pack_plain(bmat, lengths, specs, nibble,
-                                        pred=pred, row_flags=row_flags)
+    return _reads(lambda: parse_and_pack_plain(
+        bmat, lengths, specs, nibble, pred=pred, row_flags=row_flags),
+        bmat, lengths, row_flags)
 
 
 def prepare_decode_pack_filtered(bmat: torch.Tensor, lengths: torch.Tensor,
@@ -609,7 +623,7 @@ def prepare_decode_pack_filtered(bmat: torch.Tensor, lengths: torch.Tensor,
         out, counts = epi()
         return out, mask.view(torch.uint32), counts
 
-    return launch
+    return _reads(launch, *k2.inputs)
 
 
 def filter_pack_compact(bmat: torch.Tensor, lengths: torch.Tensor,
@@ -720,7 +734,7 @@ def prepare_filter_pack_compact(bmat: torch.Tensor, lengths: torch.Tensor,
             _count_tag("k2c")
         return out.view(torch.uint32), mask.view(torch.uint32), counts
 
-    return launch
+    return _reads(launch, bmat, lengths, row_flags)
 
 
 def prepare_filtered(bmat: torch.Tensor, lengths: torch.Tensor,
@@ -744,6 +758,62 @@ def prepare_filtered(bmat: torch.Tensor, lengths: torch.Tensor,
                                             nibble, pred)
     return prepare_filter_pack_compact(bmat, lengths, row_flags, specs,
                                        nibble, pred, walk=rows)
+
+
+def row_blocks(t: torch.Tensor, n_shards: int) -> list:
+    """`t`'s rows (leading dimension) in `n_shards` contiguous blocks of
+    R / n_shards rows: views, shard s's block at rows [s·rps, (s+1)·rps).
+    Raises where the shard count does not divide the rows."""
+    R = t.shape[0]
+    if n_shards < 1 or R % n_shards:
+        raise ValueError(f"{R} rows do not split into {n_shards} shards")
+    rps = R // n_shards
+    return [t[s * rps:(s + 1) * rps] for s in range(n_shards)]
+
+
+def device_scope(dev: torch.device):
+    """The context a shard's host work and launch run in: its card made
+    current (a kernel launches into the current device's context), or
+    nothing on the CPU."""
+    import contextlib
+
+    return torch.cuda.device(dev) if dev.type == "cuda" \
+        else contextlib.nullcontext()
+
+
+def prepare_shards(prepare, *blocks, rest: tuple = ()) -> list:
+    """One prepared launch a shard: `prepare(*shard's blocks, *rest)`
+    with the shard's device current (the device of its first block).
+    `blocks` are lists, one tensor a shard each (`row_blocks`, or
+    per-shard uploads). Each launch is a wrapper's own — counted, on the
+    current stream of the device current when it is called (K2c with
+    that stream's status buffer: shards on one stream run one after the
+    other, shards on other cards have buffers of their own), and not
+    synchronising; the caller calls it with its shard's device current
+    (`device_scope`)."""
+    out = []
+    for args in zip(*blocks):
+        with device_scope(args[0].device):
+            out.append(prepare(*args, *rest))
+    return out
+
+
+def prepare_decode_pack_shards(bmats: list, lengths: list, specs: tuple,
+                               nibble: bool) -> list:
+    """K1 on each shard's row block (X1-mesh's parse and pack): one
+    prepared launch a shard (`prepare_shards`)."""
+    return prepare_shards(prepare_decode_pack, bmats, lengths,
+                          rest=(specs, nibble))
+
+
+def prepare_filtered_shards(bmats: list, lengths: list, flags: list,
+                            specs: tuple, nibble: bool, pred) -> list:
+    """The filtered decode on each shard's row block: K2c (or K2 + the
+    epilogue, by shape) compacting to the front of the block, one count
+    a shard — the reference's shard-local `compact_packed(words, keep,
+    n_shards)`. One prepared launch a shard (`prepare_shards`)."""
+    return prepare_shards(prepare_filtered, bmats, lengths, flags,
+                          rest=(specs, nibble, pred))
 
 
 def copy_columns(dst: torch.Tensor, src: torch.Tensor, n_cols: int) -> None:

@@ -5,6 +5,9 @@ wrapper. Counterpart of the reference's device egress program
 - `render(words, pspecs, plan)`: packed decode words uint32[n_words, R]
   → (ebytes uint8[R, plan.total_width], elens int32[R, len(plan.slots)]),
   `egress.render_plain` byte for byte on every row.
+- `prepare_render_shards(words, pspecs, plan)`: the reference's
+  row-sharded egress (`build_egress_fn(…, mesh=)`), one launch on each
+  shard's words; the caller joins the text and lengths along rows.
 
 The wrapper sends a CPU tensor to the plain version and a CUDA tensor to
 the kernel, and raises for any other device. There is no fallback: a
@@ -24,7 +27,8 @@ import threading
 import torch
 
 from .bitpack import layout_for_specs
-from .decode_kernel import _PKG, KIND_CODES, NVCC_FLAGS, _nvcc
+from .decode_kernel import (_PKG, KIND_CODES, NVCC_FLAGS, _nvcc, _reads,
+                            prepare_shards)
 from .egress import (EGRESS_MAX_COLS, RENDER_COMPONENTS, EgressPlan,
                      render_plain)
 from .program_store import Acquired, Library, acquire
@@ -143,7 +147,7 @@ def prepare_render(words: torch.Tensor, pspecs: tuple, plan: EgressPlan):
         raise ValueError("render: the plan renders no column or more than "
                          f"{EGRESS_MAX_COLS}")
     if words.device.type == "cpu":
-        return lambda: render_plain(words, pspecs, plan)
+        return _reads(lambda: render_plain(words, pspecs, plan), words)
     if words.device.type != "cuda":
         raise ValueError(f"render: unsupported device {words.device}")
     lib = load()
@@ -166,4 +170,14 @@ def prepare_render(words: torch.Tensor, pspecs: tuple, plan: EgressPlan):
                 launches += 1
         return ebytes, elens
 
-    return launch
+    launch.outputs = (ebytes, elens)
+    return _reads(launch, words)
+
+
+def prepare_render_shards(words: list, pspecs: tuple,
+                          plan: EgressPlan) -> list:
+    """The render on each shard's words (X2-mesh: the words of a row
+    block in, its text and lengths out — the render is elementwise along
+    rows): one prepared launch a shard, prepared with the shard's device
+    current and called so (`decode_kernel.prepare_shards`)."""
+    return prepare_shards(prepare_render, words, rest=(pspecs, plan))

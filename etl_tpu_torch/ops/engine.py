@@ -1,7 +1,6 @@
-"""DeviceDecoder: the GPU decode engine, on one device.
+"""DeviceDecoder: the GPU decode engine, on one device or a mesh.
 
-Port of the reference's `etl_tpu/ops/engine.py` without the mesh.
-Pipeline per batch:
+Port of the reference's `etl_tpu/ops/engine.py`. Pipeline per batch:
 
   StagedBatch (host, ops/staging.py)
     → host pack: the C packers gather every dense-column field into ONE
@@ -55,6 +54,26 @@ the decoded batch is byte-identical to the exact layout's. The fused
 filter keeps the exact layout (its predicate descriptor binds staged
 column positions).
 
+Row-sharded mesh (`mesh=`, parallel/mesh.py; the reference's `sp`
+axis): a device-routed batch of at least `mesh_min_rows` rows is padded
+with all-NULL rows to a multiple of `mesh.size` (`staging.
+pad_to_multiple`), packed once, and split into `mesh.size` contiguous
+row blocks; each block is uploaded, launched (K1, or the filtered
+decode compacting to the front of its block, with the render behind K1
+where egress applies) and fetched on the current stream of its shard's
+device, with that device current. A batch off the mesh is the same
+dispatch with one block: one path serves both. With telemetry on, an
+unfiltered mesh batch reduces its per-shard fallback-candidate counts
+(`bitpack.shard_fallback_counts`) once a device over its shards' words,
+timed apart (`health_ms`); a filtered one counts none (the fused filter stops
+parsing a dropped row, so no count over every row exists). Completion
+joins the words (and the text) along rows; a filtered batch takes each
+shard's survivors from the front of its block. No block reads another's
+rows and no collective runs: one process drives every shard.
+`mesh="auto"` is `default_decode_mesh()` (every card; None on a host
+with one) on a CUDA decoder and None on the CPU; a failed shard fails
+the batch.
+
 Routing has three routes, by row count alone: "device" (the kernels) at
 `device_min_rows` and above; "host", X1's plain version
 (bitpack.parse_and_pack_plain) on CPU tensors, for `host_min_rows` ≤ rows
@@ -97,6 +116,13 @@ from ..models.table_row import (Column, ColumnarBatch, TextArray, _to_dense,
 from ..postgres.codec.copy_text import unescape_copy_field
 from ..postgres.codec.text import parse_cell_text
 from ..telemetry.metrics import (ETL_DECODE_DEVICE_SECONDS_TOTAL,
+                                 ETL_DECODE_MESH_BATCHES_TOTAL,
+                                 ETL_DECODE_MESH_FALLBACK_CANDIDATE_ROWS_TOTAL,
+                                 ETL_DECODE_MESH_PAD_WASTE_RATIO,
+                                 ETL_DECODE_MESH_PADDED_ROWS_TOTAL,
+                                 ETL_DECODE_MESH_ROWS_TOTAL,
+                                 ETL_DECODE_MESH_SHARD_FALLBACK_CANDIDATES,
+                                 ETL_DECODE_MESH_SHARDS,
                                  ETL_DECODE_ROUTED_HOST_ROWS_TOTAL,
                                  ETL_DECODE_FETCHED_BYTES_TOTAL,
                                  ETL_DECODE_FILTER_SELECTIVITY,
@@ -109,10 +135,13 @@ from ..telemetry.metrics import (ETL_DECODE_DEVICE_SECONDS_TOTAL,
                                  ETL_DECODE_ROUTED_ORACLE_ROWS_TOTAL,
                                  registry)
 from . import decode_kernel, egress as egress_mod, program_store
-from .bitpack import (layout_for_specs, saturation_width, unpack_host,
-                      unpack_keep_mask)
+from .bitpack import (layout_for_specs, saturation_width,
+                      shard_fallback_counts, unpack_host, unpack_keep_mask)
+from ..parallel.mesh import (check_devices, default_decode_mesh,
+                             mesh_cache_key)
 from .predicate import RowFilterError, compile_row_filter
-from .staging import ArenaLease, StagedBatch, bucket_width, slice_rows
+from .staging import (ArenaLease, StagedBatch, bucket_width,
+                      pad_to_multiple, slice_rows)
 
 # kinds parsed on device; everything else is host-object
 DEVICE_KINDS = frozenset({
@@ -262,7 +291,9 @@ class _Packed:
     for a fused-filter batch the filter and its row disposition vector,
     else the canonical plan the batch packed into (`plan.specs` is what
     the kernel and the words' layout see); `pack_s` is the stage's host
-    time, `host` whether the batch took the host route."""
+    time, `host` whether the batch took the host route, `shards` the
+    mesh's shard count where the batch is mesh-dispatched (0 otherwise;
+    its rows are then padded to a multiple of it)."""
 
     bmat: np.ndarray
     lengths: np.ndarray
@@ -274,6 +305,7 @@ class _Packed:
     pack_s: float = 0.0
     plan: Any = None
     host: bool = False
+    shards: int = 0
 
     def pspecs(self, specs: tuple) -> tuple:
         """The layout the words carry: the plan's, else `specs`."""
@@ -284,15 +316,42 @@ class _Packed:
 class _Filtered:
     """The in-flight half of a fused-filter dispatch: the compiled filter,
     the row disposition vector it ran over, the compacted words (left on
-    the device on CUDA, where only the first `counts[0]` columns need be
-    written) and the keep mask and survivor count (host tensors; on CUDA
-    pinned, landing behind the dispatch's last event)."""
+    the device on CUDA, where only the first `counts[s]` columns of a
+    shard's need be written) and the keep masks and survivor counts (host
+    tensors; on CUDA pinned, landing behind the dispatch's last events),
+    one a shard: `words` a list, `mask` int32[n_shards, ⌈rps/32⌉] and
+    `counts` int32[n_shards] (one shard off the mesh)."""
 
     pred: Any
     row_flags: np.ndarray
     words: torch.Tensor
     mask: torch.Tensor
     counts: torch.Tensor
+
+
+@dataclasses.dataclass
+class _Shards:
+    """The per-shard half of a dispatch (one shard off the mesh): rows a
+    shard, and each shard's device and dispatch stream (None on the
+    CPU); `health`, for an unfiltered mesh batch with telemetry on, one
+    (shard indices, their fallback-candidate counts) a device (host
+    int32 tensors; on CUDA pinned, landing behind the shards' events)."""
+
+    rps: int
+    devices: list
+    streams: list
+    health: list = dataclasses.field(default_factory=list)
+
+    @property
+    def shard_bad(self) -> torch.Tensor | None:
+        """The fallback-candidate counts in shard order, int32[n_shards]
+        (None where none were reduced)."""
+        if not self.health:
+            return None
+        out = torch.zeros(len(self.devices), dtype=torch.int32)
+        for idx, counts in self.health:
+            out[idx] = counts
+        return out
 
 
 class _PendingDecode:
@@ -313,18 +372,22 @@ class _PendingDecode:
     completes the decode. With device egress, `_egress` holds the render's
     (ebytes, elens, plan) — host tensors, on CUDA pinned and landing
     behind `_egress_events` (after the render, after the fetch of its
-    outputs), which add `egress_ms` and `d2h_egress_ms` to the timings."""
+    outputs), which add `egress_ms` and `d2h_egress_ms` to the timings.
+    `_events` and `_egress_events` hold one tuple a shard (`_shards`; one
+    off the mesh), and the timings are sums over the shards; a mesh
+    batch's reduction of its fallback candidates adds `health_ms`."""
 
     __slots__ = ("_decoder", "_staged", "_specs", "_packed", "_words",
                  "_events", "_pack_s", "_launch_s", "_filtered", "_done",
-                 "_egress", "_egress_events", "stream", "timings")
+                 "_egress", "_egress_events", "_shards", "stream",
+                 "timings")
 
     def __init__(self, decoder: "DeviceDecoder", staged: StagedBatch,
                  specs: tuple, packed: _Packed | None, words,
                  pack_s: float = 0.0, events: tuple = (),
                  filtered: _Filtered | None = None, launch_s: float = 0.0,
                  stream=None, egress: tuple | None = None,
-                 egress_events: tuple = ()):
+                 egress_events: tuple = (), shards: _Shards | None = None):
         self._decoder = decoder
         self._staged = staged
         self._specs = specs
@@ -332,11 +395,14 @@ class _PendingDecode:
         self._words = words
         self._pack_s = pack_s
         self._launch_s = launch_s
-        self._events = events  # CUDA: before H2D, after H2D, kernel, D2H
+        # CUDA, a tuple a shard: before H2D, after H2D, kernel, D2H, and
+        # around the fallback-candidate reduction where it runs
+        self._events = events
         self.stream = stream
         self._filtered = filtered
         self._egress = egress
         self._egress_events = egress_events
+        self._shards = shards
         self._done: ColumnarBatch | None = None
         self.timings: dict | None = None
 
@@ -357,7 +423,8 @@ _ORACLE_FORCED_UNTIL = 0.0
 # is counted device-routed until the degrade lapses
 _ROUTE_LOCK = threading.Lock()
 #: batches `_route` sent to the device in this process; each launches one
-#: decode kernel (K1, or K2c / K2 and the epilogue under a filter)
+#: decode kernel (K1, or K2c / K2 and the epilogue under a filter). A mesh
+#: batch counts once a shard (its shards launch once each)
 routed_device_batches = 0
 #: decode tag (`decode_kernel.DECODE_TAG`) → its device-routed batches
 tag_device_batches: dict = {}
@@ -366,7 +433,8 @@ tag_device_batches: dict = {}
 routed_small_rows = 0
 #: batches `_route` routed in this process (telemetry on), and of them
 #: those it sent to the host route and to the oracle: each batch takes
-#: exactly one route, so device + host + oracle = routed
+#: exactly one route, so device + host + oracle = routed (a mesh batch
+#: once a shard)
 routed_batches = 0
 routed_host_batches = 0
 routed_oracle_batches = 0
@@ -412,10 +480,21 @@ class DeviceDecoder:
     "device" and "host" are the same backend, so a CPU decoder has no
     host route unless it is given `host_min_rows`. `telemetry=False`
     keeps a decoder's batches out of the routing counters (the autotune
-    probe)."""
+    probe).
+
+    `mesh` (a parallel.mesh.DecodeMesh whose devices are all of the
+    decoder's device type, "auto", or None): device-routed batches of
+    `mesh_min_rows` rows and more are row-sharded across it (module
+    docstring). "auto" is `default_decode_mesh()` on a CUDA decoder —
+    None on a host with one card — and None on the CPU; tests and the
+    chip smoke pass explicit meshes (`[cuda:0] * 8` holds 8 shards on
+    one card)."""
 
     DEVICE_MIN_ROWS = 64
     HOST_MIN_ROWS = 64
+    #: below this row count a mesh buys nothing (a shard's work is small
+    #: against its launches and copies): the reference's threshold
+    MESH_MIN_ROWS = 65_536
     #: the threshold of every decoder built without a `device_min_rows`
     #: while it is set, in place of the measured or static one
     PINNED_MIN_ROWS: int | None = None
@@ -426,7 +505,9 @@ class DeviceDecoder:
                  device_min_rows: int | None = None,
                  host_min_rows: int | None = None,
                  egress: str | None = None,
-                 telemetry: bool = True):
+                 telemetry: bool = True,
+                 mesh: Any = "auto",
+                 mesh_min_rows: int | None = None):
         self.schema = schema
         self.device = torch.device(device)
         self._telemetry = telemetry
@@ -447,7 +528,22 @@ class DeviceDecoder:
         cuda = self.device.type == "cuda"
         self.host_min_rows = host_min_rows if host_min_rows is not None \
             else self.HOST_MIN_ROWS if cuda else None
-        self._pinned = _PinnedPool()
+        if isinstance(mesh, str):
+            if mesh != "auto":
+                raise ValueError(f"mesh={mesh!r}: a DecodeMesh, 'auto' or "
+                                 f"None")
+            mesh = default_decode_mesh() if cuda else None
+        if mesh is not None:
+            other = [d for d in check_devices(mesh.flat)
+                     if d.type != self.device.type]
+            if other:
+                raise ValueError(f"mesh devices {other} are not "
+                                 f"{self.device.type} devices")
+        self.mesh = mesh
+        self.mesh_min_rows = self.MESH_MIN_ROWS if mesh_min_rows is None \
+            else mesh_min_rows
+        # a mesh batch holds a pinned buffer of each kind a shard
+        self._pinned = _PinnedPool(4 * (mesh.size if mesh else 1))
         self._dense: list[_ColSpec] = []
         self._object: list[_ColSpec] = []
         for i, c in enumerate(schema.replicated_columns):
@@ -546,7 +642,8 @@ class DeviceDecoder:
     def _pack_host(self, staged: StagedBatch, widths: tuple[int, ...],
                    arena: ArenaLease | None = None,
                    cols: list[int] | None = None, phantom: tuple = (),
-                   host: bool = False) -> _Packed:
+                   host: bool = False,
+                   row_capacity: int | None = None) -> _Packed:
         """Gather all dense fields into one byte matrix: nibble-packed C
         path (halves the upload) when the column mix allows and the batch
         goes to the device, raw C pass otherwise (the host route has no
@@ -562,10 +659,13 @@ class DeviceDecoder:
         pack a same-(kind, width) donor column through the C path (so the
         nibble alphabet scan sees only bytes a real slot already scanned)
         and are zeroed here to all-NULL, invisible to the parsers and the
-        fallback machinery."""
+        fallback machinery. `row_capacity` above the staged capacity
+        adds the mesh's padding rows, zeroed here (all-NULL: the C
+        packers write the staged rows only)."""
         from ..native import pack_bmat, pack_bmat_nibble
 
-        R = staged.row_capacity
+        cap = staged.row_capacity
+        R = cap if row_capacity is None else row_capacity
         if cols is None:
             cols = [s.index for s in self._dense]
         pinned: list[torch.Tensor] = []
@@ -580,6 +680,11 @@ class DeviceDecoder:
             t = self._pinned.take(shape, tdtype)
             pinned.append(t)
             return t.numpy()
+
+        def zero_tail(*arrays) -> None:
+            if R > cap:
+                for a in arrays:
+                    a[cap:] = 0
 
         def zero_phantoms(bmat, lengths, nibble: bool) -> None:
             offs = np.cumsum((0,) + widths)
@@ -601,6 +706,7 @@ class DeviceDecoder:
             bad = np.empty(R, dtype=np.uint8)
             if pack_bmat_nibble(staged.data, offsets, lens_in, cols,
                                 list(widths), bmat, lengths, bad):
+                zero_tail(bmat, lengths, bad)
                 zero_phantoms(bmat, lengths, True)
                 return _Packed(bmat, lengths, True, bad, tuple(pinned))
         bmat = buf((R, total_w), np.uint8)
@@ -608,13 +714,13 @@ class DeviceDecoder:
         if ldtype is np.uint8 and pack_bmat(staged.data, offsets, lens_in,
                                             cols, list(widths), bmat,
                                             lengths):
+            zero_tail(bmat, lengths)
             zero_phantoms(bmat, lengths, False)
             return _Packed(bmat, lengths, False, None, tuple(pinned))
         bmat[:] = 0
         lengths[:] = 0
         data = staged.data
         n = len(data)
-        cap = staged.row_capacity
         phantom_set = frozenset(phantom)
         w_off = 0
         for j, (col, w) in enumerate(zip(cols, widths)):
@@ -660,16 +766,17 @@ class DeviceDecoder:
         return rf
 
     def _row_flags(self, staged: StagedBatch, specs: tuple, pred,
-                   bad_rows) -> np.ndarray:
+                   bad_rows, row_capacity: int | None = None) -> np.ndarray:
         """Per-row disposition vector for the fused filter: 0 dead (bucket
-        padding), 1 live, 2 live + force-keep. Force-keep marks rows whose
-        predicate-referenced device values cannot be trusted (COPY
-        escapes, nibble-alphabet violations, oversized or TOASTed
+        or mesh padding), 1 live, 2 live + force-keep. Force-keep marks
+        rows whose predicate-referenced device values cannot be trusted
+        (COPY escapes, nibble-alphabet violations, oversized or TOASTed
         referenced fields): the device keeps them unconditionally and the
         host re-evaluates after oracle fixup, so the compacted output
         equals the host oracle's."""
         n = staged.n_rows
-        flags = np.zeros(staged.row_capacity, dtype=np.uint8)
+        flags = np.zeros(row_capacity or staged.row_capacity,
+                         dtype=np.uint8)
         flags[:n] = 1
         force = np.zeros(n, dtype=bool)
         fb = staged.cpu_fallback_rows
@@ -695,7 +802,8 @@ class DeviceDecoder:
         layout (program_store.canonical_plan), a fused-filter batch into
         the exact layout with its row disposition vector. Host work only
         (numpy and the C packers): safe on any thread. `host`: the batch
-        takes the host route."""
+        takes the host route. A device-routed batch the mesh takes
+        (`_use_mesh`) is padded to a multiple of the shard count."""
         pred = self._device_filter_for(staged)
         t0 = time.perf_counter()
         plan = cols = None
@@ -707,12 +815,17 @@ class DeviceDecoder:
                 phantom = plan.phantom_slots
         widths = tuple(w for _, _, w, _ in
                        (plan.specs if plan is not None else specs))
-        packed = self._pack_host(staged, widths, arena, cols, phantom, host)
-        packed.plan, packed.host = plan, host
+        shards = self.mesh.size \
+            if not host and self._use_mesh(staged.row_capacity) else 0
+        cap = pad_to_multiple(staged.row_capacity, shards) if shards \
+            else staged.row_capacity
+        packed = self._pack_host(staged, widths, arena, cols, phantom, host,
+                                 row_capacity=cap)
+        packed.plan, packed.host, packed.shards = plan, host, shards
         if pred is not None:
             packed.pred = pred
             packed.row_flags = self._row_flags(staged, specs, pred,
-                                               packed.bad_rows)
+                                               packed.bad_rows, cap)
         packed.pack_s = time.perf_counter() - t0
         return packed
 
@@ -721,121 +834,260 @@ class DeviceDecoder:
     def _dispatch_stage(self, staged: StagedBatch, specs: tuple,
                         packed: _Packed) -> _PendingDecode:
         """Stage 2: start the device work on the packed inputs and return
-        the in-flight handle. CUDA: the kernel wrapper's host work first
-        (descriptors, the walk, outputs, the look-back's status buffer:
-        `prepare_*`), then non-blocking H2D from pinned buffers, the
-        launch alone between two events on the current stream,
-        non-blocking D2H into a pinned buffer, and an event for
-        `_PendingDecode.result()` to wait on. A fused-filter dispatch
-        uploads its row flags too and fetches only the keep mask and the
-        survivor count here. A host-route batch (`packed.host`) and every
-        batch of a CPU decoder run the plain versions on CPU tensors. Each
-        dispatch records its signature (program_store.record_observed,
-        telemetry on)."""
-        pred, flags, pack_s = packed.pred, packed.row_flags, packed.pack_s
-        bmat_h = torch.from_numpy(packed.bmat)
-        lengths_h = torch.from_numpy(packed.lengths)
+        the in-flight handle. The packed rows split into contiguous row
+        blocks (`decode_kernel.row_blocks`), one a shard: the mesh's
+        `packed.shards` for a mesh batch, else one — a batch off the mesh
+        is a mesh of one shard, on the same path. A CUDA device batch
+        launches the kernels (`_dispatch_cuda`); a host-route batch
+        (`packed.host`) and every batch of a CPU decoder run the plain
+        versions on CPU tensors (`_run_plain`). Each dispatch records its
+        signature (program_store.record_observed, telemetry on), and a
+        mesh batch the mesh counters."""
+        pred = packed.pred
         pspecs = packed.pspecs(specs)
         if self._telemetry:
+            # the mesh's fingerprint in the slot where the reference's
+            # program key carries it: a mesh dispatch and a single-device
+            # dispatch of one layout never share a signature
             program_store.record_observed((
-                staged.row_capacity, pspecs, packed.nibble,
+                packed.bmat.shape[0], pspecs, packed.nibble,
+                mesh_cache_key(self.mesh) if packed.shards else None,
                 None if pred is None else pred.fingerprint(),
                 "host" if packed.host else "device"))
+            if packed.shards:
+                self._mesh_telemetry(staged.row_capacity,
+                                     packed.bmat.shape[0])
         eplan = self._egress_plan(staged, pspecs) if pred is None else None
         if self.device.type == "cpu" or packed.host:
-            t0 = time.perf_counter()
-            if pred is None:
-                words = decode_kernel.decode_pack(bmat_h, lengths_h, pspecs,
-                                                  packed.nibble)
-                launch_s = time.perf_counter() - t0
-                egress = None
-                if eplan is not None:
-                    egress = (*egress_mod.render(words, pspecs, eplan),
-                              eplan)
-                    registry.counter_inc(ETL_EGRESS_DEVICE_BATCHES_TOTAL)
-                return _PendingDecode(self, staged, specs, packed, words,
-                                      pack_s, launch_s=launch_s,
-                                      egress=egress)
-            out = decode_kernel.prepare_filtered(
-                bmat_h, lengths_h, torch.from_numpy(flags), specs,
-                packed.nibble, pred)()
-            return _PendingDecode(self, staged, specs, packed, None, pack_s,
-                                  filtered=_Filtered(pred, flags, *out),
-                                  launch_s=time.perf_counter() - t0)
-        stream = torch.cuda.current_stream(self.device)
-        bmat_d = torch.empty(bmat_h.shape, dtype=bmat_h.dtype,
-                             device=self.device)
-        lengths_d = torch.empty(lengths_h.shape, dtype=lengths_h.dtype,
-                                device=self.device)
+            return self._run_plain(staged, specs, packed, eplan)
+        return self._dispatch_cuda(staged, specs, packed, eplan)
+
+    def _use_mesh(self, row_capacity: int) -> bool:
+        """Whether a device-routed batch of `row_capacity` rows is
+        row-sharded. No divisibility requirement: the pack stage pads
+        to a multiple of the shard count."""
+        return self.mesh is not None and row_capacity >= self.mesh_min_rows
+
+    def _mesh_telemetry(self, capacity: int, rows: int) -> None:
+        """The reference's mesh counters for one mesh batch of `rows`
+        rows (`capacity` of them staged, the rest the mesh's padding)."""
+        registry.gauge_set(ETL_DECODE_MESH_SHARDS, self.mesh.size)
+        registry.counter_inc(ETL_DECODE_MESH_BATCHES_TOTAL)
+        registry.counter_inc(ETL_DECODE_MESH_ROWS_TOTAL, rows)
+        # mesh padding only: bucket padding below the staged capacity is
+        # the single-device path's too and is no mesh waste
+        if rows > capacity:
+            registry.counter_inc(ETL_DECODE_MESH_PADDED_ROWS_TOTAL,
+                                 rows - capacity)
+        total = registry.get_counter(ETL_DECODE_MESH_ROWS_TOTAL)
+        padded = registry.get_counter(ETL_DECODE_MESH_PADDED_ROWS_TOTAL)
+        registry.gauge_set(ETL_DECODE_MESH_PAD_WASTE_RATIO,
+                           padded / total if total else 0.0)
+
+    def _shard_health(self, shard_bad: np.ndarray) -> None:
+        """The per-shard fallback-candidate counts into the reference's
+        shard-health telemetry: their total, and a last-batch gauge a
+        shard (one sick device shows as skew)."""
+        total = float(shard_bad.sum())
+        if total:
+            registry.counter_inc(
+                ETL_DECODE_MESH_FALLBACK_CANDIDATE_ROWS_TOTAL, total)
+        for s in range(shard_bad.shape[0]):
+            registry.gauge_set(ETL_DECODE_MESH_SHARD_FALLBACK_CANDIDATES,
+                               float(shard_bad[s]), {"shard": str(s)})
+
+    def _health_wanted(self, packed: _Packed) -> bool:
+        """Whether the dispatch reduces per-shard fallback candidates:
+        an unfiltered mesh batch, telemetry on (nothing else reads
+        them)."""
+        return packed.shards > 0 and packed.pred is None and self._telemetry
+
+    @dispatch_stage
+    @hot_loop
+    def _dispatch_cuda(self, staged: StagedBatch, specs: tuple,
+                       packed: _Packed, eplan) -> _PendingDecode:
+        """The CUDA half of `_dispatch_stage`, over n ≥ 1 shards: every
+        shard's launch prepared first (`prepare_*_shards`: the kernel
+        wrapper's host work — descriptors, the walk, outputs, the
+        look-back's status buffer), then shard by shard, with its device
+        current and on that device's current stream: a non-blocking
+        upload of its block from pinned buffers, its launch alone
+        between two events, the render right behind K1 between events of
+        its own, and non-blocking fetches into pinned buffers — its words
+        into its row of a [n, n_words, rps] buffer (its text and lengths
+        into its block's rows of the batch's), or under a filter only its
+        keep mask and survivor count (the words stay on the device for
+        `_fetch_filtered`). Where `_health_wanted`, each device then
+        reduces the fallback candidates of its shards at once, over
+        their words joined along rows, between two events of its own
+        (added to its first shard's). No call synchronises before the
+        fetches are enqueued."""
+        n, pred, flags = packed.shards or 1, packed.pred, packed.row_flags
+        pspecs = packed.pspecs(specs)
+        layout = layout_for_specs(pspecs)
+        R = packed.bmat.shape[0]
+        rps = R // n
+        health = self._health_wanted(packed)
+        hosts = [torch.from_numpy(packed.bmat),
+                 torch.from_numpy(packed.lengths)]
         if pred is not None:
             flags_h = self._pinned.take(flags.shape, torch.uint8)
             flags_h[:] = torch.from_numpy(flags)
             packed.pinned = packed.pinned + (flags_h,)
-            flags_d = torch.empty(flags.shape, dtype=torch.uint8,
-                                  device=self.device)
+            hosts.append(flags_h)
+        blocks = [decode_kernel.row_blocks(t, n) for t in hosts]
+        devs = list(self.mesh.flat) if packed.shards else [self.device]
+        dev_blocks = [[torch.empty(b.shape, dtype=b.dtype, device=d)
+                       for b, d in zip(bs, devs)] for bs in blocks]
         t0 = time.perf_counter()
-        render = None
+        renders = None
         if pred is None:
-            launch = decode_kernel.prepare_decode_pack(
-                bmat_d, lengths_d, pspecs, packed.nibble)
+            launches = decode_kernel.prepare_decode_pack_shards(
+                *dev_blocks, pspecs, packed.nibble)
             if eplan is not None:
                 from . import egress_kernel
 
-                render = egress_kernel.prepare_render(launch.outputs[0],
-                                                      pspecs, eplan)
+                renders = egress_kernel.prepare_render_shards(
+                    [launch.outputs[0] for launch in launches], pspecs,
+                    eplan)
         else:
-            launch = decode_kernel.prepare_filtered(
-                bmat_d, lengths_d, flags_d, specs, packed.nibble, pred)
+            launches = decode_kernel.prepare_filtered_shards(
+                *dev_blocks, specs, packed.nibble, pred)
         launch_s = time.perf_counter() - t0
-        ev = tuple(torch.cuda.Event(enable_timing=True) for _ in range(4))
-        ev[0].record(stream)
-        bmat_d.copy_(bmat_h, non_blocking=True)
-        lengths_d.copy_(lengths_h, non_blocking=True)
-        if pred is not None:
-            flags_d.copy_(flags_h, non_blocking=True)
-        ev[1].record(stream)
-        t0 = time.perf_counter()
-        out = launch()
-        launch_s += time.perf_counter() - t0
-        ev[2].record(stream)
         if pred is None:
-            egress, eev = None, ()
-            if render is not None:
-                # the render right behind the decode kernel, between
-                # events of its own; its outputs come back after the words
-                eev = tuple(torch.cuda.Event(enable_timing=True)
-                            for _ in range(2))
-                ebytes_d, elens_d = render()
-                eev[0].record(stream)
-                registry.counter_inc(ETL_EGRESS_DEVICE_BATCHES_TOTAL)
-            words_h = self._pinned.take(tuple(out.shape), torch.int32)
-            words_h.copy_(out.view(torch.int32), non_blocking=True)
-            ev[3].record(stream)
-            packed.pinned = packed.pinned + (words_h,)
-            if render is not None:
-                ebytes_h = self._pinned.take(tuple(ebytes_d.shape),
+            words_h = self._pinned.take((n, layout.n_words, rps),
+                                        torch.int32)
+            pinned = [words_h]
+            if renders is not None:
+                ebytes_h = self._pinned.take((R, eplan.total_width),
                                              torch.uint8)
-                elens_h = self._pinned.take(tuple(elens_d.shape),
+                elens_h = self._pinned.take((R, len(eplan.slots)),
                                             torch.int32)
-                ebytes_h.copy_(ebytes_d, non_blocking=True)
-                elens_h.copy_(elens_d, non_blocking=True)
-                eev[1].record(stream)
-                packed.pinned = packed.pinned + (ebytes_h, elens_h)
-                egress = (ebytes_h, elens_h, eplan)
-            return _PendingDecode(self, staged, specs, packed, words_h,
-                                  pack_s, ev, launch_s=launch_s,
-                                  stream=stream, egress=egress,
-                                  egress_events=eev)
-        words_d, mask_d, counts_d = out
-        mask_h = self._pinned.take(tuple(mask_d.shape), torch.int32)
-        counts_h = self._pinned.take((1,), torch.int32)
-        mask_h.copy_(mask_d.view(torch.int32), non_blocking=True)
-        counts_h.copy_(counts_d, non_blocking=True)
-        ev[3].record(stream)
-        packed.pinned = packed.pinned + (mask_h, counts_h)
-        return _PendingDecode(self, staged, specs, packed, None, pack_s, ev,
-                              _Filtered(pred, flags, words_d, mask_h,
-                                        counts_h), launch_s, stream)
+                pinned += [ebytes_h, elens_h]
+        else:
+            masks_h = self._pinned.take((n, -(-rps // 32)), torch.int32)
+            counts_h = self._pinned.take((n,), torch.int32)
+            pinned = [masks_h, counts_h]
+        packed.pinned = packed.pinned + tuple(pinned)
+        streams, events, egress_events, words_d = [], [], [], []
+        for s, dev in enumerate(devs):
+            with torch.cuda.device(dev):
+                stream = torch.cuda.current_stream(dev)
+                ev = tuple(torch.cuda.Event(enable_timing=True)
+                           for _ in range(4))
+                ev[0].record(stream)
+                for dst, src in zip(dev_blocks, blocks):
+                    dst[s].copy_(src[s], non_blocking=True)
+                ev[1].record(stream)
+                t0 = time.perf_counter()
+                out = launches[s]()
+                launch_s += time.perf_counter() - t0
+                ev[2].record(stream)
+                words_d.append(out if pred is None else out[0])
+                if pred is not None:
+                    masks_h[s].copy_(out[1].view(torch.int32),
+                                     non_blocking=True)
+                    counts_h[s:s + 1].copy_(out[2], non_blocking=True)
+                    ev[3].record(stream)
+                else:
+                    if renders is not None:
+                        eev = tuple(torch.cuda.Event(enable_timing=True)
+                                    for _ in range(2))
+                        ebytes_d, elens_d = renders[s]()
+                        eev[0].record(stream)
+                    words_h[s].copy_(out.view(torch.int32),
+                                     non_blocking=True)
+                    ev[3].record(stream)
+                    if renders is not None:
+                        rows = slice(s * rps, (s + 1) * rps)
+                        ebytes_h[rows].copy_(ebytes_d, non_blocking=True)
+                        elens_h[rows].copy_(elens_d, non_blocking=True)
+                        eev[1].record(stream)
+                        egress_events.append(eev)
+                streams.append(stream)
+                events.append(ev)
+        shards = _Shards(rps, devs, streams)
+        for dev in dict.fromkeys(devs) if health else ():
+            # one reduction a device, over all of its shards: a few
+            # launches a device, not a shard
+            idx = [s for s, d in enumerate(devs) if d == dev]
+            with torch.cuda.device(dev):
+                stream = streams[idx[0]]
+                hev = tuple(torch.cuda.Event(enable_timing=True)
+                            for _ in range(2))
+                hev[0].record(stream)
+                bad_h = self._pinned.take((len(idx),), torch.int32)
+                bad_h.copy_(shard_fallback_counts(
+                    torch.cat([words_d[s].view(torch.int32) for s in idx],
+                              dim=1),
+                    torch.cat([dev_blocks[1][s] for s in idx]), layout,
+                    len(idx)), non_blocking=True)
+                hev[1].record(stream)
+            packed.pinned = packed.pinned + (bad_h,)
+            shards.health.append((idx, bad_h))
+            events[idx[0]] = events[idx[0]] + hev
+        if pred is not None:
+            return _PendingDecode(
+                self, staged, specs, packed, None, packed.pack_s,
+                tuple(events), _Filtered(pred, flags, words_d, masks_h,
+                                         counts_h), launch_s, streams[0],
+                shards=shards)
+        egress = None
+        if renders is not None:
+            egress = (ebytes_h, elens_h, eplan)
+            registry.counter_inc(ETL_EGRESS_DEVICE_BATCHES_TOTAL)
+        return _PendingDecode(self, staged, specs, packed, words_h,
+                              packed.pack_s, tuple(events),
+                              launch_s=launch_s, stream=streams[0],
+                              egress=egress,
+                              egress_events=tuple(egress_events),
+                              shards=shards)
+
+    def _run_plain(self, staged: StagedBatch, specs: tuple,
+                   packed: _Packed, eplan) -> _PendingDecode:
+        """The plain versions on CPU tensors, one call a shard on its row
+        block (views of the packed buffers), the words and text joined
+        along rows: every batch of a CPU decoder, and a CUDA decoder's
+        host-route batches."""
+        n, pred = packed.shards or 1, packed.pred
+        pspecs = packed.pspecs(specs)
+        hosts = [torch.from_numpy(packed.bmat),
+                 torch.from_numpy(packed.lengths)]
+        if pred is not None:
+            hosts.append(torch.from_numpy(packed.row_flags))
+        blocks = [decode_kernel.row_blocks(t, n) for t in hosts]
+        cpu = torch.device("cpu")
+        shards = _Shards(packed.bmat.shape[0] // n, [cpu] * n, [None] * n)
+        t0 = time.perf_counter()
+        if pred is not None:
+            outs = [decode_kernel.prepare_filtered(*args, specs,
+                                                   packed.nibble, pred)()
+                    for args in zip(*blocks)]
+            filtered = _Filtered(
+                pred, packed.row_flags, [o[0] for o in outs],
+                torch.stack([o[1].view(torch.int32) for o in outs]),
+                torch.cat([o[2] for o in outs]))
+            return _PendingDecode(self, staged, specs, packed, None,
+                                  packed.pack_s, filtered=filtered,
+                                  launch_s=time.perf_counter() - t0,
+                                  shards=shards)
+        words = [decode_kernel.decode_pack(bm, ln, pspecs, packed.nibble)
+                 for bm, ln in zip(*blocks[:2])]
+        launch_s = time.perf_counter() - t0
+        joined = words[0] if n == 1 else torch.cat(
+            [w.view(torch.int32) for w in words], dim=1).view(torch.uint32)
+        if self._health_wanted(packed):
+            shards.health.append((list(range(n)), shard_fallback_counts(
+                joined, hosts[1], layout_for_specs(pspecs), n)))
+        egress = None
+        if eplan is not None:
+            outs = [egress_mod.render(w, pspecs, eplan) for w in words]
+            egress = (torch.cat([o[0] for o in outs]),
+                      torch.cat([o[1] for o in outs]), eplan)
+            registry.counter_inc(ETL_EGRESS_DEVICE_BATCHES_TOTAL)
+        return _PendingDecode(self, staged, specs, packed, joined,
+                              packed.pack_s, launch_s=launch_s,
+                              egress=egress, shards=shards)
 
     def _egress_plan(self, staged: StagedBatch, specs: tuple):
         """The render plan of an unfiltered device batch, or None: no
@@ -1013,20 +1265,29 @@ class DeviceDecoder:
     def _complete(self, p: _PendingDecode) -> ColumnarBatch:
         """Wait for the words of an in-flight decode, assemble the batch,
         record the stage times and return the pinned buffers."""
-        for e in p._events[-1:] + p._egress_events[-1:]:
-            e.synchronize()
+        for shard in p._events + p._egress_events:
+            shard[-1].synchronize()
         p.timings = {"pack_ms": p._pack_s * 1e3}
         if p._packed is not None:  # the device route: a kernel wrapper ran
             p.timings["launch_ms"] = p._launch_s * 1e3
         if p._events:
-            ev, eev = p._events, p._egress_events
-            p.timings.update(h2d_ms=ev[0].elapsed_time(ev[1]),
-                             kernel_ms=ev[1].elapsed_time(ev[2]),
-                             d2h_ms=(eev[0] if eev else ev[2])
-                             .elapsed_time(ev[3]))
-            if eev:
-                p.timings.update(egress_ms=ev[2].elapsed_time(eev[0]),
-                                 d2h_egress_ms=ev[3].elapsed_time(eev[1]))
+            # one tuple of events a shard (one on a single device): sums
+            t = dict.fromkeys(("h2d_ms", "kernel_ms", "d2h_ms"), 0.0)
+            if p._egress_events:
+                t.update(egress_ms=0.0, d2h_egress_ms=0.0)
+            if any(len(ev) > 4 for ev in p._events):
+                t["health_ms"] = 0.0
+            for i, ev in enumerate(p._events):
+                eev = p._egress_events[i] if p._egress_events else None
+                t["h2d_ms"] += ev[0].elapsed_time(ev[1])
+                t["kernel_ms"] += ev[1].elapsed_time(ev[2])
+                t["d2h_ms"] += (eev[0] if eev else ev[2]).elapsed_time(ev[3])
+                if eev:
+                    t["egress_ms"] += ev[2].elapsed_time(eev[0])
+                    t["d2h_egress_ms"] += ev[3].elapsed_time(eev[1])
+                if len(ev) > 4:
+                    t["health_ms"] += ev[4].elapsed_time(ev[5])
+            p.timings.update(t)
         if p._filtered is not None:
             batch, fetched = self._complete_filtered(p)
         else:
@@ -1035,7 +1296,13 @@ class DeviceDecoder:
             fetched = 0
             if isinstance(words, torch.Tensor):
                 fetched = words.numel() * words.element_size()
-                words = words.numpy().view(np.uint32)
+                words = words.numpy()
+                if words.ndim == 3:  # CUDA's [shard, word, row] fetch
+                    words = words.transpose(1, 0, 2).reshape(
+                        words.shape[1], -1)
+                words = words.view(np.uint32)
+            if p._shards is not None and p._shards.health:
+                self._shard_health(p._shards.shard_bad.numpy())
             packed = p._packed
             plan = packed.plan if packed is not None else None
             batch, fixups = self._assemble(
@@ -1068,7 +1335,7 @@ class DeviceDecoder:
             registry.counter_inc(ETL_DECODE_DEVICE_SECONDS_TOTAL, sum(
                 p.timings[k] for k in ("h2d_ms", "kernel_ms", "d2h_ms",
                                        "d2h_words_ms", "egress_ms",
-                                       "d2h_egress_ms")
+                                       "d2h_egress_ms", "health_ms")
                 if k in p.timings) / 1e3)
             if p._egress_events:
                 registry.counter_inc(ETL_EGRESS_RENDER_SECONDS_TOTAL,
@@ -1078,55 +1345,20 @@ class DeviceDecoder:
         if p._packed is not None:
             self._pinned.give_back(p._packed.pinned)
             p._packed = None
-        p._words = p._filtered = p._egress = None
+        p._words = p._filtered = p._egress = p._shards = None
         return batch
 
     def _complete_filtered(self, p: _PendingDecode
                            ) -> tuple[ColumnarBatch, int]:
         """Completion of a fused filter dispatch: read the survivor count
         and the keep mask, fetch a count-sized slice of the compacted
-        words (fetched bytes scale with selectivity), assemble over the
-        COMPACTED staged view, then re-judge force-kept and fixed-up
-        survivors exactly on their decoded values. Returns the batch and
-        the bytes fetched from the device."""
+        words (fetched bytes scale with selectivity; each shard's slice
+        from the front of its block, `_fetch_filtered`), assemble over the COMPACTED staged view, then re-judge force-kept
+        and fixed-up survivors exactly on their decoded values. Returns
+        the batch and the bytes fetched from the device."""
+        survivors, words_np, fetched = self._fetch_filtered(p)
         f = p._filtered
         staged = p._staged
-        R = staged.row_capacity
-        mask_np = f.mask.numpy().view(np.uint32)
-        S = int(f.counts[0])
-        fetched = mask_np.nbytes + f.counts.numel() * 4
-        survivors = unpack_keep_mask(mask_np, R)
-        if len(survivors) != S:
-            raise EtlError(ErrorKind.INVALID_DATA,
-                           f"filtered decode: keep mask holds "
-                           f"{len(survivors)} survivors, count says {S}")
-        Sb = slice_rows(S, R)
-        n_words = f.words.shape[0]
-        if not Sb:
-            words_np = np.zeros((n_words, 0), dtype=np.uint32)
-        elif f.words.device.type == "cpu":
-            words_np = f.words[:, :Sb].numpy()
-        else:
-            # count-sized slice: only the survivors' words (and the
-            # slice's pad slack) cross the link. It runs on the dispatch
-            # stream, whichever thread completes the decode: ordered
-            # after the kernel there, and the words, allocated on that
-            # stream, are read on no other
-            stream = p.stream
-            words_h = self._pinned.take((n_words, Sb), torch.int32)
-            p._packed.pinned = p._packed.pinned + (words_h,)
-            ev = tuple(torch.cuda.Event(enable_timing=True)
-                       for _ in range(2))
-            with torch.cuda.stream(stream):
-                ev[0].record(stream)
-                decode_kernel.copy_columns(words_h,
-                                           f.words.view(torch.int32), Sb)
-                ev[1].record(stream)
-            ev[1].synchronize()
-            p.timings["d2h_words_ms"] = ev[0].elapsed_time(ev[1])
-            words_np = words_h.numpy().view(np.uint32)
-        fetched += words_np.nbytes
-        words_np = words_np[:, :S]
         t0 = time.perf_counter()
         bad_rows = p._packed.bad_rows
         cstaged = staged.gather_rows(survivors)
@@ -1148,6 +1380,68 @@ class DeviceDecoder:
         p.timings["assemble_ms"] = (time.perf_counter() - t0) * 1e3
         return batch, fetched
 
+    def _fetch_filtered(self, p: _PendingDecode) -> tuple:
+        """(survivors, words uint32[n_words, S], fetched bytes) of a
+        filtered dispatch: each shard's survivors from its mask (offset
+        by its block), each shard's count-sized slice of its words from
+        the front of its block — on CUDA one strided copy a shard on the
+        stream it was dispatched on, with its device current: ordered
+        after its kernel there, whichever thread completes the decode —
+        joined along rows. Only the survivors' words (and the slice's
+        pad slack) cross the link."""
+        f, shards = p._filtered, p._shards
+        rps, n = shards.rps, len(f.words)
+        masks = f.mask.numpy().view(np.uint32)
+        counts = f.counts.numpy()
+        fetched = masks.nbytes + counts.nbytes
+        parts = []
+        for s in range(n):
+            surv = unpack_keep_mask(masks[s], rps)
+            if len(surv) != int(counts[s]):
+                raise EtlError(ErrorKind.INVALID_DATA,
+                               f"filtered decode, shard {s}: keep mask "
+                               f"holds {len(surv)} survivors, count says "
+                               f"{int(counts[s])}")
+            parts.append(surv + s * rps)
+        n_words = f.words[0].shape[0]
+        slices: list = [None] * n
+        evs = []
+        for s, words in enumerate(f.words):
+            Sb = slice_rows(int(counts[s]), rps)
+            if not Sb:
+                slices[s] = np.zeros((n_words, 0), dtype=np.uint32)
+            elif words.device.type == "cpu":
+                slices[s] = words[:, :Sb].numpy()
+            else:
+                words_h = self._pinned.take((n_words, Sb), torch.int32)
+                p._packed.pinned = p._packed.pinned + (words_h,)
+                stream = shards.streams[s]
+                ev = tuple(torch.cuda.Event(enable_timing=True)
+                           for _ in range(2))
+                with torch.cuda.device(shards.devices[s]), \
+                        torch.cuda.stream(stream):
+                    ev[0].record(stream)
+                    decode_kernel.copy_columns(
+                        words_h, words.view(torch.int32), Sb)
+                    ev[1].record(stream)
+                evs.append(ev)
+                slices[s] = words_h
+        for ev in evs:
+            ev[1].synchronize()
+        if evs:
+            p.timings["d2h_words_ms"] = sum(ev[0].elapsed_time(ev[1])
+                                            for ev in evs)
+        words_parts = []
+        for s, sl in enumerate(slices):
+            if isinstance(sl, torch.Tensor):
+                sl = sl.numpy().view(np.uint32)
+            fetched += sl.nbytes
+            words_parts.append(sl[:, :int(counts[s])])
+        if n == 1:
+            return parts[0], words_parts[0], fetched
+        return (np.concatenate(parts),
+                np.concatenate(words_parts, axis=1), fetched)
+
     # -- public -------------------------------------------------------------
 
     def _route(self, staged: StagedBatch) -> tuple[str, tuple]:
@@ -1162,6 +1456,11 @@ class DeviceDecoder:
         global routed_device_batches, routed_small_rows, routed_batches, \
             routed_host_batches, routed_oracle_batches
         n = staged.n_rows
+        # a mesh batch counts as a device-routed batch a shard: each
+        # shard's block is a batch to the kernels, which launch once a
+        # shard, so launches = device-routed batches holds on a mesh too
+        weight = self.mesh.size if self._use_mesh(staged.row_capacity) \
+            else 1
         with _ROUTE_LOCK:
             # supervision escalation (supervisor._detected): repeated
             # device-side stalls park EVERY batch on the host oracle until
@@ -1175,13 +1474,15 @@ class DeviceDecoder:
             else:
                 route = "oracle"
             if self._telemetry:
-                routed_batches += 1
+                if route != "device":
+                    weight = 1
+                routed_batches += weight
                 if route == "device":
-                    routed_device_batches += 1
+                    routed_device_batches += weight
                     tag = decode_kernel.current_tag()
                     if tag is not None:
                         tag_device_batches[tag] = \
-                            tag_device_batches.get(tag, 0) + 1
+                            tag_device_batches.get(tag, 0) + weight
                 elif route == "host":
                     routed_host_batches += 1
                 else:

@@ -201,7 +201,8 @@ def canonical_plan(specs: tuple) -> CanonicalPlan:
 # disk persistence
 # ---------------------------------------------------------------------------
 
-_CACHE_FORMAT_VERSION = 1
+#: 2: the observed signature gained the mesh fingerprint (6 slots)
+_CACHE_FORMAT_VERSION = 2
 #: where the libraries live when no cache directory is configured
 DEFAULT_DIR = Path(__file__).resolve().parent.parent / "_build"
 _DIR_LOCK = threading.Lock()
@@ -505,7 +506,8 @@ def forget_memory() -> None:
 # (first sighting per process; one small atomic file per version tag), and
 # `prewarm_pipeline` folds the recorded signatures into its enumeration —
 # a restart uploads what the workload actually used. A key is (row
-# capacity, canonical specs, nibble, predicate fingerprint, route).
+# capacity, canonical specs, nibble, mesh fingerprint (parallel/mesh.
+# mesh_cache_key; None off the mesh), predicate fingerprint, route).
 
 _OBSERVED_FILE = "observed_sigs.pkl"
 _OBSERVED_LOCK = threading.Lock()
@@ -595,7 +597,8 @@ def observed_layouts() -> dict:
     with _OBSERVED_LOCK:
         keys = list(_OBSERVED_SEEN)
     out: dict = {}
-    for _, specs, _, _, route in keys:
+    # a mesh dispatch's layout is its single-device twin's: one count
+    for _, specs, _, _, _, route in keys:
         out.setdefault(route, set()).add(specs)
     return {route: len(s) for route, s in sorted(out.items())}
 
@@ -612,7 +615,7 @@ def warm_observed_signatures(device: str = "cuda") -> dict:
     keys = load_observed()
     dev = torch.device(device)
     if dev.type == "cuda":
-        for _, specs, nibble, _, route in keys:
+        for _, specs, nibble, _, _, route in keys:
             if route == "device":
                 decode_kernel._device_desc(specs, nibble, dev)
     return {"observed": len(keys), "observed_ready": len(keys)}

@@ -1,8 +1,8 @@
 """Host staging: ragged WAL/COPY field bytes → fixed-shape arrays.
 
-Copy of the reference's `etl_tpu/ops/staging.py` without the mesh's row
-padding. It converts ragged inputs — pgoutput TupleData values or raw
-COPY text chunks — into the dense layout the engine packs for the device:
+Copy of the reference's `etl_tpu/ops/staging.py`. It converts ragged
+inputs — pgoutput TupleData values or raw COPY text chunks — into the
+dense layout the engine packs for the device:
 
     data     uint8[capacity]      concatenated field bytes (zero-padded)
     offsets  int32[R, C]          start of each field in `data`
@@ -36,8 +36,18 @@ from ..postgres.codec.pgoutput import (TUPLE_NULL, TUPLE_TEXT,
 ROW_BUCKETS = (256, 1024, 4096, 16384, 65536, 131072, 262144)
 
 
+def pad_to_multiple(n: int, multiple: int) -> int:
+    """Round `n` up to a multiple of `multiple` (≥1). The mesh decode
+    pads row capacity with all-NULL rows so that a bucket the shard
+    count does not divide still splits into equal row blocks."""
+    if multiple <= 1:
+        return n
+    return -(-n // multiple) * multiple
+
+
 def bucket_rows(n: int) -> int:
-    """Row-capacity bucket for `n` rows."""
+    """Row-capacity bucket for `n` rows. Staging does not know the mesh:
+    the engine pads to the shard count at pack time (`pad_to_multiple`)."""
     for b in ROW_BUCKETS:
         if n <= b:
             return b

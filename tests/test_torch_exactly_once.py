@@ -477,16 +477,29 @@ class TestExactlyOnceBenchHarness:
 class TestExactlyOnceParity:
     async def test_matrix_end_state_equals_the_reference(self):
         """The port's kill matrix and the reference's, one seed: the same
-        windows, the same seed-stable delivered end state."""
-        from etl_tpu.chaos.exactly_once import \
-            run_exactly_once_crash as ref_run
+        windows, the same seed-stable delivered end state. The reference
+        runs in a process of its own (`python -m etl_tpu.chaos
+        --exactly-once`), so no program state that an earlier reference
+        test left in this test process reaches its decoder."""
+        import json
+        import os
+        import subprocess
+        import sys
+
         from etl_tpu_torch.chaos.exactly_once import run_exactly_once_crash
         from etl_tpu_torch.chaos.runner import device_floor
 
         with device_floor(1):
             port = await run_exactly_once_crash(seed=11, device="cpu")
-        ref = await ref_run(seed=11)
-        assert port.ok and ref.ok, (port.report.violations,
-                                    ref.report.violations)
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        proc = subprocess.run(
+            [sys.executable, "-m", "etl_tpu.chaos", "--exactly-once",
+             "--seed", "11"],
+            capture_output=True, text=True, timeout=240, cwd=repo,
+            env=dict(os.environ))
+        assert proc.stdout.strip(), proc.stderr
+        ref = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert port.ok and ref["ok"] is True, (
+            port.report.violations, ref["invariants"]["violations"])
         assert [_stable_window_view(w) for w in port.windows] == \
-            [_stable_window_view(w) for w in ref.windows]
+            [_stable_window_view(w) for w in ref["windows"]]

@@ -8,7 +8,10 @@ round trip at K = 1 and K = 2 (K processes; the slices cover every table
 once and verify); a worker or a bench asked for the card without one
 fails; `bench --smoke --device cpu` runs every ported gate of
 BENCH_FLOOR.json (the two lint gates included) with its correctness
-checks green and lists the rest (the mesh) under `not_ported`; `bench --coldstart --device cpu` runs its two
+checks green — the mesh gate among them — and lists nothing under
+`not_ported` (the Parquet floor where pyarrow is missing); `bench
+--mesh-check --device cpu` holds an 8-shard CPU mesh to one device;
+`bench --coldstart --device cpu` runs its two
 lifetimes green (the reference's `run_coldstart` gates);
 `benchmarks/compare.py` diffs reports as the reference's does. Wall-clock floors are asserted nowhere here: the
 reference's tests assert none for these modes either. Tolerance: none.
@@ -32,12 +35,12 @@ ROOT = Path(__file__).resolve().parent.parent
 SEED = 7
 
 #: what `bench --smoke` may not run yet, by BENCH_FLOOR.json key (the
-#: Parquet floor is read where pyarrow imports, as here)
-NOT_PORTED = {"mesh_smoke_rows"}
+#: Parquet floor is read where pyarrow imports, as here): nothing
+NOT_PORTED: set = set()
 GATES = {"decode_identity", "heartbeat", "table_streaming", "egress",
          "workload", "selectivity", "ack_window", "poison", "exactly_once",
          "multi_pipeline", "sharded", "autoscale", "fleet", "coldstart",
-         "static_analysis", "ir_analysis"}
+         "static_analysis", "ir_analysis", "mesh"}
 
 
 @pytest.fixture(autouse=True)
@@ -280,7 +283,37 @@ class TestSmokeFlag:
         assert out["ir_analysis_seconds"] < out["ir_analysis_budget_s"]
         assert any("ir-host-callback not_checked: cpu" in line
                    for line in out["ir_analysis_report"]), out
+        assert any("mesh variants on 8 shards" in line
+                   for line in out["ir_analysis_report"]), out
+        # the reference's mesh gate: 8 CPU shards at mesh_smoke_rows
+        assert out["mesh_shards"] == 8
+        assert out["mesh_sharded_equals_single"] is True
+        assert out["mesh_check"]["rows"] == 8192
         assert proc.returncode == (0 if out["ok"] else 1)
+
+    def test_mesh_check_on_the_cpu(self):
+        """`bench --mesh-check --device cpu`: an 8-shard mesh over the
+        CPU decodes pgbench like one device, unfiltered and under
+        `abalance < 0` (`source_rows` included); the plain versions
+        launch no kernel; the seconds are reported, not gated."""
+        proc = subprocess.run(
+            [sys.executable, "-m", "etl_tpu_torch.bench", "--mesh-check",
+             "--mesh-rows", "4096", "--device", "cpu"],
+            capture_output=True, text=True, timeout=600, cwd=ROOT)
+        assert proc.returncode == 0, proc.stderr[-2000:]
+        out = json.loads(proc.stdout.strip().splitlines()[-1])
+        assert out["mode"] == "mesh_check" and out["ok"] is True
+        assert out["mesh_shards"] == 8 and out["devices"] == 1
+        assert out["mesh_devices"] == ["cpu"] * 8
+        assert out["rows"] == 4096 and out["row_filter"] == "abalance < 0"
+        assert out["sharded_equals_single"] is True
+        assert out["filtered_sharded_equals_single"] is True
+        assert 0 < out["filtered_survivors"] < 4096
+        assert out["k1_launches_per_batch"] == 0 \
+            == out["filtered_launches_per_batch"]
+        for key in ("single_decode_s", "sharded_decode_s",
+                    "filtered_single_decode_s", "filtered_sharded_decode_s"):
+            assert out[key] > 0
 
 
 class TestColdstart:

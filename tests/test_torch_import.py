@@ -37,6 +37,7 @@ PORT_MODULES = [
     "etl_tpu_torch.ops.staging", "etl_tpu_torch.ops.wal",
     "etl_tpu_torch.ops.pipeline", "etl_tpu_torch.models.table_state",
     "etl_tpu_torch.ops.program_store", "etl_tpu_torch.ops.autotune",
+    "etl_tpu_torch.parallel", "etl_tpu_torch.parallel.mesh",
     "etl_tpu_torch.benchmarks.coldstart_worker",
     "etl_tpu_torch.config", "etl_tpu_torch.config.pipeline",
     "etl_tpu_torch.retry", "etl_tpu_torch.postgres",

@@ -309,10 +309,12 @@ class TestCatalog:
         monkeypatch.setattr(program_store, "_CONFIGURED", [str(tmp_path)])
         program_store.reset_for_tests()
         specs = _program("device").specs
-        program_store.record_observed((1024, specs, True, None, "device"))
-        program_store.record_observed((1024, specs, False, ("f",),
+        program_store.record_observed((1024, specs, True, None, None,
                                        "device"))
-        program_store.record_observed((512, specs, False, None, "host"))
+        program_store.record_observed((1024, specs, False, None, ("f",),
+                                       "device"))
+        program_store.record_observed((512, specs, False, None, None,
+                                       "host"))
         observed = [d for d in build_catalog(row_buckets=(256,))
                     if d.source == "observed"]
         assert [(d.variant, d.row_capacity, d.nibble)
@@ -399,13 +401,61 @@ class TestCliWiring:
         assert main(["--list-rules", "--ir"]) == 0
         assert set(IR_CONTRACT_NAMES) <= set(capsys.readouterr().out.split())
 
-    def test_mesh_exits_two_naming_the_roadmap_entry(self, capsys):
+    def test_mesh_without_programs_exits_two(self, capsys):
         from etl_tpu_torch.analysis.cli import main
 
         assert main(["--mesh"]) == 2
-        assert main(["--programs", "--mesh", "--device", "cpu"]) == 2
-        err = capsys.readouterr().err
-        assert "MESH_NOT_PORTED" in err and "queue 1, entry 9" in err
+        assert "--mesh requires --programs" in capsys.readouterr().err
+
+    def test_programs_mesh_on_the_cpu_lists_the_four_variants_clean(
+            self, tmp_path, capsys):
+        """`--programs --mesh --device cpu`: the single-device set and
+        the mesh's four variants on 8 CPU shards, in one process, every
+        contract 0, exit 0."""
+        from etl_tpu_torch.analysis.cli import main
+
+        clean = tmp_path / "clean.py"
+        clean.write_text("x = 1\n")
+        assert main(["--programs", "--mesh", "--device", "cpu",
+                     "--row-buckets", "256", "--json", str(clean)]) == 0
+        report = json.loads(capsys.readouterr().out)["programs"]
+        assert report["mesh_shards"] == 8
+        mesh = {k: v for k, v in report["variants"].items()
+                if k.startswith("mesh")}
+        assert set(mesh) == {"mesh", "mesh-filtered", "mesh-egress-tsv",
+                             "mesh-egress-json"}
+        assert report["findings"] == {name: 0 for name in IR_CONTRACT_NAMES}
+        assert {"mesh-k1-plain", "mesh-filtered-plain",
+                "mesh-render-plain"} <= set(report["routes"])
+
+    def test_cross_block_read_fires_ir_collective(self):
+        """A mesh program whose second shard's launch reads the first
+        shard's block (re-prepared over its inputs): `ir-collective`
+        names the two shards' overlapping tensors, and nothing else
+        fires."""
+        from etl_tpu_torch.ops import decode_kernel
+        from etl_tpu_torch.parallel.mesh import shard_mesh
+
+        desc = next(d for d in build_catalog(
+            mesh=shard_mesh(8, "cpu"), row_buckets=(256,),
+            include_observed=False)
+            if d.variant == "mesh" and d.tag.startswith("i32x3"))
+        seen = []
+
+        def wrap(launch):
+            seen.append(launch)
+            if len(seen) == 2:
+                return decode_kernel.prepare_decode_pack(
+                    *seen[0].inputs, desc.specs, desc.nibble)
+            return launch
+
+        found, _ = analyze_descriptor(desc, "cpu", wrap=wrap)
+        assert set(_rules(found)) == {"ir-collective"}
+        details = {f.detail for f in found}
+        assert "shard0.in:bmat~shard1.in:bmat" in details
+        assert "shard0.in:lengths~shard1.in:lengths" in details
+        clean, _ = analyze_descriptor(desc, "cpu")
+        assert clean == []
 
     def test_device_cuda_without_a_card_exits_two(self, tmp_path):
         """No card, `--device cuda` (the default): exit 2 before any

@@ -546,6 +546,83 @@ def test_fused_decoder_cuda_matches_cpu(cuda):
         == (before[0] + 3, before[1], before[2])
 
 
+def test_mesh_on_one_card_matches_cpu(cuda):
+    """8 shards on the one card (`decode_mesh([cuda:0] * 8)`) at 70,000
+    pgbench rows (a 131,072-row bucket, past MESH_MIN_ROWS): unfiltered
+    with the render behind K1, and under `bid <= 5`, each batch equals
+    the CPU decoder's bit for bit (device text and `source_rows`
+    included) and launches its kernels once a shard."""
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.ops import egress_kernel
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.predicate import parse_row_filter
+    from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch
+    from etl_tpu_torch.parallel.mesh import decode_mesh
+
+    egress_kernel.load()
+    staged = stage_wal_batch(*concat_payloads(bench.build_workload(70_000)),
+                             4).staged
+    mesh = decode_mesh([cuda] * 8)
+    schema = bench.make_schema()
+    dec = DeviceDecoder(schema, device="cuda", device_min_rows=0, mesh=mesh,
+                        egress="tsv")
+    cpu = DeviceDecoder(schema, device="cpu", egress="tsv").decode(staged)
+    k1, render = decode_kernel.launches, egress_kernel.launches
+    got = dec.decode(staged)
+    assert (decode_kernel.launches - k1, egress_kernel.launches - render) \
+        == (8, 8)
+    assert bench.batches_equal(got, cpu)
+    for col, (buf, lens) in cpu.device_egress.fields.items():
+        assert np.array_equal(got.device_egress.fields[col][0], buf)
+        assert np.array_equal(got.device_egress.fields[col][1], lens)
+    fschema = schema.with_row_predicate(parse_row_filter("bid <= 5"))
+    fdec = DeviceDecoder(fschema, device="cuda", device_min_rows=0,
+                         mesh=mesh)
+    k2c = decode_kernel.fused_launches
+    fgot = fdec.decode(staged)
+    assert decode_kernel.fused_launches - k2c == 8
+    assert bench.filtered_batches_identical(
+        fgot, DeviceDecoder(fschema, device="cpu").decode(staged))
+
+
+def test_mesh_fallback_counts_on_one_card(cuda):
+    """The mesh decoder's per-shard fallback-candidate counts, reduced on
+    the card once a device over its 8 shards' joined words, equal the
+    CPU mesh decoder's: FLOAT8 texts of 17 digits (which the device
+    parse flags) spread unevenly over the rows, so the shards differ."""
+    from etl_tpu_torch.models import (ColumnSchema, Oid,
+                                      ReplicatedTableSchema, TableName,
+                                      TableSchema)
+    from etl_tpu_torch.ops.engine import DeviceDecoder
+    from etl_tpu_torch.ops.staging import stage_tuples
+    from etl_tpu_torch.parallel.mesh import decode_mesh
+    from etl_tpu_torch.postgres.codec.pgoutput import TUPLE_TEXT, TupleData
+
+    schema = ReplicatedTableSchema.with_all_columns(TableSchema(
+        16390, TableName("public", "floats"),
+        (ColumnSchema("x", Oid.FLOAT8),)))
+    texts = ["0.12345678901234567" if i % 7 == 0 or 400 <= i < 900
+             else f"{i}.25" for i in range(3000)]
+    staged = stage_tuples([TupleData([TUPLE_TEXT], [t.encode()])
+                           for t in texts], 1)
+    counts, batches = [], []
+    for dev in (cuda, torch.device("cpu")):
+        dec = DeviceDecoder(schema, device=dev.type, device_min_rows=0,
+                            mesh=decode_mesh([dev] * 8), mesh_min_rows=0)
+        specs = dec._specs(staged, dec._widths(staged))
+        pending = dec._dispatch_stage(staged, specs,
+                                      dec._pack_stage(staged, specs))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        counts.append(pending._shards.shard_bad)
+        batches.append(pending.result())
+    assert counts[0].shape == (8,) and torch.equal(counts[0], counts[1])
+    assert len(set(counts[0].tolist())) > 1
+    from etl_tpu_torch import bench
+
+    assert bench.batches_equal(*batches)
+
+
 def _pgbench_staged(n_rows, seed):
     from etl_tpu_torch import bench
     from etl_tpu_torch.ops.wal import concat_payloads, stage_wal_batch

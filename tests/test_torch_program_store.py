@@ -373,7 +373,7 @@ class TestObservedSignatures:
     def test_record_load_roundtrip_and_corruption(self, tmp_path):
         program_store.reset_for_tests()
         program_store.configure(str(tmp_path))
-        key = (256, ((0, K.I32, 4, 8),), False, None, "device")
+        key = (256, ((0, K.I32, 4, 8),), False, None, None, "device")
         program_store.record_observed(key)
         program_store.record_observed(key)  # idempotent per process
         assert program_store.load_observed() == [key]
@@ -412,8 +412,9 @@ class TestObservedSignatures:
         DeviceDecoder(schema, device="cpu").decode(
             port_staged(staged_from_texts(rows, 2)))
         keys = program_store.load_observed()
-        assert {k[4] for k in keys} == {"host", "device"}
-        host_key = next(k for k in keys if k[4] == "host")
+        assert {k[5] for k in keys} == {"host", "device"}
+        assert {k[3] for k in keys} == {None}  # no mesh
+        host_key = next(k for k in keys if k[5] == "host")
         assert host_key[1] == program_store.canonical_plan(
             host._host_specs()).specs
         assert program_store.observed_layouts() == {"device": 1, "host": 1}
@@ -437,7 +438,7 @@ class TestObservedSignatures:
                           prewarm_programs=True, device="cpu")
         program_store.configure(str(tmp_path))
         program_store.record_observed(
-            (256, ((0, K.I32, 4, 8),), False, None, "host"))
+            (256, ((0, K.I32, 4, 8),), False, None, None, "host"))
         program_store.reset_for_tests()  # a new process's guard
         stats = await program_store.prewarm_pipeline(NotifyingStore(), cfg)
         assert stats["observed"] == 1 and stats["layouts"] == 0
