@@ -161,12 +161,18 @@ the final result line:
    encoder by routing). (b) BigQuery Storage Write at 200,000 rows and
    100,000 events (cut for time): rows decoded by `StorageWriteFake` and
    by `pb_reader` equal the written ones, each sequence number once,
-   render launches as K1. Each is printed beside 11(a) of the same call;
-   then a whole run without a copy (start, warm-up, CDC, checks) per
-   destination (memory, ClickHouse, BigQuery) under cProfile gives its
-   share of the main thread's own time. Snowflake is held on the CPU
-   only: its Snowpipe row batches need zstandard, which the GPU host
-   lacks.
+   render launches as K1. (c) Snowflake: a line of its own says whether
+   zstandard imports; where it does, Snowpipe Streaming at 11(a)'s sizes
+   with its restart against `FakeSnowpipeServer` in a child process:
+   the delivered rows' count and digest, each `_CHANGE_SEQUENCE_NUMBER`
+   once across the restart (the offset tokens), 512 seeded rows' NDJSON
+   lines byte for byte the host encoder's, render = K1 = device-routed
+   batches; where it does not, the destination's typed refusal
+   (CONFIG_INVALID naming zstandard) and a line saying Snowflake did not
+   run. Each is printed beside 11(a) of the same call; then a whole run
+   without a copy (start, warm-up, CDC, checks) per destination (memory,
+   ClickHouse, BigQuery) under cProfile gives its share of the main
+   thread's own time.
 
 13. sharded replication (`bench_sharded`): K = 2 → 3 shard pods over one
    fake source and one shared store; each pod's K1 + K2c launches equal
@@ -249,11 +255,19 @@ the final result line:
    `LakeDestination`, `IcebergDestination`, `python -m
    etl_tpu_torch.maintenance` and `run_replicator` over a config with
    `destination: lake` each refuse with CONFIG_INVALID naming pyarrow;
-   (d) where pyarrow imports: phase 12(a)'s pgbench copy and CDC through
-   K1 into a `LakeDestination` (`bench.run_lake_cdc`), its
-   `read_current` equal to the written rows, K1 = device-routed batches.
-   No kernel is added; the launch counts are set to 0 just before (d)
-   and read just after.
+   (d) where pyarrow imports: phases 6 and 7's pgbench copy and CDC
+   through K1 into a `LakeDestination` (`bench.run_lake_cdc`), its
+   `read_current` equal to the written rows, K1 = device-routed batches;
+   (e) the same depth through K1 into an `IcebergDestination` against
+   the port's `FakeIcebergCatalog` (`bench.run_iceberg_cdc`), read back
+   through the snapshot chain, the Avro manifests, Parquet and the CDC
+   collapse: the live rows equal the written rows by count, digest and
+   column, no commit rejected, K1 = device-routed batches; (f) `python
+   -m etl_tpu_torch.maintenance --warehouse DIR` (compaction), then with
+   `--vacuum`, then `--history`, as processes over (d)'s lake, after
+   (e), so that neither runs beside the other: each exits 0, and the
+   lake's current view after them equals (d)'s. No kernel is added; the launch
+   counts are set to 0 just before (d) and (e) and read just after each.
 
 20. the program store and autotune (`program_store_phase`): (a) the
    routing cost model fitted on the card (fixed ms, round-trip GB/s, the
@@ -310,6 +324,26 @@ the final result line:
    contract 0; (e) the device count: with 2 or more cards (a) and (b)
    run over the real cards too, with one the line says a mesh across
    cards was not run.
+
+23. the port's examples on the card (`examples_phase`): (a) `python -m
+   etl_tpu_torch.examples.lake_pipeline` and (b) `…iceberg_pipeline`
+   (their `main()` in this process, every batch through K1 at
+   `device_floor(1)`): the read-back each prints (the lake's current
+   view; Iceberg's snapshots and live rows) as the example asserts it,
+   K1 = the routed batches, counts set to 0 just before each and read
+   just after; (c) `…control_plane --port P` as a process on a free
+   port: `GET /openapi.json` 200 with the bearer key, a `/v1` route 200
+   with it and 401 without, SIGTERM exit 0; (d) `python -m
+   etl_tpu_torch.replicator --config-dir` on `examples/config/base.yaml`
+   (`batch_engine: cuda`), rewritten to a `PgServerProcess`, a free
+   `/metrics` port and a temporary lake and store: `/health` 200, 100,000
+   rows and 50,000 events delivered to the lake (count and digest), K1
+   work on the child's `/metrics`, SIGTERM exit 0; (e) `python -m
+   etl_tpu_torch.testing.sanitize_framer --seconds 1.5` (the port's
+   framer under ASan and UBSan: the fuzz target, the differentials, the
+   pack/gather hammer), a process beside (a)-(d): exit code 0, or 77
+   where the host has no ASan runtime (printed: the sanitizer did not
+   run there; the CPU tests run it).
 
 Every phase's routed batches are counted by route (device, host,
 oracle), and the three must add up to the routed batches (a mesh batch
@@ -1368,12 +1402,13 @@ def warehouse_phase(args, runtime: dict, device: str = "cuda") -> dict:
     ClickHouse at 11(a)'s sizes with a restart, then a filtered sub-run
     under the catalog's `bid <= 5` (offload mode: K2c, no device text,
     the host encoder by routing); (b) BigQuery Storage Write at a cut
-    depth. Snowflake (Snowpipe Streaming) is held on the CPU only: its
-    row batches are zstd-compressed and the GPU host has no zstandard.
-    Each run sets the launch counts to 0 just before and reads them just
-    after; 11(a) of this call is printed beside each. Then a run without
-    a copy per destination under cProfile: the destination's share of
-    the loop's own time."""
+    depth; (c) Snowflake (Snowpipe Streaming, zstd NDJSON row batches)
+    at 11(a)'s sizes with its restart where zstandard imports, else the
+    destination's typed refusal (`snowflake_case`). Each run sets the
+    launch counts to 0 just before and reads them just after; 11(a) of
+    this call is printed beside each. Then a run without a copy per
+    destination under cProfile: the destination's share of the loop's
+    own time."""
     import asyncio
     import cProfile
 
@@ -1446,6 +1481,7 @@ def warehouse_phase(args, runtime: dict, device: str = "cuda") -> dict:
           "written rows, each sequence number once, marker high-water, "
           "K1 == render == device-routed batches", flush=True)
     out["12b_bigquery"] = r
+    out["12c_snowflake"] = snowflake_case(args, ref, device)
 
     print(f"[12p] each destination's share of the loop: a run of "
           f"{PROFILE_EVENTS} events (no copy) under cProfile", flush=True)
@@ -1470,6 +1506,80 @@ def warehouse_phase(args, runtime: dict, device: str = "cuda") -> dict:
               flush=True)
     out["12a_clickhouse"]["destination_profile"] = shares
     return out
+
+
+def zstandard_importable() -> bool:
+    try:
+        import zstandard  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def snowflake_case(args, ref: dict, device: str = "cuda") -> dict:
+    """Phase 12(c): prints whether zstandard imports. Where it does, the
+    binary delivers 12(a)'s stream (`WIRE_COPY_ROWS`, `WIRE_CDC_EVENTS`,
+    then `RESTART_EVENTS` across a restart) to Snowflake over HTTP, its
+    `FakeSnowpipeServer` in a child process, with 12(a)'s checks: the
+    delivered rows' count and digest, each `_CHANGE_SEQUENCE_NUMBER` once
+    across the restart (the channel's offset tokens), 512 seeded rows'
+    NDJSON lines byte for byte the host encoder's, render = K1 =
+    device-routed batches. Where it does not, the destination must
+    refuse at construction with CONFIG_INVALID naming zstandard; the run
+    then launches nothing and the line says Snowflake did not run."""
+    import asyncio
+
+    from etl_tpu_torch import bench
+
+    have = zstandard_importable()
+    print(f"[12c] zstandard imports: {'yes' if have else 'no'}", flush=True)
+    oracle_clear("phase 12(c)")
+    _reset_launch_counts()
+    if not have:
+        from etl_tpu_torch.destinations.snowflake import (
+            SnowflakeConfig, SnowflakeDestination)
+        from etl_tpu_torch.models.errors import ErrorKind, EtlError
+
+        try:
+            SnowflakeDestination(SnowflakeConfig(
+                "http://127.0.0.1:9", "acct", "etl", "db"))
+        except EtlError as e:
+            check(e.kind is ErrorKind.CONFIG_INVALID
+                  and "zstandard" in str(e),
+                  f"12(c): the Snowflake destination refused with "
+                  f"{e.kind.name}, not CONFIG_INVALID naming zstandard: {e}")
+            print(f"  refused CONFIG_INVALID: {e}; Snowflake through K1 "
+                  f"did not run", flush=True)
+            return {"zstandard": False, "refused": str(e),
+                    **_launch_counts()}
+        raise SmokeFailure("12(c): the Snowflake destination was built "
+                           "without zstandard")
+    print(f"  Snowflake over HTTP: COPY {WIRE_COPY_ROWS} rows, CDC "
+          f"{WIRE_CDC_EVENTS} events, then {RESTART_EVENTS} more across a "
+          f"restart (FakeSnowpipeServer in a child process)", flush=True)
+    t0 = time.perf_counter()
+    r = asyncio.run(bench.run_wire_replicator(
+        WIRE_COPY_ROWS, WIRE_CDC_EVENTS, device=device, seed=args.seed,
+        restart_events=RESTART_EVENTS, destination="snowflake"))
+    r.update(_launch_counts())
+    r["zstandard"] = True
+    _wire_lines(r, ref, ref, "11(a)", "11(a)")
+    _warehouse_lines(r)
+    _wire_checks(r, "12(c)")
+    _warehouse_checks(r, "12(c)")
+    check(r["restart"]["ok"], "12(c): the restart re-copied, lost or "
+          "duplicated rows")
+    check(r["device_routed_batches"] > 0 and r["egress_launches"]
+          == r["k1_launches"] == (r["device_routed_batches"]
+                                  if device == "cuda" else 0),
+          "12(c): render, K1 and the device-routed batches differ")
+    r["wall_s"] = time.perf_counter() - t0
+    print(f"  parity: copy/CDC count and digest, 512 delivered NDJSON lines "
+          f"== the host encoder on the written rows, each sequence number "
+          f"once across the restart (offset tokens), K1 == render == "
+          f"device-routed batches, clean SIGTERM; 12(c) in "
+          f"{r['wall_s']:.1f} s", flush=True)
+    return r
 
 
 #: phase 13: the fleet's tables (8 × 125,000 rows: phase 6's 1,000,000)
@@ -2591,9 +2701,11 @@ def lake_phase(args, device: str = "cuda") -> dict:
 
         print(f"  19(d) pgbench into the lake: COPY {args.copy_rows} rows, "
               f"CDC {args.cdc_events} events", flush=True)
+        lake_dir = tempfile.TemporaryDirectory()
         _reset_launch_counts()
         r = asyncio.run(bench.run_lake_cdc(args.copy_rows, args.cdc_events,
-                                           device=device, seed=args.seed))
+                                           device=device, seed=args.seed,
+                                           warehouse_path=lake_dir.name))
         r.update(_launch_counts())
         print(f"  lake rows={r['lake_rows']} copy_s={r['copy_s']:.2f} "
               f"cdc_s={r['cdc_s']:.2f} events/s="
@@ -2602,13 +2714,144 @@ def lake_phase(args, device: str = "cuda") -> dict:
               f"device_batches={r['device_batches']}", flush=True)
         check(r["rows_ok"], "19(d): the lake's current view differs from "
               "the written rows")
-        check(r["k1_launches"] > 0
-              and r["k1_launches"] == r["device_batches"],
+        check(r["launches_ok"] and r["device_batches"]
+              == r["device_routed_batches"] > 0,
               "19(d): K1 launches differ from the device-routed batches")
+        before = r.pop("current")
         out.update(r)
+        try:
+            iceberg = iceberg_case(args, device)
+            out["maintenance"] = maintenance_case(lake_dir.name, before,
+                                                  r["cdc_files"])
+        finally:
+            lake_dir.cleanup()
     out["wall_s"] = time.perf_counter() - t0
     print(f"  phase 19 in {out['wall_s']:.1f} s", flush=True)
-    return {"19_lake": out}
+    res = {"19_lake": out}
+    if have:
+        res["19e_iceberg"] = iceberg
+    return res
+
+
+def iceberg_case(args, device: str = "cuda") -> dict:
+    """Phase 19(e): pgbench's copy and CDC at 19(d)'s depth through K1
+    into an `IcebergDestination` committing to the port's
+    `FakeIcebergCatalog` (`bench.run_iceberg_cdc`), read back through the
+    snapshot chain, the Avro manifests, Parquet and the CDC collapse: the
+    live rows equal the written rows (count, `table_digest`, column by
+    column), the catalog rejected no commit, K1 = device-routed batches
+    > 0. The launch counts are set to 0 just before and read just
+    after."""
+    import asyncio
+
+    from etl_tpu_torch import bench
+
+    print(f"  19(e) pgbench into Iceberg: COPY {args.copy_rows} rows, CDC "
+          f"{args.cdc_events} events (the fake REST catalog in this "
+          f"process)", flush=True)
+    oracle_clear("phase 19(e)")
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    r = asyncio.run(bench.run_iceberg_cdc(args.copy_rows, args.cdc_events,
+                                          device=device, seed=args.seed))
+    r.update(_launch_counts())
+    r["wall_s"] = time.perf_counter() - t0
+    print(f"  live rows={r['live_rows']} snapshots={r['snapshots']} data "
+          f"files={r['data_files']} copy_s={r['copy_s']:.2f} rows/s="
+          f"{r['rows_per_second']:.0f} cdc_s={r['cdc_s']:.2f} events/s="
+          f"{r['events_per_second']:.0f} read_s={r['read_s']:.2f} "
+          f"rejections={len(r['rejections'])} launches: k1="
+          f"{r['k1_launches']} device_batches={r['device_batches']} "
+          f"routes {r['device_routed_batches']}/{r['host_routed_batches']}/"
+          f"{r['oracle_routed_batches']} (device/host/oracle); 19(e) in "
+          f"{r['wall_s']:.1f} s", flush=True)
+    check(r["digest_ok"] and r["rows_ok"], "19(e): Iceberg's live rows "
+          "differ from the written rows, or the catalog rejected a commit")
+    check(r["launches_ok"] and r["device_batches"]
+          == r["device_routed_batches"] > 0,
+          "19(e): K1 launches differ from the device-routed batches")
+    return r
+
+
+def _maintenance_commands(warehouse: str) -> dict:
+    """`python -m etl_tpu_torch.maintenance --warehouse DIR` (compaction),
+    then with `--vacuum`, then `--history`, as processes, one after the
+    other: each one's exit code, last stdout line, stderr's tail and
+    seconds."""
+    import subprocess
+
+    out = {}
+    for name, argv in (("compact", []), ("vacuum", ["--vacuum"]),
+                       ("history", ["--history"])):
+        t = time.perf_counter()
+        p = subprocess.run(
+            [sys.executable, "-m", "etl_tpu_torch.maintenance",
+             "--warehouse", warehouse, *argv], cwd=ROOT,
+            capture_output=True, text=True, timeout=300)
+        out[name] = {"rc": p.returncode, "s": time.perf_counter() - t,
+                     "doc": (p.stdout.strip().splitlines() or [""])[-1],
+                     "stderr": p.stderr[-1500:]}
+        if p.returncode != 0:
+            break
+    return out
+
+
+def maintenance_case(warehouse: str, before, cdc_before: int) -> dict:
+    """Phase 19(f), after 19(e), so that neither runs beside the other:
+    the maintenance commands over 19(d)'s lake (`_maintenance_commands`:
+    compaction, `--vacuum`, `--history`), each exit code 0; the current
+    view read through a fresh `LakeDestination` afterwards must equal
+    `before`, 19(d)'s view read the same way before the first
+    command."""
+    import asyncio
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.destinations.lake import LakeConfig, LakeDestination
+
+    async def view() -> tuple:
+        lake = LakeDestination(LakeConfig(warehouse))
+        await lake.startup()
+        try:
+            return (lake.read_current(bench.PGBENCH_TID).sort_by("aid"),
+                    lake.current_cdc_file_count(bench.PGBENCH_TID))
+        finally:
+            await lake.shutdown()
+
+    runs = _maintenance_commands(warehouse)
+    for name, run in runs.items():
+        check(run["rc"] == 0, f"19(f): maintenance {name} exited "
+              f"{run['rc']}: {run['stderr']}")
+    compact, vacuum, history = (json.loads(runs[k]["doc"]) for k in (
+        "compact", "vacuum", "history"))
+    t0 = time.perf_counter()
+    after, cdc_after = asyncio.run(view())
+    view_s = time.perf_counter() - t0
+    same = before.equals(after)
+    out = {"rows": after.num_rows, "cdc_files_before": cdc_before,
+           "cdc_files_after": cdc_after, "compact": compact,
+           "compact_s": runs["compact"]["s"], "vacuum": vacuum,
+           "vacuum_s": runs["vacuum"]["s"],
+           "history": [(h["operation"], h["outcome"])
+                       for h in history["history"]],
+           "view_equal": same,
+           "commands_s": sum(run["s"] for run in runs.values()),
+           "view_s": view_s}
+
+    def brief(doc: dict) -> str:
+        return json.dumps({k: doc.get(k) for k in (
+            "tables", "compacted_files", "vacuumed_files",
+            "skipped_by_policy")})
+
+    print(f"  19(f) maintenance over 19(d)'s lake: "
+          f"compaction {brief(compact)} ({out['compact_s']:.2f} s), vacuum "
+          f"{brief(vacuum)} ({out['vacuum_s']:.2f} s); CDC files "
+          f"{cdc_before} -> {cdc_after}; history {out['history']}; current "
+          f"view {before.num_rows} rows before == {after.num_rows} after: "
+          f"{same}; the commands {out['commands_s']:.1f} s, the view after "
+          f"{out['view_s']:.1f} s", flush=True)
+    check(same, "19(f): the lake's current view changed under "
+          "compaction or vacuum")
+    return out
 
 
 class _Background:
@@ -3336,6 +3579,139 @@ def mesh_phase(stage, staged0, schema, fschema, main_exact,
     return out
 
 
+#: 23(d): the example config's stream (cut to the binary's 11(c) scale)
+EXAMPLE_COPY_ROWS = 100_000
+EXAMPLE_EVENTS = 50_000
+SANITIZE_SECONDS = 1.5
+
+
+def _example_run(name: str, fn, device: str) -> dict:
+    """One example pipeline in this process, every batch through K1
+    (`device_floor(1)`: the examples' tables are 50 and 100 rows and their
+    CDC a transaction of three changes, below any measured threshold),
+    launch counts set to 0 just before and read just after."""
+    from etl_tpu_torch.chaos.runner import device_floor
+
+    oracle_clear(f"phase 23, {name}")
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    with device_floor(1):
+        r = fn()
+    counts = _launch_counts()
+    counts["wall_s"] = time.perf_counter() - t0
+    print(f"  launches: k1={counts['k1_launches']} routes "
+          f"{counts['device_routed_batches']}/"
+          f"{counts['host_routed_batches']}/"
+          f"{counts['oracle_routed_batches']} (device/host/oracle); "
+          f"{counts['wall_s']:.1f} s", flush=True)
+    check(counts["device_routed_batches"] == counts["routed_batches"] > 0
+          and counts["k1_launches"] == (counts["device_routed_batches"]
+                                        if device == "cuda" else 0),
+          f"23: {name}: K1 launches differ from the routed batches: "
+          f"{counts}")
+    return {**r, **counts}
+
+
+def examples_phase(device: str = "cuda") -> dict:
+    """Phase 23: the port's examples on the card. (a) `python -m
+    etl_tpu_torch.examples.lake_pipeline` and (b) `…iceberg_pipeline`
+    (their `main()`, in this process): the printed read-back (the lake's
+    current view; Iceberg's snapshots and live rows after the CDC
+    collapse) as the examples assert it; (c) `…control_plane --port P` as
+    a process: `GET /openapi.json` 200 with the bearer key, a `/v1` route
+    200 with it and 401 without, SIGTERM exit 0; (d) `python -m
+    etl_tpu_torch.replicator --config-dir` on `examples/config/base.yaml`
+    (`batch_engine: cuda`), rewritten to a `PgServerProcess` and a
+    temporary lake and store: `/health` 200, the example's stream
+    delivered to the lake, K1 work on the child's `/metrics`, SIGTERM
+    exit 0; (e) `python -m etl_tpu_torch.testing.sanitize_framer
+    --seconds 1.5` (the port's framer under ASan and UBSan), started as
+    a process at the phase's start: exit code 0, or its skip code 77
+    where this host has no ASan runtime (then it did not run). Returns
+    (a) and (b) with their launch counts."""
+    import asyncio
+    import tempfile
+
+    from etl_tpu_torch import bench
+    from etl_tpu_torch.examples import iceberg_pipeline, lake_pipeline
+
+    print("[23] the port's examples on the card", flush=True)
+    t0 = time.perf_counter()
+    sanitizer = _Background([sys.executable, "-m",
+                             "etl_tpu_torch.testing.sanitize_framer",
+                             "--seconds", str(SANITIZE_SECONDS)])
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            print("  23(a) python -m etl_tpu_torch.examples.lake_pipeline",
+                  flush=True)
+            r = _example_run("the lake example", lambda: lake_pipeline.main(
+                ["--device", device, "--warehouse", f"{tmp}/lake"]), device)
+            ids = [row["id"] for row in r["current"]]
+            row1 = r["current"][0]
+            check(ids == [1] + list(range(3, 102))
+                  and str(row1["balance"]) == "1000.00"
+                  and r["lines"][1:] == [
+                      "lake current rows: 100 (copied 100, +1 insert, "
+                      "-1 delete)", "updated row 1 balance: 1000.00"],
+                  f"23(a): the lake example read back {r['lines']}")
+            out["23a_lake_example"] = r
+            print("  23(b) python -m etl_tpu_torch.examples."
+                  "iceberg_pipeline", flush=True)
+            r = _example_run(
+                "the Iceberg example", lambda: iceberg_pipeline.main(
+                    ["--device", device, "--warehouse", f"{tmp}/iceberg"]),
+                device)
+            check(r["snapshots"] >= 2 and sorted(r["live"]) == [1] + list(
+                range(3, 52)) and r["live"][1]["qty"] == 99
+                and r["lines"][-1] == "ok",
+                f"23(b): the Iceberg example read back {r['lines']}")
+            out["23b_iceberg_example"] = r
+        print("  23(c) python -m etl_tpu_torch.examples.control_plane "
+              "--port P", flush=True)
+        c = asyncio.run(bench.run_example_control_plane())
+        print(f"  up after {c['up_s']:.2f} s; /openapi.json {c['openapi']} "
+              f"(status, version, paths); /v1/tenants with the key "
+              f"{c['tenants_with_key']}, without {c['tenants_without_key']}"
+              f"; SIGTERM exit code {c['exit_code']}", flush=True)
+        check(c["ok"], f"23(c): the control plane example: {c}")
+        print(f"  23(d) python -m etl_tpu_torch.replicator --config-dir on "
+              f"the example config: COPY {EXAMPLE_COPY_ROWS} rows, CDC "
+              f"{EXAMPLE_EVENTS} events into its lake", flush=True)
+        d = asyncio.run(bench.run_example_replicator(
+            EXAMPLE_COPY_ROWS, EXAMPLE_EVENTS, device=device))
+        print(f"  batch_engine={d['batch_engine']} rewritten "
+              f"{d['rewritten']}; /health {json.dumps(d['health'])} after "
+              f"{d['health_s']:.2f} s, READY after {d['ready_s']:.2f} s, "
+              f"confirmed after {d['confirmed_s']:.2f} s; /metrics device "
+              f"rows {d['device_rows']:.0f} kernel_s {d['kernel_s']:.4f}; "
+              f"lake rows {d['lake_rows']} (digest {d['rows_ok']}); SIGTERM "
+              f"exit code {d['exit_code']}", flush=True)
+        if d["exit_code"] != 0:
+            print(d.get("stderr_tail", ""), file=sys.stderr, flush=True)
+        check(d["ok"], "23(d): the replicator on the example config: a "
+              "check failed")
+        rc, so, se = sanitizer.result(300)
+    finally:
+        sanitizer.stop()
+    from etl_tpu_torch.testing.sanitize_framer import SKIP
+
+    if rc == SKIP:  # the documented skip, never counted as a pass
+        print(f"  23(e) sanitize_framer: exit code {rc}: this host has no "
+              f"ASan runtime, the sanitizer did not run: "
+              f"{se.strip()[-200:]}", flush=True)
+    else:
+        print(f"  23(e) sanitize_framer: exit code {rc}: "
+              f"{(so.strip().splitlines() or [''])[-1]}", flush=True)
+        check(rc == 0, f"23(e): the framer under ASan/UBSan: exit code "
+              f"{rc}: {so[-1500:]} {se[-1500:]}")
+    out["23e_sanitizer_rc"] = rc
+    wall = time.perf_counter() - t0
+    print(f"  phase 23 in {wall:.1f} s", flush=True)
+    out["23_wall_s"] = wall
+    return out
+
+
 def _warehouse_lines(r: dict) -> None:
     run = r["run"]
     print(f"  warehouse: watched {r['watched_rows']} rows, bad "
@@ -3746,6 +4122,9 @@ def main() -> int:
                        "ffirst": fbatches[0], "fdigest": fdigest,
                        "truth": truth})
     runtime["22_mesh"] = mesh["runtime"]
+    ex = examples_phase()
+    runtime["23a_lake_example"] = ex["23a_lake_example"]
+    runtime["23b_iceberg_example"] = ex["23b_iceberg_example"]
 
     main_rec = records[0]
     k2_recs = [r for recs in frecords for r in recs

@@ -1278,26 +1278,20 @@ DEGRADE_COOLDOWN_S = 3.0
 POISON_RATE = 0.001
 
 
-async def run_lake_cdc(copy_rows: int = 1_000_000,
-                       n_events: int = 500_000, *, device: str = "cuda",
-                       seed: int = 7, tx_size: int = 500,
-                       warehouse_path: str | None = None) -> dict:
-    """pgbench_accounts copied and streamed into the lake: the port's
-    Pipeline on the fake walsender, the CUDA engine on `device`, into a
-    `LakeDestination` (its defaults: Parquet files, compaction at 8 CDC
-    files) in `warehouse_path` (a temporary directory by default).
-    `copy_rows` seeded rows are copied, then `n_events` inserts stream in
-    `tx_size`-row transactions. Checks: the lake's `read_current` holds
-    exactly the written rows (every aid once, each column equal), and on
-    the card K1 launched once per device-routed batch. Needs pyarrow
-    (`destinations.util.require_pyarrow`)."""
-    import tempfile
-
-    from .destinations.lake import LakeConfig, LakeDestination
-    from .destinations.util import require_pyarrow
+async def _pgbench_into(dest, *, copy_rows: int, n_events: int,
+                        device: str, seed: int, tx_size: int, stored_rows,
+                        what: str) -> tuple[dict, dict]:
+    """pgbench_accounts copied and streamed into `dest`: the port's
+    Pipeline on the fake walsender, the CUDA engine on `device`.
+    `copy_rows` seeded rows are copied until READY, then `n_events`
+    inserts stream in `tx_size`-row transactions until `stored_rows()`
+    (what the destination holds, `what` in a timeout's message) reaches
+    every row; then the pipeline shuts down, and the destination with
+    it. Returns (the run's seconds, rates and counter deltas with
+    `launches_ok`: on the card K1 launched once per device-routed batch;
+    the written rows as `pgbench_table`'s arrays, copy then stream)."""
     from .postgres.fake import FakeDatabase
 
-    require_pyarrow("the lake run")
     t_copy = pgbench_table(copy_rows, seed)
     t_cdc = pgbench_table(n_events, seed + 1, first_aid=copy_rows + 1)
     payloads = table_payloads(t_cdc)
@@ -1305,23 +1299,10 @@ async def run_lake_cdc(copy_rows: int = 1_000_000,
     db.create_table(make_schema().table_schema,
                     rows=table_text_rows(t_copy))
     db.create_publication("pub", [PGBENCH_TID])
-    tmp = None
-    if warehouse_path is None:
-        tmp = tempfile.TemporaryDirectory()
-        warehouse_path = tmp.name
-    dest = LakeDestination(LakeConfig(warehouse_path))
     pipeline, store = _pipeline(db, dest, device)
-    out: dict = {"mode": "lake_cdc", "copy_rows": copy_rows,
-                 "events": n_events, "tx_size": tx_size, "device": device}
+    out: dict = {"copy_rows": copy_rows, "events": n_events,
+                 "tx_size": tx_size, "device": device}
     want = copy_rows + n_events
-
-    def stored_rows() -> int:
-        (n,) = dest._catalog().execute(
-            "SELECT COALESCE(SUM(f.row_count), 0) FROM lake_files f JOIN "
-            "lake_tables t ON t.table_id = f.table_id AND f.generation = "
-            "t.generation WHERE f.table_id = ?", (PGBENCH_TID,)).fetchone()
-        return int(n)
-
     try:
         c0 = _counters()
         t0 = time.perf_counter()
@@ -1334,12 +1315,70 @@ async def run_lake_cdc(copy_rows: int = 1_000_000,
             for p in payloads[lo:lo + tx_size]:
                 tx.insert_preencoded(PGBENCH_TID, p)
             await tx.commit()
-        await _until(lambda: stored_rows() >= want, 900,
-                     "the lake's rows")
+        await _until(lambda: stored_rows() >= want, 900, what)
         out["cdc_s"] = time.perf_counter() - t1
         out["events_per_second"] = n_events / out["cdc_s"]
+        out["rows_per_second"] = copy_rows / out["copy_s"]
         await pipeline.shutdown_and_wait()  # shuts the destination down
         out.update(_delta(c0, _counters()))
+    finally:
+        await pipeline.shutdown_and_wait()
+    on_card = device.split(":")[0] == "cuda"
+    out["launches_ok"] = out["device_batches"] > 0 and (
+        out["k1_launches"] == out["device_batches"] if on_card
+        else out["k1_launches"] == 0)
+    cols = {k: np.concatenate([t_copy[k], t_cdc[k]])
+            for k in ("aid", "bid", "abalance", "filler")}
+    return out, cols
+
+
+def _pgbench_rows_check(t, cols: dict) -> dict:
+    """A pyarrow table read back from a destination against the written
+    rows: `digest_ok` by `table_digest`, `rows_ok` by count, digest and
+    column by column."""
+    digest_ok = _arrow_rows_digest(t) == table_digest(cols)
+    return {"digest_ok": digest_ok,
+            "rows_ok": bool(t.num_rows == len(cols["aid"]) and digest_ok
+                            and _arrow_rows_equal(t, cols))}
+
+
+async def run_lake_cdc(copy_rows: int = 1_000_000,
+                       n_events: int = 500_000, *, device: str = "cuda",
+                       seed: int = 7, tx_size: int = 500,
+                       warehouse_path: str | None = None) -> dict:
+    """pgbench_accounts copied and streamed into the lake
+    (`_pgbench_into`) through a `LakeDestination` (its defaults: Parquet
+    files, compaction at 8 CDC files) in `warehouse_path` (a temporary
+    directory by default). Checks: the lake's `read_current` holds
+    exactly the written rows (`_pgbench_rows_check`), and on the card K1
+    launched once per device-routed batch. `current` is that view
+    (sorted by aid), read through a fresh `LakeDestination` after the
+    pipeline's shutdown. Needs pyarrow
+    (`destinations.util.require_pyarrow`)."""
+    import tempfile
+
+    from .destinations.lake import LakeConfig, LakeDestination
+    from .destinations.util import require_pyarrow
+
+    require_pyarrow("the lake run")
+    tmp = None
+    if warehouse_path is None:
+        tmp = tempfile.TemporaryDirectory()
+        warehouse_path = tmp.name
+    dest = LakeDestination(LakeConfig(warehouse_path))
+
+    def stored_rows() -> int:
+        (n,) = dest._catalog().execute(
+            "SELECT COALESCE(SUM(f.row_count), 0) FROM lake_files f JOIN "
+            "lake_tables t ON t.table_id = f.table_id AND f.generation = "
+            "t.generation WHERE f.table_id = ?", (PGBENCH_TID,)).fetchone()
+        return int(n)
+
+    try:
+        out, cols = await _pgbench_into(
+            dest, copy_rows=copy_rows, n_events=n_events, device=device,
+            seed=seed, tx_size=tx_size, stored_rows=stored_rows,
+            what="the lake's rows")
         reader = LakeDestination(LakeConfig(warehouse_path))
         await reader.startup()
         try:
@@ -1349,23 +1388,150 @@ async def run_lake_cdc(copy_rows: int = 1_000_000,
                               for h in reader.maintenance_history()]
         finally:
             await reader.shutdown()
-        out["lake_rows"] = current.num_rows
-        cols = {k: np.concatenate([t_copy[k], t_cdc[k]])
-                for k in ("aid", "bid", "abalance", "filler")}
-        filler = cols["filler"].view(f"S{FILLER_WIDTH}").ravel()
-        out["rows_ok"] = current.num_rows == want and all(
-            np.array_equal(current.column(k).to_numpy(), cols[k])
-            for k in ("aid", "bid", "abalance")) \
-            and current.column("filler").to_pylist() \
-            == [f.decode() for f in filler.tolist()]
     finally:
-        await pipeline.shutdown_and_wait()
         if tmp is not None:
             tmp.cleanup()
-    on_card = device.split(":")[0] == "cuda"
-    out["launches_ok"] = out["device_batches"] > 0 and (
-        out["k1_launches"] == out["device_batches"] if on_card
-        else out["k1_launches"] == 0)
+    out["mode"] = "lake_cdc"
+    out["lake_rows"] = current.num_rows
+    out["current"] = current
+    out.update(_pgbench_rows_check(current, cols))
+    out["ok"] = bool(out["rows_ok"] and out["launches_ok"])
+    return out
+
+
+def iceberg_live_rows(table, key: str):
+    """The live rows of a fake catalog's table, read the way an Iceberg
+    engine reads them: the snapshot chain, each snapshot's Avro manifest
+    list, its manifests, their Parquet data files, then the CDC collapse
+    (per key the row of the greatest `_CHANGE_SEQUENCE_NUMBER`, a later
+    snapshot winning a tie, DELETEs dropped). Returns (pyarrow.Table sorted
+    by `key`, the number of data files read)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    import pyarrow.parquet as pq
+
+    from .testing.avro_reader import read_avro_ocf
+
+    parts = []
+    for snap in table.snapshots:
+        _, manifests, _ = read_avro_ocf(snap["manifest-list"])
+        for m in manifests:
+            _, entries, _ = read_avro_ocf(m["manifest_path"])
+            parts += [pq.read_table(e["data_file"]["file_path"])
+                      for e in entries]
+    t = pa.concat_tables(parts, promote_options="default")
+    t = t.append_column("_order", pa.array(np.arange(t.num_rows)))
+    t = t.set_column(
+        t.schema.get_field_index("_CHANGE_SEQUENCE_NUMBER"),
+        "_CHANGE_SEQUENCE_NUMBER",
+        pc.fill_null(t.column("_CHANGE_SEQUENCE_NUMBER"), ""))
+    t = t.sort_by([(key, "ascending"),
+                   ("_CHANGE_SEQUENCE_NUMBER", "ascending"),
+                   ("_order", "ascending")])
+    keys = t.column(key).to_numpy()
+    last = np.ones(len(keys), dtype=bool)
+    last[:-1] = keys[1:] != keys[:-1]
+    t = t.filter(pa.array(last))
+    t = t.filter(pc.not_equal(t.column("_CHANGE_TYPE"), "DELETE"))
+    return t.drop_columns(["_order"]), len(parts)
+
+
+def _arrow_text_buffers(t, name: str) -> tuple:
+    """(offsets, values) of a pyarrow table's string column."""
+    import pyarrow as pa
+
+    col = t.column(name).combine_chunks()
+    off_type = np.int64 if pa.types.is_large_string(col.type) else np.int32
+    offsets = np.frombuffer(col.buffers()[1], dtype=off_type)[
+        col.offset:col.offset + len(col) + 1]
+    return offsets, np.frombuffer(col.buffers()[2], dtype=np.uint8)
+
+
+def _arrow_rows_digest(t) -> int:
+    """`_rows_digest` of pgbench rows held in a pyarrow table."""
+    offsets, values = _arrow_text_buffers(t, "filler")
+    valid = [np.asarray(t.column(k).is_valid())
+             for k in ("aid", "bid", "abalance", "filler")]
+    return _rows_digest(
+        *(t.column(k).to_numpy(zero_copy_only=False)
+          for k in ("aid", "bid", "abalance")),
+        _text_hash(offsets, values), np.diff(offsets.astype(np.int64)),
+        valid)
+
+
+def _arrow_rows_equal(t, cols: dict) -> bool:
+    """A pyarrow table of pgbench rows equals `cols` (`pgbench_table`'s
+    arrays, in its row order) column by column."""
+    if t.num_rows != len(cols["aid"]) or t.column("filler").null_count:
+        return False
+    offsets, values = _arrow_text_buffers(t, "filler")
+    start = int(offsets[0])
+    return bool(
+        all(np.array_equal(t.column(k).to_numpy(), cols[k])
+            for k in ("aid", "bid", "abalance"))
+        and np.array_equal(offsets - start, np.arange(
+            t.num_rows + 1, dtype=np.int64) * FILLER_WIDTH)
+        and np.array_equal(
+            values[start:start + t.num_rows * FILLER_WIDTH],
+            cols["filler"].ravel()))
+
+
+async def run_iceberg_cdc(copy_rows: int = 1_000_000,
+                          n_events: int = 500_000, *, device: str = "cuda",
+                          seed: int = 7, tx_size: int = 500,
+                          warehouse_path: str | None = None) -> dict:
+    """pgbench_accounts copied and streamed into Iceberg
+    (`_pgbench_into`) through an `IcebergDestination` committing to the
+    port's `FakeIcebergCatalog` in this process (it validates each
+    commit's whole metadata chain), its Parquet data files in
+    `warehouse_path` (a temporary directory by default). Checks: the live
+    rows read back through the snapshot chain, the manifests, Parquet and
+    the CDC collapse (`iceberg_live_rows`) equal the written rows
+    (`_pgbench_rows_check`), the catalog rejected nothing, and on the
+    card K1 launched once per device-routed batch. Needs pyarrow
+    (`destinations.util.require_pyarrow`)."""
+    import tempfile
+
+    from .destinations.iceberg import IcebergConfig, IcebergDestination
+    from .destinations.util import escaped_table_name, require_pyarrow
+    from .testing.fake_iceberg import FakeIcebergCatalog
+
+    require_pyarrow("the Iceberg run")
+    tmp = None
+    if warehouse_path is None:
+        tmp = tempfile.TemporaryDirectory()
+        warehouse_path = tmp.name
+    catalog = FakeIcebergCatalog()
+    await catalog.start()
+    config = IcebergConfig(catalog.url(), warehouse_path)
+    name = escaped_table_name(make_schema().name)
+
+    def committed_rows() -> int:
+        t = catalog.tables.get((config.namespace, name))
+        return 0 if t is None else sum(
+            int(s["summary"].get("added-records", 0)) for s in t.snapshots)
+
+    try:
+        out, cols = await _pgbench_into(
+            IcebergDestination(config), copy_rows=copy_rows,
+            n_events=n_events, device=device, seed=seed, tx_size=tx_size,
+            stored_rows=committed_rows,
+            what="the Iceberg table's committed rows")
+        table = catalog.table(config.namespace, name)
+        t2 = time.perf_counter()
+        live, files = iceberg_live_rows(table, "aid")
+        out["read_s"] = time.perf_counter() - t2
+        out["snapshots"] = len(table.snapshots)
+        out["data_files"] = files
+        out["rejections"] = list(catalog.rejections)
+    finally:
+        await catalog.stop()
+        if tmp is not None:
+            tmp.cleanup()
+    out["mode"] = "iceberg_cdc"
+    out["live_rows"] = live.num_rows
+    out.update(_pgbench_rows_check(live, cols))
+    out["rows_ok"] = bool(out["rows_ok"] and not out["rejections"])
     out["ok"] = bool(out["rows_ok"] and out["launches_ok"])
     return out
 
@@ -1865,12 +2031,15 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-async def http_get(port: int, path: str) -> tuple:
-    """(status, body) of one HTTP/1.1 GET to 127.0.0.1:`port`."""
+async def http_get(port: int, path: str,
+                   headers: dict | None = None) -> tuple:
+    """(status, body) of one HTTP/1.1 GET to 127.0.0.1:`port`, with
+    `headers` added."""
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     try:
         writer.write(f"GET {path} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
-                     "Connection: close\r\n\r\n".encode())
+                     f"{extra}Connection: close\r\n\r\n".encode())
         await writer.drain()
         raw = await reader.read()
     finally:
@@ -2631,18 +2800,107 @@ def destination_share(prof) -> dict:
             "top": [[n, t] for t, n in top[:5]]}
 
 
+def _sqlite_ready(path: str, pipeline_id: int):
+    """A predicate: the pgbench table READY in the SQLite store at `path`.
+    The fake server's producer writes WAL only, never the table's rows,
+    so inserts made before READY would be missing from a copy taken
+    after them."""
+    import sqlite3
+
+    def ready() -> bool:
+        db = sqlite3.connect(f"file:{path}?mode=ro", uri=True)
+        try:
+            row = db.execute(
+                "SELECT state FROM etl_replication_state WHERE "
+                "pipeline_id = ? AND table_id = ? AND is_current = 1",
+                (pipeline_id, PGBENCH_TID)).fetchone()
+        except sqlite3.OperationalError:  # not created yet
+            return False
+        finally:
+            db.close()
+        return row is not None and json.loads(row[0])["state"] == "ready"
+
+    return ready
+
+
+async def _replicator_process(server, config_dir: str, metrics_port: int,
+                              out: dict, *, ready, copy_rows: int,
+                              n_events: int, seed: int,
+                              before_stop=None) -> None:
+    """`python -m etl_tpu_torch.replicator --config-dir config_dir` as a
+    process against `server` (a `PgServerProcess` holding the seeded
+    table): `/health` answers 200, `ready()` holds, the server produces
+    `n_events` inserts in 500-row transactions, the slot's confirmed
+    flush reaches their last commit, `before_stop()` (a coroutine
+    function) runs, then SIGTERM. Records `health`, `health_s`, `ready_s`,
+    `confirmed_s`, `exit_code`, `stopped_cleanly` (and `stderr_tail` on a
+    non-zero exit) in `out`."""
+    import signal
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, "PYTHONPATH": root,
+           "APP_PG_CONNECTION__PASSWORD": WIRE_PASSWORD}
+    t0 = time.perf_counter()
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, "-m", "etl_tpu_torch.replicator",
+        "--config-dir", config_dir, cwd=root, env=env,
+        stdout=asyncio.subprocess.DEVNULL, stderr=asyncio.subprocess.PIPE)
+    stderr_task = asyncio.ensure_future(proc.stderr.read())
+    try:
+        async def healthy():
+            if proc.returncode is not None:
+                raise RuntimeError(
+                    f"the replicator exited {proc.returncode}: "
+                    f"{(await stderr_task).decode()[-3000:]}")
+            try:
+                status, body = await http_get(metrics_port, "/health")
+            except OSError:
+                return False
+            out["health"] = [status, json.loads(body)]
+            return status == 200
+
+        await _until(healthy, 600, "the replicator's /health 200", 0.05)
+        out["health_s"] = time.perf_counter() - t0
+        await _until(ready, 600, "READY in the store", 0.05)
+        out["ready_s"] = time.perf_counter() - t0
+        server.call("prepare", n_events=n_events, seed=seed + 1,
+                    first_aid=copy_rows + 1)
+        prod = await asyncio.to_thread(server.call, "produce", tx_size=500)
+        last_lsn = prod["commits"][-1][0]
+
+        async def confirmed():
+            s = await asyncio.to_thread(server.call, "slot",
+                                        name="supabase_etl_apply_1")
+            return s is not None and s["confirmed_flush"] >= last_lsn
+
+        await _until(confirmed, 600, "the slot's confirmed flush", 0.05)
+        out["confirmed_s"] = time.perf_counter() - t0
+        if before_stop is not None:
+            await before_stop()
+        proc.send_signal(signal.SIGTERM)
+        out["exit_code"] = await asyncio.wait_for(proc.wait(), 120)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+    err = (await stderr_task).decode()
+    out["stopped_cleanly"] = "pipeline stopped cleanly" in err
+    if out["exit_code"] != 0:
+        out["stderr_tail"] = err[-3000:]
+
+
 async def run_replicator_binary(copy_rows: int = 100_000,
                                 n_events: int = 10_000, *,
                                 device: str = "cuda",
                                 seed: int = 7) -> dict:
     """`python -m etl_tpu_torch.replicator --config-dir DIR` as a process,
-    with a SqliteStore, against the fake server in a child process: its
-    `/health` answers 200 over HTTP, the slot's confirmed flush reaches the
+    with a SqliteStore, against the fake server in a child process
+    (`_replicator_process`): its `/health` answers 200 over HTTP, the
+    table is READY in the store, the slot's confirmed flush reaches the
     last commit of `n_events` inserts, SIGTERM exits 0; then the DLQ CLI
     as processes on dead letters a PostgresStore appended on the same
     server: `--postgres ... list` and `replay --destination-json` (a
     memory destination) exit 0 and name the same entries."""
-    import signal
     import tempfile
 
     from .config import PgConnectionConfig
@@ -2669,51 +2927,10 @@ async def run_replicator_binary(copy_rows: int = 100_000,
             config_dir, server_port=server.port, metrics_port=metrics_port,
             device=device, store={"type": "sqlite",
                                   "path": os.path.join(tmp, "state.db")})
-        t0 = time.perf_counter()
-        proc = await asyncio.create_subprocess_exec(
-            sys.executable, "-m", "etl_tpu_torch.replicator",
-            "--config-dir", config_dir, cwd=root, env=env,
-            stdout=asyncio.subprocess.DEVNULL,
-            stderr=asyncio.subprocess.PIPE)
-        stderr_task = asyncio.ensure_future(proc.stderr.read())
-        try:
-            async def healthy():
-                if proc.returncode is not None:
-                    raise RuntimeError(
-                        f"the replicator exited {proc.returncode}: "
-                        f"{(await stderr_task).decode()[-3000:]}")
-                try:
-                    status, body = await http_get(metrics_port, "/health")
-                except OSError:
-                    return False
-                out["health"] = [status, json.loads(body)]
-                return status == 200
-
-            await _until(healthy, 600, "the binary's /health 200", 0.05)
-            out["health_s"] = time.perf_counter() - t0
-            server.call("prepare", n_events=n_events, seed=seed + 1,
-                        first_aid=copy_rows + 1)
-            prod = await asyncio.to_thread(server.call, "produce",
-                                           tx_size=500)
-            last_lsn = prod["commits"][-1][0]
-
-            async def confirmed():
-                s = await asyncio.to_thread(server.call, "slot",
-                                            name="supabase_etl_apply_1")
-                return s is not None and s["confirmed_flush"] >= last_lsn
-
-            await _until(confirmed, 600, "the slot's confirmed flush", 0.05)
-            out["confirmed_s"] = time.perf_counter() - t0
-            proc.send_signal(signal.SIGTERM)
-            out["exit_code"] = await asyncio.wait_for(proc.wait(), 120)
-        finally:
-            if proc.returncode is None:
-                proc.kill()
-                await proc.wait()
-        err = (await stderr_task).decode()
-        out["stopped_cleanly"] = "pipeline stopped cleanly" in err
-        if out["exit_code"] != 0:
-            out["stderr_tail"] = err[-3000:]
+        await _replicator_process(
+            server, config_dir, metrics_port, out,
+            ready=_sqlite_ready(os.path.join(tmp, "state.db"), 1),
+            copy_rows=copy_rows, n_events=n_events, seed=seed)
 
         # the DLQ CLI over the wire
         store = PostgresStore(PgConnectionConfig(
@@ -2763,6 +2980,160 @@ async def run_replicator_binary(copy_rows: int = 100_000,
     out["ok"] = bool(out["exit_code"] == 0 and out["stopped_cleanly"]
                      and out["health"] == [200, {"status": "healthy"}]
                      and out["dlq_ok"])
+    return out
+
+
+async def run_example_replicator(copy_rows: int = 10_000,
+                                 n_events: int = 10_000, *,
+                                 device: str = "cuda",
+                                 seed: int = 7) -> dict:
+    """`python -m etl_tpu_torch.replicator --config-dir DIR` as a process
+    on the port's example config (`examples/config/base.yaml`, read
+    through the port's loader: `batch_engine: cuda`), rewritten only
+    where it must name this machine: the fake server's address (a
+    `PgServerProcess` holding a seeded pgbench_accounts and the config's
+    publication), a free `/metrics` port, the lake's warehouse and the
+    SQLite store in a temporary directory, and `batch.device` where
+    `device` is not the config's, driven by `_replicator_process`.
+    Checks: `/health` answers 200, the slot's confirmed flush reaches the last of `n_events` inserts,
+    `/metrics` shows device-routed rows (and kernel seconds on the
+    card), SIGTERM exits 0, and the lake read afterwards holds exactly
+    the written rows (count and `table_digest`)."""
+    import tempfile
+
+    import yaml
+
+    from .destinations.lake import LakeConfig, LakeDestination
+    from .examples import CONFIG_DIR, load_example_config
+    from .testing.pg_process import PgServerProcess
+
+    config, _ = load_example_config(environ={})
+    out: dict = {"mode": "example_replicator", "copy_rows": copy_rows,
+                 "events": n_events, "device": device,
+                 "batch_engine": config.batch.batch_engine.value}
+    with open(CONFIG_DIR / "base.yaml") as f:
+        doc = yaml.safe_load(f)
+    with tempfile.TemporaryDirectory() as tmp, \
+            PgServerProcess(password=WIRE_PASSWORD) as server:
+        server.call("table", n_rows=copy_rows, seed=seed)
+        server.call("publication", name=doc["publication_name"],
+                    row_filter=None, offload=False)
+        metrics_port = free_port()
+        doc["pg_connection"].update(host="127.0.0.1", port=server.port)
+        doc["destination"]["warehouse_path"] = os.path.join(tmp, "lake")
+        doc["store"]["path"] = os.path.join(tmp, "state.db")
+        doc["metrics_port"] = metrics_port
+        if device != doc["batch"].get("device", "cuda"):
+            doc["batch"]["device"] = device
+        out["rewritten"] = ["pg_connection.host", "pg_connection.port",
+                            "destination.warehouse_path", "store.path",
+                            "metrics_port"] + (
+            ["batch.device"] if doc["batch"]["device"] != "cuda" else [])
+        config_dir = os.path.join(tmp, "config")
+        os.makedirs(config_dir)
+        with open(os.path.join(config_dir, "base.yaml"), "w") as f:
+            yaml.safe_dump(doc, f)
+
+        async def read_metrics():
+            from .benchmarks.control_plane import _metric
+
+            _, body = await http_get(metrics_port, "/metrics")
+            text = body.decode()
+            out["device_rows"] = _metric(
+                text, "etl_decode_routed_device_rows_total")
+            out["kernel_s"] = _metric(text,
+                                      "etl_decode_kernel_seconds_total")
+
+        await _replicator_process(
+            server, config_dir, metrics_port, out,
+            ready=_sqlite_ready(doc["store"]["path"], doc["pipeline_id"]),
+            copy_rows=copy_rows, n_events=n_events, seed=seed,
+            before_stop=read_metrics)
+        reader = LakeDestination(LakeConfig(doc["destination"]
+                                            ["warehouse_path"]))
+        await reader.startup()
+        try:
+            current = reader.read_current(PGBENCH_TID).sort_by("aid")
+        finally:
+            await reader.shutdown()
+    t_copy = pgbench_table(copy_rows, seed)
+    t_cdc = pgbench_table(n_events, seed + 1, first_aid=copy_rows + 1)
+    cols = {k: np.concatenate([t_copy[k], t_cdc[k]])
+            for k in ("aid", "bid", "abalance", "filler")}
+    out["lake_rows"] = current.num_rows
+    out["rows_ok"] = bool(current.num_rows == copy_rows + n_events
+                          and _arrow_rows_digest(current)
+                          == table_digest(cols))
+    on_card = device.split(":")[0] == "cuda"
+    out["device_work_ok"] = out["device_rows"] > 0 and (
+        out["kernel_s"] > 0 if on_card else True)
+    out["ok"] = bool(out["batch_engine"] == "cuda"
+                     and out["health"] == [200, {"status": "healthy"}]
+                     and out["exit_code"] == 0 and out["stopped_cleanly"]
+                     and out["rows_ok"] and out["device_work_ok"])
+    return out
+
+
+async def run_example_control_plane(timeout_s: float = 120.0) -> dict:
+    """`python -m etl_tpu_torch.examples.control_plane --port P` as a
+    process on a free port with a bearer key of its own: `GET
+    /openapi.json` with the key answers 200 with the OpenAPI document, a
+    `/v1` route answers 200 with the key and 401 without, and SIGTERM
+    stops it with exit code 0."""
+    import secrets
+    import signal
+    import tempfile
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    key = secrets.token_urlsafe(24)
+    env = {**os.environ, "PYTHONPATH": root, "ETL_API_KEY": key}
+    bearer = {"Authorization": f"Bearer {key}"}
+    out: dict = {"mode": "example_control_plane"}
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        out["port"] = port
+        t0 = time.perf_counter()
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", "etl_tpu_torch.examples.control_plane",
+            "--port", str(port), "--work-dir", tmp, cwd=root, env=env,
+            stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+        try:
+            async def up():
+                if proc.returncode is not None:
+                    raise RuntimeError(f"the control plane exited "
+                                       f"{proc.returncode}")
+                try:
+                    status, _ = await http_get(port, "/openapi.json",
+                                               bearer)
+                except OSError:
+                    return False
+                return status == 200
+
+            await _until(up, timeout_s, "the control plane's /openapi.json",
+                         0.05)
+            out["up_s"] = time.perf_counter() - t0
+            status, body = await http_get(port, "/openapi.json", bearer)
+            doc = json.loads(body)
+            out["openapi"] = [status, doc.get("openapi"),
+                              len(doc.get("paths", {}))]
+            out["tenants_with_key"] = (await http_get(
+                port, "/v1/tenants", bearer))[0]
+            out["tenants_without_key"] = (await http_get(
+                port, "/v1/tenants"))[0]
+            proc.send_signal(signal.SIGTERM)
+            out["exit_code"] = await asyncio.wait_for(proc.wait(), 60)
+        finally:
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+        stdout = (await proc.stdout.read()).decode()
+        out["lines"] = stdout.splitlines()
+    out["ok"] = bool(out["openapi"][0] == 200 and out["openapi"][2] > 0
+                     and out["tenants_with_key"] == 200
+                     and out["tenants_without_key"] == 401
+                     and out["exit_code"] == 0
+                     and f"Authorization: Bearer {key}" in out["lines"]
+                     and out["lines"][-1] == "control plane stopped")
     return out
 
 

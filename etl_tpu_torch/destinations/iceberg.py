@@ -119,6 +119,11 @@ class IcebergDestination(Destination):
         # stamped into every snapshot summary _commit_snapshot builds
         # while it is set (atomic with the catalog CAS commit)
         self._pending_commit = None
+        # one commit at a time per table from this destination: its own
+        # concurrent writers (a copy's partitions) would otherwise race
+        # each other's CAS and lose 4 times in a row (a departure: the
+        # reference's do). The CAS still guards against other writers.
+        self._commit_locks: dict[str, asyncio.Lock] = {}
 
     async def _api(self, method: str, path: str,
                    body: dict | None = None,
@@ -297,6 +302,13 @@ class IcebergDestination(Destination):
     async def _commit_snapshot(self, st: _TableState,
                                files: list[DataFileInfo],
                                operation: str = "append") -> None:
+        lock = self._commit_locks.setdefault(st.name, asyncio.Lock())
+        async with lock:
+            await self._commit_snapshot_locked(st, files, operation)
+
+    async def _commit_snapshot_locked(self, st: _TableState,
+                                      files: list[DataFileInfo],
+                                      operation: str) -> None:
         # all state transitions are staged LOCALLY and applied only after
         # the catalog accepts the commit — a failed commit (CAS 409,
         # exhausted retries) must leave the table's sequence number and

@@ -57,7 +57,7 @@ from .snowpipe import (ZERO_OFFSET, AcceptedBatch, ChannelHandle,
                        decode_offset_token, offset_token)
 from .util import (DestinationRetryPolicy, classify_http_error,
                    count_egress_write, escaped_table_name, fast_render_error,
-                   require_full_batch, require_full_row,
+                   require_full_batch, require_full_row, require_zstandard,
                    sequential_event_program, with_retries)
 
 # CDC metadata column names (reference schema.rs:6-7)
@@ -382,6 +382,7 @@ class SnowflakeDestination(Destination):
 
     def __init__(self, config: SnowflakeConfig,
                  retry: DestinationRetryPolicy | None = None):
+        require_zstandard("the Snowflake destination")
         self.config = config
         self.retry = retry or DestinationRetryPolicy()
         self.auth = _KeyPairTokenProvider(config)

@@ -29,7 +29,7 @@ from typing import Callable, Protocol
 
 
 from ..models.errors import ErrorKind, EtlError
-from .util import DestinationRetryPolicy, with_retries
+from .util import DestinationRetryPolicy, require_zstandard, with_retries
 
 # -- offset tokens (offset_token.rs) ------------------------------------------
 
@@ -95,6 +95,7 @@ class RowBatchBuilder:
     splitting under the API body limit (batch.rs:114-248)."""
 
     def __init__(self) -> None:
+        require_zstandard("a Snowpipe row batch")
         import zstandard
 
         self._zstd = zstandard.ZstdCompressor(level=ZSTD_COMPRESSION_LEVEL)

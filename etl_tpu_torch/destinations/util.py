@@ -232,6 +232,20 @@ def require_pyarrow(what: str) -> None:
             f"imported here ({e})") from None
 
 
+def require_zstandard(what: str) -> None:
+    """The typed refusal of the Snowpipe Streaming writers, whose row
+    batches are zstd-compressed: raise CONFIG_INVALID naming zstandard
+    where it cannot be imported, at construction, not at the first
+    write."""
+    try:
+        import zstandard  # noqa: F401
+    except ImportError as e:
+        raise EtlError(
+            ErrorKind.CONFIG_INVALID,
+            f"{what} compresses its row batches through zstandard, which "
+            f"cannot be imported here ({e})") from None
+
+
 def count_egress_write(used_device: bool) -> None:
     """Account one columnar wire write: path=device when any field came
     from device-rendered egress buffers, path=host when every field was

@@ -71,12 +71,21 @@ LIBRARY = Library("framer", _DIR / "framer.c",
                   ("-O3", "-shared", "-fPIC"), _bind, timeout_s=120)
 
 
+#: the sanitizer run's hook (`testing/sanitize_framer.py`): the path of
+#: a prebuilt instrumented framer library, loaded in place of the store's
+#: -O3 build
+FRAMER_SO_ENV = "ETL_NATIVE_FRAMER_SO"
+
+
 def load_library() -> Acquired:
-    """Acquire the framer library through the program store and make it
+    """Acquire the framer library through the program store (or load the
+    library $ETL_NATIVE_FRAMER_SO names, source "override") and make it
     this module's."""
     global _lib
     with _lock:
-        got = acquire(LIBRARY)
+        override = os.environ.get(FRAMER_SO_ENV)
+        got = Acquired(_bind(ctypes.CDLL(override)), "override") \
+            if override else acquire(LIBRARY)
         _lib = got.lib
         return got
 

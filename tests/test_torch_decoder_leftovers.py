@@ -540,7 +540,7 @@ class TestBitpackTransport:
                 ((0, RefKind[kind.name], 64, sat),)).n_words
 
 
-# -- TestPropertyDecode: the reference's generators, the port's two routes ------
+# -- TestPropertyDecode: the port's generators, the port's two routes -----------
 
 PROPERTY_SEED = 20260728
 PROPERTY_CASES = 60
@@ -548,7 +548,7 @@ PROPERTY_BOX_S = 60.0
 
 
 def _property_case(rng):
-    from etl_tpu.testing.property import GENERATORS, generate_value
+    from etl_tpu_torch.testing.property import GENERATORS, generate_value
 
     oids = list(GENERATORS)
     n_cols = rng.randint(1, 6)
@@ -586,7 +586,7 @@ class TestPropertyDecode:
 
     def test_seed_replay_reproduces_the_case(self):
         """The same seed generates the same schema and rows again."""
-        from etl_tpu.testing.property import GENERATORS, generate_value
+        from etl_tpu_torch.testing.property import GENERATORS, generate_value
 
         def draw(seed):
             rng = random.Random(seed)

@@ -1475,3 +1475,70 @@ class TestDelayedAck:
         assert got["durable_at_once"] == [False] * 3 and got["waited_s"]
         assert got["held"] == "DESTINATION_FAILED"
         assert got == await self._drive("etl_tpu")
+
+
+# -- the typed zstandard refusal (a departure: the reference fails untyped) ----
+
+WITHOUT_ZSTANDARD = """
+import json, sys
+sys.modules["zstandard"] = None
+from etl_tpu_torch.destinations.snowflake import (SnowflakeConfig,
+                                                  SnowflakeDestination)
+from etl_tpu_torch.destinations.snowpipe import RowBatchBuilder
+from etl_tpu_torch.models.errors import EtlError
+out = {}
+for name, build in (
+        ("destination", lambda: SnowflakeDestination(SnowflakeConfig(
+            "http://127.0.0.1:9", "acct", "etl", "db"))),
+        ("row_batches", RowBatchBuilder)):
+    try:
+        build()
+        out[name] = "built"
+    except EtlError as e:
+        out[name] = [e.kind.name, str(e)]
+if "--phase" in sys.argv:
+    import argparse
+    import chip_smoke
+    r = chip_smoke.snowflake_case(argparse.Namespace(seed=7), {},
+                                  device="cpu")
+    out["phase"] = {k: r[k] for k in ("zstandard", "refused",
+                                      "k1_launches", "egress_launches")}
+print(json.dumps(out))
+"""
+
+
+def _without_zstandard(*argv):
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    proc = subprocess.run([sys.executable, "-c", WITHOUT_ZSTANDARD, *argv],
+                          capture_output=True, text=True, timeout=120,
+                          cwd=root, env=env)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    return proc.stdout, json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def test_snowflake_refused_typed_without_zstandard():
+    """Where zstandard cannot be imported, the Snowflake destination and
+    the Snowpipe row-batch builder refuse at construction with
+    CONFIG_INVALID naming zstandard, never a ModuleNotFoundError at the
+    first write."""
+    _, out = _without_zstandard()
+    for name in ("destination", "row_batches"):
+        kind, msg = out[name]
+        assert kind == "CONFIG_INVALID" and "zstandard" in msg, (name, msg)
+
+
+def test_chip_smoke_phase_12c_without_zstandard():
+    """chip_smoke.py's 12(c) as on a host without zstandard: it prints so,
+    prints the typed refusal and launches nothing."""
+    stdout, out = _without_zstandard("--phase")
+    assert "[12c] zstandard imports: no" in stdout
+    assert "Snowflake through K1 did not run" in stdout
+    phase = out["phase"]
+    assert phase["zstandard"] is False and "zstandard" in phase["refused"]
+    assert phase["k1_launches"] == phase["egress_launches"] == 0

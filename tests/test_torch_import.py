@@ -119,6 +119,10 @@ PORT_MODULES = [
     "etl_tpu_torch.analysis.visitor", "etl_tpu_torch.analysis.__main__",
     "etl_tpu_torch.analysis.ir", "etl_tpu_torch.analysis.ir.catalog",
     "etl_tpu_torch.analysis.ir.contracts", "etl_tpu_torch.analysis.ir.runner",
+    "etl_tpu_torch.testing.property", "etl_tpu_torch.testing.sanitize_framer",
+    "etl_tpu_torch.examples", "etl_tpu_torch.examples.lake_pipeline",
+    "etl_tpu_torch.examples.iceberg_pipeline",
+    "etl_tpu_torch.examples.control_plane",
 ]
 
 #: the lint's tiers but the IR runner: stdlib-only, as the reference's

@@ -960,3 +960,24 @@ def test_chip_smoke_phase_19_without_pyarrow():
                                     "replicator"}
     assert all("pyarrow" in m for m in out["refusals"].values())
     assert out["k1_launches"] == 0
+
+
+def test_chip_smoke_phase_19_with_pyarrow(capsys):
+    """chip_smoke.py's phase 19 as on the card's host, on the CPU at a
+    small depth: (d) the lake, (e) Iceberg read back equal to the written
+    rows, (f) the maintenance commands after (e), the view unchanged."""
+    import argparse
+
+    import chip_smoke
+
+    r = chip_smoke.lake_phase(argparse.Namespace(copy_rows=3000,
+                                                 cdc_events=2000, seed=7),
+                              device="cpu")
+    out = capsys.readouterr().out
+    assert "19(a) pyarrow imports: yes" in out
+    lake, ice = r["19_lake"], r["19e_iceberg"]
+    assert lake["rows_ok"] and lake["lake_rows"] == 5000
+    assert ice["ok"] and ice["live_rows"] == 5000
+    assert lake["maintenance"]["view_equal"]
+    assert lake["maintenance"]["cdc_files_after"] == 0
+    assert lake["k1_launches"] == ice["k1_launches"] == 0

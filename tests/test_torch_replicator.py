@@ -766,3 +766,47 @@ class TestWireRunsOnTheCpu:
         r = await bench.run_replicator_binary(2000, 1000, device="cpu")
         assert r["ok"], r
         assert r["dlq_cli"]["replay"]["out"]["replayed"] == [1, 2, 3]
+
+    async def test_run_replicator_to_snowflake(self, root_logging):
+        """The Snowflake run of `chip_smoke.py`'s 12(c): the binary
+        delivers copy, stream and restart to `FakeSnowpipeServer` in a
+        child process, each sequence number once, the watched rows' NDJSON
+        lines equal to the host encoder's."""
+        pytest.importorskip("zstandard")
+        from etl_tpu_torch import bench
+
+        r = await bench.run_wire_replicator(
+            3000, 4000, device="cpu", warmup_events=4500,
+            restart_events=700, destination="snowflake")
+        assert r["ok"], r
+        assert r["rows_delivered"] == 3000 and r["delivered_rows"] == 4000
+        assert r["restart"]["ok"] and r["restart"]["rows"] == 700
+        assert r["watched_ok"] and r["watched_rows"] > 0, r["watched_bad"]
+        assert r["seq_once_ok"] and r["seam_ok"] and r["warehouse_ok"]
+
+    def test_chip_smoke_snowflake_case(self, root_logging, monkeypatch,
+                                       capsys):
+        """`chip_smoke.snowflake_case` where zstandard imports, at a small
+        size: the branch the card takes once its host has zstandard."""
+        pytest.importorskip("zstandard")
+        import argparse
+
+        import chip_smoke
+        from etl_tpu_torch import bench
+
+        monkeypatch.setattr(chip_smoke, "WIRE_COPY_ROWS", 3000)
+        monkeypatch.setattr(chip_smoke, "WIRE_CDC_EVENTS", 4000)
+        monkeypatch.setattr(chip_smoke, "RESTART_EVENTS", 700)
+        run = bench.run_wire_replicator
+        monkeypatch.setattr(bench, "run_wire_replicator",
+                            lambda *a, **k: run(*a, warmup_events=4500, **k))
+        ref = {"rows_per_second": 1.0, "mib_per_second": 1.0,
+               "device_busy_share": 0.0, "events_per_second": 1.0,
+               "lag_p50_ms": 0.0, "lag_p95_ms": 0.0}
+        r = chip_smoke.snowflake_case(argparse.Namespace(seed=7), ref,
+                                      device="cpu")
+        out = capsys.readouterr().out
+        assert "[12c] zstandard imports: yes" in out
+        assert "parity: copy/CDC count and digest" in out
+        assert r["zstandard"] is True and r["ok"]
+        assert r["k1_launches"] == r["egress_launches"] == 0
