@@ -1,0 +1,7 @@
+"""K2c (filter_pack_compact{,2}_kernel, csrc/decode_pack.cu) against its byte bound, from the profiler's device time, %: CDC."""
+
+from etlbench import readers
+
+
+def read(w):
+    return readers.roofline_pct(w, "cdc", "k2c")

@@ -1,0 +1,7 @@
+"""Fetch and assemble seconds (etl_decode_fetch_seconds) a million routed rows, ms: CDC."""
+
+from etlbench import readers
+
+
+def read(w):
+    return readers.stage_ms_per_mrow(w, "cdc", "fetch")

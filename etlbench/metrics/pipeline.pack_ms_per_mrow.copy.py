@@ -1,0 +1,7 @@
+"""Host pack seconds (etl_decode_pack_seconds) a million routed rows, ms: ops/pipeline.py and ops/engine.py, copy."""
+
+from etlbench import readers
+
+
+def read(w):
+    return readers.stage_ms_per_mrow(w, "copy", "pack")
